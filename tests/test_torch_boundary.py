@@ -1,0 +1,158 @@
+"""The port's boundary: what it imports, what it copies, where it runs.
+
+  * importing ``repro_torch`` and every module of it loads neither
+    ``jax`` nor any ``repro`` module (checked in a fresh interpreter), and
+    no file of the port or ``chip_smoke.py`` names them in an import;
+  * the modules copied from the JAX package behave like their originals;
+  * the device rule: ``device=None`` means CUDA and raises without a card;
+  * ``chip_smoke.py``'s digests are those of the JAX replay at full scale.
+"""
+import ast
+import importlib.util
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import batched as JB
+from repro.core import mig as jmig
+from repro.core import policy_core as jpc
+from repro.core import tables as jtables
+from repro.workload import alibaba as jalibaba
+from repro_torch.core import batched as B
+from repro_torch.core import mig, policy_core as pc, tables
+from repro_torch.device import resolve_device
+from repro_torch.workload import alibaba
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_DIR = ROOT / "src" / "repro_torch"
+
+
+def _port_modules():
+    mods = []
+    for path in sorted(PORT_DIR.rglob("*.py")):
+        rel = path.relative_to(PORT_DIR.parent).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_import_loads_no_jax_and_no_repro():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(bad)\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_file_imports_jax_or_repro():
+    files = sorted(PORT_DIR.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        roots = set(_imported_roots(path))
+        assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
+
+
+@pytest.mark.parametrize("name", sorted(mig.DEVICE_MODELS))
+def test_copied_tables_equal_originals(name):
+    got = tables.tables_for_model(mig.DEVICE_MODELS[name])
+    want = jtables.tables_for_model(jmig.DEVICE_MODELS[name])
+    for field in ("slot_mask_arr", "slot_profile", "slot_start",
+                  "profile_size", "cc", "counts", "fits", "assign_start",
+                  "assign_mask", "cc_after", "frag", "popcount",
+                  "counts_after"):
+        a, b = getattr(got, field), getattr(want, field)
+        assert a.dtype == b.dtype, field
+        np.testing.assert_array_equal(a, b, err_msg=field)
+
+
+@pytest.mark.parametrize("fleet", [(), ("A30-24GB", "A100-40GB",
+                                        "H100-80GB")],
+                         ids=["a100", "mixed"])
+def test_stacked_fleet_tables_equal_originals(fleet):
+    models = tuple(mig.DEVICE_MODELS[n] for n in fleet) or (mig.A100_40GB,)
+    jmodels = tuple(jmig.DEVICE_MODELS[m.name] for m in models)
+    got = pc._stack_host_tables(models)
+    want = jpc._stack_host_tables(jmodels)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("preset", ["a100", "a30_a100_h100"])
+def test_copied_generate_equals_original(preset):
+    fleet = alibaba.FLEET_PRESETS[preset]
+    c, vms = alibaba.generate(alibaba.TraceConfig(scale=0.05, seed=3,
+                                                  fleet=fleet))
+    jc, jvms = jalibaba.generate(jalibaba.TraceConfig(scale=0.05, seed=3,
+                                                      fleet=fleet))
+    assert [m.name for m in c.models] == [m.name for m in jc.models]
+    for attr in ("gpu_model_id", "gpu_host_id", "host_cpu_cap",
+                 "host_ram_cap", "free_masks"):
+        np.testing.assert_array_equal(getattr(c, attr), getattr(jc, attr))
+    assert len(vms) == len(jvms)
+    for v, j in zip(vms, jvms):
+        assert (v.vm_id, v.profile.name, v.arrival, v.duration, v.cpu,
+                v.ram, v.profile_ids) == (
+            j.vm_id, j.profile.name, j.arrival, j.duration, j.cpu, j.ram,
+            j.profile_ids)
+
+
+def test_device_none_means_cuda_and_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the rule is checked "
+                    "without one")
+    c, vms = alibaba.generate(alibaba.TraceConfig(scale=0.01, seed=1))
+    events = B.build_events(vms, c)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        B.replay(events, B.FF)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        B.make_replay(events, B.MCC)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        B.trace_from_numpy(B.trace_arrays(events))
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert B.replay(events, B.FF, device="cpu").total_requests == len(vms)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_digests_are_the_jax_replay_at_full_scale():
+    smoke = _chip_smoke()
+    jc, jvms = jalibaba.generate(jalibaba.TraceConfig(scale=1.0, seed=1))
+    events = JB.build_events(jvms, jc)
+    assert (len(events.kind), events.num_gpus) == (9326, 1860)
+    cfgs = {"FF": (JB.FF, {}), "BF": (JB.BF, {}), "MCC": (JB.MCC, {}),
+            "MECC": (JB.MECC, {}), "GRMU": (JB.GRMU, smoke.GRMU_FULL)}
+    assert cfgs.keys() == smoke.DIGESTS.keys()
+    for name, (pol, kw) in cfgs.items():
+        res = JB.replay(events, pol, **kw)
+        assert smoke.result_digest(res) == smoke.DIGESTS[name], name
