@@ -23,7 +23,23 @@ Phases (each raises on failure; nothing is caught):
      give the tables path's decisions.  Then ``torch.profiler`` over the
      first 1,000 events of each policy: the device's busy share and the
      host operations that cost the most.
-  5. Prints the kernel table as one JSON line, the card line again, and
+  2b. The attention kernel vs its plain version (``flash_attention_ref``)
+     on the card: TinyLlama's heads (H 32 / KV 4, hd 64), hd 128 with GQA
+     4:1, MHA, MQA, hd 32, causal and non-causal with Sq != Sk, a 96-key
+     window and a ragged S = 1000, in bf16 (3e-2) and float32 (2e-5);
+     then the kernel, the plain version and PyTorch's
+     ``scaled_dot_product_attention`` (timed only) at the slice's prefill
+     shape (B 4, S 4096, H 32, KV 4, hd 64, bf16, causal).
+  5. The serving path at full width: TinyLlama-1.1B (22 layers, bf16,
+     random weights from a seeded generator) through
+     ``registry.make_step``.  Prefill of 4 x 4096 tokens (tokens/s, the
+     attention kernel's share of device time, 22 launches per call, logits
+     vs the same prefill with the plain attention); then 8 requests of
+     128-token prompts: first token from ``prefill``, cache filled by
+     ``decode_step`` over the prompt, 32 greedy tokens (decode tokens/s;
+     prefill's logits vs the teacher-forced decode's within 0.15).  A
+     2-layer float32 model's prefill on the card equals the CPU's.
+  6. Prints the kernel table as one JSON line, the card line again, and
      as its last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is present, or when
@@ -56,9 +72,11 @@ GRMU_FULL = dict(defrag=True, consolidation_interval=24.0)
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bandwidth and the
 # non-tensor-core float32 rate, the highest rate any of these kernels'
-# integer/float32 scalar operations could issue at.
+# integer/float32 scalar operations could run at; and the dense bf16
+# tensor-core rate, the bound of attention over bf16 inputs.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+PEAK_BF16_FLOPS_PER_S = 989e12
 
 N_BIG, N_MAIN = 1 << 20, 1860
 KERNELS = {
@@ -68,6 +86,19 @@ KERNELS = {
     "frag": "src/repro/kernels/frag_score.py:49",
 }
 SOURCE = "src/repro_torch/kernels/csrc/mask_scores.cu"
+FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FA_REPLACES = "src/repro/kernels/flash_attention.py:82"
+ARCH = "tinyllama_1_1b"
+PREFILL_B, PREFILL_S = 4, 4096          # SHAPES["prefill_32k"] cut for time
+N_REQ, PROMPT, GEN, MAX_SEQ = 8, 128, 32, 4096
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# Prefill logits, kernel vs plain attention, bf16, 22 layers: relative L2
+# error and max error over max |logit|.  Measured on the H100 (PERF.md):
+# 0.047 and 0.052 — one-ulp bf16 differences per layer grow through 22
+# layers of the reference init's peaked softmax (two plain-torch paths,
+# prefill vs teacher-forced decode, differ by as much: 0.059 and 0.061).
+# The elementwise bound is the JAX package's 0.15.
+PREFILL_TOL = (0.1, 0.15)
 
 
 def result_digest(res) -> str:
@@ -394,6 +425,348 @@ def profile_replay(torch, B, events, name, pol, kw, cap, n=1000):
                          for a in top]}}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 2b: the attention kernel
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Sk, H, KV, hd, causal, window)
+ATTN_CASES = {
+    "tinyllama": (2, 1024, 1024, 32, 4, 64, True, None),
+    "hd128_gqa4": (1, 512, 512, 32, 8, 128, True, None),
+    "mha": (1, 256, 256, 8, 8, 64, True, None),
+    "mqa": (1, 256, 256, 8, 1, 64, True, None),
+    "hd32": (2, 256, 256, 4, 4, 32, True, None),
+    "noncausal": (1, 256, 768, 8, 2, 64, False, None),
+    "noncausal_ragged": (1, 200, 333, 8, 2, 64, False, None),
+    "window96": (1, 512, 512, 8, 2, 64, True, 96),
+    "ragged1000": (2, 1000, 1000, 32, 4, 64, True, None),
+}
+
+
+def attention_pairs(Sq, Sk, causal, window) -> int:
+    """(query, key) pairs the mask keeps: the work these inputs need."""
+    import numpy as np
+    q = np.arange(Sq)
+    hi = np.minimum(q + 1, Sk) if causal else np.full(Sq, Sk)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros(Sq, int)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def attention_bound_ms(B, Sq, Sk, H, KV, hd, causal, window, itemsize):
+    flops = 4.0 * B * H * hd * attention_pairs(Sq, Sk, causal, window)
+    nbytes = itemsize * (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS_PER_S, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _qkv(torch, B, Sq, Sk, H, KV, hd, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda").to(dtype)
+            for shape in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd))]
+
+
+def check_attention(torch):
+    """Phase 2b: the kernel equals flash_attention_ref on the card at every
+    case, in bf16 and float32, at the JAX package's tolerances."""
+    from repro_torch.kernels import flash_attention as FA, ref
+    err = {}
+    for name, (B, Sq, Sk, H, KV, hd, causal, window) in ATTN_CASES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = _qkv(torch, B, Sq, Sk, H, KV, hd, dtype)
+            got = FA.flash_attention(q, k, v, causal=causal, window=window)
+            want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                           window=window)
+            torch.cuda.synchronize()
+            tname = str(dtype).split(".")[-1]
+            tol = ATTN_TOL[tname]
+            diff = (got.float() - want.float()).abs().max().item()
+            err[tname] = max(err.get(tname, 0.0), diff)
+            if got.dtype != dtype or not torch.allclose(
+                    got.float(), want.float(), rtol=tol, atol=tol):
+                raise AssertionError(f"attention {name} {tname}: kernel != "
+                                     f"plain version (max abs diff {diff})")
+    print(f"phase 2b: attention kernel == plain version at "
+          f"{len(ATTN_CASES)} shapes x 2 dtypes; max abs diff {err}",
+          flush=True)
+    return err
+
+
+def event_ms(torch, fn, iters):
+    """Device milliseconds per call: ``iters`` eager calls between two CUDA
+    events after a warm-up (for calls of a millisecond or more, where
+    launch cost is noise)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def time_attention(torch):
+    """Phase 2b timing at the slice's prefill shape: the kernel, its plain
+    version, and scaled_dot_product_attention (the yardstick; the port
+    never calls it)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA, ref
+    cfg = _tinyllama()
+    B, S, H, KV = PREFILL_B, PREFILL_S, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
+    q, k, v = _qkv(torch, B, S, S, H, KV, hd, torch.bfloat16, seed=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    b_ms, b_by = attention_bound_ms(B, S, S, H, KV, hd, True, None, 2)
+    out = dict(
+        ms=event_ms(torch, lambda: FA.flash_attention(q, k, v), 10),
+        plain_ms=event_ms(torch, lambda: ref.flash_attention_ref(q, k, v), 3),
+        library_ms=event_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 10),
+        bound_ms=b_ms, bound_by=b_by,
+        shape=dict(B=B, S=S, H=H, KV=KV, hd=hd, dtype="bfloat16",
+                   causal=True))
+    print(f"phase 2b: attention at B {B} S {S} H {H} KV {KV} hd {hd} bf16 "
+          f"causal: kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} "
+          f"ms, SDPA {out['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by})", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the serving path
+# ---------------------------------------------------------------------------
+
+def _tinyllama():
+    from repro_torch.configs import get_config
+    return get_config(ARCH)
+
+
+def _rel_errors(torch, got, want):
+    got, want = got.float(), want.float()
+    rel = ((got - want).norm() / want.norm()).item()
+    elem = ((got - want).abs().max()
+            / want.abs().max().clamp(min=1.0)).item()
+    return rel, elem
+
+
+class plain_attention:
+    """Within the block, the model's attention calls the plain version (to
+    hold the kernel's prefill against it); restored on exit."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ref
+        from repro_torch.models import layers as L
+        self._saved = L.flash_attention
+        L.flash_attention = ref.flash_attention_ref
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+        L.flash_attention = self._saved
+        return False
+
+
+def prefill_attention_share(torch, step, model, batch):
+    """The attention kernel's share of one prefill's device time, from
+    torch.profiler (None when the trace holds no device events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(model, batch)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    total = sum(e.time_range.elapsed_us() for e in dev)
+    fa = sum(e.time_range.elapsed_us() for e in dev
+             if "fa_fwd_kernel" in e.name)
+    return (fa / total if total else None), total
+
+
+def profile_decode(torch, fn, n=4):
+    """torch.profiler over ``n`` decode steps: the device's busy share of
+    the wall time, device ms per step, and the host operations that cost
+    the most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.time_range.elapsed_us() for e in dev)
+    top = sorted((a for a in prof.key_averages()
+                  if a.key.startswith("aten::")),
+                 key=lambda a: a.self_cpu_time_total, reverse=True)[:6]
+    return {"steps": n, "wall_ms_per_step": wall_us / n / 1e3,
+            "device_busy_share": dev_us / wall_us if dev else None,
+            "device_ms_per_step": dev_us / n / 1e3 if dev else None,
+            "device_ops_per_step": len(dev) / n,
+            "top_host_ops": [[a.key, a.count, a.self_cpu_time_total]
+                             for a in top]}
+
+
+def check_card_vs_cpu_prefill(torch):
+    """A 2-layer float32 model at TinyLlama's head dim: prefill on the card
+    (the kernel) equals prefill on the CPU (the plain version, which the
+    CPU tests hold against the JAX package)."""
+    from repro_torch.models import transformer as M
+    from repro_torch.serve import llm_decode as D
+    cfg = _tinyllama().scaled(n_layers=2, d_model=512, n_heads=8,
+                              n_kv_heads=1, d_ff=1024, vocab=512)
+    # A CPU generator draws the same weights for either device.
+    cpu, card = (M.init_params(cfg, torch.Generator().manual_seed(3),
+                               torch.float32, device=dev)
+                 for dev in ("cpu", "cuda"))
+    tokens = torch.randint(0, cfg.vocab, (2, 256),
+                           generator=torch.Generator().manual_seed(4))
+    got = D.prefill(card, tokens.cuda(), cfg, 256).cpu()
+    want = D.prefill(cpu, tokens, cfg, 256)
+    rel, elem = _rel_errors(torch, got, want)
+    if not rel <= 1e-4 or not elem <= 1e-3:
+        raise AssertionError(f"2-layer float32 prefill card != CPU "
+                             f"(relative L2 {rel}, max {elem})")
+    print(f"phase 5: 2-layer float32 prefill, card == CPU (relative L2 "
+          f"{rel:.3g}, max {elem:.3g})", flush=True)
+
+
+def run_serving(torch):
+    """Phase 5: TinyLlama-1.1B at full width on the card, through
+    registry.make_step.  Returns the kernel's launches on this path."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as M
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.serve import llm_decode as D
+    cfg = _tinyllama()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    print(f"phase 5: {cfg.name} ({registry.total_param_count(cfg)} "
+          f"parameters, bf16) initialized on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    prefill_shape = ShapeConfig("prefill_4k", PREFILL_S, PREFILL_B, "prefill")
+    prefill = registry.make_step(cfg, prefill_shape)
+    decode = registry.make_step(cfg, ShapeConfig("decode_4k", MAX_SEQ, N_REQ,
+                                                 "decode"))
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                           generator=gen, device="cuda")
+    batch = {"tokens": tokens}
+    prefill(model, batch)                                # warm-up
+    torch.cuda.synchronize()
+
+    FA.reset_launches()
+    # -- the main path: prefill, then requests -------------------------------
+    n_prefill = 3
+    t0 = time.perf_counter()
+    for _ in range(n_prefill):
+        logits = prefill(model, batch)
+    torch.cuda.synchronize()
+    prefill_s = (time.perf_counter() - t0) / n_prefill
+    if FA.LAUNCHES["flash_attention"] != n_prefill * cfg.n_layers:
+        raise AssertionError(
+            f"prefill launched the attention kernel "
+            f"{FA.LAUNCHES['flash_attention']} times in {n_prefill} calls, "
+            f"expected {cfg.n_layers} per call")
+
+    prompts = torch.randint(0, cfg.vocab, (N_REQ, PROMPT), generator=gen,
+                            device="cuda")
+    t0 = time.perf_counter()
+    first = prefill(model, {"tokens": prompts})          # (N, 1, V)
+    torch.cuda.synchronize()
+    req_prefill_s = time.perf_counter() - t0
+    cache = D.init_cache(cfg, N_REQ, MAX_SEQ)
+    t0 = time.perf_counter()
+    for t in range(PROMPT):
+        step_logits, cache = decode(model, {
+            "cache": cache, "tokens": prompts[:, t:t + 1],
+            "pos": torch.full((N_REQ,), t, dtype=torch.int32,
+                              device="cuda")})
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    nxt = first.argmax(-1)                               # (N, 1)
+    generated = [nxt]
+    t0 = time.perf_counter()
+    for i in range(GEN):
+        out, cache = decode(model, {
+            "cache": cache, "tokens": nxt,
+            "pos": torch.full((N_REQ,), PROMPT + i, dtype=torch.int32,
+                              device="cuda")})
+        nxt = out.argmax(-1)
+        generated.append(nxt)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = FA.LAUNCHES["flash_attention"]
+    # -- end of the main path -------------------------------------------------
+    want = (n_prefill + 1) * cfg.n_layers
+    if launches != want:
+        raise AssertionError(f"{launches} attention launches on the main "
+                             f"path, expected {want}")
+
+    for name, x, shape in (("prefill", logits, (PREFILL_B, 1, cfg.vocab)),
+                           ("request prefill", first, (N_REQ, 1, cfg.vocab)),
+                           ("decode", out, (N_REQ, 1, cfg.vocab))):
+        if tuple(x.shape) != shape or not torch.isfinite(x.float()).all():
+            raise AssertionError(f"{name} logits: shape {tuple(x.shape)}, "
+                                 f"want {shape}, or not finite")
+    tf_rel, tf_elem = _rel_errors(torch, step_logits, first)
+    tf_ok = torch.allclose(step_logits.float(), first.float(), rtol=0.15,
+                           atol=0.15)
+    agree = (step_logits.argmax(-1) == first.argmax(-1)).float().mean().item()
+    with plain_attention():
+        plain = prefill(model, batch)
+    torch.cuda.synchronize()
+    pl_rel, pl_elem = _rel_errors(torch, logits, plain)
+    share, dev_us = prefill_attention_share(torch, prefill, model, batch)
+    decode_profile = profile_decode(torch, lambda i: decode(model, {
+        "cache": cache, "tokens": nxt,
+        "pos": torch.full((N_REQ,), PROMPT + GEN + i, dtype=torch.int32,
+                          device="cuda")}))
+
+    result = {
+        "prefill": {"batch": PREFILL_B, "seq": PREFILL_S,
+                    "wall_s": prefill_s,
+                    "tokens_per_s": PREFILL_B * PREFILL_S / prefill_s,
+                    "device_ms": dev_us / 1e3 if share is not None else None,
+                    "attention_share_of_device_time": share,
+                    "launches_per_call": cfg.n_layers,
+                    "vs_plain_attention": {"relative_l2": pl_rel,
+                                           "max_over_scale": pl_elem}},
+        "requests": {"n": N_REQ, "prompt": PROMPT, "generated": GEN,
+                     "max_seq": MAX_SEQ,
+                     "prefill_s": req_prefill_s,
+                     "prompt_fill_decode_tokens_per_s":
+                         N_REQ * PROMPT / fill_s,
+                     "decode_tokens_per_s": N_REQ * GEN / gen_s,
+                     "decode_profile": decode_profile,
+                     "prefill_vs_teacher_forced": {
+                         "relative_l2": tf_rel, "max_over_scale": tf_elem,
+                         "argmax_agreement": agree}},
+    }
+    print(json.dumps({"serving": result}), flush=True)
+    if not tf_ok:
+        raise AssertionError(
+            f"prefill's last logits vs the teacher-forced decode's differ "
+            f"beyond 0.15 (relative L2 {tf_rel}, max {tf_elem})")
+    if not (pl_rel <= PREFILL_TOL[0] and pl_elem <= PREFILL_TOL[1]):
+        raise AssertionError(
+            f"full-width prefill logits, kernel vs plain attention: "
+            f"relative L2 {pl_rel} max {pl_elem}, tolerance {PREFILL_TOL}")
+    if share is None:
+        raise AssertionError("the profiler saw no device time in prefill")
+    del model, cache
+    torch.cuda.empty_cache()
+    return launches, result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -405,15 +778,20 @@ def main() -> int:
     import numpy as np
     from repro_torch.kernels import _build
 
+    torch.backends.cuda.matmul.allow_tf32 = False    # plain versions in f32
     t0 = time.perf_counter()
-    _build.build_all()
-    print(f"phase 1: built {SOURCE} in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    libs = _build.build_all()
+    print(f"phase 1: built {sorted(libs)} from {SOURCE} and {FA_SOURCE} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     err = check_kernels(torch, np)
     timing = time_kernels(torch, np)
+    fa_err = check_attention(torch)
+    fa_time = time_attention(torch)
     check_card_vs_cpu()
     launches = run_main_path(torch)
+    check_card_vs_cpu_prefill(torch)
+    fa_launches, _ = run_serving(torch)
 
     rows = []
     for name, replaces in KERNELS.items():
@@ -429,6 +807,13 @@ def main() -> int:
             plain_us_at_1M=big_t["plain_ms"] * 1e3,
             bound_us_at_1M=big_t["bound_ms"] * 1e3,
             bound_by_at_1M=big_t["bound_by"]))
+    rows.append(dict(
+        name="flash_attention", route="cuda", source=FA_SOURCE,
+        replaces=FA_REPLACES, launches=fa_launches, on_main_path=True,
+        max_abs_err=max(fa_err.values()), max_abs_err_by_dtype=fa_err,
+        ms=fa_time["ms"], plain_ms=fa_time["plain_ms"],
+        bound_ms=fa_time["bound_ms"], bound_by=fa_time["bound_by"],
+        library_ms=fa_time["library_ms"], shape=fa_time["shape"]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,42 @@
+# Port of repro/configs/__init__.py (the JAX package), limited to the architectures the port runs.
+"""Architecture configs (one module per architecture the port runs).
+
+``get_config(name)`` returns the full published configuration;
+``get_smoke_config(name)`` returns a reduced same-family configuration for
+CPU smoke tests.  Only the dense TinyLlama is ported so far; any other
+name of the JAX package's zoo raises and points at ROADMAP.md.
+"""
+from __future__ import annotations
+
+import importlib
+
+from ..models.config import ModelConfig
+
+ARCH_IDS = [
+    "tinyllama_1_1b",
+]
+
+
+# CLI ids use dashes (e.g. --arch tinyllama-1.1b).
+def _norm(name: str) -> str:
+    return name.replace("-", "_").replace(".", "_")
+
+
+def _module(name: str):
+    arch = _norm(name)
+    if arch not in ARCH_IDS:
+        raise NotImplementedError(
+            f"architecture {name!r} is not ported yet (the port runs "
+            f"{ARCH_IDS}); see ROADMAP.md, Queue 2")
+    return importlib.import_module(f".{arch}", __package__)
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    return _module(name).smoke_config()
+
+
+__all__ = ["ARCH_IDS", "get_config", "get_smoke_config"]

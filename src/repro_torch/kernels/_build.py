@@ -5,7 +5,8 @@ with a plain C interface and loaded with ``ctypes`` (no PyTorch headers,
 so a build takes seconds).  Libraries go to ``build/repro_torch_kernels/``
 at the repository root, named by a hash of the source and the flags, so a
 changed source is rebuilt and an unchanged one is loaded as built.  All
-sources are compiled in parallel, one ``nvcc`` each.
+sources are compiled in parallel, one ``nvcc`` each, with the flags
+:func:`nvcc_flags` gives that source.
 
 Nothing is built at import time: CPU-only callers import the kernel
 modules freely, and the first kernel launch on a CUDA tensor builds.
@@ -19,13 +20,17 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
+_SHARED = ("-shared", "-Xcompiler", "-fPIC")
+# Flags a source needs beyond the common ones.  The mask scorers must equal
+# their plain versions bit for bit, so nvcc may not contract a*b+c into an
+# FMA there; attention keeps contraction on.
+SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {"mask_scores": ("-fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -42,8 +47,14 @@ def nvcc_path() -> str:
     return found
 
 
+def nvcc_flags(stem: str) -> Tuple[str, ...]:
+    """The nvcc flags of ``csrc/<stem>.cu``."""
+    return _ARCH + SOURCE_FLAGS.get(stem, ()) + _SHARED
+
+
 def _target(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(src.read_bytes()
+                       + " ".join(nvcc_flags(src.stem)).encode())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
@@ -61,7 +72,8 @@ def build_all() -> Dict[str, ctypes.CDLL]:
             procs = []
             for src, out in todo:
                 tmp = out.with_suffix(f".{os.getpid()}.tmp")
-                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+                cmd = [nvcc, *nvcc_flags(src.stem), "-o", str(tmp),
+                       str(src)]
                 procs.append((src, out, tmp, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
             failures = []

@@ -12,8 +12,17 @@ operation order, so on equal inputs they agree bit for bit:
 
 Every function takes (N,) integer masks on any device and a
 :class:`repro_torch.core.mig.DeviceModel`.
+
+``flash_attention_ref`` is the plain version of ``csrc/flash_attention.cu``:
+a port of ``repro/models/layers.py``'s chunked online-softmax attention
+(``_attend_block``, ``_expand_kv``, ``flash_attention``), chunk for chunk.
+The kernel computes the same function in 64-key tiles, so the two agree to
+float32 rounding, not bit for bit.
 """
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 
@@ -96,4 +105,94 @@ def ecc_score_ref(masks: torch.Tensor, profile_idx: int,
     return torch.where(best_cc >= 0, ecc, -1.0)
 
 
-__all__ = ["cc_ref", "frag_ref", "mcc_score_ref", "ecc_score_ref"]
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def _attend_block(q, k, v, mask, scale):
+    """q: (B,Sq,H,hd), k/v: (B,Sk,H,hd) (kv pre-expanded to H heads).
+    Returns (out (B,H,Sq,hd_v), m, l), all float32."""
+    s = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float())
+    s = s * scale
+    s = torch.where(mask, s, -1e30)
+    m = s.amax(dim=-1)                               # (B,H,Sq)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    out = torch.einsum("bhqs,bshd->bhqd", p, v.float())
+    return out, m, l
+
+
+def _expand_kv(k, H):
+    """(B,S,KV,hd) -> (B,S,H,hd) by repeating each kv head G times."""
+    KV = k.shape[2]
+    if KV == H:
+        return k
+    return k.repeat_interleave(H // KV, dim=2)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        q_chunk: int = 1024, k_chunk: int = 1024,
+                        positions_q0: int = 0) -> torch.Tensor:
+    """Chunked attention with online softmax (float32 statistics and
+    accumulator), output in q's dtype.
+
+    q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) with H % KV == 0.
+    ``positions_q0``: absolute position of q[0].  Query chunk i visits only
+    the key chunks inside its causal bound (and from its window's lower
+    bound).  Masked scores are -1e30, as in the JAX function.
+    """
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    hd_v = v.shape[-1]
+    scale = 1.0 / math.sqrt(hd)
+    k = _expand_kv(k, H)
+    v = _expand_kv(v, H)
+    q_chunk = min(q_chunk, Sq)
+    k_chunk = min(k_chunk, Sk)
+    nq = (Sq + q_chunk - 1) // q_chunk
+    nk = (Sk + k_chunk - 1) // k_chunk
+    assert Sq % q_chunk == 0 and Sk % k_chunk == 0, (Sq, q_chunk, Sk, k_chunk)
+
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        q_blk = q[:, qi * q_chunk:(qi + 1) * q_chunk]
+        q_pos0 = positions_q0 + qi * q_chunk
+        hi = nk if not causal else min(
+            nk, (q_pos0 + q_chunk + k_chunk - 1) // k_chunk)
+        lo = 0
+        if window is not None:
+            lo = max(0, (q_pos0 - window) // k_chunk)
+        acc = torch.zeros((B, H, q_chunk, hd_v), dtype=torch.float32,
+                          device=dev)
+        m = torch.full((B, H, q_chunk), -1e30, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, H, q_chunk), dtype=torch.float32, device=dev)
+        qpos = q_pos0 + torch.arange(q_chunk, device=dev)
+        for ki in range(lo, hi):
+            k_blk = k[:, ki * k_chunk:(ki + 1) * k_chunk]
+            v_blk = v[:, ki * k_chunk:(ki + 1) * k_chunk]
+            kpos = ki * k_chunk + torch.arange(k_chunk, device=dev)
+            mask = torch.ones((q_chunk, k_chunk), dtype=torch.bool,
+                              device=dev)
+            if causal:
+                mask = mask & (qpos[:, None] >= kpos[None, :])
+            if window is not None:
+                mask = mask & (kpos[None, :] > qpos[:, None] - window)
+            o_b, m_b, l_b = _attend_block(q_blk, k_blk, v_blk,
+                                          mask[None, None], scale)
+            m_new = torch.maximum(m, m_b)
+            alpha = torch.exp(m - m_new)
+            beta = torch.exp(m_b - m_new)
+            acc = acc * alpha[..., None] + o_b * beta[..., None]
+            l = l * alpha + l_b * beta
+            m = m_new
+        out_blk = acc / torch.clamp(l, min=1e-30)[..., None]
+        # (B,H,q_chunk,hd_v) -> (B,q_chunk,H,hd_v)
+        outs.append(out_blk.transpose(1, 2).to(q.dtype))
+    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0].contiguous()
+
+
+__all__ = ["cc_ref", "frag_ref", "mcc_score_ref", "ecc_score_ref",
+           "flash_attention_ref"]

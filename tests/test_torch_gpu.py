@@ -4,9 +4,13 @@ Run on the machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Each kernel must equal its plain version exactly, on every mask x
+Each mask scorer must equal its plain version exactly, on every mask x
 profile of the four device presets at a ragged length, and the replay's
 kernel path must launch once per MCC/MECC arrival and decide as the CPU.
+The attention kernel must equal ``flash_attention_ref`` at ragged and GQA
+shapes (2e-5 float32, 3e-2 bf16, the tolerances of
+tests/test_flash_attention.py), and ``prefill`` must launch it once per
+layer.
 """
 import numpy as np
 import pytest
@@ -14,7 +18,11 @@ import torch
 
 from repro_torch.core import batched as B
 from repro_torch.core.mig import DEVICE_MODELS
+from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import mask_scores as K, ref
+from repro_torch.models import registry, transformer as M
+from repro_torch.models.config import ShapeConfig
 from repro_torch.workload.alibaba import TraceConfig, generate
 
 pytestmark = pytest.mark.gpu
@@ -56,3 +64,48 @@ def test_replay_kernel_path_on_card(policy):
     cpu = B.replay(events, policy, device="cpu", score_backend="tables")
     assert card.accepted_ids == cpu.accepted_ids
     assert card.hourly_active_hw == cpu.hourly_active_hw
+
+
+# (B, Sq, Sk, H, KV, hd, causal, window)
+ATTN_CASES = [
+    (2, 1000, 1000, 32, 4, 64, True, None),      # TinyLlama heads, ragged
+    (1, 200, 333, 8, 2, 128, False, None),       # Sq != Sk, ragged
+    (1, 300, 300, 4, 4, 32, True, 96),           # window, MHA
+    (2, 256, 256, 8, 1, 64, True, None),         # MQA
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ATTN_CASES, ids=str)
+def test_attention_kernel_equals_plain_version_on_card(case, dtype):
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, Sq, Sk, H, KV, hd, causal, window = case
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((B, Sq, H, hd), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, Sk, KV, hd), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, Sk, KV, hd), generator=g, device="cuda").to(dtype)
+    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_prefill_launches_the_kernel_once_per_layer():
+    _need_card()
+    cfg = get_config("tinyllama_1_1b").scaled(
+        n_layers=3, d_model=512, n_heads=8, n_kv_heads=1, d_ff=1024,
+        vocab=512)
+    model = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 100), device="cuda")
+    step = registry.make_step(cfg, ShapeConfig("prefill_100", 100, 2,
+                                               "prefill"))
+    FA.reset_launches()
+    logits = step(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert logits.shape == (2, 1, cfg.vocab)
+    assert torch.isfinite(logits.float()).all()

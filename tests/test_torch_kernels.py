@@ -135,3 +135,23 @@ def test_kernel_slot_templates(name):
         got = list(st.slot_mask[st.prof_start[p]:st.prof_start[p + 1]])
         assert got == list(masks)
         assert st.prof_size[p] == model.profiles[p].size
+
+
+def test_build_flags_per_source():
+    """mask_scores.cu keeps the flags (so the library name) it was built
+    with before `_build` took per-source flags; flash_attention.cu
+    builds with FMA contraction on."""
+    import hashlib
+    from repro_torch.kernels import _build
+    old = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+           "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+    assert _build.nvcc_flags("mask_scores") == old
+    src = _build.CSRC / "mask_scores.cu"
+    h = hashlib.sha256(src.read_bytes() + " ".join(old).encode())
+    want = f"libmask_scores_{h.hexdigest()[:16]}.so"
+    assert _build._target(src).name == want
+    fa = _build.nvcc_flags("flash_attention")
+    assert "-fmad=false" not in fa
+    assert fa == tuple(f for f in old if f != "-fmad=false")
+    assert {s.stem for s in _build.CSRC.glob("*.cu")} == {
+        "mask_scores", "flash_attention"}
