@@ -69,27 +69,25 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    q_chunk: int = 1024, k_chunk: int = 1024,
                     positions_q0: int = 0) -> torch.Tensor:
     """Attention forward -> (B, Sq, H, hd) in q's dtype.
 
     Causality is top-left aligned (query i sees keys 0..i), as in the
     Pallas kernel; ``window`` keeps keys with kpos > qpos - window.  CUDA
     tensors must be float32 or bfloat16 with hd in {32, 64, 128}; Sq and Sk
-    may be any length (the kernel's tiles are 64 x 64).  ``q_chunk``,
-    ``k_chunk`` and ``positions_q0`` reach only the plain version (CPU
-    tensors), whose chunks must divide Sq and Sk.
+    may be any length (the kernel's tiles are 64 x 64).  The plain version
+    (CPU tensors) runs with its default chunks, which need Sq and Sk at
+    most 1024 or multiples of it.  ``positions_q0`` must be 0 on either
+    device: the Pallas kernel has no such argument.
     """
     _check(q, k, v, window)
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       q_chunk=q_chunk, k_chunk=k_chunk,
-                                       positions_q0=positions_q0)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     if positions_q0 != 0:
         raise ValueError("the kernel counts query positions from 0 (as the "
                          "Pallas kernel); positions_q0 must be 0")
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:

@@ -19,7 +19,7 @@ from .params import param_count
 from .transformer import check_family, stacked_model_spec
 
 
-def make_step(cfg: ModelConfig, shape: ShapeConfig, n_micro: int = 1, *,
+def make_step(cfg: ModelConfig, shape: ShapeConfig, *,
               device: DeviceLike = None) -> Callable:
     """The step function of this cell: ``step(model, batch)``.  The model
     must live on ``device`` (None: the CUDA device)."""

@@ -104,3 +104,5 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         K.flash_attention(q, k.to(torch.bfloat16), v)
     with pytest.raises(ValueError, match="window"):
         K.flash_attention(q, k, v, window=0)
+    with pytest.raises(ValueError, match="positions_q0"):
+        K.flash_attention(q, k, v, positions_q0=64)

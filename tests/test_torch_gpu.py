@@ -9,8 +9,8 @@ profile of the four device presets at a ragged length, and the replay's
 kernel path must launch once per MCC/MECC arrival and decide as the CPU.
 The attention kernel must equal ``flash_attention_ref`` at ragged and GQA
 shapes (2e-5 float32, 3e-2 bf16, the tolerances of
-tests/test_flash_attention.py), and ``prefill`` must launch it once per
-layer.
+tests/test_flash_attention.py; bf16 also within half an ulp of the plain
+version in float32), and ``prefill`` must launch it once per layer.
 """
 import numpy as np
 import pytest
@@ -72,6 +72,7 @@ ATTN_CASES = [
     (1, 200, 333, 8, 2, 128, False, None),       # Sq != Sk, ragged
     (1, 300, 300, 4, 4, 32, True, 96),           # window, MHA
     (2, 256, 256, 8, 1, 64, True, None),         # MQA
+    (8, 128, 128, 32, 4, 64, True, None),        # the requests' prefill
 ]
 
 
@@ -92,6 +93,13 @@ def test_attention_kernel_equals_plain_version_on_card(case, dtype):
     tol = 2e-5 if dtype == torch.float32 else 3e-2
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        # One rounding of a float32 result: within half a bf16 ulp of the
+        # plain version in float32 (atol: float32 summation order).
+        want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                         causal=causal, window=window)
+        torch.testing.assert_close(got.float(), want32, rtol=2.0 ** -8,
+                                   atol=1e-5)
 
 
 def test_prefill_launches_the_kernel_once_per_layer():
