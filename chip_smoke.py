@@ -8,7 +8,9 @@ Run from the repository root, with no arguments:
 Phases (each raises on failure; nothing is caught):
 
   1. Card line and kernel build: prints the card's name and power limit,
-     requires a CUDA device and builds ``kernels/csrc/*.cu`` with nvcc.
+     requires a CUDA device, builds ``kernels/csrc/*.cu`` with nvcc (all
+     sources in parallel) and prints ``ptxas``'s register and spill lines
+     for the tensor-core attention kernel.
   2. Kernels vs their plain PyTorch versions on the card: every mask x
      every profile of the four device presets, tiled to N = 1,048,576 and
      to the replay's ragged N = 1,860, compared exactly; then each kernel
@@ -23,20 +25,23 @@ Phases (each raises on failure; nothing is caught):
      give the tables path's decisions.  Then ``torch.profiler`` over the
      first 1,000 events of each policy: the device's busy share and the
      host operations that cost the most.
-  2b. The attention kernel vs its plain version (``flash_attention_ref``)
+  2b. The attention kernels vs their plain version (``flash_attention_ref``)
      on the card: TinyLlama's heads (H 32 / KV 4, hd 64), hd 128 with GQA
      4:1, MHA, MQA, hd 32, causal and non-causal with Sq != Sk, a 96-key
      window, a ragged S = 1000 and the requests' prefill (B 8, S 128), in
-     bf16 (3e-2, and within half a bf16 ulp of the plain version in
-     float32) and float32 (2e-5); then the same check at the slice's
-     prefill shape (B 4, S 4096, H 32, KV 4, hd 64, bf16, causal), where
-     the kernel, the plain version and PyTorch's
-     ``scaled_dot_product_attention`` (timed only) are timed.
+     bf16 (the tensor-core kernel ``fa_fwd_wgmma``; 3e-2, and within half
+     a bf16 ulp of the plain version in float32) and float32 (the float32
+     kernel ``fa_fwd_kernel``; 2e-5), each dtype reaching only its own
+     kernel; then the same check at the slice's prefill shape (B 4, S
+     4096, H 32, KV 4, hd 64, causal) in both dtypes, where each kernel,
+     the plain version and PyTorch's ``scaled_dot_product_attention``
+     (timed only) are timed.
   5. The serving path at full width: TinyLlama-1.1B (22 layers, bf16,
      random weights from a seeded generator) through
      ``registry.make_step``.  Prefill of 4 x 4096 tokens (tokens/s, the
-     attention kernel's share of device time, 22 launches per call, logits
-     vs the same prefill with the plain attention); then 8 requests of
+     attention kernel's share of device time and prefill's ten costliest
+     device operations, 22 launches per call, logits vs the same prefill
+     with the plain attention); then 8 requests of
      128-token prompts: first token from ``prefill``, cache filled by
      ``decode_step`` over the prompt, 32 greedy tokens (decode tokens/s;
      prefill's logits vs the teacher-forced decode's within 0.15).  A
@@ -79,6 +84,11 @@ GRMU_FULL = dict(defrag=True, consolidation_interval=24.0)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 PEAK_BF16_FLOPS_PER_S = 989e12
+# Attention's bound uses the peak of its inputs' type: the bf16 tensor
+# cores for bf16, the float32 CUDA cores for float32 (no tensor-core route
+# computes float32 products exactly).
+PEAK_ATTN_FLOPS_PER_S = {"bfloat16": PEAK_BF16_FLOPS_PER_S,
+                         "float32": PEAK_OPS_PER_S}
 
 N_BIG, N_MAIN = 1 << 20, 1860
 KERNELS = {
@@ -88,8 +98,13 @@ KERNELS = {
     "frag": "src/repro/kernels/frag_score.py:49",
 }
 SOURCE = "src/repro_torch/kernels/csrc/mask_scores.cu"
-FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
+FA_F32_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention.py:82"
+# The bf16 route's time at the prefill shape before the tensor-core
+# kernel: fa_fwd_kernel's bf16 instantiation on the CUDA cores (PERF.md's
+# kernel table).
+FA_EARLIER_MS = 10.36
 ARCH = "tinyllama_1_1b"
 PREFILL_B, PREFILL_S = 4, 4096          # SHAPES["prefill_32k"] cut for time
 N_REQ, PROMPT, GEN, MAX_SEQ = 8, 128, 32, 4096
@@ -117,6 +132,22 @@ def result_digest(res) -> str:
                     [repr(v) for v in res.hourly_acceptance],
                     [repr(v) for v in res.hourly_active_hw]))
     return hashlib.sha256(payload.encode()).hexdigest()
+
+
+def ptxas_lines(log: str):
+    """ptxas's resource lines (registers, stack, spills) and warnings from
+    an nvcc log, each tagged with its kernel's name and template value."""
+    import re
+    kernel, out = "?", []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function .*?(fa_fwd_\w+?)ILi(\d+)E",
+                      line)
+        if m:
+            kernel = f"{m.group(1)}<{m.group(2)}>"
+        elif re.search(r"registers|spill|stack frame|warn", line):
+            info = line.replace("ptxas info    :", "").strip()
+            out.append(f"{kernel}: {info}")
+    return out
 
 
 def card_line() -> str:
@@ -461,10 +492,12 @@ def attention_pairs(Sq, Sk, causal, window) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def attention_bound_ms(B, Sq, Sk, H, KV, hd, causal, window, itemsize):
+def attention_bound_ms(B, Sq, Sk, H, KV, hd, causal, window, dtype_name):
+    itemsize = {"bfloat16": 2, "float32": 4}[dtype_name]
     flops = 4.0 * B * H * hd * attention_pairs(Sq, Sk, causal, window)
     nbytes = itemsize * (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS_PER_S, nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_ATTN_FLOPS_PER_S[dtype_name]
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -502,18 +535,32 @@ def hold_attention(torch, name, got, q, k, v, causal, window, err):
                 f"from the plain version in float32 (limit 1)")
 
 
-def check_attention(torch):
-    """Phase 2b: the kernel equals flash_attention_ref on the card at every
-    case, in bf16 and float32 (``hold_attention``)."""
+def attention_on_its_route(torch, q, k, v, causal=True, window=None):
+    """One wrapper call, checked to launch its dtype's kernel once and the
+    other kernel not at all."""
     from repro_torch.kernels import flash_attention as FA
+    before = dict(FA.LAUNCHES)
+    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    key = FA.ROUTES[q.dtype][2]
+    moved = {n: FA.LAUNCHES[n] - before[n] for n in FA.LAUNCHES}
+    if moved != {n: int(n == key) for n in FA.LAUNCHES}:
+        raise AssertionError(f"{q.dtype} attention launched {moved}, "
+                             f"expected one {key} launch only")
+    return got
+
+
+def check_attention(torch):
+    """Phase 2b: each kernel equals flash_attention_ref on the card at
+    every case, bf16 through the tensor-core kernel and float32 through the
+    float32 kernel (``hold_attention``)."""
     err = {}
     for name, (B, Sq, Sk, H, KV, hd, causal, window) in ATTN_CASES.items():
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = _qkv(torch, B, Sq, Sk, H, KV, hd, dtype)
-            got = FA.flash_attention(q, k, v, causal=causal, window=window)
+            got = attention_on_its_route(torch, q, k, v, causal, window)
             hold_attention(torch, name, got, q, k, v, causal, window, err)
     torch.cuda.synchronize()
-    print(f"phase 2b: attention kernel == plain version at "
+    print(f"phase 2b: attention kernels == plain version at "
           f"{len(ATTN_CASES)} shapes x 2 dtypes; max abs diff {err}",
           flush=True)
     return err
@@ -536,35 +583,42 @@ def event_ms(torch, fn, iters):
 
 
 def time_attention(torch, err):
-    """Phase 2b at the slice's prefill shape: the kernel held against its
-    plain version (``hold_attention``, folded into ``err``), then timed
+    """Phase 2b at the slice's prefill shape, in bf16 (the tensor-core
+    kernel) and in float32 (the float32 kernel): each kernel held against
+    its plain version (``hold_attention``, folded into ``err``), then timed
     beside the plain version and scaled_dot_product_attention (the
-    yardstick; the port never calls it)."""
+    yardstick; the port never calls it).  Returns {dtype name: timings}."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA, ref
     cfg = _tinyllama()
     B, S, H, KV = PREFILL_B, PREFILL_S, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
-    q, k, v = _qkv(torch, B, S, S, H, KV, hd, torch.bfloat16, seed=1)
-    hold_attention(torch, "prefill", FA.flash_attention(q, k, v), q, k, v,
-                   True, None, err)
-    torch.cuda.synchronize()
-    print(f"phase 2b: attention kernel == plain version at B {B} S {S}; "
-          f"max abs diff {err}", flush=True)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    b_ms, b_by = attention_bound_ms(B, S, S, H, KV, hd, True, None, 2)
-    out = dict(
-        ms=event_ms(torch, lambda: FA.flash_attention(q, k, v), 10),
-        plain_ms=event_ms(torch, lambda: ref.flash_attention_ref(q, k, v), 3),
-        library_ms=event_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 10),
-        bound_ms=b_ms, bound_by=b_by,
-        shape=dict(B=B, S=S, H=H, KV=KV, hd=hd, dtype="bfloat16",
-                   causal=True))
-    print(f"phase 2b: attention at B {B} S {S} H {H} KV {KV} hd {hd} bf16 "
-          f"causal: kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} "
-          f"ms, SDPA {out['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by})", flush=True)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tname = str(dtype).split(".")[-1]
+        q, k, v = _qkv(torch, B, S, S, H, KV, hd, dtype, seed=1)
+        hold_attention(torch, "prefill", attention_on_its_route(
+            torch, q, k, v), q, k, v, True, None, err)
+        torch.cuda.synchronize()
+        print(f"phase 2b: attention kernel == plain version at B {B} S {S} "
+              f"{tname}; max abs diff {err}", flush=True)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        b_ms, b_by = attention_bound_ms(B, S, S, H, KV, hd, True, None,
+                                        tname)
+        t = out[tname] = dict(
+            ms=event_ms(torch, lambda: FA.flash_attention(q, k, v), 10),
+            plain_ms=event_ms(torch, lambda: ref.flash_attention_ref(
+                q, k, v), 3),
+            library_ms=event_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 10),
+            bound_ms=b_ms, bound_by=b_by,
+            shape=dict(B=B, S=S, H=H, KV=KV, hd=hd, dtype=tname,
+                       causal=True))
+        print(f"phase 2b: attention at B {B} S {S} H {H} KV {KV} hd {hd} "
+              f"{tname} causal: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+        del q, k, v, qt, kt, vt
     return out
 
 
@@ -602,9 +656,11 @@ class plain_attention:
         return False
 
 
-def prefill_attention_share(torch, step, model, batch):
-    """The attention kernel's share of one prefill's device time, from
-    torch.profiler (None when the trace holds no device events)."""
+def prefill_attention_share(torch, step, model, batch, n_top=10):
+    """The bf16 attention kernel's (``fa_fwd_wgmma``) share of one
+    prefill's device time, from torch.profiler (None when the trace holds
+    no device events), the total device µs, and the ``n_top`` device
+    operations that took the most time: [name, count, µs]."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -615,8 +671,14 @@ def prefill_attention_share(torch, step, model, batch):
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     total = sum(e.time_range.elapsed_us() for e in dev)
     fa = sum(e.time_range.elapsed_us() for e in dev
-             if "fa_fwd_kernel" in e.name)
-    return (fa / total if total else None), total
+             if "fa_fwd_wgmma" in e.name)
+    by_name = {}
+    for e in dev:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    top = sorted(([name[:120], n, us] for name, (n, us) in by_name.items()),
+                 key=lambda r: r[2], reverse=True)[:n_top]
+    return (fa / total if total else None), total, top
 
 
 def profile_decode(torch, fn, n=4):
@@ -704,11 +766,12 @@ def run_serving(torch):
         logits = prefill(model, batch)
     torch.cuda.synchronize()
     prefill_s = (time.perf_counter() - t0) / n_prefill
-    if FA.LAUNCHES["flash_attention"] != n_prefill * cfg.n_layers:
+    if (FA.LAUNCHES["flash_attention"] != n_prefill * cfg.n_layers
+            or FA.LAUNCHES["flash_attention_f32"] != 0):
         raise AssertionError(
-            f"prefill launched the attention kernel "
-            f"{FA.LAUNCHES['flash_attention']} times in {n_prefill} calls, "
-            f"expected {cfg.n_layers} per call")
+            f"prefill launched the attention kernels {FA.LAUNCHES} in "
+            f"{n_prefill} calls, expected {cfg.n_layers} bf16 launches per "
+            f"call and no float32 one")
 
     prompts = torch.randint(0, cfg.vocab, (N_REQ, PROMPT), generator=gen,
                             device="cuda")
@@ -737,12 +800,13 @@ def run_serving(torch):
         generated.append(nxt)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    launches = FA.LAUNCHES["flash_attention"]
+    launches = dict(FA.LAUNCHES)
     # -- end of the main path -------------------------------------------------
     want = (n_prefill + 1) * cfg.n_layers
-    if launches != want:
-        raise AssertionError(f"{launches} attention launches on the main "
-                             f"path, expected {want}")
+    if launches != {"flash_attention": want, "flash_attention_f32": 0}:
+        raise AssertionError(f"attention launches on the main path "
+                             f"{launches}, expected {want} bf16 and no "
+                             f"float32 one")
 
     for name, x, shape in (("prefill", logits, (PREFILL_B, 1, cfg.vocab)),
                            ("request prefill", first, (N_REQ, 1, cfg.vocab)),
@@ -758,7 +822,8 @@ def run_serving(torch):
         plain = prefill(model, batch)
     torch.cuda.synchronize()
     pl_rel, pl_elem = _rel_errors(torch, logits, plain)
-    share, dev_us = prefill_attention_share(torch, prefill, model, batch)
+    share, dev_us, top_ops = prefill_attention_share(torch, prefill, model,
+                                                     batch)
     decode_profile = profile_decode(torch, lambda i: decode(model, {
         "cache": cache, "tokens": nxt,
         "pos": torch.full((N_REQ,), PROMPT + GEN + i, dtype=torch.int32,
@@ -770,6 +835,7 @@ def run_serving(torch):
                     "tokens_per_s": PREFILL_B * PREFILL_S / prefill_s,
                     "device_ms": dev_us / 1e3 if share is not None else None,
                     "attention_share_of_device_time": share,
+                    "top_device_ops": top_ops,
                     "launches_per_call": cfg.n_layers,
                     "vs_plain_attention": {"relative_l2": pl_rel,
                                            "max_over_scale": pl_elem}},
@@ -814,8 +880,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False    # plain versions in f32
     t0 = time.perf_counter()
     libs = _build.build_all()
-    print(f"phase 1: built {sorted(libs)} from {SOURCE} and {FA_SOURCE} in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"phase 1: built {sorted(libs)} from {SOURCE}, {FA_SOURCE} and "
+          f"{FA_F32_SOURCE} in {time.perf_counter() - t0:.2f} s", flush=True)
+    for line in ptxas_lines(_build.build_log("flash_attention_sm90")):
+        print(f"phase 1: ptxas {line}", flush=True)
 
     err = check_kernels(torch, np)
     timing = time_kernels(torch, np)
@@ -840,14 +908,18 @@ def main() -> int:
             plain_us_at_1M=big_t["plain_ms"] * 1e3,
             bound_us_at_1M=big_t["bound_ms"] * 1e3,
             bound_by_at_1M=big_t["bound_by"]))
-    rows.append(dict(
-        name="flash_attention", route="cuda", source=FA_SOURCE,
-        replaces=FA_REPLACES, launches=fa_launches, on_main_path=True,
-        max_abs_err=max(fa_err["float32"], fa_err["bfloat16"]),
-        max_abs_err_by_dtype=fa_err,
-        ms=fa_time["ms"], plain_ms=fa_time["plain_ms"],
-        bound_ms=fa_time["bound_ms"], bound_by=fa_time["bound_by"],
-        library_ms=fa_time["library_ms"], shape=fa_time["shape"]))
+    for name, source, tname in (("flash_attention", FA_SOURCE, "bfloat16"),
+                                ("flash_attention_f32", FA_F32_SOURCE,
+                                 "float32")):
+        t = fa_time[tname]
+        rows.append(dict(
+            name=name, route="cuda", source=source, replaces=FA_REPLACES,
+            launches=fa_launches[name], on_main_path=tname == "bfloat16",
+            max_abs_err=fa_err[tname], max_abs_err_by_dtype=fa_err,
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            shape=t["shape"]))
+    rows[-2].update(earlier_ms=FA_EARLIER_MS, earlier_ms_from="fa_fwd_kernel<bf16>, PERF.md")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

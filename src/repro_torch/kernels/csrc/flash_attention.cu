@@ -1,8 +1,11 @@
-// Flash attention forward for Hopper (sm_90a): causal / sliding-window GQA
-// attention with an online softmax, float32 statistics and accumulator.
-// Replaces the TPU Pallas kernel flash_attention_pallas
-// (repro/kernels/flash_attention.py, body _fa_kernel) and computes the same
-// function as the chunked reference repro/models/layers.flash_attention.
+// Flash attention forward for Hopper (sm_90a) on float32 inputs: causal /
+// sliding-window GQA attention with an online softmax, float32 statistics
+// and accumulator.  Replaces the TPU Pallas kernel flash_attention_pallas
+// (repro/kernels/flash_attention.py, body _fa_kernel) for float32 q/k/v and
+// computes the same function as the chunked reference
+// repro/models/layers.flash_attention.  bf16 inputs go to fa_fwd_wgmma
+// (flash_attention_sm90.cu), which runs on the tensor cores; a bf16 wgmma
+// here would round float32 q and k, a different function.
 //
 // Layout.  q (B, Sq, H, HD), k and v (B, Sk, KV, HD), o (B, Sq, H, HD), all
 // contiguous, read in place: no transpose to (B*H, S, HD) and no expanded
@@ -10,34 +13,31 @@
 //
 // Design.  One CTA of 256 threads per (64-row query tile, head, batch),
 // heaviest (last) causal tiles first.  The query tile is loaded once into
-// shared memory as float32 (transposed, so a thread reads four rows with one
-// 16-byte load); each 64-key K tile (transposed) and V tile (row-major) is
-// staged through shared memory.  Thread (ty, tx) of a 16 x 16 grid owns
-// score rows 4ty..4ty+3 and key columns 4tx..4tx+3, and output rows
-// 4ty..4ty+3 and columns tx*HD/16 onwards, so the running max m, sum l and
-// rescale alpha of its rows stay in its registers for the whole key loop;
-// row reductions are shuffles across the 16 lanes that share ty.  The
+// shared memory (transposed, so a thread reads four rows with one 16-byte
+// load); each 64-key K tile (transposed) and V tile (row-major) is staged
+// through shared memory.  Thread (ty, tx) of a 16 x 16 grid owns score
+// rows 4ty..4ty+3 and key columns 4tx..4tx+3, and output rows 4ty..4ty+3
+// and columns tx*HD/16 onwards, so the running max m, sum l and rescale
+// alpha of its rows stay in its registers for the whole key loop; row
+// reductions are shuffles across the 16 lanes that share ty.  The
 // probability tile goes through shared memory to the p @ v product.
 //
-// Semantics kept from _fa_kernel: scores are float32 dot products of the
-// upcast inputs, times 1/sqrt(HD); masked scores are -1e30 (not -inf), m
-// starts at -1e30 and l at 0, so a row whose first visited tile is fully
-// masked accumulates junk that alpha = 0 wipes once a real key arrives; the
-// output is acc / max(l, 1e-30) cast to q's type.  Causality is top-left
-// aligned (qpos >= kpos, both from 0), the window test kpos > qpos - window.
-// Key tiles wholly outside the causal or window bound are skipped.  Sq and
-// Sk need not be multiples of 64: keys past Sk score -inf (weight exactly
-// 0), rows past Sq are computed on zeros and not written.
+// Semantics kept from _fa_kernel: scores are float32 dot products times
+// 1/sqrt(HD); masked scores are -1e30 (not -inf), m starts at -1e30 and l
+// at 0, so a row whose first visited tile is fully masked accumulates junk
+// that alpha = 0 wipes once a real key arrives; the output is
+// acc / max(l, 1e-30).  Causality is top-left aligned (qpos >= kpos, both
+// from 0), the window test kpos > qpos - window.  Key tiles wholly outside
+// the causal or window bound are skipped.  Sq and Sk need not be multiples
+// of 64: keys past Sk score -inf (weight exactly 0), rows past Sq are
+// computed on zeros and not written.
 //
 // Bound.  At the prefill shape (B 4, S 4096, H 32, HD 64, causal) the work
-// is ~275 GFLOP against ~0.13 GB of q/k/v/o: operation-bound.  This first
-// kernel does its products on the float32 CUDA cores (the JAX default,
-// ATTN_P_BF16 = False, keeps p in float32; a tensor-core p @ v would round
-// p to bf16, a different function), so it runs at a fraction of the 989
-// TFLOP/s bf16 tensor-core peak.  wgmma, TMA and a bf16 p tile are left to
-// the change that redesigns it for speed.
+// is ~275 GFLOP against ~0.26 GB of float32 q/k/v/o: operation-bound.  The
+// products run as float32 FMAs on the CUDA cores (67 TFLOP/s peak), since
+// float32 inputs have no exact tensor-core route.  This kernel keeps its
+// simple tiling; the speed work went to the bf16 kernel.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -50,65 +50,27 @@ constexpr int THREADS = 256;  // 16 x 16 thread grid
 constexpr int LDT = BK + 4;   // row stride of the transposed tiles (floats)
 constexpr float MASKED = -1e30f;
 
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ static void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x;
-    out[1] = v.y;
-    out[2] = v.z;
-    out[3] = v.w;
-  }
-  __device__ static void store(float* p, float x) { *p = x; }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static void store(__nv_bfloat16* p, float x) {
-    *p = __float2bfloat16_rn(x);
-  }
-};
-
 // Stage rows [0, 64) of a (rows, HD) tile whose rows are row_stride
-// elements apart into shared memory as float32, zero past rows_valid.
-// TRANSPOSE stores dst[d * LDT + r], else dst[r * HD + d].
-template <typename T, int HD, bool TRANSPOSE>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+// elements apart into shared memory, zero past rows_valid.  TRANSPOSE
+// stores dst[d * LDT + r], else dst[r * HD + d].
+template <int HD, bool TRANSPOSE>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int64_t row_stride,
                                           int rows_valid) {
-  constexpr int V = Vec<T>::N;
-  constexpr int PER_ROW = HD / V;
+  constexpr int PER_ROW = HD / 4;
   for (int c = threadIdx.x; c < 64 * PER_ROW; c += THREADS) {
     const int r = c / PER_ROW;
-    const int d0 = (c % PER_ROW) * V;
-    float x[V];
-    if (r < rows_valid) {
-      Vec<T>::load(src + r * row_stride + d0, x);
-    } else {
+    const int d0 = (c % PER_ROW) * 4;
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r < rows_valid)
+      x = *reinterpret_cast<const float4*>(src + r * row_stride + d0);
+    const float xv[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-      for (int i = 0; i < V; ++i) x[i] = 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
+    for (int i = 0; i < 4; ++i) {
       if (TRANSPOSE)
-        dst[(d0 + i) * LDT + r] = x[i];
+        dst[(d0 + i) * LDT + r] = xv[i];
       else
-        dst[r * HD + d0 + i] = x[i];
+        dst[r * HD + d0 + i] = xv[i];
     }
   }
 }
@@ -128,11 +90,12 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
-    fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-                  int H, int KV, float scale, int causal, int window) {
+    fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o, int Sq,
+                  int Sk, int H, int KV, float scale, int causal,
+                  int window) {
   constexpr int CPT = HD / 16;  // output columns per thread
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);  // [HD][LDT]
@@ -149,8 +112,8 @@ __global__ void __launch_bounds__(THREADS)
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 
-  load_tile<T, HD, true>(Qt, q + (((int64_t)b * Sq + q0) * H + h) * HD,
-                         (int64_t)H * HD, q_valid);
+  load_tile<HD, true>(Qt, q + (((int64_t)b * Sq + q0) * H + h) * HD,
+                      (int64_t)H * HD, q_valid);
 
   float acc[4][CPT];
   float m[4], l[4];
@@ -172,8 +135,8 @@ __global__ void __launch_bounds__(THREADS)
     const int k_valid = min(BK, Sk - k0);
     const int64_t kv_off = (((int64_t)b * Sk + k0) * KV + kvh) * HD;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, HD, true>(Kt, k + kv_off, (int64_t)KV * HD, k_valid);
-    load_tile<T, HD, false>(Vs, v + kv_off, (int64_t)KV * HD, k_valid);
+    load_tile<HD, true>(Kt, k + kv_off, (int64_t)KV * HD, k_valid);
+    load_tile<HD, false>(Vs, v + kv_off, (int64_t)KV * HD, k_valid);
     __syncthreads();
 
     float s[4][4];
@@ -252,13 +215,13 @@ __global__ void __launch_bounds__(THREADS)
     const int row = q0 + ty * 4 + i;
     if (row >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* out = o + (((int64_t)b * Sq + row) * H + h) * HD + tx * CPT;
+    float* out = o + (((int64_t)b * Sq + row) * H + h) * HD + tx * CPT;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) Vec<T>::store(out + c, acc[i][c] / den);
+    for (int c = 0; c < CPT; ++c) out[c] = acc[i][c] / den;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int KV, float scale, int causal, int window,
            cudaStream_t stream) {
@@ -266,56 +229,41 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   static bool attr_set = false;  // per instantiation
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fa_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        fa_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  fa_fwd_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, KV, scale,
-      causal, window);
+  fa_fwd_kernel<HD><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, KV,
+      scale, causal, window);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
-                int B, int Sq, int Sk, int H, int KV, float scale, int causal,
-                int window, cudaStream_t stream) {
-  switch (hd) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal,
-                           window, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal,
-                           window, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal,
-                            window, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes).  dtype: 0 float32, 1 bfloat16;
-// window <= 0 means no window.  Launches on the given stream, does not
-// synchronize, and returns cudaGetLastError() (or the error that refused
-// the launch).
-extern "C" int fa_forward(const void* q, const void* k, const void* v,
-                          void* o, int B, int Sq, int Sk, int H, int KV,
-                          int hd, int dtype, float scale, int causal,
-                          int window, void* stream) {
+// Plain C entry point (loaded with ctypes) for float32 tensors; window <= 0
+// means no window.  Launches on the given stream, does not synchronize, and
+// returns cudaGetLastError() (or the error that refused the launch).
+extern "C" int fa_forward_f32(const void* q, const void* k, const void* v,
+                              void* o, int B, int Sq, int Sk, int H, int KV,
+                              int hd, float scale, int causal, int window,
+                              void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return 0;
   if (Sk <= 0 || KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, o, B, Sq, Sk, H, KV, scale, causal,
-                              window, st);
-  if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, Sq, Sk, H, KV, scale,
-                                      causal, window, st);
-  return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 32:
+      return launch<32>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, window,
+                        st);
+    case 64:
+      return launch<64>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, window,
+                        st);
+    case 128:
+      return launch<128>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, window,
+                         st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

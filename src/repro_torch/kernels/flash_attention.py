@@ -1,4 +1,4 @@
-"""Wrapper of the CUDA flash attention kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the CUDA flash attention kernels.
 
 Port of the Pallas kernel ``repro/kernels/flash_attention.py``
 (``flash_attention_pallas``): causal / sliding-window GQA attention
@@ -6,9 +6,17 @@ forward with an online softmax and float32 statistics.
 
 :func:`flash_attention` takes q (B, Sq, H, hd) and k, v (B, Sk, KV, hd) in
 that layout, with no transpose and no expanded K/V.  A tensor on the CPU
-goes to the plain version :func:`.ref.flash_attention_ref`; CUDA tensors
-go to the kernel, or the wrapper raises.  ``LAUNCHES`` counts kernel
-launches (plain-version calls are not counted).
+goes to the plain version :func:`.ref.flash_attention_ref`.  CUDA tensors
+go to one kernel per dtype, or the wrapper raises:
+
+- bfloat16 -> ``fa_fwd_wgmma`` (``csrc/flash_attention_sm90.cu``: tensor
+  cores, with p split exactly into three bf16 terms for p @ v);
+- float32 -> ``fa_fwd_kernel`` (``csrc/flash_attention.cu``: float32 CUDA
+  cores, since a bf16 tensor-core product would round q and k).
+
+``LAUNCHES`` counts each kernel's launches under its own key
+(``"flash_attention"`` the bf16 kernel, ``"flash_attention_f32"`` the
+float32 one); plain-version calls are not counted.
 """
 from __future__ import annotations
 
@@ -23,27 +31,38 @@ from . import ref
 from ._build import load
 
 HEAD_DIMS = (32, 64, 128)
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype -> (source stem, C entry point, LAUNCHES key)
+ROUTES = {
+    torch.bfloat16: ("flash_attention_sm90", "fa_forward_bf16",
+                     "flash_attention"),
+    torch.float32: ("flash_attention", "fa_forward_f32",
+                    "flash_attention_f32"),
+}
+# fa_forward_bf16's own error codes (a tensor map could not be made).
+_TMA_ERRORS = {-1: "cuTensorMapEncodeTiled is not available",
+               -2: "cuTensorMapEncodeTiled refused a TMA tensor map"}
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+LAUNCHES: Dict[str, int] = {key: 0 for _, _, key in ROUTES.values()}
 
 
 def reset_launches() -> None:
-    LAUNCHES["flash_attention"] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
 
 
 @lru_cache(maxsize=None)
-def _lib():
-    lib = load("flash_attention")
+def _entry(dtype: torch.dtype):
+    stem, name, _ = ROUTES[dtype]
+    fn = getattr(load(stem), name)
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.fa_forward.argtypes = [P, P, P, P, I, I, I, I, I, I, I,
-                               ctypes.c_float, I, I, P]
-    lib.fa_forward.restype = ctypes.c_int
-    return lib
+    fn.argtypes = [P, P, P, P, I, I, I, I, I, I, ctypes.c_float, I, I, P]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """Contiguous, and 16-byte aligned for the kernel's vector loads."""
+    """Contiguous, and 16-byte aligned (the float32 kernel's vector loads
+    and TMA's global addresses need it)."""
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
@@ -74,8 +93,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Causality is top-left aligned (query i sees keys 0..i), as in the
     Pallas kernel; ``window`` keeps keys with kpos > qpos - window.  CUDA
-    tensors must be float32 or bfloat16 with hd in {32, 64, 128}; Sq and Sk
-    may be any length (the kernel's tiles are 64 x 64).  The plain version
+    tensors must be bfloat16 or float32 (each dtype has its kernel) with hd
+    in {32, 64, 128}; Sq and Sk may be any length.  The plain version
     (CPU tensors) runs with its default chunks, which need Sq and Sk at
     most 1024 or multiples of it.  ``positions_q0`` must be 0 on either
     device: the Pallas kernel has no such argument.
@@ -92,8 +111,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Sk, KV = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
-    if q.dtype not in DTYPES:
-        raise TypeError(f"dtype {q.dtype} not in {list(DTYPES)}")
+    if q.dtype not in ROUTES:
+        raise TypeError(f"dtype {q.dtype} not in {list(ROUTES)}")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(f"q on {q.device}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
@@ -103,14 +122,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     if Sk == 0:
         raise ValueError("attention over zero keys")
-    err = _lib().fa_forward(
+    _, name, key = ROUTES[q.dtype]
+    err = _entry(q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
-        H, KV, hd, DTYPES[q.dtype], 1.0 / math.sqrt(hd), int(causal),
-        window or 0, torch.cuda.current_stream().cuda_stream)
+        H, KV, hd, 1.0 / math.sqrt(hd), int(causal), window or 0,
+        torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"fa_forward: CUDA error {err}")
-    LAUNCHES["flash_attention"] += 1
+        raise RuntimeError(f"{name}: {_TMA_ERRORS.get(err, 'CUDA error')} "
+                           f"({err})")
+    LAUNCHES[key] += 1
     return out
 
 
-__all__ = ["flash_attention", "LAUNCHES", "reset_launches", "HEAD_DIMS"]
+__all__ = ["flash_attention", "LAUNCHES", "reset_launches", "HEAD_DIMS",
+           "ROUTES"]

@@ -13,11 +13,14 @@ operation order, so on equal inputs they agree bit for bit:
 Every function takes (N,) integer masks on any device and a
 :class:`repro_torch.core.mig.DeviceModel`.
 
-``flash_attention_ref`` is the plain version of ``csrc/flash_attention.cu``:
-a port of ``repro/models/layers.py``'s chunked online-softmax attention
-(``_attend_block``, ``_expand_kv``, ``flash_attention``), chunk for chunk.
-The kernel computes the same function in 64-key tiles, so the two agree to
-float32 rounding, not bit for bit.
+``flash_attention_ref`` is the plain version of the attention kernels
+(``csrc/flash_attention_sm90.cu`` for bf16, ``csrc/flash_attention.cu``
+for float32): a port of ``repro/models/layers.py``'s chunked online-softmax
+attention (``_attend_block``, ``_expand_kv``, ``flash_attention``), chunk
+for chunk.  The kernels compute the same function in their own tiles, so
+they agree with it to float32 rounding, not bit for bit.
+``split_bf16x3`` is the bf16 kernel's split of p into three bf16 terms,
+which lets its p @ v run on the tensor cores without rounding p.
 """
 from __future__ import annotations
 
@@ -194,5 +197,20 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0].contiguous()
 
 
+def split_bf16x3(p: torch.Tensor):
+    """float32 p -> bf16 (hi, mid, lo): hi = bf16(p), mid = bf16(p - hi),
+    lo = bf16(p - hi - mid), each rounded to nearest, the subtractions
+    exact in float32.  hi + mid + lo == p exactly for |p| >= 1e-30 (24
+    significant bits = 8 + 8 + 8), so each term times a bf16 v is exact in
+    float32 and three bf16 products sum to the float32 p @ v.  This is what
+    ``fa_fwd_wgmma`` does in registers."""
+    p = p.to(torch.float32)
+    hi = p.to(torch.bfloat16)
+    r = p - hi.to(torch.float32)
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.to(torch.float32)).to(torch.bfloat16)
+    return hi, mid, lo
+
+
 __all__ = ["cc_ref", "frag_ref", "mcc_score_ref", "ecc_score_ref",
-           "flash_attention_ref"]
+           "flash_attention_ref", "split_bf16x3"]

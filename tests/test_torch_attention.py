@@ -92,7 +92,26 @@ def test_wrapper_on_cpu_runs_the_plain_version():
     assert torch.equal(got, flash_attention_ref(q, k, v, causal=True,
                                                 window=96))
     assert L.flash_attention is K.flash_attention
-    assert K.LAUNCHES["flash_attention"] == 0
+    assert K.LAUNCHES == {"flash_attention": 0, "flash_attention_f32": 0}
+
+
+def test_each_cuda_dtype_has_one_kernel():
+    """bf16 goes to the tensor-core kernel, float32 to the float32 one,
+    each counted under its own key; every route's source exists."""
+    from repro_torch.kernels import _build
+    assert K.ROUTES == {
+        torch.bfloat16: ("flash_attention_sm90", "fa_forward_bf16",
+                         "flash_attention"),
+        torch.float32: ("flash_attention", "fa_forward_f32",
+                        "flash_attention_f32")}
+    for stem, entry, _ in K.ROUTES.values():
+        src = (_build.CSRC / f"{stem}.cu").read_text()
+        assert f'extern "C" int {entry}(' in src
+    sm90 = (_build.CSRC / "flash_attention_sm90.cu").read_text()
+    f32 = (_build.CSRC / "flash_attention.cu").read_text()
+    assert "fa_fwd_wgmma(" in sm90 and "wgmma.mma_async" in sm90
+    assert "fa_fwd_kernel(" in f32
+    assert "__nv_bfloat16" not in f32 and "wgmma.mma_async" not in f32
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

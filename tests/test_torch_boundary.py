@@ -156,3 +156,38 @@ def test_chip_smoke_digests_are_the_jax_replay_at_full_scale():
     for name, (pol, kw) in cfgs.items():
         res = JB.replay(events, pol, **kw)
         assert smoke.result_digest(res) == smoke.DIGESTS[name], name
+
+
+@pytest.mark.parametrize("dtype_name,bound_ms,bound_by", [
+    ("bfloat16", 0.2780, "operations"),   # 989 TFLOP/s bf16 tensor cores
+    ("float32", 4.1037, "operations"),    # 67 TFLOP/s float32 CUDA cores
+])
+def test_chip_smoke_attention_bound_at_the_prefill_shape(dtype_name,
+                                                         bound_ms, bound_by):
+    """The bound chip_smoke.py reports for each attention kernel: the
+    causal pairs' 4 * B * H * hd flops at its dtype's peak, against q, k, v
+    and o read or written once."""
+    smoke = _chip_smoke()
+    B, S = smoke.PREFILL_B, smoke.PREFILL_S
+    assert smoke.attention_pairs(S, S, True, None) == S * (S + 1) // 2
+    assert smoke.attention_pairs(300, 300, True, 96) == sum(
+        min(i + 1, 96) for i in range(300))
+    got, by = smoke.attention_bound_ms(B, S, S, 32, 4, 64, True, None,
+                                       dtype_name)
+    assert by == bound_by and got == pytest.approx(bound_ms, rel=1e-3)
+
+
+def test_chip_smoke_reads_ptxas_lines_per_kernel():
+    smoke = _chip_smoke()
+    log = ("ptxas info    : 0 bytes gmem\n"
+           "ptxas info    : Compiling entry function '_ZN56_GLOBAL__N__x_23_"
+           "flash_attention_sm90_cu_7000200212fa_fwd_wgmmaILi64EEEv14CUtensor"
+           "Map_stS1_S1_P13__nv_bfloat16iiiifii' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _ZN56_x\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 168 registers, used 1 barriers\n")
+    assert smoke.ptxas_lines(log) == [
+        "fa_fwd_wgmma<64>: 0 bytes stack frame, 0 bytes spill stores, "
+        "0 bytes spill loads",
+        "fa_fwd_wgmma<64>: Used 168 registers, used 1 barriers"]

@@ -7,10 +7,12 @@ Run on the machine with the card:
 Each mask scorer must equal its plain version exactly, on every mask x
 profile of the four device presets at a ragged length, and the replay's
 kernel path must launch once per MCC/MECC arrival and decide as the CPU.
-The attention kernel must equal ``flash_attention_ref`` at ragged and GQA
-shapes (2e-5 float32, 3e-2 bf16, the tolerances of
-tests/test_flash_attention.py; bf16 also within half an ulp of the plain
-version in float32), and ``prefill`` must launch it once per layer.
+The attention kernels must equal ``flash_attention_ref`` at ragged and GQA
+shapes and at the serving prefill's shape (2e-5 float32, 3e-2 bf16, the
+tolerances of tests/test_flash_attention.py; bf16 also within half an ulp
+of the plain version in float32); bf16 must reach only the tensor-core
+kernel and float32 only the float32 one, and ``prefill`` must launch the
+bf16 kernel once per layer.
 """
 import numpy as np
 import pytest
@@ -73,6 +75,8 @@ ATTN_CASES = [
     (1, 300, 300, 4, 4, 32, True, 96),           # window, MHA
     (2, 256, 256, 8, 1, 64, True, None),         # MQA
     (8, 128, 128, 32, 4, 64, True, None),        # the requests' prefill
+    (2, 450, 450, 8, 2, 32, True, 200),          # window over tiles, ragged
+    (4, 4096, 4096, 32, 4, 64, True, None),      # the serving prefill
 ]
 
 
@@ -87,7 +91,11 @@ def test_attention_kernel_equals_plain_version_on_card(case, dtype):
     q = torch.randn((B, Sq, H, hd), generator=g, device="cuda").to(dtype)
     k = torch.randn((B, Sk, KV, hd), generator=g, device="cuda").to(dtype)
     v = torch.randn((B, Sk, KV, hd), generator=g, device="cuda").to(dtype)
+    FA.reset_launches()
     got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    # One launch of this dtype's kernel and none of the other's.
+    key = FA.ROUTES[dtype][2]
+    assert FA.LAUNCHES == {k_: int(k_ == key) for k_ in FA.LAUNCHES}
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     tol = 2e-5 if dtype == torch.float32 else 3e-2
@@ -115,5 +123,6 @@ def test_prefill_launches_the_kernel_once_per_layer():
     logits = step(model, {"tokens": tokens})
     torch.cuda.synchronize()
     assert FA.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert FA.LAUNCHES["flash_attention_f32"] == 0
     assert logits.shape == (2, 1, cfg.vocab)
     assert torch.isfinite(logits.float()).all()

@@ -139,8 +139,9 @@ def test_kernel_slot_templates(name):
 
 def test_build_flags_per_source():
     """mask_scores.cu keeps the flags (so the library name) it was built
-    with before `_build` took per-source flags; flash_attention.cu
-    builds with FMA contraction on."""
+    with before `_build` took per-source flags; both attention sources
+    build with FMA contraction on, and none with fast math (the bf16
+    kernel's exact split of p needs its roundings as written)."""
     import hashlib
     from repro_torch.kernels import _build
     old = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -153,5 +154,9 @@ def test_build_flags_per_source():
     fa = _build.nvcc_flags("flash_attention")
     assert "-fmad=false" not in fa
     assert fa == tuple(f for f in old if f != "-fmad=false")
+    sm90 = _build.nvcc_flags("flash_attention_sm90")
+    assert sm90 == fa[:-3] + ("-Xptxas=-v",) + fa[-3:]
     assert {s.stem for s in _build.CSRC.glob("*.cu")} == {
-        "mask_scores", "flash_attention"}
+        "mask_scores", "flash_attention", "flash_attention_sm90"}
+    for stem in ("mask_scores", "flash_attention", "flash_attention_sm90"):
+        assert not any("fast_math" in f for f in _build.nvcc_flags(stem))
