@@ -29,14 +29,10 @@ _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 _SHARED = ("-shared", "-Xcompiler", "-fPIC")
 # Flags a source needs beyond the common ones.  The mask scorers must equal
 # their plain versions bit for bit, so nvcc may not contract a*b+c into an
-# FMA there; attention keeps contraction on.  The tensor-core attention
-# kernel reports its registers and spills (``build_log``).  No source is
-# built with --use_fast_math: the bf16 kernel's exact split of p needs
-# round-to-nearest conversions and subtractions as written.
-SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {
-    "mask_scores": ("-fmad=false",),
-    "flash_attention_sm90": ("-Xptxas=-v",),
-}
+# FMA there; attention keeps contraction on.  No source is built with
+# --use_fast_math: the bf16 kernel's exact split of p needs round-to-nearest
+# conversions and subtractions as written.
+SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {"mask_scores": ("-fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -89,7 +85,6 @@ def build_all() -> Dict[str, ctypes.CDLL]:
                     failures.append(f"{src.name}:\n{log}")
                     tmp.unlink(missing_ok=True)
                 else:
-                    out.with_suffix(".log").write_text(log)
                     os.replace(tmp, out)
             if failures:
                 raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
@@ -97,13 +92,6 @@ def build_all() -> Dict[str, ctypes.CDLL]:
             if src.stem not in _LIBS:
                 _LIBS[src.stem] = ctypes.CDLL(str(_target(src)))
         return dict(_LIBS)
-
-
-def build_log(stem: str) -> str:
-    """nvcc's output when ``csrc/<stem>.cu`` was built (``ptxas`` resource
-    lines for sources built with ``-Xptxas=-v``); call after
-    :func:`build_all`."""
-    return _target(CSRC / f"{stem}.cu").with_suffix(".log").read_text()
 
 
 def load(stem: str) -> ctypes.CDLL:

@@ -5,11 +5,12 @@
 // (src/repro/kernels/flash_attention.py:82, body _fa_kernel) for bf16
 // q/k/v; float32 inputs go to fa_fwd_kernel in flash_attention.cu.
 //
-// The function is the Pallas body's, not an approximation of it:
+// The function is the Pallas body's; its products are exact and only its
+// sums are the tensor core's:
 //   * S = q k^T.  A bf16 x bf16 product is exact in float32 (8 + 8
-//     significant bits), so a bf16 wgmma accumulating in float32 computes
-//     the body's float32 dot of the upcast inputs; only the order of the
-//     sum differs.  Scores are dot * scale, as the body.
+//     significant bits), so a bf16 wgmma accumulating in float32 sums the
+//     body's exact products of the upcast inputs.  Scores are dot * scale,
+//     as the body.
 //   * O += p v with p in float32 (the JAX package's default, ATTN_P_BF16 =
 //     False).  p splits exactly into three bf16 terms, hi = bf16(p), mid =
 //     bf16(p - hi), lo = bf16(p - hi - mid) (round to nearest, exact
@@ -17,7 +18,13 @@
 //     below that lo may be subnormal and the tensor cores may flush it,
 //     which moves l >= 1 by far less than a float32 ulp.  Each term times
 //     a bf16 v is exact in float32, so three wgmmas into one float32
-//     accumulator compute the float32 p @ v, again up to summation order.
+//     accumulator sum exactly the float32 p @ v's products.
+//   * The sums are not IEEE float32 round-to-nearest: the tensor core
+//     adds in its own order and rounding.  Measured on an H100 against the
+//     float64 function, on random inputs the output leans slightly toward
+//     smaller magnitude (far under a bf16 ulp), and on a model's
+//     ill-conditioned rows (near-tied scores, cancelling outputs) it is
+//     closer than the float32 plain version is (chip_smoke.py phase 5b).
 //     This source is built without --use_fast_math so the split rounds as
 //     written.
 //   * Masked scores are -1e30 and m starts at -1e30, as the body (a row

@@ -114,6 +114,18 @@ def test_each_cuda_dtype_has_one_kernel():
     assert "__nv_bfloat16" not in f32 and "wgmma.mma_async" not in f32
 
 
+def test_wrapper_knows_the_bf16_kernels_error_codes():
+    """The wrapper's names for fa_forward_bf16's own (negative) error codes
+    are the constants the source returns."""
+    import re
+    from repro_torch.kernels import _build
+    sm90 = (_build.CSRC / "flash_attention_sm90.cu").read_text()
+    codes = {int(v): name for name, v in re.findall(
+        r"constexpr int (ERR_\w+) = (-\d+);", sm90)}
+    assert sorted(codes) == sorted(K._TMA_ERRORS) == [-2, -1]
+    assert all(f"return {name};" in sm90 for name in codes.values())
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     (q, k, v), _ = _inputs(1, 64, 64, 4, 2, 64, "f32", seed=3)
     with pytest.raises(ValueError, match="H % KV"):

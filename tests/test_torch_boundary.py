@@ -177,17 +177,27 @@ def test_chip_smoke_attention_bound_at_the_prefill_shape(dtype_name,
     assert by == bound_by and got == pytest.approx(bound_ms, rel=1e-3)
 
 
-def test_chip_smoke_reads_ptxas_lines_per_kernel():
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 7),
+                                           (False, None)])
+def test_chip_smoke_float64_attention_and_its_error_measure(causal, window):
+    """Phase 5b's truth is the plain version's function in float64, and its
+    error measure sees a rounding to nearest as unbiased and a shrink
+    toward zero as biased."""
+    from repro_torch.kernels import ref
     smoke = _chip_smoke()
-    log = ("ptxas info    : 0 bytes gmem\n"
-           "ptxas info    : Compiling entry function '_ZN56_GLOBAL__N__x_23_"
-           "flash_attention_sm90_cu_7000200212fa_fwd_wgmmaILi64EEEv14CUtensor"
-           "Map_stS1_S1_P13__nv_bfloat16iiiifii' for 'sm_90a'\n"
-           "ptxas info    : Function properties for _ZN56_x\n"
-           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
-           "loads\n"
-           "ptxas info    : Used 168 registers, used 1 barriers\n")
-    assert smoke.ptxas_lines(log) == [
-        "fa_fwd_wgmma<64>: 0 bytes stack frame, 0 bytes spill stores, "
-        "0 bytes spill loads",
-        "fa_fwd_wgmma<64>: Used 168 registers, used 1 barriers"]
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(torch.bfloat16) for s in ((2, 48, 4, 32), (2, 48, 2, 32),
+                                             (2, 48, 2, 32)))
+    truth = smoke.attention_f64(q, k, v, causal, window, q_chunk=16)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window)
+    assert truth.dtype == torch.float64 and truth.shape == q.shape
+    torch.testing.assert_close(truth, want.double(), rtol=1e-5, atol=1e-6)
+    rounded = smoke.error_vs_truth(torch, truth.to(torch.bfloat16), truth)
+    assert rounded["flips"] == 0 and rounded["n_over_half_ulp"] == 0
+    assert rounded["max_half_ulps"] <= 1.0
+    shrunk = smoke.error_vs_truth(
+        torch, (truth * (1 - 2.0 ** -9)).to(torch.bfloat16), truth)
+    assert shrunk["flips"] > 0 and shrunk["flips_up_share"] == 0.0
+    assert shrunk["mean_half_ulps"] < rounded["mean_half_ulps"]
