@@ -12,16 +12,21 @@ Phases (each raises on failure; nothing is caught):
      sources in parallel).
   2. Kernels vs their plain PyTorch versions on the card: every mask x
      every profile of the four device presets, tiled to N = 1,048,576 and
-     to the replay's ragged N = 1,860, compared exactly; then each kernel
-     is timed at both sizes.
+     to the replay's ragged N = 1,860 (and the same with bits set above
+     the model's blocks), compared exactly; the fused picks on random
+     fleets of both sizes (ties, nothing fitting, every host full, high
+     mask bits; integer and probability weights), compared exactly; then
+     each kernel is timed at both sizes beside a launch floor (one
+     one-element ``zero_()`` in the same CUDA-graph harness).
   3. The replay on the card equals the replay on the CPU (Alibaba-shaped
      trace at scale 0.1, all five policies, GRMU with and without defrag
      and consolidation, MCC/MECC through the kernels and the tables).
   4. The main path: full-scale trace replay (``TraceConfig(scale=1.0,
      seed=1)``: 8,063 VMs, 1,860 GPUs, 9,326 events) for FF, BF, MCC,
      MECC and GRMU.  Each result's digest must equal the JAX reference's
-     (``DIGESTS``); the MCC/MECC kernels must launch once per arrival and
-     give the tables path's decisions.  Then ``torch.profiler`` over the
+     (``DIGESTS``); the MCC/MECC pick kernels must launch once per
+     arrival, the score kernels never, and give the tables path's
+     decisions.  Then ``torch.profiler`` over the
      first 1,000 events of each policy: the device's busy share and the
      host operations that cost the most.
   2b. The attention kernels vs their plain version (``flash_attention_ref``)
@@ -86,10 +91,10 @@ DIGESTS = {
 }
 GRMU_FULL = dict(defrag=True, consolidation_interval=24.0)
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bandwidth and the
-# non-tensor-core float32 rate, the highest rate any of these kernels'
-# integer/float32 scalar operations could run at; and the dense bf16
-# tensor-core rate, the bound of attention over bf16 inputs.
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bandwidth (the mask
+# kernels' bound: they move bytes and do no arithmetic worth a peak), the
+# non-tensor-core float32 rate and the dense bf16 tensor-core rate (the
+# bounds of attention over float32 and bf16 inputs).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 PEAK_BF16_FLOPS_PER_S = 989e12
@@ -100,11 +105,16 @@ PEAK_ATTN_FLOPS_PER_S = {"bfloat16": PEAK_BF16_FLOPS_PER_S,
                          "float32": PEAK_OPS_PER_S}
 
 N_BIG, N_MAIN = 1 << 20, 1860
+H_MAIN = 1213                     # the replay's hosts at full scale
 KERNELS = {
     "mcc": "src/repro/kernels/policy_score.py:77",
     "ecc": "src/repro/kernels/policy_score.py:94",
     "cc": "src/repro/kernels/cc_score.py:41",
     "frag": "src/repro/kernels/frag_score.py:49",
+    # The picks fuse the replay's whole MCC/MECC arrival scoring (the TPU
+    # kernel, its host-headroom mask and argmax) into one launch.
+    "mcc_pick": "src/repro/kernels/policy_score.py:77",
+    "ecc_pick": "src/repro/kernels/policy_score.py:94",
 }
 SOURCE = "src/repro_torch/kernels/csrc/mask_scores.cu"
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
@@ -167,46 +177,22 @@ def same_result(a, b) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# Phase 2 helpers: operation counts (for the bound) and timing
+# Phase 2 helpers: bounds and timing
 # ---------------------------------------------------------------------------
 
-def _fits(masks, sm):
-    return (masks & sm) == sm
-
-
-def count_ops(name, masks, model, profile=0):
-    """Scalar operations the kernel does on these masks, mirroring its
-    loops in mask_scores.cu (a slot test is and + compare + add = 3)."""
-    import numpy as np
-    masks = np.asarray(masks, np.int64)
-    n, S = len(masks), model.num_slots
-    if name == "cc":
-        return 3 * S * n
-    if name == "frag":
-        free, ops = masks.copy(), 0
-        for p in model.profile_slot_masks:
-            ops += 2 * n + 6 * n               # popc gate; popc/cvt/div/add
-            for sm in p:
-                take = _fits(free, sm)
-                ops += 2 * n + int(take.sum())
-                free = np.where(take, free & ~sm, free)
-        return ops
-    ops = 0
-    for sm in model.profile_slot_masks[profile]:
-        fit = int(_fits(masks, sm).sum())
-        ops += 2 * n + fit * (1 + 3 * S + 2)
-    if name == "ecc":
-        ops += n * (3 * S + 2 * model.num_profiles)
-    return ops
-
-
-def bound_ms(name, masks, model, profile=0):
-    n = len(masks)
-    nbytes = 8 * n + (4 * model.num_profiles if name == "ecc" else 0)
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = count_ops(name, masks, model, profile) / PEAK_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+def bound_ms(name, n, model, hosts=0):
+    """The bytes floor of one call over ``n`` masks (GPUs): each input
+    byte read once and each output byte written once, over the card's
+    memory rate.  A scorer reads a 4-byte mask and writes a 4-byte score
+    per mask (ecc also reads its weights).  A pick reads per GPU its mask
+    (4), host id (8) and capacity row (8), per host its used row (8), the
+    (2,) need (8) and the weights (ecc), and writes one int64."""
+    weights = 4 * model.num_profiles if name.startswith("ecc") else 0
+    if name.endswith("_pick"):
+        nbytes = 20 * n + 8 * hosts + 8 + weights + 8
+    else:
+        nbytes = 8 * n + weights
+    return nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"
 
 
 def time_ms(torch, fn, iters=200):
@@ -245,46 +231,80 @@ def host_us(torch, fn, iters=200):
     return t0.elapsed_time(t1) * 1e3 / iters
 
 
+def tiled_masks(torch, model, n, high_bits=False, seed=0):
+    """Every mask of the model, tiled to ``n``; with ``high_bits``, random
+    bits above the model's blocks (bit 31 on every fifth)."""
+    import numpy as np
+    base = np.arange(model.num_masks, dtype=np.int64)
+    masks = np.resize(base, n)
+    if high_bits:
+        rng = np.random.default_rng(seed)
+        masks = masks | (rng.integers(0, 1 << (31 - model.num_blocks), n)
+                         << model.num_blocks)
+        masks[::5] |= 1 << 31
+    return torch.as_tensor(masks.astype(np.uint32).view(np.int32)).cuda()
+
+
+def random_fleet(torch, model, G, seed, case="random", H=None):
+    """One arrival's pick inputs on the card: ``tests/_torch_fleets.py``'s
+    draws (ties, nothing fitting, every host full, bits above the blocks;
+    headroom at, just under and just over the need)."""
+    from _torch_fleets import fleet
+    return [torch.as_tensor(a).cuda()
+            for a in fleet(model, G, seed, case, H)]
+
+
+def pick_weights(torch, model, seed):
+    """(integer counts, real probabilities) as float32 on the card."""
+    from _torch_fleets import weights
+    return [torch.as_tensor(w).cuda() for w in weights(model, seed)]
+
+
 def check_kernels(torch, np):
     """Phase 2: every kernel equals its plain version on the card,
-    exactly, over every mask x profile of every preset."""
+    exactly: the scorers over every mask x profile of every preset (and
+    with bits above the blocks), the picks on random fleets."""
+    from _torch_fleets import CASES
     from repro_torch.core.mig import DEVICE_MODELS
     from repro_torch.kernels import mask_scores as K, ref
 
     rng = np.random.default_rng(0)
     err = {k: 0.0 for k in KERNELS}
     n_checked = 0
+
+    def hold(name, got, want, where):
+        nonlocal n_checked
+        diff = (got.double() - want.double()).abs().max().item()
+        err[name] = max(err[name], diff)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} kernel != plain version on "
+                                 f"{where} (max abs diff {diff})")
+        n_checked += 1
+
     for model in DEVICE_MODELS.values():
-        base = torch.arange(model.num_masks, dtype=torch.int32)
-        big = base.repeat(N_BIG // model.num_masks + 1)[:N_BIG].cuda()
-        cases = [(big, "1M"), (big[:N_MAIN].clone(), "1860")]
+        big = tiled_masks(torch, model, N_BIG)
+        cases = [big, big[:N_MAIN].clone(),
+                 tiled_masks(torch, model, N_BIG, high_bits=True),
+                 tiled_masks(torch, model, N_MAIN, high_bits=True, seed=1)]
         NP = model.num_profiles
         w_int = torch.as_tensor(rng.integers(0, 60, NP).astype(np.float32))
         w_prob = torch.as_tensor(rng.dirichlet(np.ones(NP)).astype(
             np.float32))
-        for masks, _ in cases:
-            pairs = [("cc", K.cc(masks, model), ref.cc_ref(masks, model)),
-                     ("frag", K.frag(masks, model),
-                      ref.frag_ref(masks, model))]
+        for masks in cases:
+            where = f"{model.name} N {masks.numel()}"
+            hold("cc", K.cc(masks, model), ref.cc_ref(masks, model), where)
+            hold("frag", K.frag(masks, model), ref.frag_ref(masks, model),
+                 where)
             for p in range(NP):
-                pairs.append(("mcc", K.mcc(masks, p, model),
-                              ref.mcc_score_ref(masks, p, model)))
+                hold("mcc", K.mcc(masks, p, model),
+                     ref.mcc_score_ref(masks, p, model), where)
                 for w in (w_int, w_prob):
                     w = w.cuda()
-                    pairs.append(("ecc", K.ecc(masks, p, w, model),
-                                  ref.ecc_score_ref(masks, p, w, model)))
-            torch.cuda.synchronize()
-            for name, got, want in pairs:
-                diff = (got.double() - want.double()).abs().max().item()
-                err[name] = max(err[name], diff)
-                if not torch.equal(got, want):
-                    raise AssertionError(
-                        f"{name} kernel != plain version on {model.name} "
-                        f"(max abs diff {diff})")
-                n_checked += 1
+                    hold("ecc", K.ecc(masks, p, w, model),
+                         ref.ecc_score_ref(masks, p, w, model), where)
         # The plain version on the card equals the one on the CPU too.
-        cpu = base
-        gpu = base.cuda()
+        cpu = torch.arange(model.num_masks, dtype=torch.int32)
+        gpu = cpu.cuda()
         for p in range(NP):
             if not torch.equal(K.mcc(gpu, p, model).cpu(),
                                ref.mcc_score_ref(cpu, p, model)):
@@ -294,23 +314,61 @@ def check_kernels(torch, np):
                 raise AssertionError(f"ecc card != CPU on {model.name}")
         if not torch.equal(K.frag(gpu, model).cpu(), ref.frag_ref(cpu, model)):
             raise AssertionError(f"frag card != CPU on {model.name}")
+        # The picks, on random fleets of both sizes.
+        n_minus = 0
+        for G in (N_MAIN, N_BIG):
+            for c, case in enumerate(CASES):
+                fleet = random_fleet(torch, model, G, seed=G + c, case=case)
+                where = f"{model.name} G {G} {case}"
+                for p in range(NP):
+                    got = K.mcc_pick(*fleet, p, model)
+                    hold("mcc_pick", got,
+                         ref.mcc_pick_ref(*fleet, p, model), where)
+                    n_minus += int(got.item() < 0)
+                    for w in pick_weights(torch, model, p):
+                        got = K.ecc_pick(*fleet, p, w, model)
+                        hold("ecc_pick", got,
+                             ref.ecc_pick_ref(*fleet, p, w, model), where)
+                        n_minus += int(got.item() < 0)
+        # The CPU's plain pick on one fleet equals the card's.
+        fleet = random_fleet(torch, model, N_MAIN, seed=5)
+        for p in range(NP):
+            if not torch.equal(K.mcc_pick(*fleet, p, model).cpu(),
+                               ref.mcc_pick_ref(*[t.cpu() for t in fleet],
+                                                p, model)):
+                raise AssertionError(f"mcc_pick card != CPU on {model.name}")
+        print(f"phase 2: {model.name}: picks == plain versions, "
+              f"{n_minus} of them -1", flush=True)
+    torch.cuda.synchronize()
     print(f"phase 2: {n_checked} kernel/plain comparisons exact; "
           f"max abs diff {err}", flush=True)
     return err
 
 
 def time_kernels(torch, np):
-    """Phase 2 timing on the A100-40GB preset (the replay's model), with
-    masks spread over the whole mask space and the 1g.5gb profile (the
-    most slots, so the most work per mask)."""
+    """Phase 2 timing on the A100-40GB preset (the replay's model): the
+    scorers over masks spread over the whole mask space with the 1g.5gb
+    profile (the most slots), the picks on a random fleet with the
+    replay's 1,213 hosts at N = 1,860 (a third of N at 1M), GPUs numbered
+    host by host; and a launch floor, one one-element ``zero_()`` in the
+    same harness."""
+    from _torch_fleets import fleet
     from repro_torch.core.mig import A100_40GB as model
     from repro_torch.kernels import mask_scores as K, ref
     w = torch.ones(model.num_profiles, dtype=torch.float32, device="cuda")
-    out = {}
+    z = torch.empty(1, dtype=torch.float32, device="cuda")
+    floor_ms = time_ms(torch, z.zero_)
+    out = {"launch_floor": dict(ms=floor_ms, host_us=host_us(torch, z.zero_))}
+    print(f"phase 2: launch floor {floor_ms * 1e3:.3f} us (graph), "
+          f"{out['launch_floor']['host_us']:.3f} us eager", flush=True)
     for n in (N_MAIN, N_BIG):
-        base = torch.arange(model.num_masks, dtype=torch.int32)
-        masks = base.repeat(n // model.num_masks + 1)[:n].cuda()
-        host = masks.cpu().numpy()
+        masks = tiled_masks(torch, model, n)
+        hosts = H_MAIN if n == N_MAIN else n // 3
+        # GPUs numbered host by host, as a cluster lays them out.
+        free, gpu_host, used, cap_g, need = fleet(model, n, seed=n, H=hosts)
+        order = np.argsort(gpu_host, kind="stable")
+        arrival = [torch.as_tensor(a).cuda() for a in (
+            free, gpu_host[order], used, cap_g[order], need)]
         fns = {
             "mcc": (lambda: K.mcc(masks, 0, model),
                     lambda: ref.mcc_score_ref(masks, 0, model)),
@@ -320,14 +378,23 @@ def time_kernels(torch, np):
                    lambda: ref.cc_ref(masks, model)),
             "frag": (lambda: K.frag(masks, model),
                      lambda: ref.frag_ref(masks, model)),
+            "mcc_pick": (lambda: K.mcc_pick(*arrival, 0, model),
+                         lambda: ref.mcc_pick_ref(*arrival, 0, model)),
+            "ecc_pick": (lambda: K.ecc_pick(*arrival, 0, w, model),
+                         lambda: ref.ecc_pick_ref(*arrival, 0, w, model)),
         }
         for name, (kern, plain) in fns.items():
-            b_ms, b_by = bound_ms(name, host, model, 0)
-            out[(name, n)] = dict(
+            b_ms, b_by = bound_ms(name, n, model, hosts)
+            t = out[(name, n)] = dict(
                 ms=time_ms(torch, kern),
                 plain_ms=time_ms(torch, plain, iters=20),
                 host_us=host_us(torch, kern),
                 bound_ms=b_ms, bound_by=b_by)
+            print(f"phase 2: {name} N {n}: {t['ms'] * 1e3:.3f} us "
+                  f"(launch floor {floor_ms * 1e3:.3f}, bound "
+                  f"{b_ms * 1e3:.4f} us {b_by}), plain "
+                  f"{t['plain_ms'] * 1e3:.1f} us, eager "
+                  f"{t['host_us']:.2f} us", flush=True)
     return out
 
 
@@ -410,11 +477,12 @@ def run_main_path(torch):
             "wall_s": seconds[name],
             "events_per_s": n_events / seconds[name],
             "digest_matches_jax": True}), flush=True)
-    for kname in ("mcc", "ecc"):
-        if launches[kname] != n_arrivals:
-            raise AssertionError(f"{kname} kernel launched "
-                                 f"{launches[kname]} times, expected one "
-                                 f"per arrival ({n_arrivals})")
+    # One fused pick per MCC/MECC arrival; no score kernel on the replay.
+    want = {k: n_arrivals if k in ("mcc_pick", "ecc_pick") else 0
+            for k in launches}
+    if launches != want:
+        raise AssertionError(f"mask kernels launched {launches} on the "
+                             f"main path, expected {want}")
     for name, pol in (("MCC", B.MCC), ("MECC", B.MECC)):
         t0 = time.perf_counter()
         tables = B.replay(events, pol, device="cuda", score_backend="tables")
@@ -1019,7 +1087,7 @@ def main() -> int:
         return 1
     card = card_line()
     print(card, flush=True)
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
     import numpy as np
     from repro_torch.kernels import _build
 
@@ -1040,19 +1108,23 @@ def main() -> int:
     attention_accuracy(torch)
 
     rows = []
+    floor = timing["launch_floor"]
     for name, replaces in KERNELS.items():
         main_t, big_t = timing[(name, N_MAIN)], timing[(name, N_BIG)]
         rows.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=replaces,
-            launches=launches[name], on_main_path=name in ("mcc", "ecc"),
+            launches=launches[name], on_main_path=launches[name] > 0,
             max_abs_err=err[name], max_abs_diff=err[name],
             ms=main_t["ms"], plain_ms=main_t["plain_ms"],
             bound_ms=main_t["bound_ms"], bound_by=main_t["bound_by"],
             library_ms=None, host_us_per_call=main_t["host_us"],
+            launch_floor_us=floor["ms"] * 1e3,
+            launch_floor_host_us=floor["host_us"],
             us_at_1860=main_t["ms"] * 1e3, us_at_1M=big_t["ms"] * 1e3,
             plain_us_at_1M=big_t["plain_ms"] * 1e3,
             bound_us_at_1M=big_t["bound_ms"] * 1e3,
-            bound_by_at_1M=big_t["bound_by"]))
+            bound_by_at_1M=big_t["bound_by"],
+            host_us_at_1M=big_t["host_us"]))
     for name, source, tname in (("flash_attention", FA_SOURCE, "bfloat16"),
                                 ("flash_attention_f32", FA_F32_SOURCE,
                                  "float32")):

@@ -458,19 +458,19 @@ def _set_drop(dst: torch.Tensor, idx: torch.Tensor,
     dst.copy_(buf[:-1])
 
 
-def _kernel_pick(st: ReplayStatics, free, prof0: int, host_ok, mecc_w):
-    """MCC/MECC pick through the mask-scoring kernels (single-model
-    fleets).  The kernel scores -1 on infeasible masks, so feasibility and
-    scoring are one pass; host headroom masks the scores."""
+def _kernel_pick(st: ReplayStatics, free, prof0: int, ghost, host_used,
+                 cap_g, need, mecc_w):
+    """MCC/MECC pick through the fused pick kernels (single-model fleets):
+    host headroom, the score (-1 on infeasible masks) and the first
+    maximizer in one launch."""
     model = st.models[0]
     if st.policy == MCC:
-        cc = mask_scores.mcc(free, prof0, model)
-        scores = torch.where(host_ok, cc, -1)
-    else:  # MECC — integer windowed counts as f32 weights (exact < 2^24)
-        w = mecc_w[0].to(torch.float32)
-        ecc = mask_scores.ecc(free, prof0, w, model)
-        scores = torch.where(host_ok, ecc, -1.0)
-    return pc.first_max(scores, (scores >= 0).any())
+        return mask_scores.mcc_pick(free, ghost, host_used, cap_g, need,
+                                    prof0, model)
+    # MECC — integer windowed counts as f32 weights (exact < 2^24)
+    w = mecc_w[0].to(torch.float32)
+    return mask_scores.ecc_pick(free, ghost, host_used, cap_g, need, prof0,
+                                w, model)
 
 
 def run_events(st: ReplayStatics, state: Dict[str, torch.Tensor],
@@ -542,18 +542,19 @@ def run_events(st: ReplayStatics, state: Dict[str, torch.Tensor],
             mecc_w = pc.mecc_weights(mecc_counts)
 
         need = vm_res[vi]                               # (2,) cpu, ram
-        host_ok = (host_used[ghost] + need <= cap_g).all(dim=1)
         heavy = bool(vm_heavy_h[vi])
         if st.policy == GRMU:
+            host_ok = (host_used[ghost] + need <= cap_g).all(dim=1)
             pick, grew, grow_idx = pc.grmu_select(
                 T, mid, free, pids, heavy, host_ok, basket, heavy_cap,
                 light_cap)
             want = pc.HEAVY_BASKET if heavy else pc.LIGHT_BASKET
             basket[grow_idx] = torch.where(grew, want, basket[grow_idx])
         elif st.score_backend == "kernel":
-            pick = _kernel_pick(st, free, int(vm_pids_h[vi, 0]), host_ok,
-                                mecc_w)
+            pick = _kernel_pick(st, free, int(vm_pids_h[vi, 0]), ghost,
+                                host_used, cap_g, need, mecc_w)
         else:
+            host_ok = (host_used[ghost] + need <= cap_g).all(dim=1)
             pick = pc.select_gpu(st.policy, T, mid, free, pids, host_ok,
                                  mecc_w)
         ok = pick >= 0

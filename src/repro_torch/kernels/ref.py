@@ -9,6 +9,9 @@ operation order, so on equal inputs they agree bit for bit:
   * ``frag_ref``      — fragmentation metric (Algorithm 4)
   * ``mcc_score_ref`` — post-default-assign CC (Algorithm 6 inner loop)
   * ``ecc_score_ref`` — expectation-weighted CC (Algorithm 7 inner loop)
+  * ``mcc_pick_ref`` / ``ecc_pick_ref`` — the replay's MCC/MECC pick: host
+    headroom, score, first maximizer (``repro/core/batched.py``
+    ``_kernel_pick``), the plain versions of the fused pick kernels
 
 Every function takes (N,) integer masks on any device and a
 :class:`repro_torch.core.mig.DeviceModel`.
@@ -30,6 +33,7 @@ from typing import Optional
 import torch
 
 from ..core.mig import A100_40GB, DeviceModel
+from ..core.policy_core import first_max
 
 
 def _popcount(x: torch.Tensor, num_bits: int) -> torch.Tensor:
@@ -106,6 +110,31 @@ def ecc_score_ref(masks: torch.Tensor, profile_idx: int,
             count = count + ((best_after & sm) == sm).to(torch.int32)
         ecc = ecc + probs[pi] * count.to(torch.float32)
     return torch.where(best_cc >= 0, ecc, -1.0)
+
+
+def _host_ok(gpu_host, host_used, cap_g, need) -> torch.Tensor:
+    """GPUs whose host has headroom for ``need`` (float32, per resource)."""
+    return (host_used[gpu_host] + need <= cap_g).all(dim=1)
+
+
+def mcc_pick_ref(free, gpu_host, host_used, cap_g, need, profile_idx: int,
+                 model: DeviceModel = A100_40GB) -> torch.Tensor:
+    """MCC pick of one arrival: the first GPU maximizing ``mcc_score_ref``
+    where the host has headroom, -1 if no such score is >= 0 -> (1,)."""
+    ok = _host_ok(gpu_host, host_used, cap_g, need)
+    scores = torch.where(ok, mcc_score_ref(free, profile_idx, model), -1)
+    return first_max(scores, (scores >= 0).any())
+
+
+def ecc_pick_ref(free, gpu_host, host_used, cap_g, need, profile_idx: int,
+                 probs: torch.Tensor,
+                 model: DeviceModel = A100_40GB) -> torch.Tensor:
+    """MECC pick of one arrival, as :func:`mcc_pick_ref` with
+    ``ecc_score_ref`` under ``probs`` -> (1,)."""
+    ok = _host_ok(gpu_host, host_used, cap_g, need)
+    scores = torch.where(ok, ecc_score_ref(free, profile_idx, probs, model),
+                         -1.0)
+    return first_max(scores, (scores >= 0).any())
 
 
 # ---------------------------------------------------------------------------

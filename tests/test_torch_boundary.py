@@ -2,7 +2,8 @@
 
   * importing ``repro_torch`` and every module of it loads neither
     ``jax`` nor any ``repro`` module (checked in a fresh interpreter), and
-    no file of the port or ``chip_smoke.py`` names them in an import;
+    no file of the port, ``chip_smoke.py`` or ``replay_rate.py`` names them
+    in an import;
   * the modules copied from the JAX package behave like their originals;
   * the device rule: ``device=None`` means CUDA and raises without a card;
   * ``chip_smoke.py``'s digests are those of the JAX replay at full scale.
@@ -69,7 +70,8 @@ def _imported_roots(path: Path):
 
 
 def test_no_file_imports_jax_or_repro():
-    files = sorted(PORT_DIR.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT_DIR.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                              ROOT / "replay_rate.py"]
     assert len(files) > 10
     for path in files:
         roots = set(_imported_roots(path))
@@ -175,6 +177,26 @@ def test_chip_smoke_attention_bound_at_the_prefill_shape(dtype_name,
     got, by = smoke.attention_bound_ms(B, S, S, 32, 4, 64, True, None,
                                        dtype_name)
     assert by == bound_by and got == pytest.approx(bound_ms, rel=1e-3)
+
+
+@pytest.mark.parametrize("name,n,hosts,nbytes", [
+    ("mcc", 1860, 0, 8 * 1860),
+    ("ecc", 1860, 0, 8 * 1860 + 4 * 6),
+    ("cc", 1 << 20, 0, 8 << 20),
+    ("frag", 1 << 20, 0, 8 << 20),
+    ("mcc_pick", 1860, 1213, 20 * 1860 + 8 * 1213 + 8 + 8),
+    ("ecc_pick", 1 << 20, 1 << 18, 20 * (1 << 20) + 8 * (1 << 18) + 8
+     + 4 * 6 + 8),
+])
+def test_chip_smoke_mask_kernel_bound_is_the_bytes_floor(name, n, hosts,
+                                                         nbytes):
+    """The mask kernels' bound is the bytes their inputs and outputs hold
+    at 3.35 TB/s, whatever the kernel does with them."""
+    from repro_torch.core.mig import A100_40GB
+    smoke = _chip_smoke()
+    got, by = smoke.bound_ms(name, n, A100_40GB, hosts)
+    assert by == "bytes"
+    assert got == pytest.approx(nbytes / 3.35e12 * 1e3, rel=1e-12)
 
 
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 7),

@@ -5,8 +5,11 @@ Run on the machine with the card:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Each mask scorer must equal its plain version exactly, on every mask x
-profile of the four device presets at a ragged length, and the replay's
-kernel path must launch once per MCC/MECC arrival and decide as the CPU.
+profile of the four device presets at a ragged length (masks with bits
+above the model's blocks too); each fused pick must equal its plain
+version on random fleets (tests/_torch_fleets.py) at ragged sizes; the
+replay's kernel path must launch one pick per MCC/MECC arrival, no score
+kernel, and decide as the CPU.
 The attention kernels must equal ``flash_attention_ref`` at ragged and GQA
 shapes and at the serving prefill's shape (2e-5 float32, 3e-2 bf16, the
 tolerances of tests/test_flash_attention.py; bf16 also within half an ulp
@@ -14,9 +17,12 @@ of the plain version in float32); bf16 must reach only the tensor-core
 kernel and float32 only the float32 one, and ``prefill`` must launch the
 bf16 kernel once per layer.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
+from _torch_fleets import CASES, fleet, weights
 
 from repro_torch.core import batched as B
 from repro_torch.core.mig import DEVICE_MODELS
@@ -41,16 +47,36 @@ def test_kernels_equal_plain_versions_on_card(name):
     model = DEVICE_MODELS[name]
     base = torch.arange(model.num_masks, dtype=torch.int32)
     masks = base.repeat(1860 // model.num_masks + 1)[:1859].cuda()
+    high = torch.from_numpy(fleet(model, 1859, 0, "high_bits")[0]).cuda()
     rng = np.random.default_rng(0)
     w = torch.as_tensor(rng.dirichlet(np.ones(model.num_profiles)).astype(
         np.float32)).cuda()
     assert torch.equal(K.cc(masks, model), ref.cc_ref(masks, model))
     assert torch.equal(K.frag(masks, model), ref.frag_ref(masks, model))
-    for p in range(model.num_profiles):
-        assert torch.equal(K.mcc(masks, p, model),
-                           ref.mcc_score_ref(masks, p, model))
-        assert torch.equal(K.ecc(masks, p, w, model),
-                           ref.ecc_score_ref(masks, p, w, model))
+    for m in (masks, high, masks[1:]):           # masks[1:]: unaligned
+        for p in range(model.num_profiles):
+            assert torch.equal(K.mcc(m, p, model),
+                               ref.mcc_score_ref(m, p, model))
+            assert torch.equal(K.ecc(m, p, w, model),
+                               ref.ecc_score_ref(m, p, w, model))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", sorted(DEVICE_MODELS))
+def test_pick_kernels_equal_plain_versions_on_card(name):
+    _need_card()
+    model = DEVICE_MODELS[name]
+    for G in (1, 31, 1860, 100_003):
+        for case in CASES:
+            t = [torch.from_numpy(a).cuda()
+                 for a in fleet(model, G, G + CASES.index(case), case)]
+            for p in range(model.num_profiles):
+                assert torch.equal(K.mcc_pick(*t, p, model),
+                                   ref.mcc_pick_ref(*t, p, model))
+                for w in weights(model, p):
+                    w = torch.from_numpy(w).cuda()
+                    assert torch.equal(K.ecc_pick(*t, p, w, model),
+                                       ref.ecc_pick_ref(*t, p, w, model))
     torch.cuda.synchronize()
 
 
@@ -62,10 +88,30 @@ def test_replay_kernel_path_on_card(policy):
     K.reset_launches()
     card = B.replay(events, policy, device="cuda", score_backend="kernel")
     arrivals = int((events.kind == B.ARRIVAL).sum())
-    assert K.LAUNCHES["mcc" if policy == B.MCC else "ecc"] == arrivals
+    pick = "mcc_pick" if policy == B.MCC else "ecc_pick"
+    assert K.LAUNCHES == {k: arrivals if k == pick else 0
+                          for k in K.LAUNCHES}
     cpu = B.replay(events, policy, device="cpu", score_backend="tables")
     assert card.accepted_ids == cpu.accepted_ids
     assert card.hourly_active_hw == cpu.hourly_active_hw
+
+
+def test_each_mask_scores_entry_point_has_its_wrapper():
+    """Every C entry point of mask_scores.cu (``mrt_<name>``) is loaded by
+    the wrapper module and launched by ``mask_scores.<name>``, which
+    counts it under ``LAUNCHES[<name>]``."""
+    import inspect
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "mask_scores.cu").read_text()
+    block = src[src.index('extern "C" {'):]
+    names = re.findall(r"^int mrt_(\w+)\(", block, re.M)
+    assert sorted(names) == sorted(K.LAUNCHES) == sorted(
+        ["cc", "frag", "mcc", "ecc", "mcc_pick", "ecc_pick"])
+    for name in names:
+        body = inspect.getsource(getattr(K, name))
+        assert f'_launch("mrt_{name}"' in body
+        assert f'LAUNCHES["{name}"] += 1' in body
+        assert f'("mrt_{name}",' in inspect.getsource(K._lib.__wrapped__)
 
 
 # (B, Sq, Sk, H, KV, hd, causal, window)

@@ -108,7 +108,12 @@ def test_cpu_tensor_runs_plain_version_and_is_not_counted():
     mask_scores.frag(masks, mig.A100_40GB)
     mask_scores.mcc(masks, 2, mig.A100_40GB)
     mask_scores.ecc(masks, 2, w, mig.A100_40GB)
-    assert mask_scores.LAUNCHES == {"cc": 0, "frag": 0, "mcc": 0, "ecc": 0}
+    fleet = (torch.zeros(256, dtype=torch.int64), torch.zeros((1, 2)),
+             torch.ones((256, 2)), torch.zeros(2))
+    mask_scores.mcc_pick(masks, *fleet, 2, mig.A100_40GB)
+    mask_scores.ecc_pick(masks, *fleet, 2, w, mig.A100_40GB)
+    assert mask_scores.LAUNCHES == {"cc": 0, "frag": 0, "mcc": 0, "ecc": 0,
+                                    "mcc_pick": 0, "ecc_pick": 0}
 
 
 def test_wrappers_validate_inputs():
@@ -135,6 +140,10 @@ def test_kernel_slot_templates(name):
         got = list(st.slot_mask[st.prof_start[p]:st.prof_start[p + 1]])
         assert got == list(masks)
         assert st.prof_size[p] == model.profiles[p].size
+        assert set(st.slot_shift[st.prof_start[p]:st.prof_start[p + 1]]) <= {
+            4 * p}
+        # A profile's count fits its 4-bit field.
+        assert len(masks) <= mask_scores.MAX_PROFILE_SLOTS < 16
 
 
 def test_build_flags_per_source():
