@@ -185,8 +185,9 @@ def bound_ms(name, n, model, hosts=0):
     byte read once and each output byte written once, over the card's
     memory rate.  A scorer reads a 4-byte mask and writes a 4-byte score
     per mask (ecc also reads its weights).  A pick reads per GPU its mask
-    (4), host id (8) and capacity row (8), per host its used row (8), the
-    (2,) need (8) and the weights (ecc), and writes one int64."""
+    (4), host id (8) and capacity row (8), the used row (8) of each of
+    the ``hosts`` hosts that hold a GPU, the (2,) need (8) and the
+    weights (ecc), and writes one int64."""
     weights = 4 * model.num_profiles if name.startswith("ecc") else 0
     if name.endswith("_pick"):
         nbytes = 20 * n + 8 * hosts + 8 + weights + 8
@@ -318,7 +319,8 @@ def check_kernels(torch, np):
         n_minus = 0
         for G in (N_MAIN, N_BIG):
             for c, case in enumerate(CASES):
-                fleet = random_fleet(torch, model, G, seed=G + c, case=case)
+                fleet = random_fleet(torch, model, G, seed=G + c, case=case,
+                                     H=H_MAIN if G == N_MAIN else None)
                 where = f"{model.name} G {G} {case}"
                 for p in range(NP):
                     got = K.mcc_pick(*fleet, p, model)
@@ -331,7 +333,7 @@ def check_kernels(torch, np):
                              ref.ecc_pick_ref(*fleet, p, w, model), where)
                         n_minus += int(got.item() < 0)
         # The CPU's plain pick on one fleet equals the card's.
-        fleet = random_fleet(torch, model, N_MAIN, seed=5)
+        fleet = random_fleet(torch, model, N_MAIN, seed=5, H=H_MAIN)
         for p in range(NP):
             if not torch.equal(K.mcc_pick(*fleet, p, model).cpu(),
                                ref.mcc_pick_ref(*[t.cpu() for t in fleet],
@@ -345,14 +347,23 @@ def check_kernels(torch, np):
     return err
 
 
+def timed_fleet(model, n):
+    """The arrival the picks are timed on: ``n`` GPUs over the replay's
+    1,213 hosts at N = 1,860 (a third of ``n`` otherwise), numbered host
+    by host so that every host holds one or two (three at 1M).  Returns
+    the numpy arrays and the number of host rows the pick reads."""
+    import numpy as np
+    from _torch_fleets import fleet
+    arrays = fleet(model, n, seed=n, H=H_MAIN if n == N_MAIN else n // 3,
+                   contiguous=True)
+    return arrays, len(np.unique(arrays[1]))
+
+
 def time_kernels(torch, np):
     """Phase 2 timing on the A100-40GB preset (the replay's model): the
     scorers over masks spread over the whole mask space with the 1g.5gb
-    profile (the most slots), the picks on a random fleet with the
-    replay's 1,213 hosts at N = 1,860 (a third of N at 1M), GPUs numbered
-    host by host; and a launch floor, one one-element ``zero_()`` in the
-    same harness."""
-    from _torch_fleets import fleet
+    profile (the most slots), the picks on ``timed_fleet``; and a launch
+    floor, one one-element ``zero_()`` in the same harness."""
     from repro_torch.core.mig import A100_40GB as model
     from repro_torch.kernels import mask_scores as K, ref
     w = torch.ones(model.num_profiles, dtype=torch.float32, device="cuda")
@@ -363,12 +374,8 @@ def time_kernels(torch, np):
           f"{out['launch_floor']['host_us']:.3f} us eager", flush=True)
     for n in (N_MAIN, N_BIG):
         masks = tiled_masks(torch, model, n)
-        hosts = H_MAIN if n == N_MAIN else n // 3
-        # GPUs numbered host by host, as a cluster lays them out.
-        free, gpu_host, used, cap_g, need = fleet(model, n, seed=n, H=hosts)
-        order = np.argsort(gpu_host, kind="stable")
-        arrival = [torch.as_tensor(a).cuda() for a in (
-            free, gpu_host[order], used, cap_g[order], need)]
+        arrays, hosts = timed_fleet(model, n)
+        arrival = [torch.as_tensor(a).cuda() for a in arrays]
         fns = {
             "mcc": (lambda: K.mcc(masks, 0, model),
                     lambda: ref.mcc_score_ref(masks, 0, model)),
@@ -496,13 +503,15 @@ def run_main_path(torch):
     print(f"phase 4: {n_events} events, {n_arrivals} arrivals; launches on "
           f"the main path {launches}", flush=True)
     for name, pol, kw in configs:
-        profile_replay(torch, B, events, name, pol, kw, cap)
+        print(json.dumps({"profile": dict(
+            policy=name, **profile_replay(torch, B, events, pol, kw, cap))}),
+            flush=True)
     return launches
 
 
-def profile_replay(torch, B, events, name, pol, kw, cap, n=1000):
+def profile_replay(torch, B, events, pol, kw, cap, n=1000):
     """Where a replay's time goes: ``torch.profiler`` over its first
-    ``n`` events on the card.  Prints the device's busy share of the
+    ``n`` events on the card.  Returns the device's busy share of the
     profiled wall time, device work per event, and the host operations
     that cost the most."""
     from torch.autograd import DeviceType
@@ -522,14 +531,12 @@ def profile_replay(torch, B, events, name, pol, kw, cap, n=1000):
     top = sorted((a for a in prof.key_averages()
                   if a.key.startswith("aten::")),
                  key=lambda a: a.self_cpu_time_total, reverse=True)[:6]
-    print(json.dumps({"profile": {
-        "policy": name, "events": n, "profiled_wall_us_per_event":
-        wall_us / n,
-        "device_busy_share": (dev_us / wall_us) if dev else None,
-        "device_us_per_event": dev_us / n if dev else None,
-        "device_ops_per_event": len(dev) / n,
-        "top_host_ops": [[a.key, a.count, a.self_cpu_time_total]
-                         for a in top]}}), flush=True)
+    return {"events": n, "profiled_wall_us_per_event": wall_us / n,
+            "device_busy_share": (dev_us / wall_us) if dev else None,
+            "device_us_per_event": dev_us / n if dev else None,
+            "device_ops_per_event": len(dev) / n,
+            "top_host_ops": [[a.key, a.count, a.self_cpu_time_total]
+                             for a in top]}
 
 
 # ---------------------------------------------------------------------------

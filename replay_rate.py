@@ -11,9 +11,10 @@ versions.  For each policy a root prints one JSON line: the events/s of
 ``--reps`` full replays of ``TraceConfig(scale=1.0, seed=1)`` after a
 warm-up (host clock to ``torch.cuda.synchronize()``), and, under
 ``torch.profiler`` over the first 1,000 events, device operations per
-event, device microseconds per event and the device's busy share.  MCC and
-MECC run the kernel scoring path, GRMU defrag and 24 h consolidation, as
-in ``chip_smoke.py`` phase 4.  Exits non-zero without a CUDA device.
+event, device microseconds per event and the device's busy share.  The
+policies' settings and the profile are ``chip_smoke.py``'s phase 4 (this
+script's own checkout), the same for every root.  Exits non-zero without
+a CUDA device.
 """
 from __future__ import annotations
 
@@ -25,44 +26,17 @@ import time
 from pathlib import Path
 
 
-def _configs(B):
-    return {"FF": (B.FF, {}), "BF": (B.BF, {}),
-            "MCC": (B.MCC, dict(score_backend="kernel")),
-            "MECC": (B.MECC, dict(score_backend="kernel")),
-            "GRMU": (B.GRMU, dict(defrag=True, consolidation_interval=24.0))}
-
-
-def _profile(torch, B, events, pol, kw, cap, n=1000):
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    st = B.replay_statics(events, pol, **kw)
-    trace = B.trace_from_numpy(B.trace_arrays(events), "cuda")
-    state = B.init_state(events, st, "cuda")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        B.run_events(st, state, trace, cap, stop=n)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    dev_us = sum(e.time_range.elapsed_us() for e in dev)
-    return dict(profiled_wall_us_per_event=wall_us / n,
-                device_ops_per_event=len(dev) / n,
-                device_us_per_event=dev_us / n,
-                device_busy_share=dev_us / wall_us)
-
-
 def worker(root: Path, policies, reps: int) -> None:
     import torch
-    sys.path.insert(0, str(root / "src"))
+    sys.path[:0] = [str(root / "src"), str(Path(__file__).resolve().parent)]
+    from chip_smoke import profile_replay, replay_configs
     from repro_torch.core import batched as B
     from repro_torch.workload.alibaba import TraceConfig, generate
     cluster, vms = generate(TraceConfig(scale=1.0, seed=1))
     events = B.build_events(vms, cluster)
     n_events = len(events.kind)
     cap = B.default_heavy_capacity(events)
-    configs = _configs(B)
+    configs = {name: (pol, kw) for name, pol, kw in replay_configs(B)}
     for name in policies:
         pol, kw = configs[name]
         run = B.make_replay(events, pol, device="cuda", **kw)
@@ -77,7 +51,8 @@ def worker(root: Path, policies, reps: int) -> None:
         accepted = int(out["vm_accepted"].sum())
         print(json.dumps(dict(root=str(root), policy=name,
                               events_per_s=rates, accepted=accepted,
-                              **_profile(torch, B, events, pol, kw, cap))),
+                              **profile_replay(torch, B, events, pol, kw,
+                                               cap))),
               flush=True)
 
 

@@ -33,11 +33,13 @@
 // host rows gathered) before the tables are built, so the build hides
 // the loads' latency.  Each score is packed with its index into a 64-bit
 // key (order-preserving score bits high, ~index low) and reduced by warp
-// shuffles and across the CTA.  At the replay's 1,860 GPUs one CTA of 512
-// threads covers the fleet and writes the pick; larger fleets reduce
-// across CTAs by atomicMax into a scratch word, and the last CTA (ticket
-// counter after a __threadfence) writes the pick and resets the scratch.
-// So an arrival costs one launch, with no memset, host sync or other op.
+// shuffles and across the CTA.  Up to 2,048 GPUs (the replay's fleet is
+// 1,860) one CTA of 512 threads covers the fleet and writes the pick, so
+// an arrival costs one launch, with no memset, host sync or other op.
+// Larger fleets reduce across CTAs by atomicMax into two zeroed words
+// that the caller allocates for this launch alone, and the last CTA
+// (ticket counter after a __threadfence) writes the pick; no state
+// outlives a launch.
 //
 // cc and frag are off the replay's path and keep one thread per mask,
 // walking the templates.
@@ -272,8 +274,8 @@ __device__ __forceinline__ unsigned long long warp_max(unsigned long long v) {
 // takes MRT_PICK_ITEMS GPUs, all loaded (host rows gathered, headroom
 // tested) before the tables are built; cap_g and host_used rows are read
 // as 8-byte aligned float pairs.  One CTA writes pick directly; several
-// reduce through scratch, two zeroed 64-bit words (max key, ticket) that
-// the last CTA leaves zeroed.
+// reduce through scratch, two zeroed 64-bit words (max key, ticket) of
+// this launch's own.
 template <bool ECC>
 __global__ void __launch_bounds__(MRT_PICK_THREADS)
 pick_kernel(const int* __restrict__ free_m, const int64_t* __restrict__ gpu_host,
@@ -336,9 +338,7 @@ pick_kernel(const int* __restrict__ free_m, const int64_t* __restrict__ gpu_host
   if (atomicAdd(ticket, 1u) != gridDim.x - 1) return;
   // Last CTA: every other CTA's atomicMax is ordered before its ticket.
   __threadfence();
-  const unsigned long long k = atomicExch(&scratch[0], 0ull);
-  atomicExch(ticket, 0u);
-  pick[0] = key_pick(k);
+  pick[0] = key_pick(atomicOr(&scratch[0], 0ull));
 }
 
 static inline unsigned mrt_blocks(int64_t n, int threads) {
@@ -401,8 +401,8 @@ int mrt_ecc(const int* masks, const float* weights, float* out, int64_t n,
   return (int)cudaGetLastError();
 }
 
-// scratch: two zeroed 64-bit words on the device, used by one pick at a
-// time (launches on one device must be ordered, as on one stream).
+// scratch: for n > MRT_PICK_THREADS * MRT_PICK_ITEMS, two zeroed 64-bit
+// words on the device for this launch alone (unused, may be null, below).
 int mrt_mcc_pick(const int* free_m, const int64_t* gpu_host,
                  const float* host_used, const float* cap_g, const float* need,
                  int64_t n, int profile, MrtModel md, void* scratch,

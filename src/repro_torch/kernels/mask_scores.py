@@ -26,6 +26,7 @@ from ._build import load
 
 MAX_SLOTS, MAX_PROFILES = 32, 8          # MRT_MAX_* in mask_scores.cu
 MAX_PROFILE_SLOTS = 8                    # MRT_MAX_BLOCKS: starts per profile
+PICK_PER_CTA = 512 * 4                   # MRT_PICK_THREADS * MRT_PICK_ITEMS
 
 LAUNCHES: Dict[str, int] = {"cc": 0, "frag": 0, "mcc": 0, "ecc": 0,
                             "mcc_pick": 0, "ecc_pick": 0}
@@ -194,18 +195,13 @@ def ecc(masks: torch.Tensor, profile: int, weights: torch.Tensor,
     return out
 
 
-# Two zeroed 64-bit words per device (max key, ticket) for the picks'
-# cross-CTA reduction; each pick leaves them zeroed.  One pick runs at a
-# time on a device: launches there must be ordered (one stream).
-_SCRATCH: Dict[int, torch.Tensor] = {}
-
-
-def _scratch(device: torch.device) -> torch.Tensor:
-    buf = _SCRATCH.get(device.index)
-    if buf is None:
-        buf = _SCRATCH[device.index] = torch.zeros(2, dtype=torch.int64,
-                                                   device=device)
-    return buf
+def _scratch(free: torch.Tensor):
+    """Two zeroed 64-bit words (max key, ticket) of one pick's own for
+    its cross-CTA reduction, or None where one CTA covers the fleet (the
+    replay's case: one launch and nothing else)."""
+    if free.numel() <= PICK_PER_CTA:
+        return None
+    return torch.zeros(2, dtype=torch.int64, device=free.device)
 
 
 def _check_fleet(free, gpu_host, host_used, cap_g, need) -> None:
@@ -245,10 +241,12 @@ def mcc_pick(free: torch.Tensor, gpu_host: torch.Tensor,
                                 profile, model)
     free = free.contiguous()
     pick = torch.empty(1, dtype=torch.int64, device=free.device)
+    scratch = _scratch(free)
     _launch("mrt_mcc_pick", free.data_ptr(), gpu_host.data_ptr(),
             host_used.data_ptr(), cap_g.data_ptr(), need.data_ptr(),
             free.numel(), profile, model_struct(model),
-            _scratch(free.device).data_ptr(), pick.data_ptr(), _stream())
+            None if scratch is None else scratch.data_ptr(),
+            pick.data_ptr(), _stream())
     LAUNCHES["mcc_pick"] += 1
     return pick
 
@@ -267,10 +265,12 @@ def ecc_pick(free: torch.Tensor, gpu_host: torch.Tensor,
                                 profile, weights, model)
     free, weights = free.contiguous(), weights.contiguous()
     pick = torch.empty(1, dtype=torch.int64, device=free.device)
+    scratch = _scratch(free)
     _launch("mrt_ecc_pick", free.data_ptr(), gpu_host.data_ptr(),
             host_used.data_ptr(), cap_g.data_ptr(), need.data_ptr(),
             weights.data_ptr(), free.numel(), profile, model_struct(model),
-            _scratch(free.device).data_ptr(), pick.data_ptr(), _stream())
+            None if scratch is None else scratch.data_ptr(),
+            pick.data_ptr(), _stream())
     LAUNCHES["ecc_pick"] += 1
     return pick
 

@@ -33,7 +33,6 @@ from typing import Optional
 import torch
 
 from ..core.mig import A100_40GB, DeviceModel
-from ..core.policy_core import first_max
 
 
 def _popcount(x: torch.Tensor, num_bits: int) -> torch.Tensor:
@@ -117,13 +116,19 @@ def _host_ok(gpu_host, host_used, cap_g, need) -> torch.Tensor:
     return (host_used[gpu_host] + need <= cap_g).all(dim=1)
 
 
+def _pick(scores: torch.Tensor) -> torch.Tensor:
+    """First maximizer of ``scores`` if any is >= 0, else -1 ((1,))."""
+    return torch.where((scores >= 0).any(), torch.argmax(scores).reshape(1),
+                       -1)
+
+
 def mcc_pick_ref(free, gpu_host, host_used, cap_g, need, profile_idx: int,
                  model: DeviceModel = A100_40GB) -> torch.Tensor:
     """MCC pick of one arrival: the first GPU maximizing ``mcc_score_ref``
     where the host has headroom, -1 if no such score is >= 0 -> (1,)."""
     ok = _host_ok(gpu_host, host_used, cap_g, need)
     scores = torch.where(ok, mcc_score_ref(free, profile_idx, model), -1)
-    return first_max(scores, (scores >= 0).any())
+    return _pick(scores)
 
 
 def ecc_pick_ref(free, gpu_host, host_used, cap_g, need, profile_idx: int,
@@ -134,7 +139,7 @@ def ecc_pick_ref(free, gpu_host, host_used, cap_g, need, profile_idx: int,
     ok = _host_ok(gpu_host, host_used, cap_g, need)
     scores = torch.where(ok, ecc_score_ref(free, profile_idx, probs, model),
                          -1.0)
-    return first_max(scores, (scores >= 0).any())
+    return _pick(scores)
 
 
 # ---------------------------------------------------------------------------
@@ -242,4 +247,5 @@ def split_bf16x3(p: torch.Tensor):
 
 
 __all__ = ["cc_ref", "frag_ref", "mcc_score_ref", "ecc_score_ref",
-           "flash_attention_ref", "split_bf16x3"]
+           "mcc_pick_ref", "ecc_pick_ref", "flash_attention_ref",
+           "split_bf16x3"]

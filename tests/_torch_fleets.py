@@ -9,7 +9,7 @@ import numpy as np
 CASES = ("random", "ties", "none_fit", "blocked", "high_bits")
 
 
-def fleet(model, G, seed, case="random", H=None):
+def fleet(model, G, seed, case="random", H=None, contiguous=False):
     """(free, gpu_host, host_used, cap_g, need) as numpy arrays.
 
     Hosts get float32 headroom at, just under and just over ``need``, so
@@ -17,7 +17,9 @@ def fleet(model, G, seed, case="random", H=None):
     ``ties``: a few masks repeated, so many GPUs share the best score;
     ``none_fit``: no free block anywhere; ``blocked``: every host full;
     ``high_bits``: random bits above ``num_blocks`` (bit 31 on every
-    fifth GPU)."""
+    fifth GPU).  GPUs go to random hosts, or with ``contiguous`` host by
+    host, G // H or one more each (every host holds one when G >= H), as
+    a cluster numbers them."""
     rng = np.random.default_rng(seed)
     H = H or max(1, G // 3)
     free = rng.integers(0, model.num_masks, G).astype(np.int32)
@@ -32,6 +34,8 @@ def fleet(model, G, seed, case="random", H=None):
             np.int32).copy()
         free[::5] |= np.int32(-2 ** 31)
     gpu_host = rng.integers(0, H, G).astype(np.int64)
+    if contiguous:
+        gpu_host = np.arange(G, dtype=np.int64) * H // G
     cap = np.stack([rng.choice([16.0, 32.0, 96.0], H),
                     rng.choice([64.0, 256.0, 1024.0], H)], 1).astype(
                         np.float32)

@@ -223,3 +223,21 @@ def test_chip_smoke_float64_attention_and_its_error_measure(causal, window):
         torch, (truth * (1 - 2.0 ** -9)).to(torch.bfloat16), truth)
     assert shrunk["flips"] > 0 and shrunk["flips_up_share"] == 0.0
     assert shrunk["mean_half_ulps"] < rounded["mean_half_ulps"]
+
+
+@pytest.mark.parametrize("n,hosts", [(1860, 1213), (1 << 20, (1 << 20) // 3)])
+def test_chip_smoke_times_picks_on_a_fleet_with_a_gpu_on_every_host(n,
+                                                                     hosts):
+    """The picks' bytes floor counts one used row per host, so the fleet
+    they are timed on leaves no host without a GPU: GPUs numbered host by
+    host, as many on each host as an even split gives."""
+    from repro_torch.core.mig import A100_40GB
+    smoke = _chip_smoke()
+    (free, gpu_host, used, cap_g, need), got = smoke.timed_fleet(A100_40GB,
+                                                                 n)
+    per_host = np.bincount(gpu_host, minlength=hosts)
+    assert got == hosts == len(used) == len(per_host)
+    assert per_host.min() == n // hosts and per_host.max() <= n // hosts + 1
+    assert (np.diff(gpu_host) >= 0).all()
+    same_host = gpu_host[1:] == gpu_host[:-1]
+    assert (cap_g[1:] == cap_g[:-1])[same_host].all()

@@ -80,6 +80,27 @@ def test_pick_kernels_equal_plain_versions_on_card(name):
     torch.cuda.synchronize()
 
 
+def test_multi_cta_picks_on_two_streams_do_not_share_state():
+    """A fleet larger than one CTA reduces through scratch of its own
+    launch: picks racing on two streams, many times over, each equal
+    their plain version."""
+    _need_card()
+    model = DEVICE_MODELS["A100-40GB"]
+    fleets = [[torch.from_numpy(a).cuda() for a in fleet(model, G, G)]
+              for G in (K.PICK_PER_CTA + 1, 100_003)]
+    want = [ref.mcc_pick_ref(*t, 0, model) for t in fleets]
+    streams = [torch.cuda.Stream() for _ in fleets]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(50):
+        for i, (t, s) in enumerate(zip(fleets, streams)):
+            with torch.cuda.stream(s):
+                got[i].append(K.mcc_pick(*t, 0, model))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert all(torch.equal(x, w) for x in g)
+
+
 @pytest.mark.parametrize("policy", [B.MCC, B.MECC])
 def test_replay_kernel_path_on_card(policy):
     _need_card()

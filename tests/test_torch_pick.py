@@ -224,3 +224,24 @@ def test_pick_wrappers_validate_inputs():
         K.mcc_pick(free, *fleet.values(), model.num_profiles, model)
     with pytest.raises(TypeError):
         K.ecc_pick(free, *fleet.values(), 0, w[:-1], model)
+
+
+def test_wrapper_limits_match_the_kernel_defines():
+    """The wrapper's limits are the kernel's #defines: it checks models
+    against MRT_MAX_*, and gives a pick scratch of its own exactly when
+    the kernel's grid has more than one CTA."""
+    import re
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "mask_scores.cu").read_text()
+    define = {k: int(v) for k, v in
+              re.findall(r"^#define (MRT_\w+) (\d+)", src, re.M)}
+    assert (K.MAX_SLOTS, K.MAX_PROFILES, K.MAX_PROFILE_SLOTS) == (
+        define["MRT_MAX_SLOTS"], define["MRT_MAX_PROFILES"],
+        define["MRT_MAX_BLOCKS"])
+    assert K.PICK_PER_CTA == (define["MRT_PICK_THREADS"]
+                              * define["MRT_PICK_ITEMS"])
+    free = torch.zeros(K.PICK_PER_CTA, dtype=torch.int32)
+    assert K._scratch(free) is None
+    assert torch.equal(K._scratch(torch.zeros(K.PICK_PER_CTA + 1,
+                                              dtype=torch.int32)),
+                       torch.zeros(2, dtype=torch.int64))
