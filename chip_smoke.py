@@ -11,11 +11,12 @@ Phases (each raises on failure; nothing is caught):
      requires a CUDA device, builds ``kernels/csrc/*.cu`` with nvcc (all
      sources in parallel).
   2. Kernels vs their plain PyTorch versions on the card: every mask x
-     every profile of the four device presets, tiled to N = 1,048,576 and
-     to the replay's ragged N = 1,860 (and the same with bits set above
-     the model's blocks), compared exactly; the fused picks on random
-     fleets of both sizes (ties, nothing fitting, every host full, high
-     mask bits; integer and probability weights), compared exactly; then
+     every profile of the four device presets, tiled to N = 1,048,576, to
+     the replay's N = 1,860 and to a ragged N = 1,863 (and the same with
+     bits set above the model's blocks, and an unaligned view), compared
+     exactly; the fused picks on random fleets of both sizes (ties,
+     nothing fitting, every host full, high mask bits; integer and
+     probability weights), compared exactly; then
      each kernel is timed at both sizes beside a launch floor (one
      one-element ``zero_()`` in the same CUDA-graph harness).
   3. The replay on the card equals the replay on the CPU (Alibaba-shaped
@@ -105,6 +106,7 @@ PEAK_ATTN_FLOPS_PER_S = {"bfloat16": PEAK_BF16_FLOPS_PER_S,
                          "float32": PEAK_OPS_PER_S}
 
 N_BIG, N_MAIN = 1 << 20, 1860
+N_RAG = 1863                      # not a multiple of 4: a scalar tail
 H_MAIN = 1213                     # the replay's hosts at full scale
 KERNELS = {
     "mcc": "src/repro/kernels/policy_score.py:77",
@@ -284,9 +286,13 @@ def check_kernels(torch, np):
 
     for model in DEVICE_MODELS.values():
         big = tiled_masks(torch, model, N_BIG)
+        rag = tiled_masks(torch, model, N_RAG, high_bits=True, seed=2)
+        # rag[1:] starts 4 bytes past a 16-byte boundary: the kernels'
+        # one-mask-at-a-time path; N_RAG (not a multiple of 4) its tail.
         cases = [big, big[:N_MAIN].clone(),
                  tiled_masks(torch, model, N_BIG, high_bits=True),
-                 tiled_masks(torch, model, N_MAIN, high_bits=True, seed=1)]
+                 tiled_masks(torch, model, N_MAIN, high_bits=True, seed=1),
+                 tiled_masks(torch, model, N_RAG), rag, rag[1:]]
         NP = model.num_profiles
         w_int = torch.as_tensor(rng.integers(0, 60, NP).astype(np.float32))
         w_prob = torch.as_tensor(rng.dirichlet(np.ones(NP)).astype(
@@ -315,6 +321,8 @@ def check_kernels(torch, np):
                 raise AssertionError(f"ecc card != CPU on {model.name}")
         if not torch.equal(K.frag(gpu, model).cpu(), ref.frag_ref(cpu, model)):
             raise AssertionError(f"frag card != CPU on {model.name}")
+        if not torch.equal(K.cc(gpu, model).cpu(), ref.cc_ref(cpu, model)):
+            raise AssertionError(f"cc card != CPU on {model.name}")
         # The picks, on random fleets of both sizes.
         n_minus = 0
         for G in (N_MAIN, N_BIG):

@@ -11,19 +11,27 @@
 // there, and so does every other device op the replay issues per arrival
 // around the score.
 //
-// MCC and MECC: shared-memory tables.  A mask has at most 8 blocks, so
-// there are at most 256 distinct free masks.  Each CTA first builds, from
-// the model's slot templates, cnt[t][p] (slots of profile p that fit mask
-// t, packed 4 bits per profile) and cc[t] = sum_p cnt[t][p], then the
-// requested profile's score of every mask t (Alg. 6 / Alg. 7, the
-// arithmetic of kernels/ref.py), in shared memory, with threads
-// t < 2^num_blocks each filling one entry.  Per mask m the score is then
-// one lookup, score[m & full]: exact, because every slot mask lies inside
-// full, so bits above num_blocks change no fit.  The per-mask loops over slots (and, for MECC,
-// over profiles x slots) are gone.  The score kernels stream 16-byte loads
-// and stores over at most two CTAs per SM (fewer CTAs, fewer builds), and
-// each thread loads its first four int4s before the build, which hides
-// their latency.
+// One streaming kernel, four tables.  Each score is a function of the
+// mask's low num_blocks bits alone, and a mask has at most 8 blocks, so
+// each has at most 256 distinct values per model.  Each CTA first builds,
+// in shared memory, the score of every mask t < 2^num_blocks from the
+// model's slot templates, threads t each filling one entry: CC (the slots
+// that fit t, tested without a predicate per slot), fragmentation (Alg.
+// 4's greedy chain over a shared-memory copy of each profile's slots, the
+// quotients c / size computed once per CTA), or for MCC/MECC cc[t] and
+// cnt[t] (the slots of each profile that fit t, packed 4 bits per
+// profile) and then the requested profile's Alg. 6 / Alg. 7 score (the
+// arithmetic of kernels/ref.py).  Per mask m the score is then one
+// lookup, table[m & full]: exact, because every slot mask lies inside
+// full and Alg. 4's popcount reads only the low num_blocks bits, so bits
+// above them (bit 31 too) change no value.  No per-mask walk over the
+// templates is left.  The score kernel streams 16-byte loads and stores
+// over at most two CTAs per SM (fewer CTAs, fewer builds), and each
+// thread loads its first four int4s before the build, which hides their
+// latency; a ragged head or tail, or a misaligned view, goes one mask at
+// a time through the same table.  At the replay's N = 1,860 one CTA
+// covers the masks, and the build's latency, not the bytes, sets the
+// time (PERF.md).
 //
 // The picks: one launch per replay arrival.  mrt_mcc_pick / mrt_ecc_pick
 // compute the replay's whole kernel-path pick in one launch: the host
@@ -40,9 +48,6 @@
 // that the caller allocates for this launch alone, and the last CTA
 // (ticket counter after a __threadfence) writes the pick; no state
 // outlives a launch.
-//
-// cc and frag are off the replay's path and keep one thread per mask,
-// walking the templates.
 //
 // Exactness.  The results must equal the plain PyTorch versions
 // (kernels/ref.py) bit for bit: the sums use __fmul_rn/__fadd_rn (never
@@ -73,65 +78,99 @@ __device__ __forceinline__ int fits_slot(int m, int sm) {
   return (m & sm) == sm;
 }
 
-__device__ __forceinline__ int cc_of(int m, const MrtModel& md) {
-  int cc = 0;
-  for (int s = 0; s < md.num_slots; ++s) cc += fits_slot(m, md.slot_mask[s]);
-  return cc;
-}
-
-// Eq. 1 CC: the slot templates fully free in the mask.  Replaces
-// cc_pallas (repro/kernels/cc_score.py).
-__global__ void cc_kernel(const int* __restrict__ masks, int* __restrict__ out,
-                          int64_t n, MrtModel md) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  out[i] = cc_of(masks[i], md);
-}
-
-// Alg. 4 fragmentation: per profile in order, greedily take every
-// fitting slot, then add popcount(free) / size if the profile applied.
-// Replaces frag_pallas (repro/kernels/frag_score.py).
-__global__ void frag_kernel(const int* __restrict__ masks,
-                            float* __restrict__ out, int64_t n, MrtModel md) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int full = (1 << md.num_blocks) - 1;
-  int free_m = masks[i];
-  float frag = 0.0f;
-  for (int p = 0; p < md.num_profiles; ++p) {
-    const int size = md.prof_size[p];
-    const bool applies = __popc(free_m & full) >= size;
-    for (int s = md.prof_start[p]; s < md.prof_start[p + 1]; ++s) {
-      const int sm = md.slot_mask[s];
-      if (fits_slot(free_m, sm)) free_m &= ~sm;
-    }
-    const float q = __fdiv_rn((float)__popc(free_m & full), (float)size);
-    frag = __fadd_rn(frag, applies ? q : 0.0f);
-  }
-  out[i] = frag;
-}
-
 // ---------------------------------------------------------------------------
-// MCC / MECC: per-CTA tables
+// The tables
 // ---------------------------------------------------------------------------
 
 #define MRT_MAX_BLOCKS 8       // so at most 8 slots (starts) per profile
 
+// What a table holds: the score of one scorer, each a 4-byte word (int
+// for CC and MCC, float32 bits for FRAG and ECC).
+enum MrtKind { MRT_CC, MRT_FRAG, MRT_MCC, MRT_ECC };
+
 struct MrtTables {
   int cc[MRT_MAX_MASKS];
   unsigned cnt[MRT_MAX_MASKS];    // 4 bits per profile: cnt[t] >> 4p & 15
-  int score[MRT_MAX_MASKS];       // int (MCC) or float bits (MECC)
+  int score[MRT_MAX_MASKS];       // the lookup table
 };
 
-// Fills tb.score[t] for every mask t < 2^num_blocks with the requested
-// profile's Alg. 6 (ECC = false) or Alg. 7 (ECC = true) score, from the
-// slot templates, in two passes over the masks: cc[t] and cnt[t] (the
-// slots of each profile that fit t, at most 8 < 16, one 4-bit field per
-// profile), then the scores.  The templates are read from the kernel's
-// parameters, in loops over the compile-time maxima with the model's
-// counts as guards, so they are constant-bank operands and no pass waits
-// on a load of them; the profile's slots and the weights are loaded into
-// registers while the first pass runs.  Ends with __syncthreads().
+// The slots of the model that fit mask t.  Each slot's test is
+// (~t & sm) - 1 < 0 (sm is below 2^8), one bit with no predicate, so the
+// tests are independent and only their sum is a chain; the loop stops at
+// the model's slot count.
+__device__ __forceinline__ int fit_count(int t, const MrtModel& md) {
+  int cc = 0;
+#pragma unroll
+  for (int s = 0; s < MRT_MAX_SLOTS; ++s) {
+    if (s >= md.num_slots) break;
+    cc += (int)((unsigned)((~t & md.slot_mask[s]) - 1) >> 31);
+  }
+  return cc;
+}
+
+// CC's table: tb.score[t] = fit_count(t).  Ends with __syncthreads().
+__device__ void build_cc_table(MrtTables& tb, const MrtModel& md) {
+  const int nm = 1 << md.num_blocks;
+  for (int t = threadIdx.x; t < nm; t += blockDim.x)
+    tb.score[t] = fit_count(t, md);
+  __syncthreads();
+}
+
+// Alg. 4's table: tb.score[t] = the fragmentation of t as float32 bits.
+// Per profile in order: the popcount gate, a greedy take of each of its
+// slots, then popcount(free) / size if the gate passed (the JAX function
+// reads only the low num_blocks bits, as t has).  The CTA first puts each
+// profile's slot masks at slot[p][k] and every quotient c / size_p
+// (__fdiv_rn, c <= 8) at quot[p][c] in shared memory, so thread t's chain
+// reads both at compile-time offsets and waits on no template load and no
+// division.  Needs blockDim.x >= 8 * 8 + 8 * 9.  Ends with __syncthreads().
+__device__ void build_frag_table(MrtTables& tb, const MrtModel& md) {
+  __shared__ int slot[MRT_MAX_PROFILES][MRT_MAX_BLOCKS];
+  __shared__ float quot[MRT_MAX_PROFILES][MRT_MAX_BLOCKS + 1];
+  const int i = threadIdx.x;
+  if (i < MRT_MAX_PROFILES * MRT_MAX_BLOCKS) {
+    const int p = i / MRT_MAX_BLOCKS, k = i % MRT_MAX_BLOCKS;
+    const int s0 = md.prof_start[p];
+    const int ns = p < md.num_profiles ? md.prof_start[p + 1] - s0 : 0;
+    slot[p][k] = k < ns ? md.slot_mask[s0 + k] : 0;
+  } else if (i < MRT_MAX_PROFILES * (2 * MRT_MAX_BLOCKS + 1)) {
+    const int j = i - MRT_MAX_PROFILES * MRT_MAX_BLOCKS;
+    const int p = j / (MRT_MAX_BLOCKS + 1), c = j % (MRT_MAX_BLOCKS + 1);
+    quot[p][c] = p < md.num_profiles
+                     ? __fdiv_rn((float)c, (float)md.prof_size[p]) : 0.0f;
+  }
+  __syncthreads();
+  const int nm = 1 << md.num_blocks;
+  for (int t = threadIdx.x; t < nm; t += blockDim.x) {
+    int free_m = t;
+    float frag = 0.0f;
+#pragma unroll
+    for (int p = 0; p < MRT_MAX_PROFILES; ++p) {
+      if (p >= md.num_profiles) break;
+      const int ns = md.prof_start[p + 1] - md.prof_start[p];
+      const bool applies = __popc(free_m) >= md.prof_size[p];
+#pragma unroll
+      for (int k = 0; k < MRT_MAX_BLOCKS; ++k) {
+        if (k >= ns) break;
+        const int sm = slot[p][k];
+        if (fits_slot(free_m, sm)) free_m &= ~sm;
+      }
+      frag = __fadd_rn(frag, applies ? quot[p][__popc(free_m)] : 0.0f);
+    }
+    tb.score[t] = __float_as_int(frag);
+  }
+  __syncthreads();
+}
+
+// MCC's / MECC's table: tb.score[t] = the requested profile's Alg. 6 (ECC
+// = false) or Alg. 7 (ECC = true) score of every mask t, from the slot
+// templates, in two passes over the masks: cc[t] and cnt[t] (the slots of
+// each profile that fit t, at most 8 < 16, one 4-bit field per profile),
+// then the scores.  The templates are read from the kernel's parameters,
+// in loops over the compile-time maxima with the model's counts as
+// guards, so they are constant-bank operands and no pass waits on a load
+// of them; the profile's slots and the weights are loaded into registers
+// while the first pass runs.  Ends with __syncthreads().
 template <bool ECC>
 __device__ void build_tables(MrtTables& tb, const MrtModel& md, int profile,
                              const float* __restrict__ weights) {
@@ -190,26 +229,40 @@ __device__ void build_tables(MrtTables& tb, const MrtModel& md, int profile,
   __syncthreads();
 }
 
+// KIND's table in tb.score.
+template <int KIND>
+__device__ __forceinline__ void build_table(MrtTables& tb, const MrtModel& md,
+                                            int profile,
+                                            const float* __restrict__ weights) {
+  if constexpr (KIND == MRT_CC) build_cc_table(tb, md);
+  else if constexpr (KIND == MRT_FRAG) build_frag_table(tb, md);
+  else build_tables<KIND == MRT_ECC>(tb, md, profile, weights);
+}
+
 #define MRT_THREADS 256
 #define MRT_SCORE_ITEMS 4       // int4s per thread loaded before the build
 #define MRT_CTAS_PER_SM 2
 #define MRT_PICK_THREADS 512
 #define MRT_PICK_ITEMS 4
+static_assert(MRT_THREADS >= MRT_MAX_PROFILES * (2 * MRT_MAX_BLOCKS + 1),
+              "build_frag_table fills its shared tables in one pass");
 
 __device__ __forceinline__ int4 lookup4(const MrtTables& tb, int4 m, int full) {
   return make_int4(tb.score[m.x & full], tb.score[m.y & full],
                    tb.score[m.z & full], tb.score[m.w & full]);
 }
 
-// Alg. 6 (ECC = false, int32 out) or Alg. 7 (ECC = true, float32 out) per
-// mask, -1 where the profile does not fit.  Replaces mcc_score_pallas /
-// ecc_score_pallas (repro/kernels/policy_score.py).  vec: masks and out
-// are 16-byte aligned, so the first n / 4 * 4 masks go as int4.  A
+// KIND's score per mask: Eq. 1 CC (int32), Alg. 4 fragmentation
+// (float32), or Alg. 6 (MCC, int32) / Alg. 7 (ECC, float32) of the
+// profile, -1 where it does not fit.  Replaces cc_pallas
+// (repro/kernels/cc_score.py), frag_pallas (frag_score.py) and
+// mcc_score_pallas / ecc_score_pallas (policy_score.py).  vec: masks and
+// out are 16-byte aligned, so the first n / 4 * 4 masks go as int4.  A
 // grid-stride loop over a grid of at most MRT_CTAS_PER_SM CTAs per SM
 // (fewer CTAs, fewer table builds); each thread's first MRT_SCORE_ITEMS
-// int4s are loaded before the tables are built, so the loads' latency
+// int4s are loaded before the table is built, so the loads' latency
 // hides behind the build.
-template <bool ECC>
+template <int KIND>
 __global__ void __launch_bounds__(MRT_THREADS)
 score_kernel(const int* __restrict__ masks, const float* __restrict__ weights,
              int* __restrict__ out, int64_t n, int profile, int vec,
@@ -226,7 +279,7 @@ score_kernel(const int* __restrict__ masks, const float* __restrict__ weights,
     const int64_t v = tid + k * stride;
     first[k] = v < n4 ? __ldcs(m4 + v) : make_int4(0, 0, 0, 0);
   }
-  build_tables<ECC>(tb, md, profile, weights);
+  build_table<KIND>(tb, md, profile, weights);
   const int full = (1 << md.num_blocks) - 1;
 #pragma unroll
   for (int k = 0; k < MRT_SCORE_ITEMS; ++k) {
@@ -369,24 +422,27 @@ extern "C" {
 
 int mrt_cc(const int* masks, int* out, int64_t n, MrtModel md, void* stream) {
   if (n > 0)
-    cc_kernel<<<mrt_blocks(n, MRT_THREADS), MRT_THREADS, 0,
-                (cudaStream_t)stream>>>(masks, out, n, md);
+    score_kernel<MRT_CC><<<mrt_grid(n), MRT_THREADS, 0,
+                           (cudaStream_t)stream>>>(
+        masks, nullptr, out, n, 0, mrt_aligned16(masks, out), md);
   return (int)cudaGetLastError();
 }
 
 int mrt_frag(const int* masks, float* out, int64_t n, MrtModel md,
              void* stream) {
   if (n > 0)
-    frag_kernel<<<mrt_blocks(n, MRT_THREADS), MRT_THREADS, 0,
-                  (cudaStream_t)stream>>>(masks, out, n, md);
+    score_kernel<MRT_FRAG><<<mrt_grid(n), MRT_THREADS, 0,
+                             (cudaStream_t)stream>>>(
+        masks, nullptr, reinterpret_cast<int*>(out), n, 0,
+        mrt_aligned16(masks, out), md);
   return (int)cudaGetLastError();
 }
 
 int mrt_mcc(const int* masks, int* out, int64_t n, int profile, MrtModel md,
             void* stream) {
   if (n > 0)
-    score_kernel<false><<<mrt_grid(n), MRT_THREADS, 0,
-                          (cudaStream_t)stream>>>(
+    score_kernel<MRT_MCC><<<mrt_grid(n), MRT_THREADS, 0,
+                            (cudaStream_t)stream>>>(
         masks, nullptr, out, n, profile, mrt_aligned16(masks, out), md);
   return (int)cudaGetLastError();
 }
@@ -394,8 +450,8 @@ int mrt_mcc(const int* masks, int* out, int64_t n, int profile, MrtModel md,
 int mrt_ecc(const int* masks, const float* weights, float* out, int64_t n,
             int profile, MrtModel md, void* stream) {
   if (n > 0)
-    score_kernel<true><<<mrt_grid(n), MRT_THREADS, 0,
-                         (cudaStream_t)stream>>>(
+    score_kernel<MRT_ECC><<<mrt_grid(n), MRT_THREADS, 0,
+                            (cudaStream_t)stream>>>(
         masks, weights, reinterpret_cast<int*>(out), n, profile,
         mrt_aligned16(masks, out), md);
   return (int)cudaGetLastError();

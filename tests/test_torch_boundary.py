@@ -2,8 +2,8 @@
 
   * importing ``repro_torch`` and every module of it loads neither
     ``jax`` nor any ``repro`` module (checked in a fresh interpreter), and
-    no file of the port, ``chip_smoke.py`` or ``replay_rate.py`` names them
-    in an import;
+    no file of the port, ``chip_smoke.py``, ``replay_rate.py`` or
+    ``mask_probe.py`` names them in an import;
   * the modules copied from the JAX package behave like their originals;
   * the device rule: ``device=None`` means CUDA and raises without a card;
   * ``chip_smoke.py``'s digests are those of the JAX replay at full scale.
@@ -71,7 +71,8 @@ def _imported_roots(path: Path):
 
 def test_no_file_imports_jax_or_repro():
     files = sorted(PORT_DIR.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                              ROOT / "replay_rate.py"]
+                                              ROOT / "replay_rate.py",
+                                              ROOT / "mask_probe.py"]
     assert len(files) > 10
     for path in files:
         roots = set(_imported_roots(path))

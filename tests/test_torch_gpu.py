@@ -6,10 +6,10 @@ Run on the machine with the card:
 
 Each mask scorer must equal its plain version exactly, on every mask x
 profile of the four device presets at a ragged length (masks with bits
-above the model's blocks too); each fused pick must equal its plain
-version on random fleets (tests/_torch_fleets.py) at ragged sizes; the
-replay's kernel path must launch one pick per MCC/MECC arrival, no score
-kernel, and decide as the CPU.
+above the model's blocks too, and an unaligned view); each fused pick
+must equal its plain version on random fleets (tests/_torch_fleets.py)
+at ragged sizes; the replay's kernel path must launch one pick per
+MCC/MECC arrival, no score kernel, and decide as the CPU.
 The attention kernels must equal ``flash_attention_ref`` at ragged and GQA
 shapes and at the serving prefill's shape (2e-5 float32, 3e-2 bf16, the
 tolerances of tests/test_flash_attention.py; bf16 also within half an ulp
@@ -51,9 +51,9 @@ def test_kernels_equal_plain_versions_on_card(name):
     rng = np.random.default_rng(0)
     w = torch.as_tensor(rng.dirichlet(np.ones(model.num_profiles)).astype(
         np.float32)).cuda()
-    assert torch.equal(K.cc(masks, model), ref.cc_ref(masks, model))
-    assert torch.equal(K.frag(masks, model), ref.frag_ref(masks, model))
     for m in (masks, high, masks[1:]):           # masks[1:]: unaligned
+        assert torch.equal(K.cc(m, model), ref.cc_ref(m, model))
+        assert torch.equal(K.frag(m, model), ref.frag_ref(m, model))
         for p in range(model.num_profiles):
             assert torch.equal(K.mcc(m, p, model),
                                ref.mcc_score_ref(m, p, model))
