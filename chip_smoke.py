@@ -34,13 +34,18 @@ Phases (each raises on failure; nothing is caught):
      on the card: TinyLlama's heads (H 32 / KV 4, hd 64), hd 128 with GQA
      4:1, MHA, MQA, hd 32, causal and non-causal with Sq != Sk, a 96-key
      window, a ragged S = 1000 and the requests' prefill (B 8, S 128), in
-     bf16 (the tensor-core kernel ``fa_fwd_wgmma``; 3e-2, and within half
-     a bf16 ulp of the plain version in float32) and float32 (the float32
-     kernel ``fa_fwd_kernel``; 2e-5), each dtype reaching only its own
-     kernel; then the same check at the slice's prefill shape (B 4, S
-     4096, H 32, KV 4, hd 64, causal) in both dtypes, where each kernel,
-     the plain version and PyTorch's ``scaled_dot_product_attention``
-     (timed only) are timed.
+     bf16 (``fa_fwd_wgmma<hd, false>``; 3e-2, and within half a bf16 ulp
+     of the plain version in float32) and float32 (``split_bf16x3`` of q,
+     k and v, then ``fa_fwd_wgmma<hd, true>``; 2e-5), each dtype reaching
+     only its own kernels; in float32 also a long accumulation (non-causal,
+     Sq 1024 over Sk 16,384).  The split kernel is held bit for bit
+     against ``ref.split_bf16x3`` (normal, tiny and zero inputs, a ragged
+     length and an unaligned view).  Then the same check at the slice's
+     prefill shape (B 4, S 4096, H 32, KV 4, hd 64, causal) in both dtypes,
+     where each kernel, the plain version and PyTorch's
+     ``scaled_dot_product_attention`` (timed only) are timed, and in
+     float32 the kernel and the plain version are held against the float64
+     function (``attention_f64``, the kernel within 2e-5).
   5. The serving path at full width: TinyLlama-1.1B (22 layers, bf16,
      random weights from a seeded generator) through
      ``registry.make_step``.  Prefill of 4 x 4096 tokens (tokens/s, the
@@ -50,10 +55,13 @@ Phases (each raises on failure; nothing is caught):
      128-token prompts: first token from ``prefill``, cache filled by
      ``decode_step`` over the prompt, 32 greedy tokens (decode tokens/s;
      prefill's logits vs the teacher-forced decode's within 0.15).  A
-     2-layer float32 model's prefill on the card equals the CPU's.
+     2-layer float32 model's prefill on the card equals the CPU's.  The
+     float32 path: TinyLlama-1.1B in float32, prefill of 1 x 4096 tokens
+     (22 float32 kernel launches and 66 splits per call, no bf16 one; wall
+     time, the kernels' share of device time, logits vs the same prefill
+     with the plain attention).
   5b. The bf16 kernel's accuracy against the float64 function, beside
-     the float32 plain version and the float32 kernel's output rounded to
-     bf16 (a control with IEEE float32 sums): error size, mean signed
+     the float32 plain version rounded to bf16: error size, mean signed
      error toward larger magnitude and the direction of roundings that
      differ from the float64 value's, at the prefill shape and layer by
      layer in a full-width prefill; then prefill logits on five seeds with
@@ -93,17 +101,17 @@ DIGESTS = {
 GRMU_FULL = dict(defrag=True, consolidation_interval=24.0)
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bandwidth (the mask
-# kernels' bound: they move bytes and do no arithmetic worth a peak), the
-# non-tensor-core float32 rate and the dense bf16 tensor-core rate (the
-# bounds of attention over float32 and bf16 inputs).
+# kernels' and the split's bound: they move bytes and do no arithmetic
+# worth a peak) and the dense bf16 tensor-core rate (attention's).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
 PEAK_BF16_FLOPS_PER_S = 989e12
-# Attention's bound uses the peak of its inputs' type: the bf16 tensor
-# cores for bf16, the float32 CUDA cores for float32 (no tensor-core route
-# computes float32 products exactly).
+# Attention's bound is the bf16 tensor cores' rate over the products each
+# float32 product costs there: one for bf16 inputs; for float32 inputs the
+# six bf16 plane products (of nine, the three smallest dropped) that
+# fa_fwd_wgmma<hd, true> issues per float32 product.
+F32_PLANE_PASSES = 6
 PEAK_ATTN_FLOPS_PER_S = {"bfloat16": PEAK_BF16_FLOPS_PER_S,
-                         "float32": PEAK_OPS_PER_S}
+                         "float32": PEAK_BF16_FLOPS_PER_S / F32_PLANE_PASSES}
 
 N_BIG, N_MAIN = 1 << 20, 1860
 N_RAG = 1863                      # not a multiple of 4: a scalar tail
@@ -120,10 +128,10 @@ KERNELS = {
 }
 SOURCE = "src/repro_torch/kernels/csrc/mask_scores.cu"
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
-FA_F32_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention.py:82"
 ARCH = "tinyllama_1_1b"
 PREFILL_B, PREFILL_S = 4, 4096          # SHAPES["prefill_32k"] cut for time
+F32_PREFILL_B = 1                       # the float32 prefill: 1 x 4096
 N_REQ, PROMPT, GEN, MAX_SEQ = 8, 128, 32, 4096
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # tests/test_flash_attention.py
 # The bf16 kernel rounds its float32 result once, and the plain version
@@ -564,6 +572,11 @@ ATTN_CASES = {
     "ragged1000": (2, 1000, 1000, 32, 4, 64, True, None),
     "request_prefill": (N_REQ, PROMPT, PROMPT, 32, 4, 64, True, None),
 }
+# float32 only: one row's softmax over 256 key tiles, where a tensor-core
+# sum carried across tiles would drift (the kernel merges per tile).
+F32_ATTN_CASES = {
+    "long_noncausal": (1, 1024, 16384, 8, 2, 64, False, None),
+}
 
 
 def attention_pairs(Sq, Sk, causal, window) -> int:
@@ -618,34 +631,86 @@ def hold_attention(torch, name, got, q, k, v, causal, window, err):
                 f"from the plain version in float32 (limit 1)")
 
 
+def route_launches(FA, dtype):
+    """The launches one wrapper call of ``dtype`` makes: its attention
+    kernel once, and for float32 the split of q, k and v."""
+    import torch
+    key = FA.ROUTES[dtype][1]
+    want = {n: int(n == key) for n in FA.LAUNCHES}
+    if dtype == torch.float32:
+        want[FA.SPLIT] = 3
+    return want
+
+
 def attention_on_its_route(torch, q, k, v, causal=True, window=None):
-    """One wrapper call, checked to launch its dtype's kernel once and the
-    other kernel not at all."""
+    """One wrapper call, checked to launch its dtype's kernels once
+    (``route_launches``) and the other dtype's not at all."""
     from repro_torch.kernels import flash_attention as FA
     before = dict(FA.LAUNCHES)
     got = FA.flash_attention(q, k, v, causal=causal, window=window)
-    key = FA.ROUTES[q.dtype][2]
     moved = {n: FA.LAUNCHES[n] - before[n] for n in FA.LAUNCHES}
-    if moved != {n: int(n == key) for n in FA.LAUNCHES}:
+    if moved != route_launches(FA, q.dtype):
         raise AssertionError(f"{q.dtype} attention launched {moved}, "
-                             f"expected one {key} launch only")
+                             f"expected {route_launches(FA, q.dtype)}")
     return got
+
+
+def split_inputs(torch, n, seed):
+    """float32 inputs of the split, length ``n``: normal values; tiny ones
+    (1e-36 scale, mid and lo subnormal); zeros of both signs; values over
+    float32's finite range (e^-87 to e^87)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n, generator=g, device="cuda")
+    zero = torch.zeros(n, device="cuda")
+    zero[::3] = -0.0
+    wide = torch.exp(torch.rand(n, generator=g, device="cuda") * 174 - 87)
+    return {"normal": x, "tiny": x * 1e-36, "zero": zero,
+            "wide": wide * x.sign()}
+
+
+def check_split(torch):
+    """Phase 2b: the split kernel equals ref.split_bf16x3 bit for bit on
+    ``split_inputs`` at the prefill's k/v length, a ragged length and two
+    elements, and on the view that drops the first element (unaligned: its
+    one-element path; one element from two).  Returns the largest absolute
+    difference seen (0 unless it raised)."""
+    from repro_torch.kernels import flash_attention as FA, ref
+    n_checked, diff = 0, 0.0
+    for n in (PREFILL_B * PREFILL_S * 4 * 64, 1001, 2):
+        for kind, x in split_inputs(torch, n, seed=n).items():
+            for where, t in ((kind, x), (f"{kind} unaligned", x[1:])):
+                got = FA.split_bf16x3(t)
+                want = torch.stack(ref.split_bf16x3(t))
+                diff = max(diff, (got.double() - want.double()).abs()
+                           .nan_to_num(nan=math.inf).max().item())
+                if not torch.equal(got.view(torch.int16),
+                                   want.view(torch.int16)):
+                    raise AssertionError(f"split_bf16x3 kernel != plain "
+                                         f"version on {where} n {n}")
+                n_checked += 1
+    torch.cuda.synchronize()
+    print(f"phase 2b: split kernel == plain version bit for bit in "
+          f"{n_checked} comparisons", flush=True)
+    return diff
 
 
 def check_attention(torch):
     """Phase 2b: each kernel equals flash_attention_ref on the card at
     every case, bf16 through the tensor-core kernel and float32 through the
-    float32 kernel (``hold_attention``)."""
-    err = {}
-    for name, (B, Sq, Sk, H, KV, hd, causal, window) in ATTN_CASES.items():
-        for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = _qkv(torch, B, Sq, Sk, H, KV, hd, dtype)
-            got = attention_on_its_route(torch, q, k, v, causal, window)
-            hold_attention(torch, name, got, q, k, v, causal, window, err)
+    split and its kernel (``hold_attention``); the split kernel equals its
+    plain version bit for bit (``check_split``)."""
+    err = {"split": check_split(torch)}
+    cases = [(name, c, dtype) for name, c in ATTN_CASES.items()
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases += [(name, c, torch.float32) for name, c in F32_ATTN_CASES.items()]
+    for name, (B, Sq, Sk, H, KV, hd, causal, window), dtype in cases:
+        q, k, v = _qkv(torch, B, Sq, Sk, H, KV, hd, dtype)
+        got = attention_on_its_route(torch, q, k, v, causal, window)
+        hold_attention(torch, name, got, q, k, v, causal, window, err)
     torch.cuda.synchronize()
     print(f"phase 2b: attention kernels == plain version at "
-          f"{len(ATTN_CASES)} shapes x 2 dtypes; max abs diff {err}",
-          flush=True)
+          f"{len(ATTN_CASES)} shapes x 2 dtypes and {len(F32_ATTN_CASES)} "
+          f"float32 one(s); max abs diff {err}", flush=True)
     return err
 
 
@@ -665,12 +730,22 @@ def event_ms(torch, fn, iters):
     return t0.elapsed_time(t1) / iters
 
 
+def split_bound_ms(n):
+    """The split's bytes floor: each float32 element read once (4 bytes)
+    and its three bf16 planes written once (6)."""
+    return 10 * n / PEAK_BYTES_PER_S * 1e3, "bytes"
+
+
 def time_attention(torch, err):
     """Phase 2b at the slice's prefill shape, in bf16 (the tensor-core
-    kernel) and in float32 (the float32 kernel): each kernel held against
-    its plain version (``hold_attention``, folded into ``err``), then timed
-    beside the plain version and scaled_dot_product_attention (the
-    yardstick; the port never calls it).  Returns {dtype name: timings}."""
+    kernel) and in float32 (the split and the float32 kernel): each kernel
+    held against its plain version (``hold_attention``, folded into
+    ``err``), then timed beside the plain version and
+    scaled_dot_product_attention (the yardstick; the port never calls it).
+    In float32 the kernel and the plain version are also held against the
+    float64 function, the kernel within ATTN_TOL, and the split of q is
+    timed beside its plain version.  Returns {dtype name or "split":
+    timings}."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA, ref
     cfg = _tinyllama()
@@ -680,11 +755,37 @@ def time_attention(torch, err):
     for dtype in (torch.bfloat16, torch.float32):
         tname = str(dtype).split(".")[-1]
         q, k, v = _qkv(torch, B, S, S, H, KV, hd, dtype, seed=1)
-        hold_attention(torch, "prefill", attention_on_its_route(
-            torch, q, k, v), q, k, v, True, None, err)
+        got = attention_on_its_route(torch, q, k, v)
+        hold_attention(torch, "prefill", got, q, k, v, True, None, err)
         torch.cuda.synchronize()
         print(f"phase 2b: attention kernel == plain version at B {B} S {S} "
               f"{tname}; max abs diff {err}", flush=True)
+        vs_f64 = None
+        if dtype == torch.float32:
+            truth = attention_f64(q, k, v)
+            vs_f64 = {name: (x.double() - truth).abs().max().item()
+                      for name, x in (("kernel", got), (
+                          "plain", ref.flash_attention_ref(q, k, v)))}
+            del truth
+            print(f"phase 2b: float32 at B {B} S {S}, max abs error "
+                  f"against float64: kernel {vs_f64['kernel']:.3g}, plain "
+                  f"version {vs_f64['plain']:.3g}", flush=True)
+            if not vs_f64["kernel"] <= ATTN_TOL[tname]:
+                raise AssertionError(f"float32 attention kernel is "
+                                     f"{vs_f64['kernel']} from float64 "
+                                     f"(limit {ATTN_TOL[tname]})")
+            s_ms, s_by = split_bound_ms(q.numel())
+            out["split"] = dict(
+                ms=event_ms(torch, lambda: FA.split_bf16x3(q), 20),
+                plain_ms=event_ms(torch, lambda: torch.stack(
+                    ref.split_bf16x3(q)), 5),
+                bound_ms=s_ms, bound_by=s_by, library_ms=None,
+                shape=dict(n=q.numel(), what="q at the prefill shape"))
+            print(f"phase 2b: split of q ({q.numel()} float32): "
+                  f"{out['split']['ms']:.4f} ms, plain "
+                  f"{out['split']['plain_ms']:.4f} ms, bound {s_ms:.4f} ms "
+                  f"({s_by})", flush=True)
+        del got
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         b_ms, b_by = attention_bound_ms(B, S, S, H, KV, hd, True, None,
                                         tname)
@@ -694,7 +795,7 @@ def time_attention(torch, err):
                 q, k, v), 3),
             library_ms=event_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True), 10),
-            bound_ms=b_ms, bound_by=b_by,
+            bound_ms=b_ms, bound_by=b_by, max_abs_err_vs_f64=vs_f64,
             shape=dict(B=B, S=S, H=H, KV=KV, hd=hd, dtype=tname,
                        causal=True))
         print(f"phase 2b: attention at B {B} S {S} H {H} KV {KV} hd {hd} "
@@ -743,7 +844,7 @@ class attention_as:
 
 
 def prefill_attention_share(torch, step, model, batch, n_top=10):
-    """The bf16 attention kernel's (``fa_fwd_wgmma``) share of one
+    """The attention kernel's (``fa_fwd_wgmma``, either dtype) share of one
     prefill's device time, from torch.profiler (None when the trace holds
     no device events), the total device µs, and the ``n_top`` device
     operations that took the most time: [name, count, µs]."""
@@ -818,6 +919,76 @@ def check_card_vs_cpu_prefill(torch):
           f"{rel:.3g}, max {elem:.3g})", flush=True)
 
 
+def run_f32_prefill(torch):
+    """Phase 5, the float32 attention route's path: TinyLlama-1.1B at full
+    width in float32 (random weights from a seeded generator), prefill of
+    F32_PREFILL_B x PREFILL_S tokens through registry.make_step.  Launch
+    counts are read over the timed calls alone: per call one float32
+    kernel launch and three splits per layer, no bf16 launch.  Reports
+    wall time, the kernel's share of device time and the logits against
+    the same prefill with the plain attention.  Returns (launches,
+    result)."""
+    from repro_torch.kernels import flash_attention as FA, ref
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as M
+    from repro_torch.models.config import ShapeConfig
+    cfg = _tinyllama()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = M.init_params(cfg, gen, torch.float32)
+    prefill = registry.make_step(cfg, ShapeConfig(
+        "prefill_4k_f32", PREFILL_S, F32_PREFILL_B, "prefill"))
+    batch = {"tokens": torch.randint(0, cfg.vocab, (F32_PREFILL_B, PREFILL_S),
+                                     generator=gen, device="cuda")}
+    prefill(model, batch)                                # warm-up
+    torch.cuda.synchronize()
+
+    FA.reset_launches()
+    n_calls = 2
+    t0 = time.perf_counter()
+    for _ in range(n_calls):
+        logits = prefill(model, batch)
+    torch.cuda.synchronize()
+    wall_s = (time.perf_counter() - t0) / n_calls
+    launches = dict(FA.LAUNCHES)
+    want = {"flash_attention": 0,
+            "flash_attention_f32": n_calls * cfg.n_layers,
+            "split_bf16x3": 3 * n_calls * cfg.n_layers}
+    if launches != want:
+        raise AssertionError(f"float32 prefill launched {launches}, "
+                             f"expected {want}")
+    shape = (F32_PREFILL_B, 1, cfg.vocab)
+    if (logits.dtype != torch.float32 or tuple(logits.shape) != shape
+            or not torch.isfinite(logits).all()):
+        raise AssertionError(f"float32 prefill logits: {logits.dtype} "
+                             f"{tuple(logits.shape)}, want float32 {shape}, "
+                             f"finite")
+    with attention_as(ref.flash_attention_ref):
+        plain = prefill(model, batch)
+    if not torch.isfinite(plain).all():
+        raise AssertionError("float32 prefill with plain attention: logits "
+                             "not finite")
+    rel, elem = _rel_errors(torch, logits, plain)
+    share, dev_us, top_ops = prefill_attention_share(torch, prefill, model,
+                                                     batch)
+    result = {"batch": F32_PREFILL_B, "seq": PREFILL_S, "dtype": "float32",
+              "layers": cfg.n_layers, "wall_s": wall_s,
+              "tokens_per_s": F32_PREFILL_B * PREFILL_S / wall_s,
+              "device_ms": dev_us / 1e3 if share is not None else None,
+              "attention_share_of_device_time": share,
+              "top_device_ops": top_ops,
+              "launches_per_call": {k: n // n_calls
+                                    for k, n in launches.items()},
+              "vs_plain_attention": {"relative_l2": rel,
+                                     "max_over_scale": elem}}
+    print(json.dumps({"f32_prefill": result}), flush=True)
+    if share is None:
+        raise AssertionError("the profiler saw no device time in the "
+                             "float32 prefill")
+    del model
+    torch.cuda.empty_cache()
+    return launches, result
+
+
 def run_serving(torch):
     """Phase 5: TinyLlama-1.1B at full width on the card, through
     registry.make_step.  Returns the kernel's launches on this path."""
@@ -852,12 +1023,12 @@ def run_serving(torch):
         logits = prefill(model, batch)
     torch.cuda.synchronize()
     prefill_s = (time.perf_counter() - t0) / n_prefill
-    if (FA.LAUNCHES["flash_attention"] != n_prefill * cfg.n_layers
-            or FA.LAUNCHES["flash_attention_f32"] != 0):
+    if FA.LAUNCHES != {"flash_attention": n_prefill * cfg.n_layers,
+                       "flash_attention_f32": 0, "split_bf16x3": 0}:
         raise AssertionError(
             f"prefill launched the attention kernels {FA.LAUNCHES} in "
             f"{n_prefill} calls, expected {cfg.n_layers} bf16 launches per "
-            f"call and no float32 one")
+            f"call and no float32 one or split")
 
     prompts = torch.randint(0, cfg.vocab, (N_REQ, PROMPT), generator=gen,
                             device="cuda")
@@ -889,10 +1060,11 @@ def run_serving(torch):
     launches = dict(FA.LAUNCHES)
     # -- end of the main path -------------------------------------------------
     want = (n_prefill + 1) * cfg.n_layers
-    if launches != {"flash_attention": want, "flash_attention_f32": 0}:
+    if launches != {"flash_attention": want, "flash_attention_f32": 0,
+                    "split_bf16x3": 0}:
         raise AssertionError(f"attention launches on the main path "
                              f"{launches}, expected {want} bf16 and no "
-                             f"float32 one")
+                             f"float32 one or split")
 
     for name, x, shape in (("prefill", logits, (PREFILL_B, 1, cfg.vocab)),
                            ("request prefill", first, (N_REQ, 1, cfg.vocab)),
@@ -981,15 +1153,6 @@ def attention_f64(q, k, v, causal=True, window=None, q_chunk=512):
     return torch.cat(outs, dim=1)
 
 
-def f32_kernel_rounded(q, k, v, causal=True, window=None):
-    """The float32 kernel on the upcast inputs, rounded once to q's dtype:
-    the bf16 kernel's function with IEEE float32 sums on the CUDA cores,
-    the control for the tensor core's accumulation."""
-    from repro_torch.kernels import flash_attention as FA
-    return FA.flash_attention(q.float(), k.float(), v.float(), causal=causal,
-                              window=window).to(q.dtype)
-
-
 def error_vs_truth(torch, got, truth):
     """A bf16 output's error against the float64 function: ``rel_l2``;
     ``max_half_ulps`` and ``n_over_half_ulp`` in hold_attention's measure;
@@ -1012,24 +1175,23 @@ def error_vs_truth(torch, got, truth):
             "flips": n_flip, "flips_up_share": up / n_flip if n_flip else None}
 
 
-def three_against_truth(torch, q, k, v, causal=True, window=None):
-    """(kernel output, {kernel, plain, f32_kernel_rounded: error_vs_truth})
-    on one bf16 input; plain is the float32 plain version rounded once."""
+def against_truth(torch, q, k, v, causal=True, window=None):
+    """(kernel output, {kernel, plain: error_vs_truth}) on one bf16 input;
+    plain is the float32 plain version rounded once."""
     from repro_torch.kernels import flash_attention as FA, ref
     truth = attention_f64(q, k, v, causal, window)
     got = FA.flash_attention(q, k, v, causal=causal, window=window)
     outs = {"kernel": got,
             "plain": ref.flash_attention_ref(q, k, v, causal=causal,
-                                             window=window),
-            "f32_kernel_rounded": f32_kernel_rounded(q, k, v, causal, window)}
+                                             window=window)}
     return got, {n: error_vs_truth(torch, x, truth) for n, x in outs.items()}
 
 
 def attention_accuracy(torch, seeds=(0, 1, 2, 3, 4)):
-    """Phase 5b, after the main path: the bf16 kernel, the plain version
-    and the control ``f32_kernel_rounded``, each against the float64
-    function, at the prefill shape on random inputs and layer by layer in
-    a full-width prefill (seed 0: the main path's model and tokens); then
+    """Phase 5b, after the main path: the bf16 kernel and the plain
+    version, each against the float64 function, at the prefill shape on
+    random inputs and layer by layer in a full-width prefill (seed 0: the
+    main path's model and tokens); then
     prefill logits on several seeds with each of them, and with float64
     attention, as the model's attention (``_rel_errors`` against the
     float64-attention prefill, and kernel vs plain, PREFILL_TOL's
@@ -1042,12 +1204,11 @@ def attention_accuracy(torch, seeds=(0, 1, 2, 3, 4)):
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q, k, v = _qkv(torch, PREFILL_B, PREFILL_S, PREFILL_S, H, KV, hd,
                    torch.bfloat16, seed=1)
-    _, at_shape = three_against_truth(torch, q, k, v)
+    _, at_shape = against_truth(torch, q, k, v)
     del q, k, v
     prefill = registry.make_step(cfg, ShapeConfig("prefill_4k", PREFILL_S,
                                                   PREFILL_B, "prefill"))
     routes = {"plain": ref.flash_attention_ref,
-              "f32_kernel_rounded": f32_kernel_rounded,
               "f64": lambda q, k, v, causal=True, window=None: attention_f64(
                   q, k, v, causal, window).to(q.dtype)}
     layers, logits = [], []
@@ -1062,13 +1223,12 @@ def attention_accuracy(torch, seeds=(0, 1, 2, 3, 4)):
                 out[name] = prefill(model, batch)
         row = {"seed": seed, "kernel_vs_plain": _rel_errors(
             torch, out["kernel"], out["plain"])}
-        for name in ("kernel", "plain", "f32_kernel_rounded"):
+        for name in ("kernel", "plain"):
             row[f"{name}_vs_f64"] = _rel_errors(torch, out[name], out["f64"])
         logits.append(row)
         if seed == seeds[0]:
             def watch(q, k, v, causal=True, window=None):
-                got, errs = three_against_truth(torch, q, k, v, causal,
-                                                window)
+                got, errs = against_truth(torch, q, k, v, causal, window)
                 layers.append(errs)
                 return got
             with attention_as(watch):
@@ -1109,8 +1269,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False    # plain versions in f32
     t0 = time.perf_counter()
     libs = _build.build_all()
-    print(f"phase 1: built {sorted(libs)} from {SOURCE}, {FA_SOURCE} and "
-          f"{FA_F32_SOURCE} in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"phase 1: built {sorted(libs)} from {SOURCE} and {FA_SOURCE} "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
 
     err = check_kernels(torch, np)
     timing = time_kernels(torch, np)
@@ -1120,6 +1280,7 @@ def main() -> int:
     launches = run_main_path(torch)
     check_card_vs_cpu_prefill(torch)
     fa_launches, _ = run_serving(torch)
+    f32_launches, _ = run_f32_prefill(torch)
     attention_accuracy(torch)
 
     rows = []
@@ -1140,14 +1301,19 @@ def main() -> int:
             bound_us_at_1M=big_t["bound_ms"] * 1e3,
             bound_by_at_1M=big_t["bound_by"],
             host_us_at_1M=big_t["host_us"]))
-    for name, source, tname in (("flash_attention", FA_SOURCE, "bfloat16"),
-                                ("flash_attention_f32", FA_F32_SOURCE,
-                                 "float32")):
+    # Attention: the bf16 kernel's launches from the serving path, the
+    # float32 kernel's and the split's from the float32 prefill.
+    for name, tname, path, runs in (
+            ("flash_attention", "bfloat16", "bf16 serving", fa_launches),
+            ("flash_attention_f32", "float32", "float32 prefill",
+             f32_launches),
+            ("split_bf16x3", "split", "float32 prefill", f32_launches)):
         t = fa_time[tname]
         rows.append(dict(
-            name=name, route="cuda", source=source, replaces=FA_REPLACES,
-            launches=fa_launches[name], on_main_path=tname == "bfloat16",
-            max_abs_err=fa_err[tname], max_abs_err_by_dtype=fa_err,
+            name=name, route="cuda", source=FA_SOURCE, replaces=FA_REPLACES,
+            launches=runs[name], on_main_path=tname == "bfloat16",
+            path=path, max_abs_err=fa_err[tname], max_abs_err_by_dtype=fa_err,
+            max_abs_err_vs_f64=t.get("max_abs_err_vs_f64"),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
             shape=t["shape"]))

@@ -1,37 +1,56 @@
-// Flash attention forward for Hopper (sm_90a) on bf16 inputs: causal /
-// sliding-window GQA attention with an online softmax, float32 statistics
-// and accumulator, its products on the tensor cores (wgmma).
-// Replaces the TPU Pallas kernel flash_attention_pallas
-// (src/repro/kernels/flash_attention.py:82, body _fa_kernel) for bf16
-// q/k/v; float32 inputs go to fa_fwd_kernel in flash_attention.cu.
+// Flash attention forward for Hopper (sm_90a): causal / sliding-window GQA
+// attention with an online softmax, float32 statistics and accumulator,
+// its products on the tensor cores (wgmma).  Replaces the TPU Pallas
+// kernel flash_attention_pallas (src/repro/kernels/flash_attention.py:82,
+// body _fa_kernel) for bf16 q/k/v (fa_fwd_wgmma<HD, false>,
+// fa_forward_bf16) and for float32 q/k/v (fa_fwd_wgmma<HD, true>,
+// fa_forward_f32, fed the bf16 planes of split_bf16x3_kernel).
 //
-// The function is the Pallas body's; its products are exact and only its
-// sums are the tensor core's:
-//   * S = q k^T.  A bf16 x bf16 product is exact in float32 (8 + 8
-//     significant bits), so a bf16 wgmma accumulating in float32 sums the
-//     body's exact products of the upcast inputs.  Scores are dot * scale,
-//     as the body.
+// The function is the Pallas body's; its products are exact or within
+// float32's own rounding, and only its sums are the tensor core's:
+//   * bf16 inputs, S = q k^T.  A bf16 x bf16 product is exact in float32
+//     (8 + 8 significant bits), so a bf16 wgmma accumulating in float32
+//     sums the body's exact products of the upcast inputs.  Scores are
+//     dot * scale, as the body.
 //   * O += p v with p in float32 (the JAX package's default, ATTN_P_BF16 =
 //     False).  p splits exactly into three bf16 terms, hi = bf16(p), mid =
 //     bf16(p - hi), lo = bf16(p - hi - mid) (round to nearest, exact
 //     float32 subtractions: 24 bits = 8 + 8 + 8), for every p >= 1e-30;
 //     below that lo may be subnormal and the tensor cores may flush it,
 //     which moves l >= 1 by far less than a float32 ulp.  Each term times
-//     a bf16 v is exact in float32, so three wgmmas into one float32
-//     accumulator sum exactly the float32 p @ v's products.
+//     a bf16 v is exact in float32, so for bf16 v three wgmmas into one
+//     float32 accumulator sum exactly the float32 p @ v's products.
+//   * float32 inputs.  split_bf16x3_kernel writes each of q, k and v as
+//     three bf16 planes the same way (exact for |x| from about 2^-110,
+//     below which lo is a bf16 subnormal, up to bf16's largest finite
+//     value, about 3.39e38).  A float32 product x y is then the sum of the
+//     nine plane products x_a y_b, each exact in float32.  The kernel
+//     issues six of them, dropping mid*lo, lo*mid and lo*lo (each at most
+//     2^-24 |x y|): each product it forms is within 2^-23 |x y| of the
+//     exact one, about float32's own rounding of a product (unit roundoff
+//     2^-24); six bf16 passes is also how a TPU forms a float32 product at
+//     Precision.HIGHEST.  Both S = q k^T and each tile's p v take the six
+//     passes, smallest terms first and hi * hi last, so the small terms
+//     are summed among themselves before the large ones round them.  Six
+//     passes, not nine, ship: they hold every check of chip_smoke.py
+//     phase 2b (2e-5 against the plain version, and against float64).
 //   * The sums are not IEEE float32 round-to-nearest: the tensor core
 //     adds in its own order and rounding.  Measured on an H100 against the
 //     float64 function, on random inputs the output leans slightly toward
 //     smaller magnitude (far under a bf16 ulp), and on a model's
 //     ill-conditioned rows (near-tied scores, cancelling outputs) it is
 //     closer than the float32 plain version is (chip_smoke.py phase 5b).
-//     This source is built without --use_fast_math so the split rounds as
-//     written.
+//     So the float32 kernel does as the Pallas body does: each key tile's
+//     p v goes into a fresh accumulator, merged as acc * alpha + tile on
+//     the CUDA cores (IEEE), and no tensor-core sum runs longer than one
+//     tile.  This source is built without --use_fast_math so the splits
+//     round as written.
 //   * Masked scores are -1e30 and m starts at -1e30, as the body (a row
 //     whose first tile is fully masked sums junk that alpha = 0 wipes once
 //     a real key arrives); keys past Sk score -inf (weight exactly 0); the
-//     output is acc / max(l, 1e-30) rounded once to bf16.  Causality is
-//     top-left aligned (qpos >= kpos), the window test kpos > qpos - window.
+//     output is acc / max(l, 1e-30), rounded once to bf16 for bf16 inputs.
+//     Causality is top-left aligned (qpos >= kpos), the window test
+//     kpos > qpos - window.
 //
 // Design.  One CTA of 384 threads per 128-row query tile, grid
 // (ceil(Sq/128), H, B), heaviest causal tiles first.  Warps 0-7 are two
@@ -39,28 +58,36 @@
 // whose registers setmaxnreg moves to the consumers: one lane issues TMA
 // loads of Q (once) and of each K/V tile into a ring of STAGES stages
 // guarded by full/empty mbarriers.  TMA reads the tensors in
-// place through 4-D tensor maps over (B, S, heads, hd), so query head h
-// reads KV head h / (H / KV) with no transpose and no expanded K/V; its
-// zero fill covers ragged Sq and Sk.  Tiles land 128B-swizzled (64B for hd
-// 32; hd 128 as two 64-column boxes), the layout wgmma's descriptors name.
-// Per K/V tile a consumer warpgroup runs S = Q K^T as hd/16 wgmmas
-// (A and B from shared memory, K-major), the online softmax on the
-// accumulator's registers (row max and sum are quad shuffles; mask tests
-// only on tiles that cross the diagonal, the window edge or Sk), splits p
-// into its three bf16 terms directly in the A-fragment layout (the S
-// accumulator's pair of columns per register is the A fragment's), and
-// runs O += P V as 3 x BK/16 wgmmas with A from registers and B the V tile
-// read MN-major (transposed).  No p tile passes through shared memory.
-// The output is stored from registers, rows past Sq skipped.
+// place through 4-D tensor maps over (B, S, heads, hd) (float32: over
+// (3B, S, heads, hd), the planes stacked on the batch axis), so query
+// head h reads KV head h / (H / KV) with no transpose and no expanded
+// K/V; its zero fill covers ragged Sq and Sk.  Tiles land 128B-swizzled
+// (64B for hd 32; hd 128 as two 64-column boxes), the layout wgmma's
+// descriptors name.  Per K/V tile a consumer warpgroup runs S = Q K^T as
+// hd/16 wgmmas per pass (A and B from shared memory, K-major), the online
+// softmax on the accumulator's registers (row max and sum are quad
+// shuffles; mask tests only on tiles that cross the diagonal, the window
+// edge or Sk), splits p into its three bf16 terms directly in the
+// A-fragment layout (the S accumulator's pair of columns per register is
+// the A fragment's), and runs P V as BK/16 wgmmas per pass with A from
+// registers and B the V tile read MN-major (transposed).  No p tile passes
+// through shared memory.  The output is stored from registers, rows past
+// Sq skipped.  The float32 kernel holds three planes of Q and of each K
+// and V tile, so its tiles are smaller (Cfg): BK 64 and three stages at
+// hd 32 / 64 (192 KB of shared memory at hd 64), BK 32 and two stages at
+// hd 128.
 //
 // Bound.  Operations: the function needs 4 * B * H * hd * (visible pairs)
 // flops, 0.275 TFLOP at the prefill shape (B 4, S 4096, H 32, hd 64,
-// causal), 0.278 ms at 989 TFLOP/s (bf16 dense), against ~0.13 GB of
-// q/k/v/o (0.04 ms).  The split triples p @ v, so the kernel issues 2x the
-// function's tensor-core work; the design pays that rather than round p
-// (which is the other function, ATTN_P_BF16 = True).  What it leaves:
-// softmax and wgmma of one warpgroup do not overlap (the other warpgroup
-// fills the gap), no persistent scheduler, one CTA per SM.
+// causal), 0.278 ms at 989 TFLOP/s (bf16 dense), against ~0.13 GB of bf16
+// q/k/v/o (0.04 ms).  bf16: the split triples p @ v, so the kernel issues
+// 2x the function's tensor-core work; the design pays that rather than
+// round p (which is the other function, ATTN_P_BF16 = True).  float32:
+// six passes on both products, 6x the function's work, a floor of 1.668
+// ms at 989 / 6 TFLOP/s against ~0.30 GB of float32 q/k/v/o (0.09 ms);
+// the split pass moves 10 bytes per element (0.1 ms for q at that shape).
+// What it leaves: softmax and wgmma of one warpgroup do not overlap (the
+// other warpgroup fills the gap), no persistent scheduler, one CTA per SM.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up
                    // through the runtime, so no -lcuda
@@ -68,6 +95,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -77,28 +107,45 @@ constexpr int CONSUMER_WARPS = 8;  // two warpgroups
 // The producer is a whole warpgroup (one lane issues every load) so that
 // setmaxnreg can hand its registers to the consumers: 168 a thread at
 // launch (65,536 over 384 threads), then 40 for the producer and 232 for
-// the consumers, who hold S, O and p's three bf16 terms.
+// the consumers, who hold S, O and p's three bf16 terms (float32 inputs:
+// and one tile's P V).
 constexpr int PRODUCER_WARPS = 4;
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
 constexpr int THREADS = 32 * (CONSUMER_WARPS + PRODUCER_WARPS);
-constexpr int STAGES = 3;          // K/V ring depth
 constexpr float MASKED = -1e30f;
 
-template <int HD>
+// Plane products of the float32 kernel, smallest first: pass t multiplies
+// plane pass_a(t) of the left operand by plane pass_b(t) of the right (0
+// hi, 1 mid, 2 lo): mid*mid, lo*hi, hi*lo, mid*hi, hi*mid, hi*hi.
+// mid*lo, lo*mid and lo*lo are dropped (see the note at the top).
+constexpr int PASSES = 6;
+__host__ __device__ constexpr int pass_a(int t) {
+  return t == 0 || t == 3 ? 1 : t == 1 ? 2 : 0;
+}
+__host__ __device__ constexpr int pass_b(int t) {
+  return t == 0 || t == 4 ? 1 : t == 2 ? 2 : 0;
+}
+
+template <int HD, bool F32>
 struct Cfg {
-  static constexpr int BK = HD <= 64 ? 128 : 64;    // keys per tile
+  // bf16 planes per operand: float32 q, k and v come as three.
+  static constexpr int PLANES = F32 ? 3 : 1;
+  // keys per tile, and the K/V ring depth
+  static constexpr int BK = F32 ? (HD == 128 ? 32 : 64) : (HD <= 64 ? 128 : 64);
+  static constexpr int STAGES = F32 && HD == 128 ? 2 : 3;
   static constexpr int ROWB = HD >= 64 ? 128 : 64;  // swizzled row, bytes
   static constexpr int CHUNK = ROWB / 2;  // bf16 columns per TMA box
   static constexpr int NCHUNK = HD / CHUNK;
   static constexpr int KPC = CHUNK / 16;  // k16 steps per chunk
   static constexpr int LAYOUT = ROWB == 128 ? 1 : 2;  // descriptor: B128/B64
-  static constexpr int Q_BYTES = BQ * HD * 2;
-  static constexpr int KV_BYTES = BK * HD * 2;  // one K or one V tile
+  static constexpr int Q_BYTES = BQ * HD * 2;   // one plane of Q
+  static constexpr int KV_BYTES = BK * HD * 2;  // one plane of a K or V tile
+  static constexpr int STAGE_BYTES = 2 * PLANES * KV_BYTES;  // K, then V
   // 1024 of slack to align the tiles to the swizzle atom, then Q, the
   // ring and 1 + 2 * STAGES mbarriers.
-  static constexpr int SMEM =
-      1024 + Q_BYTES + STAGES * 2 * KV_BYTES + 8 * (1 + 2 * STAGES);
+  static constexpr int SMEM = 1024 + PLANES * Q_BYTES + STAGES * STAGE_BYTES +
+                              8 * (1 + 2 * STAGES);
 };
 
 // ---------------------------------------------------------------------------
@@ -209,6 +256,20 @@ __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
 // shared memory, both K-major; the first of a chain overwrites D
 // (accumulate = 0).  wgmma_rs: A from registers (four b32, two bf16 each,
 // in the A-fragment layout), B MN-major (transposed), always accumulates.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int accumulate) {
   asm volatile(
@@ -349,20 +410,27 @@ __device__ __forceinline__ float quad_sum(float x) {
 // j holds row 16 * warp + lane / 4 + 8 * ((j >> 1) & 1) and column
 // 8 * (j >> 2) + 2 * (lane & 3) + (j & 1).  Registers 8kk..8kk+7 of S, as
 // four bf16 pairs, are exactly the A fragment of keys 16kk..16kk+15.
-template <int HD>
+//
+// F32 = false: bf16 q, k, v (B, S, heads, HD) and bf16 o.  F32 = true:
+// q, k, v as bf16 planes (3B, S, heads, HD), plane a of batch b at batch
+// index a * B + b, and float32 o.
+template <int HD, bool F32>
 __global__ void __launch_bounds__(THREADS, 1)
     fa_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
-                 __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H, int KV,
-                 float scale, int causal, int window) {
-  using C = Cfg<HD>;
+                 std::conditional_t<F32, float, __nv_bfloat16>* __restrict__ o,
+                 int B, int Sq, int Sk, int H, int KV, float scale,
+                 int causal, int window) {
+  using C = Cfg<HD, F32>;
   constexpr int BK = C::BK;
+  constexpr int PLANES = C::PLANES;
+  constexpr int STAGES = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
   const uint32_t s_q = (raw + 1023u) & ~1023u;  // swizzle-atom aligned
-  const uint32_t s_kv = s_q + C::Q_BYTES;  // stage s: K, then V
-  const uint32_t q_bar = s_kv + STAGES * 2 * C::KV_BYTES;
+  const uint32_t s_kv = s_q + PLANES * C::Q_BYTES;  // stage s: K, then V
+  const uint32_t q_bar = s_kv + STAGES * C::STAGE_BYTES;
   const uint32_t full_bar = q_bar + 8;                // [STAGES]
   const uint32_t empty_bar = full_bar + 8 * STAGES;   // [STAGES]
 
@@ -393,24 +461,29 @@ __global__ void __launch_bounds__(THREADS, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
         PRODUCER_REGS));
     if (warp == CONSUMER_WARPS && lane == 0) {
-      mbar_expect_tx(q_bar, C::Q_BYTES);
+      mbar_expect_tx(q_bar, PLANES * C::Q_BYTES);
 #pragma unroll
-      for (int c = 0; c < C::NCHUNK; ++c)
-        tma_load(s_q + c * BQ * C::ROWB, &tm_q, q_bar, c * C::CHUNK, h, q0,
-                 b);
+      for (int a = 0; a < PLANES; ++a)
+#pragma unroll
+        for (int c = 0; c < C::NCHUNK; ++c)
+          tma_load(s_q + a * C::Q_BYTES + c * BQ * C::ROWB, &tm_q, q_bar,
+                   c * C::CHUNK, h, q0, a * B + b);
       for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
         const int s = i % STAGES;
         mbar_wait(empty_bar + 8 * s, ((i / STAGES) & 1) ^ 1);
-        mbar_expect_tx(full_bar + 8 * s, 2 * C::KV_BYTES);
-        const uint32_t s_k = s_kv + 2 * s * C::KV_BYTES;
-        const uint32_t s_v = s_k + C::KV_BYTES;
+        mbar_expect_tx(full_bar + 8 * s, C::STAGE_BYTES);
+        const uint32_t s_k = s_kv + s * C::STAGE_BYTES;
+        const uint32_t s_v = s_k + PLANES * C::KV_BYTES;
 #pragma unroll
-        for (int c = 0; c < C::NCHUNK; ++c) {
-          tma_load(s_k + c * BK * C::ROWB, &tm_k, full_bar + 8 * s,
-                   c * C::CHUNK, kvh, kt * BK, b);
-          tma_load(s_v + c * BK * C::ROWB, &tm_v, full_bar + 8 * s,
-                   c * C::CHUNK, kvh, kt * BK, b);
-        }
+        for (int a = 0; a < PLANES; ++a)
+#pragma unroll
+          for (int c = 0; c < C::NCHUNK; ++c) {
+            const uint32_t off = a * C::KV_BYTES + c * BK * C::ROWB;
+            tma_load(s_k + off, &tm_k, full_bar + 8 * s, c * C::CHUNK, kvh,
+                     kt * BK, a * B + b);
+            tma_load(s_v + off, &tm_v, full_bar + 8 * s, c * C::CHUNK, kvh,
+                     kt * BK, a * B + b);
+          }
       }
     }
     return;
@@ -433,21 +506,27 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
     const int s = i % STAGES;
-    const uint32_t s_k = s_kv + 2 * s * C::KV_BYTES;
-    const uint32_t s_v = s_k + C::KV_BYTES;
+    const uint32_t s_k = s_kv + s * C::STAGE_BYTES;
+    const uint32_t s_v = s_k + PLANES * C::KV_BYTES;
     mbar_wait(full_bar + 8 * s, (i / STAGES) & 1);
 
-    // S = Q K^T over hd in k16 steps.
+    // S = Q K^T over hd in k16 steps (float32: per plane pass, smallest
+    // first, all into one accumulator).
     float sc[BK / 2];
 #pragma unroll
     for (int j = 0; j < BK / 2; ++j) sc[j] = 0.0f;
     wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < HD / 16; ++j) {
-      const int c = j / C::KPC;
-      const int off = (j % C::KPC) * 32;  // 16 bf16 along the swizzled row
-      wgmma_ss(sc, kmajor_desc<C>(s_qa + c * BQ * C::ROWB + off),
-               kmajor_desc<C>(s_k + c * BK * C::ROWB + off), j > 0);
+    for (int t = 0; t < (F32 ? PASSES : 1); ++t) {
+      const uint32_t qa = s_qa + (F32 ? pass_a(t) : 0) * C::Q_BYTES;
+      const uint32_t kb = s_k + (F32 ? pass_b(t) : 0) * C::KV_BYTES;
+#pragma unroll
+      for (int j = 0; j < HD / 16; ++j) {
+        const int c = j / C::KPC;
+        const int off = (j % C::KPC) * 32;  // 16 bf16 along the swizzled row
+        wgmma_ss(sc, kmajor_desc<C>(qa + c * BQ * C::ROWB + off),
+                 kmajor_desc<C>(kb + c * BK * C::ROWB + off), t > 0 || j > 0);
+      }
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -489,28 +568,52 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
-#pragma unroll
-    for (int j = 0; j < HD / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
 
-    // O += P V: p's three bf16 terms, each in the A-fragment layout.
-    uint32_t p_hi[BK / 4], p_mid[BK / 4], p_lo[BK / 4];
+    // p's three bf16 terms (hi, mid, lo), each in the A-fragment layout.
+    uint32_t p[3][BK / 4];
 #pragma unroll
     for (int j = 0; j < BK / 4; ++j)
-      split3(sc[2 * j], sc[2 * j + 1], p_hi[j], p_mid[j], p_lo[j]);
-    wgmma_fence();
+      split3(sc[2 * j], sc[2 * j + 1], p[0][j], p[1][j], p[2][j]);
+    if constexpr (!F32) {
+      // O = O * alpha + P V, the three terms into the one accumulator.
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t dv = mnmajor_desc<C>(s_v + kk * 16 * C::ROWB);
-      wgmma_rs(acc, p_lo + 4 * kk, dv);
-      wgmma_rs(acc, p_mid + 4 * kk, dv);
-      wgmma_rs(acc, p_hi + 4 * kk, dv);
+      for (int j = 0; j < HD / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t dv = mnmajor_desc<C>(s_v + kk * 16 * C::ROWB);
+        wgmma_rs(acc, p[2] + 4 * kk, dv);
+        wgmma_rs(acc, p[1] + 4 * kk, dv);
+        wgmma_rs(acc, p[0] + 4 * kk, dv);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(acc);
+    } else {
+      // This tile's P V, plane passes smallest first, into a fresh
+      // accumulator; then O = O * alpha + tile on the CUDA cores.
+      float tile[HD / 2];
+#pragma unroll
+      for (int j = 0; j < HD / 2; ++j) tile[j] = 0.0f;
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < PASSES; ++t) {
+        const uint32_t vb = s_v + pass_b(t) * C::KV_BYTES;
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_rs(tile, p[pass_a(t)] + 4 * kk,
+                   mnmajor_desc<C>(vb + kk * 16 * C::ROWB));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(tile);
+#pragma unroll
+      for (int j = 0; j < HD / 2; ++j)
+        acc[j] = acc[j] * alpha[(j >> 1) & 1] + tile[j];
     }
-    wgmma_commit();
-    wgmma_wait_all();
-    pin(acc);
-    pin(p_hi);
-    pin(p_mid);
-    pin(p_lo);
+    pin(p[0]);
+    pin(p[1]);
+    pin(p[2]);
     __syncwarp();
     if (lane == 0) mbar_arrive(empty_bar + 8 * s);  // this warp is done
   }
@@ -520,12 +623,58 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int row = r0 + 8 * r;
     if (row >= Sq) continue;
     const float den = fmaxf(l[r], 1e-30f);
-    __nv_bfloat16* out =
-        o + (((int64_t)b * Sq + row) * H + h) * HD + 2 * (lane & 3);
+    auto* out = o + (((int64_t)b * Sq + row) * H + h) * HD + 2 * (lane & 3);
 #pragma unroll
-    for (int c = 0; c < HD / 8; ++c)
-      *reinterpret_cast<__nv_bfloat162*>(out + 8 * c) = __floats2bfloat162_rn(
-          acc[4 * c + 2 * r] / den, acc[4 * c + 2 * r + 1] / den);
+    for (int c = 0; c < HD / 8; ++c) {
+      const float x = acc[4 * c + 2 * r] / den;
+      const float y = acc[4 * c + 2 * r + 1] / den;
+      if constexpr (F32)
+        *reinterpret_cast<float2*>(out + 8 * c) = make_float2(x, y);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * c) =
+            __floats2bfloat162_rn(x, y);
+    }
+  }
+}
+
+// float32 x (n elements) -> bf16 planes hi, mid, lo at planes, planes + n
+// and planes + 2n: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi -
+// mid), rounded to nearest, the subtractions exact (ref.split_bf16x3).
+// VEC: four elements a thread, x 16-byte and the planes 8-byte aligned
+// (n % 4 == 0); else one.  Bound by bytes: 4 read and 6 written per
+// element.
+__device__ __forceinline__ void split1(float x, __nv_bfloat16& hi,
+                                       __nv_bfloat16& mid,
+                                       __nv_bfloat16& lo) {
+  hi = __float2bfloat16_rn(x);
+  const float r = __fsub_rn(x, __bfloat162float(hi));
+  mid = __float2bfloat16_rn(r);
+  lo = __float2bfloat16_rn(__fsub_rn(r, __bfloat162float(mid)));
+}
+
+template <bool VEC>
+__global__ void split_bf16x3_kernel(const float* __restrict__ x,
+                                    __nv_bfloat16* __restrict__ planes,
+                                    int64_t n) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  if constexpr (VEC) {
+    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+         4 * i < n; i += stride) {
+      const float4 v = reinterpret_cast<const float4*>(x)[i];
+      __nv_bfloat16 t[3][4];
+      split1(v.x, t[0][0], t[1][0], t[2][0]);
+      split1(v.y, t[0][1], t[1][1], t[2][1]);
+      split1(v.z, t[0][2], t[1][2], t[2][2]);
+      split1(v.w, t[0][3], t[1][3], t[2][3]);
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        *reinterpret_cast<uint2*>(planes + a * n + 4 * i) =
+            *reinterpret_cast<const uint2*>(t[a]);
+    }
+  } else {
+    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += stride)
+      split1(x[i], planes[i], planes[n + i], planes[2 * n + i]);
   }
 }
 
@@ -579,61 +728,107 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HD, bool F32>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int KV, float scale, int causal, int window,
            cudaStream_t stream) {
-  using C = Cfg<HD>;
+  using C = Cfg<HD, F32>;
   static_assert(C::SMEM <= 232448, "shared memory per CTA");
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return ERR_NO_ENCODER;
   const CUtensorMapSwizzle sw = C::ROWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                                : CU_TENSOR_MAP_SWIZZLE_64B;
+  // float32: the planes stacked on the batch axis, (3B, S, heads, hd).
+  const int NB = C::PLANES * B;
   CUtensorMap tq, tk, tv;
-  if (!make_map(enc, &tq, q, B, Sq, H, HD, C::CHUNK, BQ, sw) ||
-      !make_map(enc, &tk, k, B, Sk, KV, HD, C::CHUNK, C::BK, sw) ||
-      !make_map(enc, &tv, v, B, Sk, KV, HD, C::CHUNK, C::BK, sw))
+  if (!make_map(enc, &tq, q, NB, Sq, H, HD, C::CHUNK, BQ, sw) ||
+      !make_map(enc, &tk, k, NB, Sk, KV, HD, C::CHUNK, C::BK, sw) ||
+      !make_map(enc, &tv, v, NB, Sk, KV, HD, C::CHUNK, C::BK, sw))
     return ERR_TENSOR_MAP;
   static bool attr_set = false;  // per instantiation
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fa_fwd_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fa_fwd_wgmma<HD, F32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         C::SMEM);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  fa_fwd_wgmma<HD><<<grid, THREADS, C::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, KV, scale,
-      causal, window);
+  fa_fwd_wgmma<HD, F32><<<grid, THREADS, C::SMEM, stream>>>(
+      tq, tk, tv,
+      static_cast<std::conditional_t<F32, float, __nv_bfloat16>*>(o), B, Sq,
+      Sk, H, KV, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry point (loaded with ctypes) for bf16 q (B, Sq, H, hd) and
-// k, v (B, Sk, KV, hd), contiguous and 16-byte aligned; hd in {32, 64,
-// 128}; window <= 0 means no window.  Launches on the given stream, does
-// not synchronize, and returns cudaGetLastError(), the error that refused
-// the launch, or ERR_NO_ENCODER / ERR_TENSOR_MAP (negative).
-extern "C" int fa_forward_bf16(const void* q, const void* k, const void* v,
-                               void* o, int B, int Sq, int Sk, int H, int KV,
-                               int hd, float scale, int causal, int window,
-                               void* stream) {
+template <bool F32>
+int forward(const void* q, const void* k, const void* v, void* o, int B,
+            int Sq, int Sk, int H, int KV, int hd, float scale, int causal,
+            int window, void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return 0;
   if (Sk <= 0 || KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 32:
-      return launch<32>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, window,
-                        st);
+      return launch<32, F32>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal,
+                             window, st);
     case 64:
-      return launch<64>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, window,
-                        st);
+      return launch<64, F32>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal,
+                             window, st);
     case 128:
-      return launch<128>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, window,
-                         st);
+      return launch<128, F32>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal,
+                              window, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes).  Each launches on the given
+// stream, does not synchronize, and returns cudaGetLastError(), the error
+// that refused the launch, or ERR_NO_ENCODER / ERR_TENSOR_MAP (negative).
+//
+// fa_forward_bf16: bf16 q (B, Sq, H, hd) and k, v (B, Sk, KV, hd),
+// contiguous and 16-byte aligned; bf16 o (B, Sq, H, hd); hd in {32, 64,
+// 128}; window <= 0 means no window.
+extern "C" int fa_forward_bf16(const void* q, const void* k, const void* v,
+                               void* o, int B, int Sq, int Sk, int H, int KV,
+                               int hd, float scale, int causal, int window,
+                               void* stream) {
+  return forward<false>(q, k, v, o, B, Sq, Sk, H, KV, hd, scale, causal,
+                        window, stream);
+}
+
+// fa_forward_f32: the same for float32 inputs, given as split_bf16x3's
+// planes: q (3, B, Sq, H, hd), k, v (3, B, Sk, KV, hd) bf16; float32 o
+// (B, Sq, H, hd).
+extern "C" int fa_forward_f32(const void* q, const void* k, const void* v,
+                              void* o, int B, int Sq, int Sk, int H, int KV,
+                              int hd, float scale, int causal, int window,
+                              void* stream) {
+  return forward<true>(q, k, v, o, B, Sq, Sk, H, KV, hd, scale, causal,
+                       window, stream);
+}
+
+// split_bf16x3: float32 x (n elements, contiguous, 16-byte aligned) ->
+// bf16 planes (3, n), contiguous.
+extern "C" int split_bf16x3(const void* x, void* planes, long long n,
+                            void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(planes);
+  constexpr int threads = 256;
+  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(planes) % 8 == 0;
+  const long long items = vec ? n / 4 : n;
+  // Enough CTAs to fill the card several times; the loop covers the rest.
+  const int blocks = (int)std::min<long long>((items + threads - 1) / threads,
+                                              132 * 16);
+  if (vec)
+    split_bf16x3_kernel<true><<<blocks, threads, 0, st>>>(xf, out, n);
+  else
+    split_bf16x3_kernel<false><<<blocks, threads, 0, st>>>(xf, out, n);
+  return (int)cudaGetLastError();
 }

@@ -7,16 +7,19 @@ forward with an online softmax and float32 statistics.
 :func:`flash_attention` takes q (B, Sq, H, hd) and k, v (B, Sk, KV, hd) in
 that layout, with no transpose and no expanded K/V.  A tensor on the CPU
 goes to the plain version :func:`.ref.flash_attention_ref`.  CUDA tensors
-go to one kernel per dtype, or the wrapper raises:
+go to one kernel per dtype, or the wrapper raises, both in
+``csrc/flash_attention_sm90.cu`` on the tensor cores:
 
-- bfloat16 -> ``fa_fwd_wgmma`` (``csrc/flash_attention_sm90.cu``: tensor
-  cores, with p split exactly into three bf16 terms for p @ v);
-- float32 -> ``fa_fwd_kernel`` (``csrc/flash_attention.cu``: float32 CUDA
-  cores, since a bf16 tensor-core product would round q and k).
+- bfloat16 -> ``fa_fwd_wgmma<hd, false>`` (p split exactly into three
+  bf16 terms for p @ v);
+- float32 -> :func:`split_bf16x3` of q, k and v into bf16 planes, then
+  ``fa_fwd_wgmma<hd, true>`` (six plane products per float32 product,
+  each tile's p @ v merged into the output on the CUDA cores).
 
 ``LAUNCHES`` counts each kernel's launches under its own key
 (``"flash_attention"`` the bf16 kernel, ``"flash_attention_f32"`` the
-float32 one); plain-version calls are not counted.
+float32 one, ``"split_bf16x3"`` the split, three per float32 call);
+plain-version calls are not counted.
 """
 from __future__ import annotations
 
@@ -31,18 +34,19 @@ from . import ref
 from ._build import load
 
 HEAD_DIMS = (32, 64, 128)
-# dtype -> (source stem, C entry point, LAUNCHES key)
+SOURCE = "flash_attention_sm90"
+# dtype -> (C entry point, LAUNCHES key)
 ROUTES = {
-    torch.bfloat16: ("flash_attention_sm90", "fa_forward_bf16",
-                     "flash_attention"),
-    torch.float32: ("flash_attention", "fa_forward_f32",
-                    "flash_attention_f32"),
+    torch.bfloat16: ("fa_forward_bf16", "flash_attention"),
+    torch.float32: ("fa_forward_f32", "flash_attention_f32"),
 }
-# fa_forward_bf16's own error codes (a tensor map could not be made).
+SPLIT = "split_bf16x3"  # its C entry point and LAUNCHES key
+# The attention entries' own error codes (a tensor map could not be made).
 _TMA_ERRORS = {-1: "cuTensorMapEncodeTiled is not available",
                -2: "cuTensorMapEncodeTiled refused a TMA tensor map"}
 
-LAUNCHES: Dict[str, int] = {key: 0 for _, _, key in ROUTES.values()}
+LAUNCHES: Dict[str, int] = {key: 0 for _, key in ROUTES.values()}
+LAUNCHES[SPLIT] = 0
 
 
 def reset_launches() -> None:
@@ -51,20 +55,45 @@ def reset_launches() -> None:
 
 
 @lru_cache(maxsize=None)
-def _entry(dtype: torch.dtype):
-    stem, name, _ = ROUTES[dtype]
-    fn = getattr(load(stem), name)
+def _entry(name: str):
+    fn = getattr(load(SOURCE), name)
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, P, P, P, I, I, I, I, I, I, ctypes.c_float, I, I, P]
+    if name == SPLIT:
+        fn.argtypes = [P, P, ctypes.c_longlong, P]
+    else:
+        fn.argtypes = [P, P, P, P, I, I, I, I, I, I, ctypes.c_float, I, I, P]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """Contiguous, and 16-byte aligned (the float32 kernel's vector loads
-    and TMA's global addresses need it)."""
+    """Contiguous, and 16-byte aligned (the split's vector loads and TMA's
+    global addresses need it)."""
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def split_bf16x3(x: torch.Tensor) -> torch.Tensor:
+    """float32 x -> bf16 planes (3, *x.shape): hi, mid, lo of
+    :func:`.ref.split_bf16x3`, whose sum is x exactly for |x| from about
+    2^-110 up to bf16's largest finite value.  A CPU tensor runs the plain
+    version; a CUDA tensor launches ``split_bf16x3_kernel``."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"split_bf16x3 takes float32, got {x.dtype}")
+    if x.device.type == "cpu":
+        return torch.stack(ref.split_bf16x3(x))
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    x = _aligned(x)
+    out = torch.empty((3, *x.shape), dtype=torch.bfloat16, device=x.device)
+    if x.numel() == 0:
+        return out
+    err = _entry(SPLIT)(x.data_ptr(), out.data_ptr(), x.numel(),
+                        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{SPLIT}: CUDA error ({err})")
+    LAUNCHES[SPLIT] += 1
+    return out
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -116,14 +145,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.index != torch.cuda.current_device():
         raise ValueError(f"q on {q.device}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if out.numel() == 0:
         return out
     if Sk == 0:
         raise ValueError("attention over zero keys")
-    _, name, key = ROUTES[q.dtype]
-    err = _entry(q.dtype)(
+    if q.dtype == torch.float32:
+        q, k, v = split_bf16x3(q), split_bf16x3(k), split_bf16x3(v)
+    else:
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    name, key = ROUTES[out.dtype]
+    err = _entry(name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
         H, KV, hd, 1.0 / math.sqrt(hd), int(causal), window or 0,
         torch.cuda.current_stream().cuda_stream)
@@ -134,5 +166,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-__all__ = ["flash_attention", "LAUNCHES", "reset_launches", "HEAD_DIMS",
-           "ROUTES"]
+__all__ = ["flash_attention", "split_bf16x3", "LAUNCHES", "reset_launches",
+           "HEAD_DIMS", "ROUTES"]

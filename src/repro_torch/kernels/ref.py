@@ -17,13 +17,14 @@ Every function takes (N,) integer masks on any device and a
 :class:`repro_torch.core.mig.DeviceModel`.
 
 ``flash_attention_ref`` is the plain version of the attention kernels
-(``csrc/flash_attention_sm90.cu`` for bf16, ``csrc/flash_attention.cu``
-for float32): a port of ``repro/models/layers.py``'s chunked online-softmax
-attention (``_attend_block``, ``_expand_kv``, ``flash_attention``), chunk
-for chunk.  The kernels compute the same function in their own tiles, so
-they agree with it to float32 rounding, not bit for bit.
-``split_bf16x3`` is the bf16 kernel's split of p into three bf16 terms,
-which lets its p @ v run on the tensor cores without rounding p.
+(``csrc/flash_attention_sm90.cu``, bf16 and float32): a port of
+``repro/models/layers.py``'s chunked online-softmax attention
+(``_attend_block``, ``_expand_kv``, ``flash_attention``), chunk for chunk.
+The kernels compute the same function in their own tiles, so they agree
+with it to float32 rounding, not bit for bit.  ``split_bf16x3`` is the
+kernels' split of a float32 value into three bf16 terms (of p in
+registers; of float32 q, k and v by the split kernel, bit for bit), which
+lets their products run on the tensor cores without rounding.
 """
 from __future__ import annotations
 
@@ -234,10 +235,12 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def split_bf16x3(p: torch.Tensor):
     """float32 p -> bf16 (hi, mid, lo): hi = bf16(p), mid = bf16(p - hi),
     lo = bf16(p - hi - mid), each rounded to nearest, the subtractions
-    exact in float32.  hi + mid + lo == p exactly for |p| >= 1e-30 (24
-    significant bits = 8 + 8 + 8), so each term times a bf16 v is exact in
-    float32 and three bf16 products sum to the float32 p @ v.  This is what
-    ``fa_fwd_wgmma`` does in registers."""
+    exact in float32.  hi + mid + lo == p exactly for 2^-110 <= |p| <=
+    3.39e38 (24 significant bits = 8 + 8 + 8; below, lo is a bf16
+    subnormal; above, bf16 rounding overflows), so each term times a bf16
+    v is exact in float32 and three bf16 products sum to the float32 p @
+    v.  This is what ``fa_fwd_wgmma`` does to p in registers, and
+    ``split_bf16x3_kernel`` to float32 q, k and v."""
     p = p.to(torch.float32)
     hi = p.to(torch.bfloat16)
     r = p - hi.to(torch.float32)

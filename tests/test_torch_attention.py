@@ -17,7 +17,7 @@ import torch
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.models.layers import flash_attention as jax_flash
 from repro_torch.kernels import flash_attention as K
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import flash_attention_ref, split_bf16x3
 from repro_torch.models import layers as L
 
 torch.set_num_threads(1)
@@ -92,26 +92,54 @@ def test_wrapper_on_cpu_runs_the_plain_version():
     assert torch.equal(got, flash_attention_ref(q, k, v, causal=True,
                                                 window=96))
     assert L.flash_attention is K.flash_attention
-    assert K.LAUNCHES == {"flash_attention": 0, "flash_attention_f32": 0}
+    assert K.LAUNCHES == {"flash_attention": 0, "flash_attention_f32": 0,
+                          "split_bf16x3": 0}
+
+
+def test_split_wrapper_on_cpu_runs_the_plain_version():
+    """The split's wrapper stacks ref.split_bf16x3's planes for a CPU
+    tensor, counts no launch, and takes float32 only."""
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.normal(size=(2, 5, 3, 32)).astype(np.float32))
+    K.reset_launches()
+    got = K.split_bf16x3(x)
+    assert got.dtype == torch.bfloat16 and got.shape == (3, *x.shape)
+    for plane, want in zip(got, split_bf16x3(x)):
+        assert torch.equal(plane, want)
+    assert torch.equal(got.double().sum(0), x.double())
+    assert K.LAUNCHES["split_bf16x3"] == 0
+    with pytest.raises(TypeError, match="float32"):
+        K.split_bf16x3(x.to(torch.bfloat16))
 
 
 def test_each_cuda_dtype_has_one_kernel():
-    """bf16 goes to the tensor-core kernel, float32 to the float32 one,
-    each counted under its own key; every route's source exists."""
+    """bf16 goes to fa_forward_bf16 and float32 to fa_forward_f32, both
+    entries of the one tensor-core source, each counted under its own key;
+    float32 reaches its kernel only through the split's bf16 planes, and
+    the CUDA-core float32 source (csrc/flash_attention.cu) is gone."""
+    import inspect
     from repro_torch.kernels import _build
+    assert K.SOURCE == "flash_attention_sm90"
     assert K.ROUTES == {
-        torch.bfloat16: ("flash_attention_sm90", "fa_forward_bf16",
-                         "flash_attention"),
-        torch.float32: ("flash_attention", "fa_forward_f32",
-                        "flash_attention_f32")}
-    for stem, entry, _ in K.ROUTES.values():
-        src = (_build.CSRC / f"{stem}.cu").read_text()
-        assert f'extern "C" int {entry}(' in src
+        torch.bfloat16: ("fa_forward_bf16", "flash_attention"),
+        torch.float32: ("fa_forward_f32", "flash_attention_f32")}
+    assert {s.stem for s in _build.CSRC.glob("*.cu")} == {
+        "mask_scores", "flash_attention_sm90"}
     sm90 = (_build.CSRC / "flash_attention_sm90.cu").read_text()
-    f32 = (_build.CSRC / "flash_attention.cu").read_text()
+    for entry in ("fa_forward_bf16", "fa_forward_f32", K.SPLIT):
+        assert f'extern "C" int {entry}(' in sm90
     assert "fa_fwd_wgmma(" in sm90 and "wgmma.mma_async" in sm90
-    assert "fa_fwd_kernel(" in f32
-    assert "__nv_bfloat16" not in f32 and "wgmma.mma_async" not in f32
+    assert "split_bf16x3_kernel(" in sm90
+    assert "fa_fwd_kernel" not in sm90
+    # Both entries launch the one wgmma kernel, float32 with its planes.
+    assert "forward<false>(" in sm90 and "forward<true>(" in sm90
+    assert "fa_fwd_wgmma<HD, F32><<<" in sm90
+    # The wrapper splits q, k and v before the float32 entry, and nowhere
+    # else.
+    body = inspect.getsource(K.flash_attention)
+    assert ("q, k, v = split_bf16x3(q), split_bf16x3(k), split_bf16x3(v)"
+            in body)
+    assert body.count("split_bf16x3(") == 3
 
 
 def test_wrapper_knows_the_bf16_kernels_error_codes():

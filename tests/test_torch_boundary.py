@@ -163,13 +163,14 @@ def test_chip_smoke_digests_are_the_jax_replay_at_full_scale():
 
 @pytest.mark.parametrize("dtype_name,bound_ms,bound_by", [
     ("bfloat16", 0.2780, "operations"),   # 989 TFLOP/s bf16 tensor cores
-    ("float32", 4.1037, "operations"),    # 67 TFLOP/s float32 CUDA cores
+    ("float32", 1.6680, "operations"),    # six bf16 plane products each
 ])
 def test_chip_smoke_attention_bound_at_the_prefill_shape(dtype_name,
                                                          bound_ms, bound_by):
     """The bound chip_smoke.py reports for each attention kernel: the
-    causal pairs' 4 * B * H * hd flops at its dtype's peak, against q, k, v
-    and o read or written once."""
+    causal pairs' 4 * B * H * hd flops at its dtype's peak (float32: the
+    bf16 tensor cores' over the six plane products per float32 product),
+    against q, k, v and o read or written once."""
     smoke = _chip_smoke()
     B, S = smoke.PREFILL_B, smoke.PREFILL_S
     assert smoke.attention_pairs(S, S, True, None) == S * (S + 1) // 2
@@ -178,6 +179,23 @@ def test_chip_smoke_attention_bound_at_the_prefill_shape(dtype_name,
     got, by = smoke.attention_bound_ms(B, S, S, 32, 4, 64, True, None,
                                        dtype_name)
     assert by == bound_by and got == pytest.approx(bound_ms, rel=1e-3)
+
+
+def test_chip_smoke_split_bound_and_route_launches():
+    """The split's bound is its bytes (4 read, 6 written per element) at
+    3.35 TB/s; a float32 wrapper call launches the float32 kernel once and
+    the split three times, a bf16 one the bf16 kernel once."""
+    from repro_torch.kernels import flash_attention as FA
+    smoke = _chip_smoke()
+    n = smoke.PREFILL_B * smoke.PREFILL_S * 32 * 64
+    got, by = smoke.split_bound_ms(n)
+    assert by == "bytes" and got == pytest.approx(10 * n / 3.35e9)
+    assert smoke.route_launches(FA, torch.float32) == {
+        "flash_attention": 0, "flash_attention_f32": 1, "split_bf16x3": 3}
+    assert smoke.route_launches(FA, torch.bfloat16) == {
+        "flash_attention": 1, "flash_attention_f32": 0, "split_bf16x3": 0}
+    assert smoke.F32_ATTN_CASES["long_noncausal"] == (
+        1, 1024, 16384, 8, 2, 64, False, None)
 
 
 @pytest.mark.parametrize("name,n,hosts,nbytes", [

@@ -13,9 +13,11 @@ MCC/MECC arrival, no score kernel, and decide as the CPU.
 The attention kernels must equal ``flash_attention_ref`` at ragged and GQA
 shapes and at the serving prefill's shape (2e-5 float32, 3e-2 bf16, the
 tolerances of tests/test_flash_attention.py; bf16 also within half an ulp
-of the plain version in float32); bf16 must reach only the tensor-core
-kernel and float32 only the float32 one, and ``prefill`` must launch the
-bf16 kernel once per layer.
+of the plain version in float32), float32 also over a 16,384-key row;
+bf16 must reach only the bf16 kernel and float32 only the split (three
+launches) and the float32 kernel; the split kernel must equal
+``ref.split_bf16x3`` bit for bit; and ``prefill`` must launch the bf16
+kernel once per layer.
 """
 import re
 
@@ -160,9 +162,12 @@ def test_attention_kernel_equals_plain_version_on_card(case, dtype):
     v = torch.randn((B, Sk, KV, hd), generator=g, device="cuda").to(dtype)
     FA.reset_launches()
     got = FA.flash_attention(q, k, v, causal=causal, window=window)
-    # One launch of this dtype's kernel and none of the other's.
-    key = FA.ROUTES[dtype][2]
-    assert FA.LAUNCHES == {k_: int(k_ == key) for k_ in FA.LAUNCHES}
+    # One launch of this dtype's kernel, none of the other's, and for
+    # float32 the split of q, k and v.
+    key = FA.ROUTES[dtype][1]
+    want = {k_: int(k_ == key) for k_ in FA.LAUNCHES}
+    want[FA.SPLIT] = 3 if dtype == torch.float32 else 0
+    assert FA.LAUNCHES == want
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     tol = 2e-5 if dtype == torch.float32 else 3e-2
@@ -177,6 +182,32 @@ def test_attention_kernel_equals_plain_version_on_card(case, dtype):
                                    atol=1e-5)
 
 
+def test_f32_attention_over_a_long_row_on_card():
+    """Each key tile's p @ v is merged on the CUDA cores, so 256 tiles of
+    one row hold the float32 tolerance (non-causal, Sk 16,384)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn((1, 1024, 8, 64), generator=g, device="cuda")
+    k = torch.randn((1, 16384, 2, 64), generator=g, device="cuda")
+    v = torch.randn((1, 16384, 2, 64), generator=g, device="cuda")
+    got = FA.flash_attention(q, k, v, causal=False)
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("n", [1, 7, 1001, 4096, 1 << 20])
+def test_split_kernel_equals_plain_version_bit_for_bit_on_card(n):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(n)
+    x = torch.randn(n + 1, generator=g, device="cuda")
+    wide = torch.exp(torch.rand(n + 1, generator=g, device="cuda") * 174 - 87)
+    for t in (x, x * 1e-36, wide * x.sign(), torch.zeros_like(x), x[1:]):
+        got = FA.split_bf16x3(t)
+        want = torch.stack(ref.split_bf16x3(t))
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
 def test_prefill_launches_the_kernel_once_per_layer():
     _need_card()
     cfg = get_config("tinyllama_1_1b").scaled(
@@ -189,7 +220,7 @@ def test_prefill_launches_the_kernel_once_per_layer():
     FA.reset_launches()
     logits = step(model, {"tokens": tokens})
     torch.cuda.synchronize()
-    assert FA.LAUNCHES["flash_attention"] == cfg.n_layers
-    assert FA.LAUNCHES["flash_attention_f32"] == 0
+    assert FA.LAUNCHES == {"flash_attention": cfg.n_layers,
+                           "flash_attention_f32": 0, "split_bf16x3": 0}
     assert logits.shape == (2, 1, cfg.vocab)
     assert torch.isfinite(logits.float()).all()

@@ -148,9 +148,9 @@ def test_kernel_slot_templates(name):
 
 def test_build_flags_per_source():
     """mask_scores.cu keeps the flags (so the library name) it was built
-    with before `_build` took per-source flags; both attention sources
-    build with FMA contraction on, and none with fast math (the bf16
-    kernel's exact split of p needs its roundings as written)."""
+    with before `_build` took per-source flags; the attention source
+    builds with FMA contraction on, and none with fast math (the exact
+    splits of p and of float32 q, k, v need their roundings as written)."""
     import hashlib
     from repro_torch.kernels import _build
     old = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -160,12 +160,10 @@ def test_build_flags_per_source():
     h = hashlib.sha256(src.read_bytes() + " ".join(old).encode())
     want = f"libmask_scores_{h.hexdigest()[:16]}.so"
     assert _build._target(src).name == want
-    fa = _build.nvcc_flags("flash_attention")
-    assert "-fmad=false" not in fa
-    assert fa == tuple(f for f in old if f != "-fmad=false")
     sm90 = _build.nvcc_flags("flash_attention_sm90")
-    assert sm90 == fa
+    assert "-fmad=false" not in sm90
+    assert sm90 == tuple(f for f in old if f != "-fmad=false")
     assert {s.stem for s in _build.CSRC.glob("*.cu")} == {
-        "mask_scores", "flash_attention", "flash_attention_sm90"}
-    for stem in ("mask_scores", "flash_attention", "flash_attention_sm90"):
+        "mask_scores", "flash_attention_sm90"}
+    for stem in ("mask_scores", "flash_attention_sm90"):
         assert not any("fast_math" in f for f in _build.nvcc_flags(stem))
