@@ -2,12 +2,12 @@
 """Prefill attention time of the PyTorch port on one CUDA card, to compare
 checkouts of the repository within one run.
 
-    python3 attention_rate.py ROOT [ROOT ...] [--dtypes float32,bfloat16]
+    python3 attention_rate.py ROOT [ROOT ...]
 
 Each ROOT is a checkout whose ``src/`` holds ``repro_torch``.  The roots
 run one after another, each in its own process (its own kernel build), in
-the order given: list ``A B B A`` to alternate two versions.  For each
-dtype a root prints one JSON line: the milliseconds of one
+the order given: list ``A B B A`` to alternate two versions.  For float32
+and bfloat16 a root prints one JSON line: the milliseconds of one
 ``flash_attention`` wrapper call at ``chip_smoke.py``'s prefill shape (B
 4, S 4096, TinyLlama's heads, causal; CUDA events over 10 calls after a
 warm-up, the inputs ``chip_smoke._qkv`` with seed 1), and the call's max
@@ -17,14 +17,14 @@ a CUDA device.
 """
 from __future__ import annotations
 
-import argparse
 import json
-import subprocess
 import sys
 from pathlib import Path
 
+from replay_rate import in_turns
 
-def worker(root: Path, dtypes) -> None:
+
+def worker(root: Path, args) -> None:
     import torch
     sys.path[:0] = [str(root / "src"), str(Path(__file__).resolve().parent)]
     import chip_smoke as C
@@ -35,37 +35,17 @@ def worker(root: Path, dtypes) -> None:
     cfg = C._tinyllama()
     B, S, H, KV = C.PREFILL_B, C.PREFILL_S, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
-    for name in dtypes:
-        q, k, v = C._qkv(torch, B, S, S, H, KV, hd, getattr(torch, name),
-                         seed=1)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = C._qkv(torch, B, S, S, H, KV, hd, dtype, seed=1)
         diff = (FA.flash_attention(q, k, v).float()
                 - ref.flash_attention_ref(q, k, v).float()).abs().max()
         ms = C.event_ms(torch, lambda: FA.flash_attention(q, k, v), 10)
-        print(json.dumps(dict(root=str(root), dtype=name, ms=ms,
+        print(json.dumps(dict(root=str(root), dtype=str(dtype)[6:], ms=ms,
                               max_abs_diff=diff.item(),
                               shape=dict(B=B, S=S, H=H, KV=KV, hd=hd,
                                          causal=True))), flush=True)
         del q, k, v
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("roots", nargs="+", type=Path)
-    ap.add_argument("--dtypes", default="float32,bfloat16")
-    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    import torch
-    if not torch.cuda.is_available():
-        print("attention_rate: no CUDA device", file=sys.stderr)
-        return 1
-    if args.worker:
-        worker(args.roots[0].resolve(), args.dtypes.split(","))
-        return 0
-    for root in args.roots:
-        subprocess.run([sys.executable, __file__, str(root), "--worker",
-                        "--dtypes", args.dtypes], check=True)
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(in_turns(__doc__, worker))

@@ -671,9 +671,10 @@ def split_inputs(torch, n, seed):
 def check_split(torch):
     """Phase 2b: the split kernel equals ref.split_bf16x3 bit for bit on
     ``split_inputs`` at the prefill's k/v length, a ragged length and two
-    elements, and on the view that drops the first element (unaligned: its
-    one-element path; one element from two).  Returns the largest absolute
-    difference seen (0 unless it raised)."""
+    elements, and on the view that drops the first element (unaligned,
+    copied by the wrapper).  The six lengths leave every tail of 0 to 3
+    elements past the kernel's four-element groups.  Returns the largest
+    absolute difference seen (0 unless it raised)."""
     from repro_torch.kernels import flash_attention as FA, ref
     n_checked, diff = 0, 0.0
     for n in (PREFILL_B * PREFILL_S * 4 * 64, 1001, 2):

@@ -26,7 +26,7 @@ import time
 from pathlib import Path
 
 
-def worker(root: Path, policies, reps: int) -> None:
+def worker(root: Path, args) -> None:
     import torch
     sys.path[:0] = [str(root / "src"), str(Path(__file__).resolve().parent)]
     from chip_smoke import profile_replay, replay_configs
@@ -37,13 +37,13 @@ def worker(root: Path, policies, reps: int) -> None:
     n_events = len(events.kind)
     cap = B.default_heavy_capacity(events)
     configs = {name: (pol, kw) for name, pol, kw in replay_configs(B)}
-    for name in policies:
+    for name in args.policies.split(","):
         pol, kw = configs[name]
         run = B.make_replay(events, pol, device="cuda", **kw)
         run(cap)
         torch.cuda.synchronize()
         rates = []
-        for _ in range(reps):
+        for _ in range(args.reps):
             t0 = time.perf_counter()
             out = run(cap)
             torch.cuda.synchronize()
@@ -56,27 +56,35 @@ def worker(root: Path, policies, reps: int) -> None:
               flush=True)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+def in_turns(doc: str, worker, add_options=None) -> int:
+    """The command line ``ROOT [ROOT ...]`` and the options that
+    ``add_options(parser)`` adds: run ``worker(root, args)`` for each ROOT
+    in the order given, each in a process of its own (the same command
+    line with ``--worker INDEX``).  Returns the exit code, 1 without a
+    CUDA device."""
+    ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
     ap.add_argument("roots", nargs="+", type=Path)
-    ap.add_argument("--policies", default="FF,MCC,MECC")
-    ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    if add_options is not None:
+        add_options(ap)
+    ap.add_argument("--worker", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args()
-    policies = args.policies.split(",")
     import torch
     if not torch.cuda.is_available():
-        print("replay_rate: no CUDA device", file=sys.stderr)
+        print(f"{Path(sys.argv[0]).name}: no CUDA device", file=sys.stderr)
         return 1
-    if args.worker:
-        worker(args.roots[0].resolve(), policies, args.reps)
+    if args.worker is not None:
+        worker(args.roots[args.worker].resolve(), args)
         return 0
-    for root in args.roots:
-        subprocess.run([sys.executable, __file__, str(root), "--worker",
-                        "--policies", args.policies, "--reps",
-                        str(args.reps)], check=True)
+    for i in range(len(args.roots)):
+        subprocess.run([sys.executable, *sys.argv, "--worker", str(i)],
+                       check=True)
     return 0
 
 
+def options(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--policies", default="FF,MCC,MECC")
+    ap.add_argument("--reps", type=int, default=3)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(in_turns(__doc__, worker, options))

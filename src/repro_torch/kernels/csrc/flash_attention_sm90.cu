@@ -637,12 +637,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// float32 x (n elements) -> bf16 planes hi, mid, lo at planes, planes + n
-// and planes + 2n: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi -
-// mid), rounded to nearest, the subtractions exact (ref.split_bf16x3).
-// VEC: four elements a thread, x 16-byte and the planes 8-byte aligned
-// (n % 4 == 0); else one.  Bound by bytes: 4 read and 6 written per
-// element.
+// float32 x (n elements) -> bf16 planes hi, mid, lo at planes, planes +
+// stride and planes + 2 stride: hi = bf16(x), mid = bf16(x - hi), lo =
+// bf16(x - hi - mid), rounded to nearest, the subtractions exact
+// (ref.split_bf16x3).  Four elements a thread, x 16-byte and each plane
+// 8-byte aligned (stride % 4 == 0); the last n % 4 elements one a thread.
+// Bound by bytes: 4 read and 6 written per element.
 __device__ __forceinline__ void split1(float x, __nv_bfloat16& hi,
                                        __nv_bfloat16& mid,
                                        __nv_bfloat16& lo) {
@@ -652,30 +652,26 @@ __device__ __forceinline__ void split1(float x, __nv_bfloat16& hi,
   lo = __float2bfloat16_rn(__fsub_rn(r, __bfloat162float(mid)));
 }
 
-template <bool VEC>
 __global__ void split_bf16x3_kernel(const float* __restrict__ x,
                                     __nv_bfloat16* __restrict__ planes,
-                                    int64_t n) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  if constexpr (VEC) {
-    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-         4 * i < n; i += stride) {
-      const float4 v = reinterpret_cast<const float4*>(x)[i];
-      __nv_bfloat16 t[3][4];
-      split1(v.x, t[0][0], t[1][0], t[2][0]);
-      split1(v.y, t[0][1], t[1][1], t[2][1]);
-      split1(v.z, t[0][2], t[1][2], t[2][2]);
-      split1(v.w, t[0][3], t[1][3], t[2][3]);
+                                    int64_t n, int64_t stride) {
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  for (int64_t i = first; 4 * i + 4 <= n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const float4 v = reinterpret_cast<const float4*>(x)[i];
+    __nv_bfloat16 t[3][4];
+    split1(v.x, t[0][0], t[1][0], t[2][0]);
+    split1(v.y, t[0][1], t[1][1], t[2][1]);
+    split1(v.z, t[0][2], t[1][2], t[2][2]);
+    split1(v.w, t[0][3], t[1][3], t[2][3]);
 #pragma unroll
-      for (int a = 0; a < 3; ++a)
-        *reinterpret_cast<uint2*>(planes + a * n + 4 * i) =
-            *reinterpret_cast<const uint2*>(t[a]);
-    }
-  } else {
-    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-         i += stride)
-      split1(x[i], planes[i], planes[n + i], planes[2 * n + i]);
+    for (int a = 0; a < 3; ++a)
+      *reinterpret_cast<uint2*>(planes + a * stride + 4 * i) =
+          *reinterpret_cast<const uint2*>(t[a]);
   }
+  const int64_t j = (n & ~int64_t{3}) + first;
+  if (j < n)
+    split1(x[j], planes[j], planes[stride + j], planes[2 * stride + j]);
 }
 
 // ---------------------------------------------------------------------------
@@ -812,23 +808,22 @@ extern "C" int fa_forward_f32(const void* q, const void* k, const void* v,
 }
 
 // split_bf16x3: float32 x (n elements, contiguous, 16-byte aligned) ->
-// bf16 planes (3, n), contiguous.
+// bf16 planes at planes + a * stride (a = 0, 1, 2), stride >= n a multiple
+// of 4, planes 8-byte aligned.
 extern "C" int split_bf16x3(const void* x, void* planes, long long n,
-                            void* stream) {
+                            long long stride, void* stream) {
   if (n <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(planes);
+  if (stride < n || stride % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(planes) % 8 != 0)
+    return (int)cudaErrorInvalidValue;
   constexpr int threads = 256;
-  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(planes) % 8 == 0;
-  const long long items = vec ? n / 4 : n;
   // Enough CTAs to fill the card several times; the loop covers the rest.
-  const int blocks = (int)std::min<long long>((items + threads - 1) / threads,
-                                              132 * 16);
-  if (vec)
-    split_bf16x3_kernel<true><<<blocks, threads, 0, st>>>(xf, out, n);
-  else
-    split_bf16x3_kernel<false><<<blocks, threads, 0, st>>>(xf, out, n);
+  const int blocks = (int)std::min<long long>(
+      ((n + 3) / 4 + threads - 1) / threads, 132 * 16);
+  split_bf16x3_kernel<<<blocks, threads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<__nv_bfloat16*>(planes), n,
+      stride);
   return (int)cudaGetLastError();
 }

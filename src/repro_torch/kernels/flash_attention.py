@@ -59,7 +59,7 @@ def _entry(name: str):
     fn = getattr(load(SOURCE), name)
     P, I = ctypes.c_void_p, ctypes.c_int
     if name == SPLIT:
-        fn.argtypes = [P, P, ctypes.c_longlong, P]
+        fn.argtypes = [P, P, ctypes.c_longlong, ctypes.c_longlong, P]
     else:
         fn.argtypes = [P, P, P, P, I, I, I, I, I, I, ctypes.c_float, I, I, P]
     fn.restype = ctypes.c_int
@@ -85,15 +85,20 @@ def split_bf16x3(x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     x = _aligned(x)
-    out = torch.empty((3, *x.shape), dtype=torch.bfloat16, device=x.device)
-    if x.numel() == 0:
-        return out
-    err = _entry(SPLIT)(x.data_ptr(), out.data_ptr(), x.numel(),
+    n = x.numel()
+    # Each plane starts 8-byte aligned for the kernel's vector stores: the
+    # planes are contiguous when n % 4 == 0 (always, for attention's q, k
+    # and v), else rows of a (3, n rounded up to 4) buffer.
+    stride = -(-n // 4) * 4
+    buf = torch.empty((3, stride), dtype=torch.bfloat16, device=x.device)
+    if n == 0:
+        return buf.view(3, *x.shape)
+    err = _entry(SPLIT)(x.data_ptr(), buf.data_ptr(), n, stride,
                         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{SPLIT}: CUDA error ({err})")
     LAUNCHES[SPLIT] += 1
-    return out
+    return buf[:, :n].view(3, *x.shape)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

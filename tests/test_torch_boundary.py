@@ -2,8 +2,9 @@
 
   * importing ``repro_torch`` and every module of it loads neither
     ``jax`` nor any ``repro`` module (checked in a fresh interpreter), and
-    no file of the port, ``chip_smoke.py``, ``replay_rate.py`` or
-    ``mask_probe.py`` names them in an import;
+    no file of the port, ``chip_smoke.py``, ``replay_rate.py``,
+    ``attention_rate.py`` or ``mask_probe.py`` names them in an import;
+  * the two timing tools run each checkout in a process of its own;
   * the modules copied from the JAX package behave like their originals;
   * the device rule: ``device=None`` means CUDA and raises without a card;
   * ``chip_smoke.py``'s digests are those of the JAX replay at full scale.
@@ -72,11 +73,54 @@ def _imported_roots(path: Path):
 def test_no_file_imports_jax_or_repro():
     files = sorted(PORT_DIR.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                               ROOT / "replay_rate.py",
+                                              ROOT / "attention_rate.py",
                                               ROOT / "mask_probe.py"]
     assert len(files) > 10
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
+
+
+def _root_script(name):
+    spec = importlib.util.spec_from_file_location(name, ROOT / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.path.insert(0, str(ROOT))
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        sys.path.remove(str(ROOT))
+    return mod
+
+
+@pytest.mark.parametrize("tool,extra", [
+    ("replay_rate", ["--policies", "MCC", "--reps", "2"]),
+    ("attention_rate", [])])
+def test_timing_tool_runs_each_root_in_its_own_process(tool, extra,
+                                                       monkeypatch):
+    """Given A B B A, a timing tool starts one process per root, in that
+    order, on its own command line with ``--worker INDEX``; the worker
+    gets that root and the options; without CUDA it exits 1."""
+    mod = _root_script(tool)
+    argv = [f"{tool}.py", "A", "B", "B", "A", *extra]
+    monkeypatch.setattr(sys, "argv", argv)
+    opts = getattr(mod, "options", None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert mod.in_turns(mod.__doc__, mod.worker, opts) == 1
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    started = []
+    monkeypatch.setattr(subprocess, "run",
+                        lambda cmd, check: started.append(cmd))
+    assert mod.in_turns(mod.__doc__, mod.worker, opts) == 0
+    assert started == [[sys.executable, *argv, "--worker", str(i)]
+                       for i in range(4)]
+    seen = []
+    monkeypatch.setattr(sys, "argv", started[2])
+    assert mod.in_turns(mod.__doc__, lambda root, args: seen.append(
+        (root, vars(args))), opts) == 0
+    (root, args), = seen
+    assert root == Path("B").resolve() and args["worker"] == 2
+    if extra:
+        assert (args["policies"], args["reps"]) == ("MCC", 2)
 
 
 @pytest.mark.parametrize("name", sorted(mig.DEVICE_MODELS))
