@@ -21,7 +21,9 @@ Phases (each raises on failure; nothing is caught):
      one-element ``zero_()`` in the same CUDA-graph harness).
   3. The replay on the card equals the replay on the CPU (Alibaba-shaped
      trace at scale 0.1, all five policies, GRMU with and without defrag
-     and consolidation, MCC/MECC through the kernels and the tables).
+     and consolidation, MCC/MECC through the kernels and the tables), and
+     so do the five policies' telemetry (``replay_with_telemetry``: the
+     decisions, the rejection reasons and every telemetry series).
   4. The main path: full-scale trace replay (``TraceConfig(scale=1.0,
      seed=1)``: 8,063 VMs, 1,860 GPUs, 9,326 events) for FF, BF, MCC,
      MECC and GRMU.  Each result's digest must equal the JAX reference's
@@ -30,6 +32,27 @@ Phases (each raises on failure; nothing is caught):
      decisions.  Then ``torch.profiler`` over the
      first 1,000 events of each policy: the device's busy share and the
      host operations that cost the most.
+  4b. Telemetry, chunk streaming and the synthetic workload.  (a) The
+     full-scale trace with telemetry on, all five policies: each result
+     digest equals ``DIGESTS`` (telemetry changes no decision), each
+     telemetry digest (``telemetry_digest``) equals ``TELE_DIGESTS``, and
+     the MCC/MECC picks still launch once per arrival, the score kernels
+     never; events/s, then ``torch.profiler`` over the first 1,000 events
+     of MCC and GRMU with telemetry on, whose copies to the host (each a
+     host synchronisation) must number phase 4's (``replay_rate.py
+     --telemetry`` profiles every policy).  (b) GRMU at the DB
+     point on the pow2-padded scale-0.1 trace with telemetry on:
+     rejection reasons ``ANCHOR_REASONS`` (``BENCH_batched_engine.json``,
+     "telemetry").  (c) ``make_chunked_replay`` of all five policies at
+     ``CHUNK_EVENTS`` (1,000) events a chunk, cuts inside hours, defrag,
+     consolidation and MECC windows: each digest equals ``DIGESTS``; then
+     GRMU chunked with telemetry under a ``Recorder`` on a temporary
+     file: its telemetry digest equals the unchunked one, and the file
+     holds one ``chunk.step`` span per chunk.  (d) The JAX ladder's
+     synthetic rung ``synth:20000x512`` (``SYNTH_CFG``, padded to a
+     multiple of 4,096 events, 11 chunks of 4,096): GRMU DB accepts
+     17,862, and GRMU DB and MECC (through ``ecc_pick``) equal
+     ``SYNTH_DIGESTS``; events/s for both.
   2b. The attention kernels vs their plain version (``flash_attention_ref``)
      on the card: TinyLlama's heads (H 32 / KV 4, hd 64), hd 128 with GQA
      4:1, MHA, MQA, hd 32, causal and non-causal with Sq != Sk, a 96-key
@@ -99,6 +122,38 @@ DIGESTS = {
     "GRMU": "f5f4baa0c60658f914265fcbb961a8ec2a96b046a41be59d83ecc9afe41b62a2",
 }
 GRMU_FULL = dict(defrag=True, consolidation_interval=24.0)
+GRMU_DB = dict(defrag=False, consolidation_interval=None)
+
+# sha256 of the telemetry output arrays (``telemetry_digest``) of the JAX
+# replay with telemetry=True on the same trace and settings as DIGESTS.
+# Pinned against the JAX package by tests/test_torch_boundary.py.
+TELE_DIGESTS = {
+    "FF": "72af53c86af97cc98ba0604777d027ede0cfd7b40af1aafd33cab96a8efa2dbc",
+    "BF": "e0aa7e92886e117a0fcf1de927f317ad33d3029f7782cebd94c7cf1d11d2e870",
+    "MCC": "3196f667a78c7121b11a1b6b352e6921e08df41f716e033b1260323483d50875",
+    "MECC": "3196f667a78c7121b11a1b6b352e6921e08df41f716e033b1260323483d50875",
+    "GRMU": "3a0853de0aa44d11cf7ebdfb84a8cb41bbe962fdf10ea95a1e46887a9e29276d",
+}
+# Phase 4b (b): GRMU DB on the pow2-padded TraceConfig(scale=0.1, seed=1)
+# trace (BENCH_batched_engine.json, "telemetry").
+ANCHOR_REASONS = {"no_slot": 70, "capacity": 0, "basket_quota": 220,
+                  "frozen": 0}
+# Phase 4b (c): chunk length of the full-scale chunked replays.
+CHUNK_EVENTS = 1000
+# Phase 4b (d): the JAX ladder's rung synth:20000x512 (benchmarks/
+# batched_engine.py: seed 1, streamed in chunks of 4,096 events), and
+# result digests of the JAX replay of it, padded to a multiple of the
+# chunk (GRMU DB at the default heavy capacity 154; MECC).  Pinned by
+# tests/test_torch_boundary.py.
+SYNTH_CFG = dict(n_vms=20000, n_gpus=512, seed=1)
+SYNTH_CHUNK = 4096
+SYNTH_ACCEPTED_GRMU_DB = 17862
+SYNTH_DIGESTS = {
+    "GRMU-DB":
+        "3d4ca5141d01d14b9ed95d9f935f5c1f2c81b1920a930ac4df62509215fb4518",
+    "MECC":
+        "3ef85caeca1918f77a2e3552862cee74799b142375947070adb2c51b9f33c932",
+}
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bandwidth (the mask
 # kernels' and the split's bound: they move bytes and do no arithmetic
@@ -168,6 +223,22 @@ def result_digest(res) -> str:
                     [repr(v) for v in res.hourly_acceptance],
                     [repr(v) for v in res.hourly_active_hw]))
     return hashlib.sha256(payload.encode()).hexdigest()
+
+
+def telemetry_digest(events, out) -> str:
+    """Digest of a telemetry replay's output arrays (numpy), sliced to
+    the trace's logical VMs, steps and GPUs: the per-VM codes, the code
+    tally, the step rows and the free-mask snapshots, with their dtypes
+    and shapes."""
+    import numpy as np
+    N, S, G = len(events.vm_ids), len(events.step_times), events.num_gpus
+    h = hashlib.sha256()
+    for a in (out["tele_vm_reason"][:N], out["tele_rej"],
+              out["tele_steps"][:S], out["tele_masks"][:S, :G]):
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.dtype.str}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
 
 
 def card_line() -> str:
@@ -456,6 +527,18 @@ def check_card_vs_cpu():
     if B.replay(events, B.GRMU, device="cuda", defrag=False,
                 consolidation_interval=None).accepted != 516:
         raise AssertionError("GRMU DB anchor at scale 0.1 is not 516")
+    from repro_torch.obs import inscan
+    for name, pol, kw in replay_configs(B):
+        card, card_tele = inscan.replay_with_telemetry(events, pol,
+                                                       device="cuda", **kw)
+        cpu, cpu_tele = inscan.replay_with_telemetry(events, pol,
+                                                     device="cpu", **kw)
+        if (not same_result(card, cpu)
+                or card.rejection_reasons != cpu.rejection_reasons
+                or card_tele.to_json_dict() != cpu_tele.to_json_dict()):
+            raise AssertionError(f"scale 0.1 {name} telemetry: card != CPU")
+        print(f"phase 3: scale 0.1 {name} telemetry: card == CPU, "
+              f"rejections {card.rejection_reasons}", flush=True)
 
 
 def run_main_path(torch):
@@ -518,11 +601,12 @@ def run_main_path(torch):
               flush=True)
     print(f"phase 4: {n_events} events, {n_arrivals} arrivals; launches on "
           f"the main path {launches}", flush=True)
+    profiles = {}
     for name, pol, kw in configs:
-        print(json.dumps({"profile": dict(
-            policy=name, **profile_replay(torch, B, events, pol, kw, cap))}),
-            flush=True)
-    return launches
+        profiles[name] = profile_replay(torch, B, events, pol, kw, cap)
+        print(json.dumps({"profile": dict(policy=name, **profiles[name])}),
+              flush=True)
+    return launches, profiles
 
 
 def profile_replay(torch, B, events, pol, kw, cap, n=1000):
@@ -547,12 +631,183 @@ def profile_replay(torch, B, events, pol, kw, cap, n=1000):
     top = sorted((a for a in prof.key_averages()
                   if a.key.startswith("aten::")),
                  key=lambda a: a.self_cpu_time_total, reverse=True)[:6]
+    per_kernel = {}
+    for e in dev:
+        per_kernel[e.name[:60]] = per_kernel.get(e.name[:60], 0) + 1
     return {"events": n, "profiled_wall_us_per_event": wall_us / n,
+            # Each copy to the host is a point where the host waits.
+            "device_to_host_copies": sum(
+                v for k, v in per_kernel.items() if k.startswith(
+                    "Memcpy DtoH")),
             "device_busy_share": (dev_us / wall_us) if dev else None,
             "device_us_per_event": dev_us / n if dev else None,
             "device_ops_per_event": len(dev) / n,
             "top_host_ops": [[a.key, a.count, a.self_cpu_time_total]
-                             for a in top]}
+                             for a in top],
+            "top_device_ops_by_count": sorted(
+                per_kernel.items(), key=lambda kv: -kv[1])[:12]}
+
+
+def _timed(torch, run, cap):
+    """(output arrays, seconds) of one replay run to a synchronize."""
+    t0 = time.perf_counter()
+    out = run(cap)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return {k: v.cpu().numpy() for k, v in out.items()}, dt
+
+
+def _check_picks(launches, n_arrivals, what):
+    want = {k: n_arrivals if k in ("mcc_pick", "ecc_pick") else 0
+            for k in launches}
+    if launches != want:
+        raise AssertionError(f"mask kernels launched {launches} in {what}, "
+                             f"expected {want}")
+
+
+def run_streaming_and_telemetry(torch, off_profiles):
+    """Phase 4b: telemetry at full scale, the padded scale-0.1 anchor, the
+    chunked replay at full scale and the synthetic rung, on the card.
+    ``off_profiles`` are phase 4's profiles, telemetry off: telemetry
+    must add no copy to the host (no host synchronisation)."""
+    import tempfile
+    from repro_torch.core import batched as B
+    from repro_torch.core import streaming as ST
+    from repro_torch.core.bucketing import pad_events
+    from repro_torch.kernels import mask_scores as K
+    from repro_torch.obs import inscan, recorder, report
+    from repro_torch.workload.alibaba import TraceConfig, generate
+    from repro_torch.workload.synthetic import (SyntheticConfig,
+                                                generate_events)
+    cluster, vms = generate(TraceConfig(scale=1.0, seed=1))
+    events = B.build_events(vms, cluster)
+    n_events = len(events.kind)
+    n_arrivals = int((events.kind == B.ARRIVAL).sum())
+    cap = B.default_heavy_capacity(events)
+    configs = replay_configs(B)
+
+    # (a) Telemetry at full scale.
+    K.reset_launches()
+    for name, pol, kw in configs:
+        out, dt = _timed(torch, B.make_replay(events, pol, device="cuda",
+                                              telemetry=True, **kw), cap)
+        res = B.result_from_arrays(events, pol, out)
+        if result_digest(res) != DIGESTS[name]:
+            raise AssertionError(f"full-scale {name} with telemetry: digest "
+                                 "differs from the JAX reference")
+        if telemetry_digest(events, out) != TELE_DIGESTS[name]:
+            raise AssertionError(f"full-scale {name}: telemetry digest "
+                                 "differs from the JAX reference")
+        print(json.dumps({
+            "phase": "4b telemetry", "policy": name,
+            "rejection_reasons": res.rejection_reasons, "wall_s": dt,
+            "events_per_s": n_events / dt, "digests_match_jax": True}),
+            flush=True)
+    _check_picks(dict(K.LAUNCHES), n_arrivals, "the telemetry replays")
+    for name, pol, kw in configs:
+        if name not in ("MCC", "GRMU"):     # ~40 s a profile on the card
+            continue
+        prof = profile_replay(torch, B, events, pol,
+                              dict(kw, telemetry=True), cap)
+        print(json.dumps({"profile": dict(policy=name, telemetry=True,
+                                          **prof)}), flush=True)
+        off = off_profiles[name]["device_to_host_copies"]
+        if prof["device_to_host_copies"] != off:
+            raise AssertionError(
+                f"{name}: {prof['device_to_host_copies']} copies to the "
+                f"host in {prof['events']} events with telemetry, {off} "
+                "without")
+
+    # (b) The anchor: GRMU DB on the padded scale-0.1 trace.
+    c01, v01 = generate(TraceConfig(scale=0.1, seed=1))
+    res, _ = inscan.replay_with_telemetry(
+        pad_events(B.build_events(v01, c01)), B.GRMU, device="cuda",
+        **GRMU_DB)
+    if res.accepted != 516 or res.rejection_reasons != ANCHOR_REASONS:
+        raise AssertionError(f"padded scale-0.1 GRMU DB: accepted "
+                             f"{res.accepted}, {res.rejection_reasons}")
+    print(f"phase 4b: padded scale-0.1 GRMU DB accepted 516, rejections "
+          f"{res.rejection_reasons}", flush=True)
+
+    # (c) Chunked at full scale, then GRMU chunked with telemetry and a
+    # recorder.
+    K.reset_launches()
+    for name, pol, kw in configs:
+        run = ST.make_chunked_replay(events, pol, chunk_events=CHUNK_EVENTS,
+                                     device="cuda", **kw)
+        out, dt = _timed(torch, run, cap)
+        if result_digest(B.result_from_arrays(run.events, pol, out)) \
+                != DIGESTS[name]:
+            raise AssertionError(f"full-scale {name} chunked: digest "
+                                 "differs from the JAX reference")
+        print(json.dumps({
+            "phase": "4b chunked", "policy": name,
+            "chunk_events": CHUNK_EVENTS, "num_chunks": run.num_chunks,
+            "padded_shape": [len(run.events.kind),
+                             len(run.events.gpu_model_id)],
+            "wall_s": dt, "events_per_s": n_events / dt,
+            "digest_matches_jax": True}), flush=True)
+    _check_picks(dict(K.LAUNCHES), n_arrivals, "the chunked replays")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "grmu_chunked.jsonl"
+        with recorder.record(path, run_id="chip-smoke-4b",
+                             meta={"policy": "GRMU"}) as rec:
+            run = ST.make_chunked_replay(events, B.GRMU,
+                                         chunk_events=CHUNK_EVENTS,
+                                         device="cuda", telemetry=True,
+                                         **GRMU_FULL)
+            out, dt = _timed(torch, run, cap)
+            res = B.result_from_arrays(run.events, B.GRMU, out)
+            rec.result(res)
+        (summary,) = [report.summarize(r) for r in report.load([str(path)])]
+    if (result_digest(res) != DIGESTS["GRMU"]
+            or telemetry_digest(run.events, out) != TELE_DIGESTS["GRMU"]):
+        raise AssertionError("full-scale GRMU chunked with telemetry: "
+                             "digests differ from the unchunked replay's")
+    spans = summary["spans"]
+    if (spans["chunk.step"]["count"] != run.num_chunks
+            or spans["chunk.prefetch"]["count"] != run.num_chunks
+            or spans["finalize"]["count"] != 1 or summary["cache"]
+            or summary["rejection_reasons"] != res.rejection_reasons):
+        raise AssertionError(f"recorded chunked replay: {summary}")
+    print(json.dumps({
+        "phase": "4b chunked telemetry recorded", "policy": "GRMU",
+        "num_chunks": run.num_chunks, "wall_s": dt,
+        "events_per_s": n_events / dt, "spans": spans,
+        "digests_match_jax": True}), flush=True)
+
+    # (d) The synthetic rung, as the JAX ladder pads and streams it.
+    synth = generate_events(SyntheticConfig(**SYNTH_CFG))
+    n_synth = len(synth.kind)
+    synth_arrivals = int((synth.kind == B.ARRIVAL).sum())
+    synth = pad_events(synth, event_multiple=SYNTH_CHUNK)
+    scap = B.default_heavy_capacity(synth)
+    for name, pol, kw in (("GRMU-DB", B.GRMU, GRMU_DB),
+                          ("MECC", B.MECC, dict(score_backend="kernel"))):
+        run = ST.make_chunked_replay(synth, pol, chunk_events=SYNTH_CHUNK,
+                                     device="cuda", **kw)
+        K.reset_launches()
+        out, dt = _timed(torch, run, scap)
+        launches = dict(K.LAUNCHES)
+        want = {k: synth_arrivals if (k, name) == ("ecc_pick", "MECC")
+                else 0 for k in launches}
+        if launches != want:
+            raise AssertionError(f"synth:20000x512 {name}: mask kernels "
+                                 f"launched {launches}, expected {want}")
+        res = B.result_from_arrays(run.events, pol, out)
+        if result_digest(res) != SYNTH_DIGESTS[name]:
+            raise AssertionError(f"synth:20000x512 {name}: digest differs "
+                                 "from the JAX reference")
+        if name == "GRMU-DB" and res.accepted != SYNTH_ACCEPTED_GRMU_DB:
+            raise AssertionError(f"synth:20000x512 GRMU DB accepted "
+                                 f"{res.accepted}")
+        print(json.dumps({
+            "phase": "4b synth:20000x512", "policy": name,
+            "events": n_synth, "num_chunks": run.num_chunks,
+            "accepted": res.accepted, "total": res.total_requests,
+            "launches": launches, "wall_s": dt,
+            "events_per_s": n_synth / dt, "digest_matches_jax": True}),
+            flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1273,16 +1528,23 @@ def main() -> int:
     print(f"phase 1: built {sorted(libs)} from {SOURCE} and {FA_SOURCE} "
           f"in {time.perf_counter() - t0:.2f} s", flush=True)
 
-    err = check_kernels(torch, np)
-    timing = time_kernels(torch, np)
-    fa_err = check_attention(torch)
-    fa_time = time_attention(torch, fa_err)
-    check_card_vs_cpu()
-    launches = run_main_path(torch)
-    check_card_vs_cpu_prefill(torch)
-    fa_launches, _ = run_serving(torch)
-    f32_launches, _ = run_f32_prefill(torch)
-    attention_accuracy(torch)
+    def timed_phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"{name} took {time.perf_counter() - t:.1f} s", flush=True)
+        return out
+
+    err = timed_phase("phase 2 checks", check_kernels, torch, np)
+    timing = timed_phase("phase 2 timing", time_kernels, torch, np)
+    fa_err = timed_phase("phase 2b checks", check_attention, torch)
+    fa_time = timed_phase("phase 2b timing", time_attention, torch, fa_err)
+    timed_phase("phase 3", check_card_vs_cpu)
+    launches, profiles = timed_phase("phase 4", run_main_path, torch)
+    timed_phase("phase 4b", run_streaming_and_telemetry, torch, profiles)
+    timed_phase("phase 5 card vs CPU", check_card_vs_cpu_prefill, torch)
+    fa_launches, _ = timed_phase("phase 5 bf16", run_serving, torch)
+    f32_launches, _ = timed_phase("phase 5 float32", run_f32_prefill, torch)
+    timed_phase("phase 5b", attention_accuracy, torch)
 
     rows = []
     floor = timing["launch_floor"]

@@ -3,6 +3,7 @@
 compare checkouts of the repository within one run.
 
     python3 replay_rate.py ROOT [ROOT ...] [--policies FF,MCC,MECC] [--reps 3]
+                           [--telemetry]
 
 Each ROOT is a checkout whose ``src/`` holds ``repro_torch``.  The roots
 run one after another, each in its own process (one import of the port
@@ -13,8 +14,9 @@ warm-up (host clock to ``torch.cuda.synchronize()``), and, under
 ``torch.profiler`` over the first 1,000 events, device operations per
 event, device microseconds per event and the device's busy share.  The
 policies' settings and the profile are ``chip_smoke.py``'s phase 4 (this
-script's own checkout), the same for every root.  Exits non-zero without
-a CUDA device.
+script's own checkout), the same for every root; ``--telemetry`` replays
+with telemetry on (to compare on and off, run the script with and
+without it in turns).  Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ def worker(root: Path, args) -> None:
     configs = {name: (pol, kw) for name, pol, kw in replay_configs(B)}
     for name in args.policies.split(","):
         pol, kw = configs[name]
+        kw = dict(kw, telemetry=args.telemetry)
         run = B.make_replay(events, pol, device="cuda", **kw)
         run(cap)
         torch.cuda.synchronize()
@@ -50,6 +53,7 @@ def worker(root: Path, args) -> None:
             rates.append(n_events / (time.perf_counter() - t0))
         accepted = int(out["vm_accepted"].sum())
         print(json.dumps(dict(root=str(root), policy=name,
+                              telemetry=args.telemetry,
                               events_per_s=rates, accepted=accepted,
                               **profile_replay(torch, B, events, pol, kw,
                                                cap))),
@@ -84,6 +88,7 @@ def in_turns(doc: str, worker, add_options=None) -> int:
 def options(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--policies", default="FF,MCC,MECC")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--telemetry", action="store_true")
 
 
 if __name__ == "__main__":

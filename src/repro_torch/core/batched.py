@@ -24,6 +24,18 @@ CUDA kernels of :mod:`repro_torch.kernels.mask_scores` (on a CPU device,
 their plain versions), ``"auto"`` picks ``"kernel"`` for MCC/MECC on a
 single-model fleet.  The state tensors are updated in place.
 
+Telemetry (``telemetry=True``, :mod:`repro_torch.obs.inscan`) adds the
+decision code of each arrival as a 4th ``vmrow`` column and, at each
+step-end, the migration and basket counters and the free masks into the
+step-indexed ``tele_steps`` / ``tele_masks`` state; it reads decision
+state only, so every decision is the same as with telemetry off, and it
+adds no host synchronisation.  With telemetry off none of its
+operations runs.
+
+``run_events`` over consecutive ranges of events on one state composes
+into one run over their union (``repro_torch.core.streaming`` replays a
+trace so, chunk by chunk).
+
 Within each step (1 h bucket): departures are processed first, then
 arrivals, then the step-end hook (defrag -> consolidation -> metrics);
 scans resolve ties by lowest globalIndex.
@@ -38,6 +50,8 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..kernels import mask_scores
+from ..obs import inscan as obs_inscan
+from ..obs import reasons as obs_reasons
 from ..sim.cluster import VM, Cluster
 from ..sim.metrics import SimResult
 from .mig import A100_40GB, DeviceModel, PROFILE_INDEX
@@ -274,6 +288,8 @@ class ReplayStatics:
     # "tables" = per-model mask-table gathers; "kernel" = MCC/MECC scoring
     # through the CUDA kernels (their plain versions on a CPU device).
     score_backend: str = "tables"
+    # In-replay telemetry (repro_torch.obs.inscan).  Off by default.
+    telemetry: bool = False
 
 
 def replay_statics(events: EventTrace, policy: int, *,
@@ -286,8 +302,6 @@ def replay_statics(events: EventTrace, policy: int, *,
                    num_shards: int = 0) -> ReplayStatics:
     """Resolve user cfg (including ``score_backend="auto"``) against the
     trace's fleet into a hashable :class:`ReplayStatics`."""
-    if telemetry:
-        raise NotImplementedError("in-scan telemetry is not ported yet")
     if num_shards:
         raise NotImplementedError("sharded replay is not ported yet")
     kernel_ok = policy in (MCC, MECC) and len(events.models) == 1
@@ -304,7 +318,7 @@ def replay_statics(events: EventTrace, policy: int, *,
         policy=policy, models=tuple(events.models), defrag=defrag,
         consolidation_interval=consolidation_interval,
         defrag_trigger=defrag_trigger, mecc_window=mecc_window,
-        score_backend=score_backend)
+        score_backend=score_backend, telemetry=telemetry)
 
 
 def _gpu_full(events: EventTrace) -> np.ndarray:
@@ -345,6 +359,11 @@ def trace_arrays(events: EventTrace) -> Dict[str, np.ndarray]:
                   if len(events.arr_times) else np.zeros((1, M), np.int16)),
         n_gpus=np.asarray(events.num_gpus, np.int32),
     )
+
+
+# Keys of the E-sized event-stream arrays of ``trace_arrays`` — the only
+# arrays ``repro_torch.core.streaming`` splits into chunks.
+EVENT_KEYS = ("kind", "vm_index", "profile", "time", "idx")
 
 
 @dataclasses.dataclass
@@ -399,10 +418,12 @@ def init_state(events: EventTrace, st: ReplayStatics,
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
 
+    # Telemetry adds the per-VM decision code (-1 = not yet offered).
+    vm0 = [-1, 0, 0, -1] if st.telemetry else [-1, 0, 0]
     state = dict(
         free=torch.as_tensor(_gpu_full(events), device=device),
-        # Per-VM row: [gpu, start, accepted].
-        vmrow=torch.tensor([-1, 0, 0], dtype=torch.int32,
+        # Per-VM row: [gpu, start, accepted] (+ telemetry reason code).
+        vmrow=torch.tensor(vm0, dtype=torch.int32,
                            device=device).repeat(N, 1),
         # Per-reference-profile row: [accepted, total].
         counts=zeros((NP, 2), torch.int32),
@@ -411,6 +432,10 @@ def init_state(events: EventTrace, st: ReplayStatics,
         # Per-step row: [accepted_cum, total_cum, pms, gpus].
         hourly=zeros((S, 4), torch.int32),
     )
+    if st.telemetry:
+        state["tele_steps"] = zeros((S, obs_inscan.NUM_STEP_COLS),
+                                    torch.int32)
+        state["tele_masks"] = zeros((S, G), obs_inscan.MASK_DTYPE)
     if st.policy == GRMU:
         ar = np.arange(G)
         basket = np.where(ar == 0, pc.HEAVY_BASKET,
@@ -473,12 +498,34 @@ def _kernel_pick(st: ReplayStatics, free, prof0: int, ghost, host_used,
                                 w, model)
 
 
+def stage_events(trace: Trace, start: int = 0,
+                 stop: Optional[int] = None) -> Tuple:
+    """Events ``[start, stop)`` of ``trace`` as the host rows the event
+    loop dispatches on: lists of kinds, VM indices, profiles and step
+    indices, and the float32 times."""
+    h = trace.host
+    stop = len(h["kind"]) if stop is None else stop
+    return (h["kind"][start:stop].tolist(),
+            h["vm_index"][start:stop].tolist(),
+            h["profile"][start:stop].tolist(),
+            h["idx"][start:stop].tolist(), h["time"][start:stop])
+
+
 def run_events(st: ReplayStatics, state: Dict[str, torch.Tensor],
                trace: Trace, heavy_capacity: int, start: int = 0,
                stop: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Replay events ``[start, stop)`` of ``trace`` on ``state`` (updated
     in place and returned).  The state holds the whole cluster, so runs
     over consecutive slices compose into one run over their union."""
+    return run_staged(st, state, trace, heavy_capacity,
+                      stage_events(trace, start, stop))
+
+
+def run_staged(st: ReplayStatics, state: Dict[str, torch.Tensor],
+               trace: Trace, heavy_capacity: int, rows: Tuple
+               ) -> Dict[str, torch.Tensor]:
+    """:func:`run_events` over rows already staged by
+    :func:`stage_events`."""
     dev = trace.device
     T = pc.tables_for(st.models, dev)
     h, d = trace.host, trace.dev
@@ -507,6 +554,9 @@ def run_events(st: ReplayStatics, state: Dict[str, torch.Tensor],
     inter = state["inter"].view(1) if st.policy == GRMU else None
     zero_f = torch.zeros((), dtype=torch.float32, device=dev)
     garange = torch.arange(G, device=dev)
+    if st.telemetry:
+        tele_steps, tele_masks = state["tele_steps"], state["tele_masks"]
+        code_table, basket_cols = obs_inscan.device_tables(str(dev))
 
     if st.policy == MECC:
         mecc_counts = state["mecc_counts"]
@@ -543,16 +593,24 @@ def run_events(st: ReplayStatics, state: Dict[str, torch.Tensor],
 
         need = vm_res[vi]                               # (2,) cpu, ram
         heavy = bool(vm_heavy_h[vi])
+        grew = quota_full = None
         if st.policy == GRMU:
             host_ok = (host_used[ghost] + need <= cap_g).all(dim=1)
             pick, grew, grow_idx = pc.grmu_select(
                 T, mid, free, pids, heavy, host_ok, basket, heavy_cap,
                 light_cap)
             want = pc.HEAVY_BASKET if heavy else pc.LIGHT_BASKET
+            if st.telemetry:
+                # Read before the basket grows.
+                quota_full = ((basket == want).sum()
+                              >= (heavy_cap if heavy else light_cap))
             basket[grow_idx] = torch.where(grew, want, basket[grow_idx])
         elif st.score_backend == "kernel":
             pick = _kernel_pick(st, free, int(vm_pids_h[vi, 0]), ghost,
                                 host_used, cap_g, need, mecc_w)
+            if st.telemetry:
+                # The fused pick keeps its host headroom to itself.
+                host_ok = (host_used[ghost] + need <= cap_g).all(dim=1)
         else:
             host_ok = (host_used[ghost] + need <= cap_g).all(dim=1)
             pick = pc.select_gpu(st.policy, T, mid, free, pids, host_ok,
@@ -564,9 +622,14 @@ def run_events(st: ReplayStatics, state: Dict[str, torch.Tensor],
         mid_g = mid[g]
         p_g = pids[mid_g]         # profile under the chosen GPU's model
         ml = mask.long()
-        vmrow[vi] = torch.cat([
-            torch.where(ok, pick, -1).to(torch.int32),
-            torch.where(ok, T.assign_start[mid_g, ml, p_g], 0), okc])
+        row = [torch.where(ok, pick, -1).to(torch.int32),
+               torch.where(ok, T.assign_start[mid_g, ml, p_g], 0), okc]
+        if st.telemetry:
+            # From the pre-placement free masks and host headroom.
+            row.append(obs_inscan.arrival_reason_code(
+                T, mid, free, pids, host_ok, ok, code_table, grew,
+                quota_full))
+        vmrow[vi] = torch.cat(row)
         free[g] = torch.where(ok, T.assign_mask[mid_g, ml, p_g], mask)
         counts[p, 0:1] += okc
         counts[p, 1] += 1
@@ -686,13 +749,12 @@ def run_events(st: ReplayStatics, state: Dict[str, torch.Tensor],
         hourly[idx] = torch.stack([
             counts[:, 0].sum(), counts[:, 1].sum(), (per_host > 0).sum(),
             gpu_active.sum()]).to(torch.int32)
+        if st.telemetry:
+            head, tele_masks[idx] = obs_inscan.step_row(state, basket_cols)
+            if head is not None:
+                tele_steps[idx] = head
 
-    stop = len(h["kind"]) if stop is None else stop
-    kinds = h["kind"][start:stop].tolist()
-    vis = h["vm_index"][start:stop].tolist()
-    profs = h["profile"][start:stop].tolist()
-    idxs = h["idx"][start:stop].tolist()
-    times = h["time"][start:stop]
+    kinds, vis, profs, idxs, times = rows
     for j, kind in enumerate(kinds):
         if kind == ARRIVAL:
             arrival(vis[j], profs[j], times[j])
@@ -717,13 +779,16 @@ def _finalize(st: ReplayStatics, final: Dict[str, torch.Tensor]
               ) -> Dict[str, torch.Tensor]:
     """Reduce a final state to the replay's small output tensors."""
     zero = torch.zeros((), dtype=torch.int32, device=final["free"].device)
-    return dict(
+    out = dict(
         accepted=final["counts"][:, 0], total=final["counts"][:, 1],
         vm_accepted=final["vmrow"][:, 2] > 0,
         h_acc=final["hourly"][:, 0], h_tot=final["hourly"][:, 1],
         h_pms=final["hourly"][:, 2], h_gpus=final["hourly"][:, 3],
         intra=final.get("intra", zero), inter=final.get("inter", zero),
     )
+    if st.telemetry:
+        out.update(obs_inscan.unpack_finalize(final))
+    return out
 
 
 def default_heavy_capacity(events: EventTrace,
@@ -754,8 +819,9 @@ def replay(events: EventTrace, policy: int, heavy_capacity=None,
     CUDA device; pass ``device="cpu"`` for the CPU) and return a full
     ``SimResult``.  ``heavy_capacity`` is only used by GRMU; GRMU knobs
     (``defrag``, ``consolidation_interval``, ``defrag_trigger``), MECC's
-    ``mecc_window`` and ``score_backend`` (auto|tables|kernel) pass
-    through ``cfg``."""
+    ``mecc_window``, ``score_backend`` (auto|tables|kernel) and
+    ``telemetry`` pass through ``cfg``; with telemetry the result's
+    ``rejection_reasons`` are filled."""
     if heavy_capacity is None:
         heavy_capacity = default_heavy_capacity(events)
     out = make_replay(events, policy, device, **cfg)(heavy_capacity)
@@ -794,11 +860,17 @@ def result_from_arrays(events: EventTrace, policy: int, out: dict
     res.migrations = res.intra_migrations + res.inter_migrations
     acc_mask = np.asarray(out["vm_accepted"], bool)[:len(events.vm_ids)]
     res.accepted_ids = [int(v) for v in events.vm_ids[acc_mask]]
+    if "tele_rej" in out:       # telemetry-enabled replay: reason tally
+        rej = np.asarray(out["tele_rej"])
+        res.rejection_reasons = {
+            obs_reasons.REASON_NAMES[c]: int(rej[c])
+            for c in range(1, obs_reasons.NUM_CODES)}
     return res
 
 
 __all__ = ["EventTrace", "build_events", "build_events_arrays",
            "make_replay", "replay", "result_from_arrays", "run_events",
+           "stage_events", "run_staged", "EVENT_KEYS",
            "default_heavy_capacity", "trace_arrays", "trace_from_numpy",
            "Trace", "init_state", "state_from_numpy", "state_to_numpy",
            "replay_statics", "ReplayStatics", "step_grid",

@@ -5,28 +5,38 @@
     no file of the port, ``chip_smoke.py``, ``replay_rate.py``,
     ``attention_rate.py`` or ``mask_probe.py`` names them in an import;
   * the two timing tools run each checkout in a process of its own;
-  * the modules copied from the JAX package behave like their originals;
+  * the modules copied from the JAX package behave like their originals,
+    and their text is the original's apart from the lines their header
+    names;
   * the device rule: ``device=None`` means CUDA and raises without a card;
-  * ``chip_smoke.py``'s digests are those of the JAX replay at full scale.
+  * ``chip_smoke.py``'s digests are those of the JAX replay at full scale
+    (decisions, and telemetry) and of the JAX ladder's synthetic rung.
 """
 import ast
+import difflib
 import importlib.util
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import torch
 
+from _torch_scenarios import JAX, PORT, events_of, hetero_scenario
 from repro.core import batched as JB
+from repro.core import streaming as JS
+from repro.core.bucketing import pad_events as jpad_events
 from repro.core import mig as jmig
 from repro.core import policy_core as jpc
 from repro.core import tables as jtables
 from repro.workload import alibaba as jalibaba
+from repro.workload import synthetic as jsynthetic
 from repro_torch.core import batched as B
 from repro_torch.core import mig, policy_core as pc, tables
+from repro_torch.core.bucketing import pad_events
 from repro_torch.device import resolve_device
 from repro_torch.workload import alibaba
 
@@ -94,7 +104,8 @@ def _root_script(name):
 
 @pytest.mark.parametrize("tool,extra", [
     ("replay_rate", ["--policies", "MCC", "--reps", "2"]),
-    ("attention_rate", [])])
+    ("attention_rate", []),
+    ("replay_rate", ["--policies", "MCC", "--reps", "2", "--telemetry"])])
 def test_timing_tool_runs_each_root_in_its_own_process(tool, extra,
                                                        monkeypatch):
     """Given A B B A, a timing tool starts one process per root, in that
@@ -120,7 +131,8 @@ def test_timing_tool_runs_each_root_in_its_own_process(tool, extra,
     (root, args), = seen
     assert root == Path("B").resolve() and args["worker"] == 2
     if extra:
-        assert (args["policies"], args["reps"]) == ("MCC", 2)
+        assert (args["policies"], args["reps"], args["telemetry"]) == (
+            "MCC", 2, "--telemetry" in extra)
 
 
 @pytest.mark.parametrize("name", sorted(mig.DEVICE_MODELS))
@@ -134,6 +146,35 @@ def test_copied_tables_equal_originals(name):
         a, b = getattr(got, field), getattr(want, field)
         assert a.dtype == b.dtype, field
         np.testing.assert_array_equal(a, b, err_msg=field)
+
+
+# Modules the port carries as copies, by path under the package; the
+# changed ones with the number of their lines that differ from the
+# original (the changes their header names).
+COPIES = ("core/mig.py", "core/tables.py", "models/config.py",
+          "obs/reasons.py", "sim/cluster.py", "sim/metrics.py",
+          "workload/alibaba.py", "workload/synthetic.py")
+CHANGED_COPIES = {"configs/tinyllama_1_1b.py": 1, "core/bucketing.py": 4,
+                  "obs/report.py": 3}
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copied_module_text_equals_original(rel):
+    port = (PORT_DIR / rel).read_text().splitlines()
+    assert port[0] == (f"# Copied unchanged from repro/{rel} (the JAX "
+                       "package), so the port imports nothing of it.")
+    assert port[1:] == (ROOT / "src" / "repro" / rel).read_text(
+    ).splitlines()
+
+
+@pytest.mark.parametrize("rel", sorted(CHANGED_COPIES))
+def test_copied_module_changes_only_what_its_header_names(rel):
+    port = (PORT_DIR / rel).read_text().splitlines()
+    orig = (ROOT / "src" / "repro" / rel).read_text().splitlines()
+    assert port[0].startswith(f"# Copied from repro/{rel} (the JAX package)")
+    added = [ln for ln in difflib.ndiff(orig, port[1:])
+             if ln.startswith("+ ")]
+    assert len(added) == CHANGED_COPIES[rel], added
 
 
 @pytest.mark.parametrize("fleet", [(), ("A30-24GB", "A100-40GB",
@@ -203,6 +244,62 @@ def test_chip_smoke_digests_are_the_jax_replay_at_full_scale():
     for name, (pol, kw) in cfgs.items():
         res = JB.replay(events, pol, **kw)
         assert smoke.result_digest(res) == smoke.DIGESTS[name], name
+
+
+def test_chip_smoke_telemetry_digests_are_the_jax_replay_at_full_scale():
+    """Phase 4b (a): the telemetry arrays of the JAX replay with
+    telemetry on, whose decisions are still those of ``DIGESTS``."""
+    smoke = _chip_smoke()
+    jc, jvms = jalibaba.generate(jalibaba.TraceConfig(scale=1.0, seed=1))
+    events = JB.build_events(jvms, jc)
+    cap = JB.default_heavy_capacity(events)
+    cfgs = {"FF": (JB.FF, {}), "BF": (JB.BF, {}), "MCC": (JB.MCC, {}),
+            "MECC": (JB.MECC, {}), "GRMU": (JB.GRMU, smoke.GRMU_FULL)}
+    assert cfgs.keys() == smoke.TELE_DIGESTS.keys()
+    for name, (pol, kw) in cfgs.items():
+        out = {k: np.asarray(v) for k, v in jax.device_get(
+            JB.make_replay(events, pol, telemetry=True, **kw)(cap)).items()}
+        res = JB.result_from_arrays(events, pol, out)
+        assert smoke.result_digest(res) == smoke.DIGESTS[name], name
+        assert smoke.telemetry_digest(events, out) == \
+            smoke.TELE_DIGESTS[name], name
+
+
+def test_chip_smoke_synth_digests_are_the_jax_ladder_rung():
+    """Phase 4b (d): the JAX ladder's synth:20000x512 rung, padded to a
+    multiple of its 4,096-event chunk and streamed as the ladder streams
+    it; GRMU DB accepts BENCH_batched_engine.json's 17,862."""
+    smoke = _chip_smoke()
+    ev = jsynthetic.generate_events(
+        jsynthetic.SyntheticConfig(**smoke.SYNTH_CFG))
+    assert (len(ev.kind), ev.num_gpus) == (41824, 512)
+    pv = jpad_events(ev, event_multiple=smoke.SYNTH_CHUNK)
+    cap = JB.default_heavy_capacity(pv)
+    cfgs = {"GRMU-DB": (JB.GRMU, smoke.GRMU_DB), "MECC": (JB.MECC, {})}
+    assert cfgs.keys() == smoke.SYNTH_DIGESTS.keys()
+    for name, (pol, kw) in cfgs.items():
+        res = JS.replay_chunked(pv, pol, cap, chunk_events=smoke.SYNTH_CHUNK,
+                                **kw)
+        assert smoke.result_digest(res) == smoke.SYNTH_DIGESTS[name], name
+        if name == "GRMU-DB":
+            assert res.accepted == smoke.SYNTH_ACCEPTED_GRMU_DB
+
+
+def test_chip_smoke_telemetry_digest_reads_the_port_as_the_jax_package():
+    """The digest of the port's telemetry arrays is the digest of the JAX
+    package's on the same trace (unpadded and padded)."""
+    smoke = _chip_smoke()
+    kw = dict(defrag=True, consolidation_interval=6.0)
+    jev = events_of(JAX, hetero_scenario, 1)
+    tev = events_of(PORT, hetero_scenario, 1)
+    cap = JB.default_heavy_capacity(jev)
+    want = smoke.telemetry_digest(jev, {
+        k: np.asarray(v) for k, v in JB.make_replay(
+            jev, JB.GRMU, telemetry=True, **kw)(cap).items()})
+    for ev in (tev, pad_events(tev)):
+        out = B.make_replay(ev, B.GRMU, "cpu", telemetry=True, **kw)(cap)
+        assert smoke.telemetry_digest(
+            ev, {k: v.numpy() for k, v in out.items()}) == want
 
 
 @pytest.mark.parametrize("dtype_name,bound_ms,bound_by", [

@@ -17,7 +17,8 @@ of the plain version in float32), float32 also over a 16,384-key row;
 bf16 must reach only the bf16 kernel and float32 only the split (three
 launches) and the float32 kernel; the split kernel must equal
 ``ref.split_bf16x3`` bit for bit; and ``prefill`` must launch the bf16
-kernel once per layer.
+kernel once per layer.  A replay with telemetry on must give the CPU's
+decisions, reasons and series, with one pick per MCC/MECC arrival.
 """
 import re
 
@@ -117,6 +118,61 @@ def test_replay_kernel_path_on_card(policy):
     cpu = B.replay(events, policy, device="cpu", score_backend="tables")
     assert card.accepted_ids == cpu.accepted_ids
     assert card.hourly_active_hw == cpu.hourly_active_hw
+
+
+@pytest.mark.parametrize("policy", [B.FF, B.BF, B.MCC, B.MECC, B.GRMU])
+def test_telemetry_replay_on_card_equals_cpu(policy):
+    """Scale 0.1 with telemetry: the same decisions, reasons and series on
+    the card as on the CPU, and one pick per MCC/MECC arrival."""
+    from repro_torch.obs import inscan
+    _need_card()
+    cluster, vms = generate(TraceConfig(scale=0.1, seed=1))
+    events = B.build_events(vms, cluster)
+    kw = dict(defrag=True, consolidation_interval=24.0) \
+        if policy == B.GRMU else {}
+    K.reset_launches()
+    card, card_tele = inscan.replay_with_telemetry(events, policy,
+                                                   device="cuda", **kw)
+    arrivals = int((events.kind == B.ARRIVAL).sum())
+    pick = {B.MCC: "mcc_pick", B.MECC: "ecc_pick"}.get(policy)
+    assert K.LAUNCHES == {k: arrivals if k == pick else 0
+                          for k in K.LAUNCHES}
+    cpu, cpu_tele = inscan.replay_with_telemetry(events, policy,
+                                                 device="cpu", **kw)
+    assert card.accepted_ids == cpu.accepted_ids
+    assert card.rejection_reasons == cpu.rejection_reasons
+    assert card_tele.to_json_dict() == cpu_tele.to_json_dict()
+
+
+@pytest.mark.parametrize("policy", [B.FF, B.BF, B.MCC, B.MECC, B.GRMU])
+def test_telemetry_adds_no_host_synchronisation(policy):
+    """torch's sync debug mode warns at each host synchronisation; over
+    600 events, telemetry on warns exactly as often as off, once the
+    first runs have put the tables on the card."""
+    import warnings
+    _need_card()
+    cluster, vms = generate(TraceConfig(scale=0.1, seed=1))
+    events = B.build_events(vms, cluster)
+    kw = dict(defrag=True, consolidation_interval=24.0) \
+        if policy == B.GRMU else {}
+    trace = B.trace_from_numpy(B.trace_arrays(events), "cuda")
+
+    def syncs(telemetry):
+        st = B.replay_statics(events, policy, telemetry=telemetry, **kw)
+        state = B.init_state(events, st, "cuda")
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                B.run_events(st, state, trace, B.default_heavy_capacity(
+                    events), stop=600)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return sum("synchroniz" in str(w.message) for w in seen)
+
+    syncs(False), syncs(True)
+    assert syncs(True) == syncs(False)
 
 
 def test_each_mask_scores_entry_point_has_its_wrapper():

@@ -92,7 +92,7 @@ def test_score_backend_resolution():
         B.replay_statics(events, B.FF, score_backend="kernel")
     with pytest.raises(ValueError):
         B.replay_statics(events, B.MCC, score_backend="pallas")
-    with pytest.raises(NotImplementedError):
-        B.replay_statics(events, B.MCC, telemetry=True)
+    assert B.replay_statics(events, B.MCC, telemetry=True).telemetry
+    assert not st.telemetry
     with pytest.raises(NotImplementedError):
         B.replay_statics(events, B.MCC, num_shards=2)
