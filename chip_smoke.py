@@ -29,9 +29,10 @@ Phases (each raises on failure; nothing is caught):
      MECC and GRMU.  Each result's digest must equal the JAX reference's
      (``DIGESTS``); the MCC/MECC pick kernels must launch once per
      arrival, the score kernels never, and give the tables path's
-     decisions.  Then ``torch.profiler`` over the
-     first 1,000 events of each policy: the device's busy share and the
-     host operations that cost the most.
+     decisions.  Then ``torch.profiler`` over a replay of the first 1,000
+     events of each policy: the device's busy share and the host
+     operations that cost the most.  ``make_replay`` runs on the card
+     through captured CUDA graphs (one graph launch per event).
   4b. Telemetry, chunk streaming and the synthetic workload.  (a) The
      full-scale trace with telemetry on, all five policies: each result
      digest equals ``DIGESTS`` (telemetry changes no decision), each
@@ -53,6 +54,16 @@ Phases (each raises on failure; nothing is caught):
      multiple of 4,096 events, 11 chunks of 4,096): GRMU DB accepts
      17,862, and GRMU DB and MECC (through ``ecc_pick``) equal
      ``SYNTH_DIGESTS``; events/s for both.
+  4c. The replay's graph runners (``run_graph_path``): through captured
+     graphs, the full-scale replays of all five policies equal
+     ``DIGESTS``, with telemetry also ``TELE_DIGESTS``, chunked at 1,000
+     events ``DIGESTS``, and ``synth:20000x512`` ``SYNTH_DIGESTS``; one
+     pick per MCC/MECC arrival and replay; host synchronisations per
+     replay (torch's sync debug mode) at most the consolidating
+     step-ends; device memory flat from one replay to the next.  Prints
+     events/s through the graphs and through the eager loop
+     (``run_events``, whose outputs must equal the graphs') in this
+     process, graphs per runner and capture seconds.
   2b. The attention kernels vs their plain version (``flash_attention_ref``)
      on the card: TinyLlama's heads (H 32 / KV 4, hd 64), hd 128 with GQA
      4:1, MHA, MQA, hd 32, causal and non-causal with Sq != Sk, a 96-key
@@ -609,27 +620,37 @@ def run_main_path(torch):
     return launches, profiles
 
 
+def first_events(events, n):
+    """The trace cut to its first ``n`` events; the VM, fleet and
+    schedule arrays stay as they are."""
+    import dataclasses
+    return dataclasses.replace(events, **{
+        k: getattr(events, k)[:n]
+        for k in ("kind", "vm_index", "profile", "time", "idx")})
+
+
 def profile_replay(torch, B, events, pol, kw, cap, n=1000):
-    """Where a replay's time goes: ``torch.profiler`` over its first
-    ``n`` events on the card.  Returns the device's busy share of the
-    profiled wall time, device work per event, and the host operations
-    that cost the most."""
+    """Where a replay's time goes: ``torch.profiler`` over one replay of
+    the trace's first ``n`` events through ``make_replay`` on the card,
+    run once before the profile (so a graph runner's captures fall
+    outside it).  Returns the device's busy share of the profiled wall
+    time, device work per event, and the host operations that cost the
+    most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    st = B.replay_statics(events, pol, **kw)
-    trace = B.trace_from_numpy(B.trace_arrays(events), "cuda")
-    state = B.init_state(events, st, "cuda")
+    run = B.make_replay(first_events(events, n), pol, device="cuda", **kw)
+    run(cap)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        B.run_events(st, state, trace, cap, stop=n)
+        run(cap)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.time_range.elapsed_us() for e in dev)
     top = sorted((a for a in prof.key_averages()
-                  if a.key.startswith("aten::")),
+                  if a.key.startswith(("aten::", "cuda"))),
                  key=lambda a: a.self_cpu_time_total, reverse=True)[:6]
     per_kernel = {}
     for e in dev:
@@ -767,7 +788,7 @@ def run_streaming_and_telemetry(torch, off_profiles):
     spans = summary["spans"]
     if (spans["chunk.step"]["count"] != run.num_chunks
             or spans["chunk.prefetch"]["count"] != run.num_chunks
-            or spans["finalize"]["count"] != 1 or summary["cache"]
+            or spans["finalize"]["count"] != 1 or not summary["cache"]
             or summary["rejection_reasons"] != res.rejection_reasons):
         raise AssertionError(f"recorded chunked replay: {summary}")
     print(json.dumps({
@@ -808,6 +829,150 @@ def run_streaming_and_telemetry(torch, off_profiles):
             "launches": launches, "wall_s": dt,
             "events_per_s": n_synth / dt, "digest_matches_jax": True}),
             flush=True)
+
+
+def graph_replay(torch, run, cap):
+    """Phase 4c: one replay through ``run``'s runner, which must hold
+    captured graphs, after two warm-up calls.  Returns the outputs
+    (numpy), the host synchronisations torch's sync debug mode reports
+    during the call, the mask kernels' launches in it, and whether the
+    device memory in use after it equals that after the call before."""
+    import warnings
+    from repro_torch.kernels import mask_scores as K
+    runner = run.runner
+    run(cap)
+    out = run(cap)
+    torch.cuda.synchronize()
+    if not (runner.graphed and runner.graphs):
+        raise AssertionError("the replay ran no captured graph")
+    mem = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    del out
+    K.reset_launches()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = run(cap)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # torch's warning at each synchronising call (its one-off notice that
+    # the mode is a prototype does not count).
+    syncs = [str(w.message) for w in seen
+             if "called a synchronizing" in str(w.message)]
+    flat = mem == (torch.cuda.memory_allocated(),
+                   torch.cuda.memory_reserved())
+    return ({k: v.cpu().numpy() for k, v in out.items()}, syncs,
+            dict(K.LAUNCHES), flat)
+
+
+def run_graph_path(torch):
+    """Phase 4c: the replay's graph runners.  Through captured graphs,
+    with the checks of ``graph_replay``: the full-scale replays of all
+    five policies equal ``DIGESTS``, with telemetry ``DIGESTS`` and
+    ``TELE_DIGESTS``, chunked at CHUNK_EVENTS ``DIGESTS``, and the
+    synthetic rung ``SYNTH_DIGESTS``; MCC/MECC launch one pick per
+    arrival; each replay's host synchronisations are at most its
+    consolidating step-ends; device memory stays flat from one replay to
+    the next.  Then each full-scale replay's events/s through the graphs
+    and through the eager loop (``run_events``) in this process, which
+    must give the same outputs, with graphs per runner and capture
+    seconds."""
+    from repro_torch.core import batched as B
+    from repro_torch.core import streaming as ST
+    from repro_torch.core.bucketing import pad_events
+    from repro_torch.workload.alibaba import TraceConfig, generate
+    from repro_torch.workload.synthetic import (SyntheticConfig,
+                                                generate_events)
+    import numpy as np
+    cluster, vms = generate(TraceConfig(scale=1.0, seed=1))
+    events = B.build_events(vms, cluster)
+    n_events = len(events.kind)
+    cap = B.default_heavy_capacity(events)
+    synth = pad_events(generate_events(SyntheticConfig(**SYNTH_CFG)),
+                       event_multiple=SYNTH_CHUNK)
+    n_synth = int((synth.kind != B.PAD).sum())
+
+    def chunked(evs, chunk):
+        return lambda pol, **kw: ST.make_chunked_replay(
+            evs, pol, chunk_events=chunk, device="cuda", **kw)
+
+    plain = lambda pol, **kw: B.make_replay(events, pol, device="cuda",
+                                            **kw)
+    cases = [("plain", plain, name, pol, kw, n_events, DIGESTS[name])
+             for name, pol, kw in replay_configs(B)]
+    cases += [("telemetry", plain, name, pol, dict(kw, telemetry=True),
+               n_events, DIGESTS[name]) for name, pol, kw in
+              replay_configs(B)]
+    cases += [("chunked", chunked(events, CHUNK_EVENTS), name, pol, kw,
+               n_events, DIGESTS[name]) for name, pol, kw in
+              replay_configs(B)]
+    cases += [("synth", chunked(synth, SYNTH_CHUNK), name, pol, kw,
+               n_synth, SYNTH_DIGESTS[name]) for name, pol, kw in
+              (("GRMU-DB", B.GRMU, GRMU_DB),
+               ("MECC", B.MECC, dict(score_backend="kernel")))]
+    for what, make, name, pol, kw, n_ev, digest in cases:
+        run = make(pol, **kw)
+        evs = run.events if what in ("chunked", "synth") else events
+        c = B.default_heavy_capacity(evs)
+        out, syncs, launches, flat = graph_replay(torch, run, c)
+        res = B.result_from_arrays(evs, pol, out)
+        if result_digest(res) != digest:
+            raise AssertionError(f"4c {what} {name}: digest differs from "
+                                 "the JAX reference")
+        if what == "telemetry" and (telemetry_digest(evs, out)
+                                    != TELE_DIGESTS[name]):
+            raise AssertionError(f"4c telemetry {name}: telemetry digest "
+                                 "differs from the JAX reference")
+        arrivals = int((evs.kind == B.ARRIVAL).sum())
+        pick = {B.MCC: "mcc_pick", B.MECC: "ecc_pick"}.get(
+            pol if kw.get("score_backend") == "kernel" else None)
+        if launches != {k: arrivals if k == pick else 0 for k in launches}:
+            raise AssertionError(f"4c {what} {name}: mask kernels "
+                                 f"launched {launches}")
+        n_cons = run.plan.keys.count((B.STEP_END, True))
+        # Each consolidation reads its candidates on the host: the count
+        # must see those, and nothing else.
+        if len(syncs) > n_cons or (n_cons and not syncs):
+            raise AssertionError(f"4c {what} {name}: {len(syncs)} host "
+                                 f"synchronisations, {n_cons} "
+                                 f"consolidating step-ends: {syncs[:3]}")
+        if not flat:
+            raise AssertionError(f"4c {what} {name}: device memory grew "
+                                 "from one replay to the next")
+        row = {"phase": "4c", "what": what, "policy": name, "events": n_ev,
+               "graphs": len(run.runner.graphs),
+               "capture_s": run.runner.capture_s, "host_syncs": len(syncs),
+               "consolidating_step_ends": n_cons, "launches": launches,
+               "memory_flat": flat, "digests_match_jax": True}
+        if what == "plain":
+            # Per replay: events/s, and the share of its wall time the
+            # host spent before ``run`` returned (all launches queued).
+            rates, queued = [], []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run(c)
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                rates.append(n_ev / (time.perf_counter() - t0))
+                queued.append((t1 - t0) * rates[-1] / n_ev)
+            st = B.replay_statics(events, pol, **kw)
+            trace = B.trace_from_numpy(B.trace_arrays(events), "cuda")
+            state = B.init_state(events, st, "cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            B.run_events(st, state, trace, c)
+            torch.cuda.synchronize()
+            eager_s = time.perf_counter() - t0
+            eager = {k: v.cpu().numpy()
+                     for k, v in B._finalize(st, state).items()}
+            if any(not np.array_equal(eager[k], out[k]) for k in out):
+                raise AssertionError(f"4c {name}: graph replay != eager "
+                                     "loop")
+            row.update(events_per_s=rates, host_share_until_queued=queued,
+                       eager_events_per_s=n_ev / eager_s,
+                       graphs_equal_eager=True)
+        print(json.dumps(row), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1541,6 +1706,7 @@ def main() -> int:
     timed_phase("phase 3", check_card_vs_cpu)
     launches, profiles = timed_phase("phase 4", run_main_path, torch)
     timed_phase("phase 4b", run_streaming_and_telemetry, torch, profiles)
+    timed_phase("phase 4c", run_graph_path, torch)
     timed_phase("phase 5 card vs CPU", check_card_vs_cpu_prefill, torch)
     fa_launches, _ = timed_phase("phase 5 bf16", run_serving, torch)
     f32_launches, _ = timed_phase("phase 5 float32", run_f32_prefill, torch)

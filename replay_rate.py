@@ -10,9 +10,11 @@ run one after another, each in its own process (one import of the port
 per process), in the order given: list ``A B B A`` to alternate two
 versions.  For each policy a root prints one JSON line: the events/s of
 ``--reps`` full replays of ``TraceConfig(scale=1.0, seed=1)`` after a
-warm-up (host clock to ``torch.cuda.synchronize()``), and, under
-``torch.profiler`` over the first 1,000 events, device operations per
-event, device microseconds per event and the device's busy share.  The
+warm-up (host clock to ``torch.cuda.synchronize()``), the graphs and
+capture seconds of the replay's runner where the checkout has one, and,
+under ``torch.profiler`` over a replay of the first 1,000 events,
+device operations per event, device microseconds per event, copies to
+the host (each a host synchronisation) and the device's busy share.  The
 policies' settings and the profile are ``chip_smoke.py``'s phase 4 (this
 script's own checkout), the same for every root; ``--telemetry`` replays
 with telemetry on (to compare on and off, run the script with and
@@ -52,9 +54,14 @@ def worker(root: Path, args) -> None:
             torch.cuda.synchronize()
             rates.append(n_events / (time.perf_counter() - t0))
         accepted = int(out["vm_accepted"].sum())
+        # A checkout whose replay runs captured graphs has a runner.
+        runner = getattr(run, "runner", None)
+        graphs = dict(graphs=len(runner.graphs),
+                      capture_s=runner.capture_s) if runner else {}
         print(json.dumps(dict(root=str(root), policy=name,
                               telemetry=args.telemetry,
                               events_per_s=rates, accepted=accepted,
+                              **graphs,
                               **profile_replay(torch, B, events, pol, kw,
                                                cap))),
               flush=True)

@@ -2,27 +2,35 @@
 
 The same event stream (departure | arrival | step-end, in within-bucket
 order) is replayed through the same decisions as the JAX ``lax.scan``,
-with the cluster state held in a dict of tensors on one device.  The
-event kinds, VM indices, profiles and times are host numpy, so the loop
-over events is a plain Python loop that dispatches each event with a
-host ``if``; every decision is made by tensor operations on the device,
-without a host sync, except:
+with the cluster state held in a dict of tensors on one device, updated
+in place.
 
-  * GRMU's defrag reads the ``rej`` flag once per step-end;
-  * GRMU's consolidation reads its candidate list once per consolidation
-    (``policy_core.consolidation_plan`` loops over it on the host).
+Each event kind is a fixed sequence of device operations
+(:class:`Step`): the event's VM or step index and its time are read from
+device-resident event rows at a device cursor that each event advances,
+GRMU's basket capacities are device scalars, MECC's expiry is a
+fixed-width masked scatter from a device pointer and GRMU's defrag is
+gated on the device ``rej`` flag.  What stays on the host is the event's
+kind and the values of its key: the reference profile (the counts row
+and the pick kernel's profile argument) and GRMU's heavy flag.  So the
+host walks the event kinds and launches one operation sequence per
+event, and no event's value comes back to the host, except at GRMU's
+consolidations: ``policy_core.consolidation_plan`` walks its candidates
+on the host (one synchronisation each), and whether one is due is
+decided on the host from the static event times.
 
-Host-known quantities are tracked on the host: MECC's expiry pointer
-(the schedule ``arr_times`` is static; compared in float32 exactly as
-the scan does) and the last consolidation time (event times are static).
-Both are written back into the state dict when a run of events ends, so
-the state is always the JAX carry, key for key.
+The entry points (:func:`make_replay`, ``repro_torch.core.streaming``)
+replay through a :class:`Runner` from the replay compile cache
+(:mod:`.compile_cache`): on the card each key's sequence is captured once
+as a CUDA graph and each event costs the host one graph launch; on the
+CPU the same step runs eagerly.  :func:`run_events` is the eager loop
+over a caller's state, which the graphs are held against.
 
 Scoring: ``score_backend="tables"`` gathers from the per-model mask
 tables (``policy_core``); ``"kernel"`` scores MCC/MECC arrivals with the
 CUDA kernels of :mod:`repro_torch.kernels.mask_scores` (on a CPU device,
 their plain versions), ``"auto"`` picks ``"kernel"`` for MCC/MECC on a
-single-model fleet.  The state tensors are updated in place.
+single-model fleet.
 
 Telemetry (``telemetry=True``, :mod:`repro_torch.obs.inscan`) adds the
 decision code of each arrival as a 4th ``vmrow`` column and, at each
@@ -32,17 +40,16 @@ state only, so every decision is the same as with telemetry off, and it
 adds no host synchronisation.  With telemetry off none of its
 operations runs.
 
-``run_events`` over consecutive ranges of events on one state composes
-into one run over their union (``repro_torch.core.streaming`` replays a
-trace so, chunk by chunk).
-
 Within each step (1 h bucket): departures are processed first, then
 arrivals, then the step-end hook (defrag -> consolidation -> metrics);
 scans resolve ties by lowest globalIndex.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
+import time
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -55,6 +62,7 @@ from ..obs import reasons as obs_reasons
 from ..sim.cluster import VM, Cluster
 from ..sim.metrics import SimResult
 from .mig import A100_40GB, DeviceModel, PROFILE_INDEX
+from . import compile_cache
 from . import policy_core as pc
 
 FF, BF, MCC, MECC, GRMU = pc.FF, pc.BF, pc.MCC, pc.MECC, pc.GRMU
@@ -366,15 +374,23 @@ def trace_arrays(events: EventTrace) -> Dict[str, np.ndarray]:
 EVENT_KEYS = ("kind", "vm_index", "profile", "time", "idx")
 
 
+# Keys of the device event rows in ``Trace.dev``: each non-PAD event's VM
+# index (arrivals, departures) or step index (step-ends), and its time.
+EVENT_ROW_KEYS = ("ev_arg", "ev_time")
+
+
 @dataclasses.dataclass
 class Trace:
     """A trace on one device: ``dev`` holds the tensors the decisions
     read (index arrays widened to int64: torch refuses int16 index
-    tensors and reads uint8 ones as boolean masks); ``host`` holds the
-    numpy arrays the event loop dispatches on."""
+    tensors and reads uint8 ones as boolean masks) and the non-PAD
+    events' rows (``EVENT_ROW_KEYS``); ``host`` holds the numpy arrays
+    the host plans the events on; ``rows`` are the positions of the
+    non-PAD events in the event stream."""
     device: torch.device
     host: Dict[str, np.ndarray]
     dev: Dict[str, torch.Tensor]
+    rows: np.ndarray
 
 
 def trace_from_numpy(arrays: Dict[str, np.ndarray],
@@ -388,6 +404,8 @@ def trace_from_numpy(arrays: Dict[str, np.ndarray],
                                device=device)
 
     ghost = h["gpu_host"].astype(np.int64)
+    rows = np.flatnonzero(h["kind"] != PAD)
+    kind = h["kind"][rows]
     dev = dict(
         vm_pids=t(h["vm_pids"].astype(np.int64), torch.int64),
         vm_res=t(h["vm_res"], torch.float32),
@@ -399,8 +417,12 @@ def trace_from_numpy(arrays: Dict[str, np.ndarray],
         cap_g=t(np.stack([h["cpu_cap"][ghost], h["ram_cap"][ghost]], axis=1),
                 torch.float32),
         arr_pids=t(h["arr_pids"].astype(np.int64), torch.int64),
+        arr_times=t(h["arr_times"], torch.float32),
+        ev_arg=t(np.where(kind == STEP_END, h["idx"][rows],
+                          h["vm_index"][rows]).astype(np.int64), torch.int64),
+        ev_time=t(h["time"][rows], torch.float32),
     )
-    return Trace(device=device, host=h, dev=dev)
+    return Trace(device=device, host=h, dev=dev, rows=rows)
 
 
 def init_state(events: EventTrace, st: ReplayStatics,
@@ -498,103 +520,143 @@ def _kernel_pick(st: ReplayStatics, free, prof0: int, ghost, host_used,
                                 w, model)
 
 
-def stage_events(trace: Trace, start: int = 0,
-                 stop: Optional[int] = None) -> Tuple:
-    """Events ``[start, stop)`` of ``trace`` as the host rows the event
-    loop dispatches on: lists of kinds, VM indices, profiles and step
-    indices, and the float32 times."""
+def expiry_width(trace: Trace, st: ReplayStatics) -> int:
+    """MECC's expiry width W: the most observations one arrival expires
+    in the whole trace (the JAX scan's ``while_loop`` count), rounded up
+    to a power of two; 0 for the other policies and where no arrival
+    expires any.  The expiry pointer of each arrival is the number of
+    observation times below its cutoff ``time - window``, compared in
+    float32 as the scan compares them; this needs ``arr_times`` sorted,
+    which :func:`build_events_arrays` (arrival order, +inf padding)
+    guarantees."""
+    if st.policy != MECC:
+        return 0
     h = trace.host
-    stop = len(h["kind"]) if stop is None else stop
-    return (h["kind"][start:stop].tolist(),
-            h["vm_index"][start:stop].tolist(),
-            h["profile"][start:stop].tolist(),
-            h["idx"][start:stop].tolist(), h["time"][start:stop])
+    at = h["arr_times"]
+    if np.any(at[1:] < at[:-1]):
+        raise ValueError("arr_times must be sorted (arrival order)")
+    cutoff = h["time"][h["kind"] == ARRIVAL] - np.float32(st.mecc_window)
+    ptr = np.maximum.accumulate(np.searchsorted(at, cutoff, side="left"))
+    k = int(np.diff(ptr, prepend=0).max(initial=0))
+    return 0 if k == 0 else 1 << (k - 1).bit_length()
 
 
-def run_events(st: ReplayStatics, state: Dict[str, torch.Tensor],
-               trace: Trace, heavy_capacity: int, start: int = 0,
-               stop: Optional[int] = None) -> Dict[str, torch.Tensor]:
-    """Replay events ``[start, stop)`` of ``trace`` on ``state`` (updated
-    in place and returned).  The state holds the whole cluster, so runs
-    over consecutive slices compose into one run over their union."""
-    return run_staged(st, state, trace, heavy_capacity,
-                      stage_events(trace, start, stop))
+# Keys of the step's operations: (ARRIVAL, profile, pick profile, heavy),
+# (DEPARTURE,) and (STEP_END, consolidates).  The arrival's key holds the
+# host values its operations are built on: the counts row, the pick
+# kernel's profile argument (-1 off the kernel path) and, for GRMU, heavy.
+_DEPARTURE_KEY = (DEPARTURE,)
 
 
-def run_staged(st: ReplayStatics, state: Dict[str, torch.Tensor],
-               trace: Trace, heavy_capacity: int, rows: Tuple
-               ) -> Dict[str, torch.Tensor]:
-    """:func:`run_events` over rows already staged by
-    :func:`stage_events`."""
-    dev = trace.device
-    T = pc.tables_for(st.models, dev)
-    h, d = trace.host, trace.dev
-    G = d["gpu_mid"].shape[0]
-    N = state["vmrow"].shape[0]
-    M, NP = T.num_models, T.num_profiles
-    H = state["host_used"].shape[0]
-    need_defrag = st.policy == GRMU and st.defrag
-    need_consolidation = (st.policy == GRMU
-                          and st.consolidation_interval is not None)
+class Step:
+    """The replay's event step on ``state`` (updated in place).
 
-    mid, ghost, gfull = d["gpu_mid"], d["gpu_host"], d["gpu_full"]
-    vm_pids, vm_res, cap_g = d["vm_pids"], d["vm_res"], d["cap_g"]
-    vm_pids_h, vm_heavy_h = h["vm_pids"], h["vm_heavy"]
-    gpu_host_h = h["gpu_host"]
-    heavy_cap = int(heavy_capacity)
-    light_cap = int(h["n_gpus"]) - heavy_cap
+    Each event kind is one method, made of device operations only: the
+    event's VM or step index and its time are read from the event rows
+    ``ev_arg`` / ``ev_time`` at the device cursor ``cur``, which each
+    event advances, so no event's value reaches the host and the same
+    operations serve every event of one key (:meth:`op`).  That is what
+    lets a CUDA graph captured from one event replay the next
+    (:class:`Runner`); run eagerly, they are the replay loop
+    (:func:`run_events`).  The host values that remain are in the
+    arrival's key; GRMU's heavy and light capacities are the device
+    scalars ``caps``.  The exceptions are GRMU's consolidating step-ends
+    (``policy_core.consolidation_plan`` loops over the candidates on the
+    host, one synchronisation each), which only ever run eagerly.
 
-    free, vmrow, counts = state["free"], state["vmrow"], state["counts"]
-    host_used, hourly = state["host_used"], state["hourly"]
-    basket = state.get("basket")
-    vm_count = state.get("vm_count")
-    # 0-d carry scalars are worked on as (1,) views of the same storage.
-    rej = state["rej"].view(1) if need_defrag else None
-    intra = state["intra"].view(1) if st.policy == GRMU else None
-    inter = state["inter"].view(1) if st.policy == GRMU else None
-    zero_f = torch.zeros((), dtype=torch.float32, device=dev)
-    garange = torch.arange(G, device=dev)
-    if st.telemetry:
-        tele_steps, tele_masks = state["tele_steps"], state["tele_masks"]
-        code_table, basket_cols = obs_inscan.device_tables(str(dev))
+    ``dev`` holds the trace's resident tensors (:func:`trace_from_numpy`)
+    and ``host`` its numpy arrays (consolidation reads the GPU hosts
+    there); ``width`` is the MECC expiry width (:func:`expiry_width`)."""
 
-    if st.policy == MECC:
-        mecc_counts = state["mecc_counts"]
-        atimes, apids = h["arr_times"], d["arr_pids"]
-        A = len(atimes)
-        marange = torch.arange(M, device=dev)
-        ones_m = torch.ones(M, dtype=torch.int32, device=dev)
-        neg = torch.full((A, M), -1, dtype=torch.int32, device=dev)
-        window = np.float32(st.mecc_window)
-        ptr = int(state["mecc_ptr"])
-    if need_consolidation:
-        interval = np.float32(st.consolidation_interval)
-        last_cons = np.float32(state["last_cons"].item())
+    def __init__(self, st: ReplayStatics, state: Dict[str, torch.Tensor],
+                 dev: Dict[str, torch.Tensor], host: Dict[str, np.ndarray],
+                 ev_arg: torch.Tensor, ev_time: torch.Tensor,
+                 cur: torch.Tensor, caps: torch.Tensor, width: int):
+        self.st, self.state, self.dev, self.host = st, state, dev, host
+        self.ev_arg, self.ev_time, self.cur, self.caps = (ev_arg, ev_time,
+                                                          cur, caps)
+        device = ev_arg.device
+        self.T = T = pc.tables_for(st.models, device)
+        self.need_defrag = st.policy == GRMU and st.defrag
+        self.need_consolidation = (st.policy == GRMU
+                                   and st.consolidation_interval is not None)
+        self.garange = torch.arange(dev["gpu_mid"].shape[0], device=device)
+        self.zero_f = torch.zeros((), dtype=torch.float32, device=device)
+        self.blocks = torch.arange(T.max_blocks, device=device)
+        if st.telemetry:
+            self.code_table, self.basket_cols = obs_inscan.device_tables(
+                str(device))
+        self.width = width
+        self._ops: Dict[tuple, Callable[[], None]] = {}
+        if st.policy == MECC:
+            # MECC's counts are added through their flat (M * NP) view:
+            # ``index_add_`` is one launch, where an accumulating
+            # ``index_put_`` sorts its indices first (~15 launches).
+            M = T.num_models
+            self.model_rows = torch.arange(M, device=device) * T.num_profiles
+            self.ones_m = torch.ones(M, dtype=torch.int32, device=device)
+            self.warange = torch.arange(width, device=device)
+
+    def op(self, key: tuple) -> Callable[[], None]:
+        """The operations of one event of ``key``, as a call."""
+        fn = self._ops.get(key)
+        if fn is None:
+            if key[0] == ARRIVAL:
+                fn = functools.partial(self.arrival, *key[1:])
+            elif key[0] == DEPARTURE:
+                fn = self.departure
+            else:
+                fn = functools.partial(self.step_end, key[1])
+            self._ops[key] = fn
+        return fn
+
+    def _arg(self):
+        """The event's row at the cursor, (1,) int64: its VM index (an
+        arrival or a departure) or its step index (a step-end)."""
+        return self.ev_arg[self.cur]
 
     # -- arrival ---------------------------------------------------------
-    def arrival(vi: int, p: int, time: np.float32):
-        nonlocal ptr
-        pids = vm_pids[vi]                              # (M,) int64
+    def _expire(self, counts: torch.Tensor) -> None:
+        """Expire the MECC history older than (now - window): the JAX
+        scan's two-pointer ``while_loop`` over the static observation
+        schedule, as a fixed-width masked scatter of -1 over the ``width``
+        observations from the device pointer on.  The loop's stopping
+        rule is a running product of its condition, so the masked rows are
+        exactly the ones it visits (``width`` bounds their count)."""
+        d, W = self.dev, self.width
+        A, M = d["arr_times"].shape[0], self.T.num_models
+        ptr = self.state["mecc_ptr"]
+        j = ptr.long() + self.warange
+        jc = j.clamp(max=A - 1)
+        cutoff = self.ev_time[self.cur] - np.float32(self.st.mecc_window)
+        keep = ((j < A) & (d["arr_times"][jc] < cutoff)).to(
+            torch.int32).cumprod(0, dtype=torch.int32)
+        counts.view(-1).index_add_(
+            0, (self.model_rows + d["arr_pids"][jc]).view(-1),
+            -keep[:, None].expand(W, M).reshape(-1))
+        ptr.add_(keep.sum(dtype=torch.int32))
+
+    def arrival(self, p: int, prof0: int, heavy: bool) -> None:
+        st, T, s, d = self.st, self.T, self.state, self.dev
+        free, vmrow, host_used = s["free"], s["vmrow"], s["host_used"]
+        mid, ghost, cap_g = d["gpu_mid"], d["gpu_host"], d["cap_g"]
+        vi = self._arg()
+        pids = d["vm_pids"][vi].view(-1)                # (M,) int64
         mecc_w = None
         if st.policy == MECC:
-            # Count the arrival (once per fleet model), then expire the
-            # history older than (now - window): a two-pointer over the
-            # static observation schedule, compared in float32.
-            mecc_counts.index_put_((marange, pids), ones_m, accumulate=True)
-            cutoff = time - window
-            p0 = ptr
-            while ptr < A and atimes[ptr] < cutoff:
-                ptr += 1
-            if ptr > p0:
-                k = ptr - p0
-                mecc_counts.index_put_((marange.expand(k, M), apids[p0:ptr]),
-                                       neg[:k], accumulate=True)
-            mecc_w = pc.mecc_weights(mecc_counts)
+            # Count the arrival (once per fleet model), then expire.
+            counts = s["mecc_counts"]
+            counts.view(-1).index_add_(0, self.model_rows + pids,
+                                       self.ones_m)
+            if self.width:
+                self._expire(counts)
+            mecc_w = pc.mecc_weights(counts)
 
-        need = vm_res[vi]                               # (2,) cpu, ram
-        heavy = bool(vm_heavy_h[vi])
+        need = d["vm_res"][vi].view(2)                  # cpu, ram
         grew = quota_full = None
         if st.policy == GRMU:
+            basket = s["basket"]
+            heavy_cap, light_cap = self.caps[0:1], self.caps[1:2]
             host_ok = (host_used[ghost] + need <= cap_g).all(dim=1)
             pick, grew, grow_idx = pc.grmu_select(
                 T, mid, free, pids, heavy, host_ok, basket, heavy_cap,
@@ -606,8 +668,8 @@ def run_staged(st: ReplayStatics, state: Dict[str, torch.Tensor],
                               >= (heavy_cap if heavy else light_cap))
             basket[grow_idx] = torch.where(grew, want, basket[grow_idx])
         elif st.score_backend == "kernel":
-            pick = _kernel_pick(st, free, int(vm_pids_h[vi, 0]), ghost,
-                                host_used, cap_g, need, mecc_w)
+            pick = _kernel_pick(st, free, prof0, ghost, host_used, cap_g,
+                                need, mecc_w)
             if st.telemetry:
                 # The fused pick keeps its host headroom to itself.
                 host_ok = (host_used[ghost] + need <= cap_g).all(dim=1)
@@ -627,40 +689,48 @@ def run_staged(st: ReplayStatics, state: Dict[str, torch.Tensor],
         if st.telemetry:
             # From the pre-placement free masks and host headroom.
             row.append(obs_inscan.arrival_reason_code(
-                T, mid, free, pids, host_ok, ok, code_table, grew,
+                T, mid, free, pids, host_ok, ok, self.code_table, grew,
                 quota_full))
         vmrow[vi] = torch.cat(row)
         free[g] = torch.where(ok, T.assign_mask[mid_g, ml, p_g], mask)
-        counts[p, 0:1] += okc
-        counts[p, 1] += 1
+        s["counts"][p, 0:1] += okc
+        s["counts"][p, 1] += 1
         hg = ghost[g]
-        host_used[hg] = host_used[hg] + torch.where(ok, need, zero_f)
-        if need_consolidation:
-            vm_count[g] = vm_count[g] + okc
-        if need_defrag and not (st.defrag_trigger == "light" and heavy):
-            rej.logical_or_(~ok)
+        host_used[hg] = host_used[hg] + torch.where(ok, need, self.zero_f)
+        if self.need_consolidation:
+            s["vm_count"][g] += okc
+        if self.need_defrag and not (st.defrag_trigger == "light" and heavy):
+            s["rej"].view(1).logical_or_(~ok)
+        self.cur.add_(1)
 
     # -- departure --------------------------------------------------------
-    def departure(vi: int):
-        r = vmrow[vi]
+    def departure(self) -> None:
+        T, s, d = self.T, self.state, self.dev
+        free, vmrow, host_used = s["free"], s["vmrow"], s["host_used"]
+        vi = self._arg()
+        r = vmrow[vi].view(-1)
         ok = r[0:1] >= 0
-        okc = ok.to(torch.int32)
         g = r[0:1].clamp(min=0).long()
-        mid_g = mid[g]
-        blocks = T.size_mask[mid_g, vm_pids[vi][mid_g]] << r[1:2]
+        mid_g = d["gpu_mid"][g]
+        blocks = T.size_mask[mid_g, d["vm_pids"][vi].view(-1)[mid_g]] \
+            << r[1:2]
         fg = free[g]
-        hg = ghost[g]
-        delta = torch.where(ok, -vm_res[vi], zero_f)
+        hg = d["gpu_host"][g]
+        delta = torch.where(ok, -d["vm_res"][vi].view(2), self.zero_f)
         free[g] = torch.where(ok, fg | blocks, fg)
-        vmrow[vi, 0] = -1
+        vmrow[:, 0].index_fill_(0, vi, -1)
         host_used[hg] = host_used[hg] + delta
-        if need_consolidation:
-            vm_count[g] = vm_count[g] - okc
+        if self.need_consolidation:
+            s["vm_count"][g] -= ok.to(torch.int32)
+        self.cur.add_(1)
 
     # -- GRMU step-end operations ----------------------------------------
-    def do_defrag():
-        light = basket == pc.LIGHT_BASKET
-        tgt = pc.defrag_target(T, mid, free, light)
+    def _defrag(self) -> None:
+        """Alg. 4, applied only where ``rej`` is set: the JAX scan's
+        ``lax.cond`` on the flag, as a gate on the device."""
+        T, s, d = self.T, self.state, self.dev
+        free, vmrow, mid = s["free"], s["vmrow"], d["gpu_mid"]
+        tgt = pc.defrag_target(T, mid, free, s["basket"] == pc.LIGHT_BASKET)
         do = tgt >= 0
         g = tgt.clamp(min=0)
         mid_g = mid[g]
@@ -673,53 +743,59 @@ def run_staged(st: ReplayStatics, state: Dict[str, torch.Tensor],
         # rows off g all go to the discarded slot MAXB.
         blk = torch.where(on_g, vm_start, T.max_blocks)
         prof_blk = torch.full((T.max_blocks + 1,), -1, dtype=torch.int64,
-                              device=dev)
-        prof_blk[blk] = torch.where(on_g, vm_pids[:, mid_g].view(-1), -1)
+                              device=free.device)
+        prof_blk[blk] = torch.where(on_g, d["vm_pids"][:, mid_g].view(-1),
+                                    -1)
         starts, ok, final_mask, moved = pc.repack_gpu(
             T, mid_g, prof_blk[:T.max_blocks])
-        apply = do & ok & (moved > 0)
+        apply = do & ok & (moved > 0) & s["rej"]
         # Each VM on g moves to its block's repacked start.
-        lut = torch.where(starts >= 0, starts,
-                          torch.arange(T.max_blocks, device=dev,
-                                       dtype=starts.dtype))
-        vmrow[:, 1] = torch.where(on_g & apply, lut[vm_start],
-                                  vmrow[:, 1])
+        lut = torch.where(starts >= 0, starts, self.blocks)
+        vmrow[:, 1] = torch.where(on_g & apply, lut[vm_start], vmrow[:, 1])
         free[g] = torch.where(apply, final_mask, free[g])
-        intra.add_(torch.where(apply, moved, 0))
+        s["intra"].view(1).add_(torch.where(apply, moved, 0))
 
-    def do_consolidate():
+    def _consolidate(self) -> None:
+        T, s, d = self.T, self.state, self.dev
+        free, vmrow, basket = s["free"], s["vmrow"], s["basket"]
+        vm_count, host_used = s["vm_count"], s["host_used"]
+        mid, garange = d["gpu_mid"], self.garange
+        G, N = free.shape[0], vmrow.shape[0]
+        NP = T.num_profiles
         vm_gpu = vmrow[:, 0]
         # Sole resident per GPU (valid only where vm_count == 1; the
         # winner among duplicate indices is unspecified and never read).
-        owner = torch.full((G + 1,), -1, dtype=torch.int32, device=dev)
+        owner = torch.full((G + 1,), -1, dtype=torch.int32,
+                           device=free.device)
         owner[torch.where(vm_gpu >= 0, vm_gpu, G).long()] = torch.arange(
-            N, dtype=torch.int32, device=dev)
+            N, dtype=torch.int32, device=free.device)
         owner = owner[:G]
         owner_c = owner.clamp(0, N - 1).long()
         has = (owner >= 0)[:, None]
         # The sole VM mapped onto every fleet model, (G, M); and onto its
         # own GPU's model, (G,).
-        sole_pids = torch.where(has, vm_pids[owner_c], -1)
+        sole_pids = torch.where(has, d["vm_pids"][owner_c], -1)
         sole_own = sole_pids[garange, mid]
-        sole_res = torch.where(has, vm_res[owner_c], zero_f)
+        sole_res = torch.where(has, d["vm_res"][owner_c], self.zero_f)
         cand = pc.consolidation_candidates(
             T, mid, free, basket == pc.LIGHT_BASKET, vm_count, sole_own)
         tgt_of, cpu_used, ram_used = pc.consolidation_plan(
             T, mid, free, cand, sole_pids, sole_res[:, 0], sole_res[:, 1],
-            ghost, host_used[:, 0], host_used[:, 1], d["cpu_cap"],
-            d["ram_cap"], gpu_host_h)
+            d["gpu_host"], host_used[:, 0], host_used[:, 1], d["cpu_cap"],
+            d["ram_cap"], self.host["gpu_host"])
         valid = tgt_of >= 0
         tgt_c = tgt_of.clamp(0, G - 1).long()
         # Each source's profile under its *target's* model.
         p_tgt = sole_pids[garange, mid[tgt_c]].clamp(0, NP - 1)
         starts = T.assign_start[mid[tgt_c], free[tgt_c].long(), p_tgt]
         # Receive side: each target gets exactly one source.
-        recv_p = torch.full((G + 1,), -1, dtype=torch.int64, device=dev)
+        recv_p = torch.full((G + 1,), -1, dtype=torch.int64,
+                            device=free.device)
         recv_p[torch.where(valid, tgt_of, G).long()] = torch.where(
             valid, p_tgt, -1)
         recv_p = recv_p[:G]
         recv_pc = recv_p.clamp(0, NP - 1)
-        new_free = torch.where(valid, gfull, free)
+        new_free = torch.where(valid, d["gpu_full"], free)
         new_free = torch.where(recv_p >= 0,
                                T.assign_mask[mid, free.long(), recv_pc],
                                new_free)
@@ -731,44 +807,267 @@ def run_staged(st: ReplayStatics, state: Dict[str, torch.Tensor],
         vm_count.copy_(torch.where(valid, 0, vm_count)
                        + (recv_p >= 0).to(torch.int32))
         host_used.copy_(torch.stack([cpu_used, ram_used], dim=1))
-        inter.add_(valid.sum().to(torch.int32))
+        s["inter"].view(1).add_(valid.sum().to(torch.int32))
 
     # -- step end ----------------------------------------------------------
-    def step_end(time: np.float32, idx: int):
-        nonlocal last_cons
-        if need_defrag:
-            if bool(rej):                   # one host sync per step-end
-                do_defrag()
-            rej.zero_()
-        if need_consolidation and time - last_cons >= interval:
-            do_consolidate()
-            last_cons = time
-        gpu_active = (free != gfull).to(torch.int32)
-        per_host = torch.zeros(H, dtype=torch.int32, device=dev).index_add_(
-            0, ghost, gpu_active)
-        hourly[idx] = torch.stack([
+    def step_end(self, consolidate: bool) -> None:
+        s, d = self.state, self.dev
+        free, counts = s["free"], s["counts"]
+        idx = self._arg()
+        if self.need_defrag:
+            self._defrag()
+            s["rej"].zero_()
+        if consolidate:
+            self._consolidate()
+        gpu_active = (free != d["gpu_full"]).to(torch.int32)
+        per_host = torch.zeros(s["host_used"].shape[0], dtype=torch.int32,
+                               device=free.device).index_add_(
+            0, d["gpu_host"], gpu_active)
+        s["hourly"][idx] = torch.stack([
             counts[:, 0].sum(), counts[:, 1].sum(), (per_host > 0).sum(),
             gpu_active.sum()]).to(torch.int32)
-        if st.telemetry:
-            head, tele_masks[idx] = obs_inscan.step_row(state, basket_cols)
-            if head is not None:
-                tele_steps[idx] = head
+        if self.st.telemetry:
+            obs_inscan.step_row(s, self.basket_cols, idx)
+        self.cur.add_(1)
 
-    kinds, vis, profs, idxs, times = rows
-    for j, kind in enumerate(kinds):
+
+@dataclasses.dataclass
+class Plan:
+    """The host side of replaying events ``[start, stop)`` of a trace:
+    the key of each non-PAD event (:meth:`Step.op`), in order, and their
+    positions ``[lo, hi)`` in the trace's device event rows.  Whether a
+    GRMU step-end consolidates is decided here, from the event times and
+    the last consolidation time, which the plan carries on (``last_cons``
+    after its events)."""
+    keys: List[tuple]
+    lo: int
+    hi: int
+    last_cons: Optional[np.float32]
+
+
+def plan_events(st: ReplayStatics, trace: Trace, start: int = 0,
+                stop: Optional[int] = None,
+                last_cons: Optional[np.float32] = None) -> Plan:
+    """Plan events ``[start, stop)`` of ``trace`` (``last_cons``: the last
+    consolidation time before them, for GRMU with consolidation)."""
+    h = trace.host
+    stop = len(h["kind"]) if stop is None else stop
+    lo, hi = (int(i) for i in np.searchsorted(trace.rows, [start, stop]))
+    sel = trace.rows[lo:hi]
+    kernel, grmu = st.score_backend == "kernel", st.policy == GRMU
+    consolidates = grmu and st.consolidation_interval is not None
+    if consolidates:
+        interval = np.float32(st.consolidation_interval)
+        last_cons = np.float32(last_cons)
+    vm_pids, vm_heavy = h["vm_pids"], h["vm_heavy"]
+    times = h["time"][sel]
+    keys: List[tuple] = []
+    for j, (kind, vi, p) in enumerate(zip(h["kind"][sel].tolist(),
+                                          h["vm_index"][sel].tolist(),
+                                          h["profile"][sel].tolist())):
         if kind == ARRIVAL:
-            arrival(vis[j], profs[j], times[j])
+            keys.append((ARRIVAL, p, int(vm_pids[vi, 0]) if kernel else -1,
+                         bool(vm_heavy[vi]) if grmu else False))
         elif kind == DEPARTURE:
-            departure(vis[j])
-        elif kind == STEP_END:
-            step_end(times[j], idxs[j])
-        # PAD rows are a no-op.
+            keys.append(_DEPARTURE_KEY)
+        else:
+            due = consolidates and times[j] - last_cons >= interval
+            if due:
+                last_cons = times[j]
+            keys.append((STEP_END, bool(due)))
+    return Plan(keys, lo, hi, last_cons if consolidates else None)
 
-    if st.policy == MECC:
-        state["mecc_ptr"].fill_(ptr)
-    if need_consolidation:
-        state["last_cons"].fill_(float(last_cons))
+
+def run_events(st: ReplayStatics, state: Dict[str, torch.Tensor],
+               trace: Trace, heavy_capacity: int, start: int = 0,
+               stop: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """The eager replay loop: events ``[start, stop)`` of ``trace`` on
+    ``state`` (updated in place and returned), one :class:`Step` call
+    per event.  The state holds the whole cluster, so runs over
+    consecutive slices compose into one run over their union.  The
+    replay's entry points run the same step through :class:`Runner`
+    (captured graphs on the card); this loop is what they are held
+    against."""
+    dev = trace.device
+    consolidates = (st.policy == GRMU
+                    and st.consolidation_interval is not None)
+    plan = plan_events(st, trace, start, stop,
+                       state["last_cons"].item() if consolidates else None)
+    hc = int(heavy_capacity)
+    caps = torch.tensor([hc, int(trace.host["n_gpus"]) - hc],
+                        dtype=torch.int32, device=dev)
+    step = Step(st, state, trace.dev, trace.host,
+                trace.dev["ev_arg"][plan.lo:plan.hi],
+                trace.dev["ev_time"][plan.lo:plan.hi],
+                torch.zeros(1, dtype=torch.int64, device=dev), caps,
+                expiry_width(trace, st))
+    for key in plan.keys:
+        step.op(key)()
+    if consolidates:
+        state["last_cons"].fill_(float(plan.last_cons))
     return state
+
+
+# ---------------------------------------------------------------------------
+# Replay runners: the cached, graph-captured step
+# ---------------------------------------------------------------------------
+
+# Rows of a whole replay's event buffer: make_replay streams a trace's
+# event rows through it in pieces of this many.
+EVENT_ROWS = 1 << 16
+
+
+def replay_key(st: ReplayStatics, trace: Trace, state0, *variant) -> tuple:
+    """The compile-cache key of a runner: the statics, ``variant`` (the
+    streaming engine's ``"chunk", chunk_events``) and the bucket shape a
+    runner's graphs fix, (N, G, H, S, A, W) with W the MECC expiry width,
+    on one device."""
+    d = trace.dev
+    shape = (d["vm_pids"].shape[0], d["gpu_mid"].shape[0],
+             d["cpu_cap"].shape[0], state0["hourly"].shape[0],
+             d["arr_times"].shape[0], expiry_width(trace, st))
+    return (st, *variant, shape, str(trace.device))
+
+
+class Runner:
+    """A replay's :class:`Step` on static buffers: the value the replay
+    compile cache holds for one :func:`replay_key`.
+
+    The runner owns a state, the trace's resident tensors, an event
+    buffer of ``rows`` rows, the cursor and the GRMU caps; :meth:`load`
+    copies a trace and a fresh state into them, :meth:`stage` copies event
+    rows into the buffer and :meth:`replay` runs their keys.  On the CPU
+    each key runs eagerly.  On the card each key is one CUDA graph,
+    captured the first time a trace needs it: one eager warm-up on a side
+    stream (it builds the kernels and the tables, so nothing is built or
+    copied from the host inside a capture), then the capture.  An event
+    of a captured key then costs the host one graph launch.  GRMU's
+    consolidating step-ends are never captured: they run eagerly, with
+    the one host synchronisation of their plan.
+
+    All graphs of a runner share one memory pool.  That is safe because
+    every intermediate of a graph is consumed inside that graph and every
+    result lands in the static buffers, so no graph reads memory another
+    graph's replay may have reused.  A replay of a graph that holds a
+    pick kernel adds that pick to ``mask_scores.LAUNCHES``; the warm-up's
+    and the capture's counts are taken back out (the capture launches
+    nothing; the warm-up runs on throwaway rows)."""
+
+    def __init__(self, st: ReplayStatics, trace: Trace,
+                 state0: Dict[str, torch.Tensor], rows: int):
+        dev = trace.device
+        self.st, self.device, self.rows = st, dev, rows
+        self.graphed = dev.type == "cuda"
+        resident = {k: torch.empty_like(v) for k, v in trace.dev.items()
+                    if k not in EVENT_ROW_KEYS}
+        self.state = {k: torch.empty_like(v) for k, v in state0.items()}
+        self.step = Step(
+            st, self.state, resident, trace.host,
+            torch.zeros(rows, dtype=torch.int64, device=dev),
+            torch.zeros(rows, dtype=torch.float32, device=dev),
+            torch.zeros(1, dtype=torch.int64, device=dev),
+            torch.zeros(2, dtype=torch.int32, device=dev),
+            expiry_width(trace, st))
+        self.graphs: Dict[tuple, "torch.cuda.CUDAGraph"] = {}
+        self.launches: Dict[tuple, Dict[str, int]] = {}
+        self.pool = None
+        self.capture_s = 0.0
+
+    def close(self) -> None:
+        """Free the graphs (the cache calls this on eviction); a later
+        :meth:`load` captures again."""
+        self.graphs.clear()
+        self.launches.clear()
+        self.pool = None
+
+    def load(self, trace: Trace, state0: Dict[str, torch.Tensor],
+             heavy_capacity: int, keys: List[tuple]) -> None:
+        """Copy ``trace``'s resident tensors and the fresh state ``state0``
+        into the static buffers, set the caps from ``heavy_capacity`` and
+        the cursor to 0; on the card, first capture the graphs of the
+        ``keys`` not captured yet."""
+        step = self.step
+        for k, v in step.dev.items():
+            v.copy_(trace.dev[k])
+        step.host = trace.host
+        self._reset(state0, heavy_capacity, int(trace.host["n_gpus"]))
+        if self.graphed:
+            todo = [k for k in dict.fromkeys(keys)
+                    if k not in self.graphs and k != (STEP_END, True)]
+            if todo:
+                self._capture(todo)
+                self._reset(state0, heavy_capacity,
+                            int(trace.host["n_gpus"]))
+
+    def _reset(self, state0, heavy_capacity: int, n_gpus: int) -> None:
+        for k, v in self.state.items():
+            v.copy_(state0[k])
+        hc = int(heavy_capacity)
+        self.step.caps[0].fill_(hc)
+        self.step.caps[1].fill_(n_gpus - hc)
+        self.step.cur.zero_()
+
+    def _capture(self, keys: List[tuple]) -> None:
+        t0 = time.perf_counter()
+        step = self.step
+        # Throwaway rows: VM 0 and step 0 are valid indices of any trace.
+        step.ev_arg.zero_()
+        step.ev_time.zero_()
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        saved = dict(mask_scores.LAUNCHES)
+        side = torch.cuda.Stream(self.device)
+        for key in keys:
+            fn = step.op(key)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                step.cur.zero_()
+                fn()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            step.cur.zero_()
+            before = dict(mask_scores.LAUNCHES)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self.pool):
+                fn()
+            self.launches[key] = {
+                n: c - before[n] for n, c in mask_scores.LAUNCHES.items()
+                if c != before[n]}
+            self.graphs[key] = graph
+        mask_scores.LAUNCHES.update(saved)
+        torch.cuda.synchronize(self.device)
+        self.capture_s += time.perf_counter() - t0
+
+    def stage(self, ev_arg: torch.Tensor, ev_time: torch.Tensor) -> None:
+        """Copy event rows (on the runner's device) into the buffer and
+        set the cursor to its first row."""
+        n = ev_arg.shape[0]
+        if n > self.rows:
+            raise ValueError(f"{n} event rows exceed the runner's "
+                             f"{self.rows}")
+        self.step.ev_arg[:n].copy_(ev_arg)
+        self.step.ev_time[:n].copy_(ev_time)
+        self.step.cur.zero_()
+
+    def replay(self, keys: List[tuple]) -> None:
+        """Run the staged rows, one call per key: a graph launch on the
+        card, the eager step on the CPU and for consolidating step-ends."""
+        graphs, step = self.graphs, self.step
+        for fn in [graphs[k].replay if k in graphs else step.op(k)
+                   for k in keys]:
+            fn()
+        if self.launches:
+            for key, n in collections.Counter(keys).items():
+                for name, c in self.launches.get(key, {}).items():
+                    mask_scores.LAUNCHES[name] += n * c
+
+    def finish(self, plan: Plan, finalize: Callable
+               ) -> Dict[str, torch.Tensor]:
+        """Write the plan's last consolidation time into the state and
+        return ``finalize(state)`` (the replay's outputs), copied out of
+        the static buffers."""
+        if plan.last_cons is not None:
+            self.state["last_cons"].fill_(float(plan.last_cons))
+        return {k: v.clone() for k, v in finalize(self.state).items()}
 
 
 # ---------------------------------------------------------------------------
@@ -800,16 +1099,33 @@ def default_heavy_capacity(events: EventTrace,
 def make_replay(events: EventTrace, policy: int,
                 device: DeviceLike = None, **cfg) -> Callable:
     """``run(heavy_capacity) -> dict of output tensors`` on ``device``
-    (``None`` = the CUDA device).  The trace is moved to the device once;
-    each call starts from a fresh state."""
+    (``None`` = the CUDA device).  The trace and a fresh state are moved
+    to the device once; the runner comes from the replay compile cache
+    (:func:`replay_key`), so a trace of an already-seen statics and
+    bucket captures nothing new.  Each call loads the trace and the fresh
+    state into the runner and replays the event rows through its buffer,
+    :data:`EVENT_ROWS` at a time.  On the card a failed capture or graph
+    launch raises; nothing falls back to the eager loop.  ``run.runner``
+    and ``run.plan`` are the runner and the trace's :class:`Plan`."""
     device = resolve_device(device)
     st = replay_statics(events, policy, **cfg)
     trace = trace_from_numpy(trace_arrays(events), device)
+    state0 = init_state(events, st, device)
+    runner = compile_cache.cached_replay_fn(
+        replay_key(st, trace, state0),
+        lambda: Runner(st, trace, state0, EVENT_ROWS))
+    plan = plan_events(st, trace, last_cons=0.0)
+    d = trace.dev
 
     def run(heavy_capacity):
-        state = init_state(events, st, device)
-        return _finalize(st, run_events(st, state, trace, heavy_capacity))
+        runner.load(trace, state0, heavy_capacity, plan.keys)
+        for a in range(plan.lo, plan.hi, EVENT_ROWS):
+            b = min(a + EVENT_ROWS, plan.hi)
+            runner.stage(d["ev_arg"][a:b], d["ev_time"][a:b])
+            runner.replay(plan.keys[a - plan.lo:b - plan.lo])
+        return runner.finish(plan, functools.partial(_finalize, st))
 
+    run.runner, run.plan = runner, plan
     return run
 
 
@@ -870,7 +1186,8 @@ def result_from_arrays(events: EventTrace, policy: int, out: dict
 
 __all__ = ["EventTrace", "build_events", "build_events_arrays",
            "make_replay", "replay", "result_from_arrays", "run_events",
-           "stage_events", "run_staged", "EVENT_KEYS",
+           "plan_events", "Plan", "Step", "Runner", "replay_key",
+           "expiry_width", "EVENT_KEYS", "EVENT_ROW_KEYS", "EVENT_ROWS",
            "default_heavy_capacity", "trace_arrays", "trace_from_numpy",
            "Trace", "init_state", "state_from_numpy", "state_to_numpy",
            "replay_statics", "ReplayStatics", "step_grid",

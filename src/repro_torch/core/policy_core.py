@@ -166,10 +166,12 @@ def select_gpu(policy, T: Tables, mid, free, pids, host_ok, mecc_w=None):
 # ---------------------------------------------------------------------------
 
 def grmu_select(T: Tables, mid, free, pids, is_heavy: bool, host_ok,
-                basket, heavy_cap: int, light_cap: int):
+                basket, heavy_cap, light_cap):
     """Dual-basket first-fit with capacity-capped growth (Alg. 3).
 
-    ``is_heavy`` and the caps are host values.  A grown GPU joins the
+    ``is_heavy`` is a host value; the caps are device scalars (0-d or
+    (1,) int32 tensors, as the replay keeps them, so one captured graph
+    serves every capacity) or ints.  A grown GPU joins the
     basket even when the host check then blocks the placement (pick -1,
     ``grew`` True).  Returns ``(pick, grew, grow_idx)``, each (1,)."""
     want = HEAVY_BASKET if is_heavy else LIGHT_BASKET
@@ -262,7 +264,8 @@ def consolidation_plan(T: Tables, mid, free, cand, sole_pids, sole_cpu,
     cpu_u, ram_u = cpu_used.clone(), ram_used.clone()
     zero = torch.zeros(1, dtype=cpu_u.dtype, device=dev)
     cpu_cap_g, ram_cap_g = cpu_cap[gpu_host], ram_cap[gpu_host]
-    for g in torch.nonzero(cand).flatten().tolist():
+    # The candidates come to the host in one copy: one synchronisation.
+    for g in np.flatnonzero(cand.cpu().numpy()).tolist():
         # Source g's profile under each candidate target's model.
         p_t = sole_pids[g][mid].clamp(min=0)
         c, r, h = sole_cpu[g:g + 1], sole_ram[g:g + 1], int(gpu_host_np[g])

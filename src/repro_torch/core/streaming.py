@@ -1,31 +1,40 @@
 """Trace-streamed replay — port of ``repro/core/streaming.py``.
 
 The event stream is split into fixed-size chunks, and the replay runs
-them in turn on one whole-cluster state: :func:`batched.run_staged` over
-events ``[i*C, (i+1)*C)``, then the same finalize as the unchunked
-replay.  Chunk boundaries are decision-neutral by construction: the
-state is the complete cluster state and the event step never reads an
-event's position (the JAX module's argument, which holds for the eager
-loop as for the scan), so the outputs equal ``batched.make_replay``'s
-for any chunk size.
+them in turn on one whole-cluster state: the chunk step over events
+``[i*C, (i+1)*C)``, then the same finalize as the unchunked replay.
+Chunk boundaries are decision-neutral by construction: the state is the
+complete cluster state and the event step never reads an event's
+position (the JAX module's argument, which holds for the port's step as
+for the scan), so the outputs equal ``batched.make_replay``'s for any
+chunk size.
 
 The trace is padded with ``pad_events(event_multiple=chunk_events)``, as
-the JAX module pads it: PAD rows are a no-op, padded GPUs hold a free
-mask of 0 (no profile fits it, so the scorers and the pick kernels never
-choose them) and sit outside GRMU's baskets.
+the JAX module pads it: PAD rows are a no-op (the port drops them when
+it plans the events), padded GPUs hold a free mask of 0 (no profile fits
+it, so the scorers and the pick kernels never choose them) and sit
+outside GRMU's baskets.
 
-A chunk's staging is its host half: the event rows, which stay on the
-host because the loop dispatches on them, turned into the Python values
-the loop reads (``batched.stage_events``).  With a recorder installed
-(:mod:`repro_torch.obs.recorder`) each chunk's staging is a
-``chunk.prefetch`` span and its run a ``chunk.step`` span (with
-``index`` and ``nbytes``, the chunk's packed event bytes), and the final
-reduction a ``finalize`` span, under the JAX module's names.  The JAX
-module also writes a ``cache`` record there; the port has no replay
-compile cache yet (ROADMAP.md, Queue 2), so it writes none.
+The chunk step is a ``batched.Runner`` whose event buffer holds one
+chunk, and finalize is ``batched._finalize``; both come from the replay
+compile cache under the JAX module's keys, ``(st, "chunk", chunk)`` and
+``(st, "finalize")``, the chunk step's key with the bucket shape its
+graphs fix (``batched.replay_key``).  A chunk's staging copies its event
+rows from the trace's device rows into the runner's chunk buffer; its
+step replays them (on the card one graph launch per event).  With a
+recorder installed (:mod:`repro_torch.obs.recorder`) each chunk's
+staging is a ``chunk.prefetch`` span and its step a ``chunk.step`` span
+(with ``index`` and ``nbytes``, the chunk's packed event bytes), the
+final reduction a ``finalize`` span, and a ``cache`` record follows,
+under the JAX module's names.  The JAX module stages chunk i+1 before
+it steps chunk i, to overlap the copy with the scan; the port's runner
+has one chunk buffer, which the next chunk's copy would overwrite before
+the step has read it, so it stages each chunk just before its step (the
+copy is one device-to-device copy on the step's stream).
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -33,9 +42,10 @@ import numpy as np
 from ..device import DeviceLike, resolve_device
 from ..obs import recorder as obs_recorder
 from ..sim.metrics import SimResult
-from .batched import (EVENT_KEYS, EventTrace, _finalize,
-                      default_heavy_capacity, init_state, replay_statics,
-                      result_from_arrays, run_staged, stage_events,
+from . import compile_cache
+from .batched import (EVENT_KEYS, EventTrace, Runner, _finalize,
+                      default_heavy_capacity, init_state, plan_events,
+                      replay_key, replay_statics, result_from_arrays,
                       trace_arrays, trace_from_numpy)
 from .bucketing import pad_events
 
@@ -74,7 +84,8 @@ def make_chunked_replay(events: EventTrace, policy: int, *,
     same decisions.  The trace is padded so the event dimension splits
     evenly into ``chunk_events``-row chunks; the returned
     ``run(heavy_capacity)`` exposes ``run.num_chunks``,
-    ``run.chunk_events`` and ``run.events`` (the padded trace)."""
+    ``run.chunk_events``, ``run.events`` (the padded trace),
+    ``run.runner`` and ``run.plan`` (``batched.Plan``)."""
     if chunk_events < 1:
         raise ValueError(f"chunk_events must be >= 1, got {chunk_events}")
     if num_shards:
@@ -85,42 +96,55 @@ def make_chunked_replay(events: EventTrace, policy: int, *,
     st = replay_statics(events, policy, **cfg)
     tr = trace_arrays(events)
     trace = trace_from_numpy(tr, device)
+    state0 = init_state(events, st, device)
+    runner = compile_cache.cached_replay_fn(
+        replay_key(st, trace, state0, "chunk", chunk_events),
+        lambda: Runner(st, trace, state0, chunk_events))
+    finalize = compile_cache.cached_replay_fn(
+        (st, "finalize"), lambda: functools.partial(_finalize, st))
     n_chunks = len(events.kind) // chunk_events
+    plan = plan_events(st, trace, last_cons=0.0)
+    # Chunk i's non-PAD events are rows [bounds[i], bounds[i + 1]).
+    bounds = np.searchsorted(trace.rows,
+                             np.arange(n_chunks + 1) * chunk_events).tolist()
     ev_np, _ = split_trace(tr)
     chunk_bytes = sum(int(v[:chunk_events].nbytes) for v in ev_np.values())
+    d = trace.dev
 
     def stage(i):
-        return stage_events(trace, i * chunk_events,
-                            (i + 1) * chunk_events)
+        a, b = bounds[i], bounds[i + 1]
+        runner.stage(d["ev_arg"][a:b], d["ev_time"][a:b])
+
+    def step(i):
+        runner.replay(plan.keys[bounds[i]:bounds[i + 1]])
 
     def run(heavy_capacity):
-        state = init_state(events, st, device)
+        runner.load(trace, state0, heavy_capacity, plan.keys)
         rec = obs_recorder.active()
         if rec is not None:
-            return _run_recorded(rec, state, heavy_capacity)
+            return _run_recorded(rec)
         for i in range(n_chunks):
-            state = run_staged(st, state, trace, heavy_capacity, stage(i))
-        return _finalize(st, state)
+            stage(i)
+            step(i)
+        return runner.finish(plan, finalize)
 
-    def _run_recorded(rec, state, heavy_capacity):
-        """Same loop with per-chunk flight-recorder spans, staged one
-        chunk ahead as the JAX module stages its device copies."""
-        with rec.span("chunk.prefetch", index=0, nbytes=chunk_bytes):
-            nxt = stage(0)
+    def _run_recorded(rec):
+        """Same loop with per-chunk flight-recorder spans and the cache
+        record."""
         for i in range(n_chunks):
-            cur = nxt
-            if i + 1 < n_chunks:
-                with rec.span("chunk.prefetch", index=i + 1,
-                              nbytes=chunk_bytes):
-                    nxt = stage(i + 1)
+            with rec.span("chunk.prefetch", index=i, nbytes=chunk_bytes):
+                stage(i)
             with rec.span("chunk.step", index=i, nbytes=chunk_bytes):
-                state = run_staged(st, state, trace, heavy_capacity, cur)
+                step(i)
         with rec.span("finalize"):
-            return _finalize(st, state)
+            out = runner.finish(plan, finalize)
+        rec.cache_stats()
+        return out
 
     run.num_chunks = n_chunks
     run.chunk_events = chunk_events
     run.events = events
+    run.runner, run.plan = runner, plan
     return run
 
 

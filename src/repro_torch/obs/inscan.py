@@ -11,14 +11,16 @@ records, with no host synchronisation:
     counters (intra and inter migrations, GRMU's heavy / light / pool
     GPU counts) and the (G,) free masks narrowed to ``MASK_DTYPE``,
     written straight into the state's ``tele_steps`` / ``tele_masks``
-    buffers at the step's index.
+    buffers at the step's index, read on the device from the replay's
+    event rows.
 
 The JAX module's ``fold_step_rows`` has no counterpart.  It exists there
 because XLA's ``lax.switch`` copies every carried buffer through every
 branch, so the JAX scan emits the step rows as per-event scan outputs
 and folds them into the step series after each scan.  The port's replay
-is an eager loop that writes into its state tensors in place, so the
-step-end writes its row where it belongs and nothing needs folding.
+writes into its state tensors in place (eagerly, or from captured CUDA
+graphs), so the step-end writes its row where it belongs and nothing
+needs folding.
 
 ``unpack_finalize`` emits the ``TELE_KEYS`` output arrays: the per-VM
 codes, their tally (a compare-and-sum, as in the JAX module) and the
@@ -105,22 +107,24 @@ def arrival_reason_code(T, mid, free, pids, host_ok, ok, table, grew=None,
     return torch.where(ok, reasons.ACCEPTED, table[key])
 
 
-def step_row(state: Dict[str, torch.Tensor], cols: torch.Tensor):
-    """One step-end telemetry row pair ``(scalars (5,) int32, free masks
-    (G,) uint8)``, sampled after defrag and consolidation; ``cols`` is
-    ``BASKET_COLS`` on the state's device (``device_tables``).  The
-    scalars are None where the state keeps no baskets and no migration
-    counters (not GRMU): that row stays 0.  A snapshot, not a reduction:
-    everything derivable from the masks is derived on the host
-    (``telemetry_from_arrays``)."""
+def step_row(state: Dict[str, torch.Tensor], cols: torch.Tensor,
+             idx: torch.Tensor) -> None:
+    """Write one step-end telemetry row pair into the state at the step
+    index ``idx`` ((1,) int64 on the state's device, so the write needs
+    no host value): the (5,) int32 scalars into ``tele_steps`` and the
+    (G,) free masks, as ``MASK_DTYPE``, into ``tele_masks``.  Sampled
+    after defrag and consolidation; ``cols`` is ``BASKET_COLS`` on the
+    state's device (``device_tables``).  Where the state keeps no baskets
+    and no migration counters (not GRMU) the scalar row stays 0.  A
+    snapshot, not a reduction: everything derivable from the masks is
+    derived on the host (``telemetry_from_arrays``)."""
     basket = state.get("basket")
-    head = None
     if basket is not None:
         occupancy = (basket[None, :] == cols[:, None]).sum(
             dim=1, dtype=torch.int32)
-        head = torch.cat([state["intra"].view(1), state["inter"].view(1),
-                          occupancy])
-    return head, state["free"].to(MASK_DTYPE)
+        state["tele_steps"][idx] = torch.cat(
+            [state["intra"].view(1), state["inter"].view(1), occupancy])
+    state["tele_masks"][idx] = state["free"].to(MASK_DTYPE)
 
 
 def unpack_finalize(final: Dict[str, torch.Tensor]

@@ -19,8 +19,7 @@ Every line in the JSONL file is one record with ``schema`` (the
                  such as ``index``/``nbytes`` for chunk steps) — also a
                  ``torch.profiler.record_function`` range, so spans line
                  up with the card's operations in a profiler trace
-  ``cache``      compile-cache statistics; the port has no replay
-                 compile cache yet, so it writes none (``cache_stats``)
+  ``cache``      replay compile-cache statistics (``cache_stats``)
   ``result``     a SimResult summary + rejection-reason tally
   ``telemetry``  a full ``ReplayTelemetry`` payload
   ``service``    a placement-service control-plane event
@@ -98,12 +97,9 @@ class Recorder:
                   dur_s=time.perf_counter() - t0, **fields)
 
     def cache_stats(self) -> None:
-        """The JAX package snapshots its replay compile cache here.  The
-        port's counterpart, a cache of captured CUDA graphs, is not
-        written yet."""
-        raise NotImplementedError(
-            "the port has no replay compile cache yet; see ROADMAP.md, "
-            "Queue 2")
+        """Snapshot the replay compile cache (hits/misses/evictions)."""
+        from ..core import compile_cache
+        self.emit("cache", **compile_cache.cache_stats())
 
     def result(self, res) -> None:
         """Record a ``SimResult``'s summary + rejection-reason tally."""

@@ -18,7 +18,10 @@ bf16 must reach only the bf16 kernel and float32 only the split (three
 launches) and the float32 kernel; the split kernel must equal
 ``ref.split_bf16x3`` bit for bit; and ``prefill`` must launch the bf16
 kernel once per layer.  A replay with telemetry on must give the CPU's
-decisions, reasons and series, with one pick per MCC/MECC arrival.
+decisions, reasons and series, with one pick per MCC/MECC arrival.  The
+replay's captured graphs must give the eager loop's outputs for all five
+policies, synchronise with the host only at GRMU's consolidations, and
+count one pick per arrival and replay.
 """
 import re
 
@@ -173,6 +176,89 @@ def test_telemetry_adds_no_host_synchronisation(policy):
 
     syncs(False), syncs(True)
     assert syncs(True) == syncs(False)
+
+
+GRAPH_KW = {B.GRMU: dict(defrag=True, consolidation_interval=6.0)}
+
+
+def _small_trace():
+    cluster, vms = generate(TraceConfig(scale=0.05, seed=2))
+    return B.build_events(vms, cluster)
+
+
+@pytest.mark.parametrize("telemetry", [False, True])
+@pytest.mark.parametrize("policy", [B.FF, B.BF, B.MCC, B.MECC, B.GRMU])
+def test_graph_replay_equals_the_eager_loop(policy, telemetry):
+    """make_replay on the card replays captured graphs; its outputs equal
+    the eager loop's (``run_events``) on the card, array for array."""
+    _need_card()
+    events = _small_trace()
+    cap = B.default_heavy_capacity(events)
+    kw = dict(GRAPH_KW.get(policy, {}), telemetry=telemetry)
+    run = B.make_replay(events, policy, device="cuda", **kw)
+    got = run(cap)
+    assert run.runner.graphed and run.runner.graphs
+    st = B.replay_statics(events, policy, **kw)
+    state = B.run_events(st, B.init_state(events, st, "cuda"),
+                         B.trace_from_numpy(B.trace_arrays(events), "cuda"),
+                         cap)
+    want = B._finalize(st, state)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("policy", [B.FF, B.BF, B.MCC, B.MECC, B.GRMU])
+def test_graph_replay_synchronises_only_to_consolidate(policy):
+    """Over a whole graph replay torch's sync debug mode warns at most once
+    per consolidating step-end (GRMU's plan reads its candidates), so
+    arrivals and departures make no host synchronisation."""
+    import warnings
+    _need_card()
+    events = _small_trace()
+    cap = B.default_heavy_capacity(events)
+    run = B.make_replay(events, policy, device="cuda",
+                        **GRAPH_KW.get(policy, {}))
+    run(cap)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run(cap)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # One warning per synchronising call; the mode's one-off notice that
+    # it is a prototype does not count.
+    syncs = sum("called a synchronizing" in str(w.message) for w in seen)
+    n_cons = run.plan.keys.count((B.STEP_END, True))
+    assert syncs <= n_cons
+    assert (syncs > 0) == (n_cons > 0)     # the count sees real syncs
+    if policy != B.GRMU:
+        assert syncs == 0
+
+
+@pytest.mark.parametrize("policy", [B.MCC, B.MECC])
+def test_graph_replay_counts_its_picks(policy):
+    """Each replay of a graph holding a pick adds the pick to LAUNCHES
+    (one per arrival and replay); capture and warm-up add none, and a
+    second make_replay of the same trace captures no new graph."""
+    _need_card()
+    events = _small_trace()
+    arrivals = int((events.kind == B.ARRIVAL).sum())
+    pick = "mcc_pick" if policy == B.MCC else "ecc_pick"
+    K.reset_launches()
+    run = B.make_replay(events, policy, device="cuda", score_backend="kernel")
+    for _ in range(2):
+        run(B.default_heavy_capacity(events))
+    assert K.LAUNCHES == {k: 2 * arrivals if k == pick else 0
+                          for k in K.LAUNCHES}
+    graphs, seconds = len(run.runner.graphs), run.runner.capture_s
+    again = B.make_replay(events, policy, device="cuda",
+                          score_backend="kernel")
+    again(B.default_heavy_capacity(events))
+    assert again.runner is run.runner
+    assert (len(run.runner.graphs), run.runner.capture_s) == (graphs,
+                                                              seconds)
 
 
 def test_each_mask_scores_entry_point_has_its_wrapper():
