@@ -102,7 +102,29 @@ Phases (each raises on failure; nothing is caught):
      each as the model's attention, against float64 attention.  Fails
      if the kernel is further from float64 than the plain version
      (``ACCURACY_LOGITS_RATIO``).
-  6. Prints the kernel table as one JSON line, the card line again, and
+  6. The placement service (``run_service``; after phase 4c).  (a) The
+     full-scale trace as a request stream (8,604 requests, 8,063
+     arrivals) through ``PlacementService.for_trace`` at micro-batches of
+     64, all five policies (GRMU as in ``DIGESTS``), after one stream each
+     that captures the graphs: each result (the final snapshot through
+     ``result_from_arrays``) equals ``DIGESTS``, MCC/MECC launch their
+     pick once per arrival (8,063) and nothing else launches, the runners
+     hold graphs, device memory is flat across the five streams, and (a
+     third stream, torch's sync debug mode) host synchronisations number
+     at most one per batch plus GRMU's consolidating step-ends; one JSON
+     line per policy with arrivals/s, p50 / p99 decision latency,
+     batches, graphs and capture seconds.  (b) The flash crowd at
+     ``BENCH_serve.json``'s size (600 VMs, 32 GPUs, 72 h, seed 2, GRMU):
+     online == offline, 373 accepted; the ("GRMU", "FF") ladder at
+     slo_s=0 degrades once and ends on FF.  (c) Checkpoint at half the
+     full-scale GRMU stream, restore into a fresh service: the decisions
+     equal the uninterrupted stream's.  (d) The ("ILP", "GRMU", "FF")
+     ladder on tests/test_serve.py's small stream at slo_s=0: card ==
+     CPU.  (e) ``sweep_heavy_capacity`` at full scale, GRMU DB, over
+     ``SWEEP_FRACS``: equals the JAX sweep's ``SWEEP_ACCEPTED``; seconds
+     per capacity.
+  7. Prints the kernel table as one JSON line (the picks' rows add the
+     service's launches, ``service_launches``), the card line again, and
      as its last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is present, or when
@@ -165,6 +187,29 @@ SYNTH_DIGESTS = {
     "MECC":
         "3ef85caeca1918f77a2e3552862cee74799b142375947070adb2c51b9f33c932",
 }
+
+# Phase 6: the placement service.  (a) the full-scale trace's request
+# stream (8,604 requests, 8,063 arrivals) at micro-batches of 64; (b) the
+# flash crowd at BENCH_serve.json's size (GRMU accepts 373 online and
+# offline); (d) tests/test_serve.py's small synthetic stream; (e) the
+# sweep's capacities (benchmarks/batched_engine.py) and the accepted
+# counts per reference profile of the JAX sweep (repro.core.batched.
+# sweep_heavy_capacity, GRMU DB, CPU) at full scale.  Pinned by
+# tests/test_torch_boundary.py.
+SERVE_BATCH = 64
+SERVE_REQUESTS, SERVE_ARRIVALS = 8604, 8063
+FLASH_CFG = dict(n_vms=600, n_gpus=32, horizon_hours=72.0, seed=2)
+FLASH_ACCEPTED = 373
+SERVE_SMALL = dict(n_vms=200, n_gpus=12, horizon_hours=30.0,
+                   mean_duration_hours=6.0, seed=5)
+ILP_LADDER = dict(tiers=("ILP", "GRMU", "FF"), micro_batch=16, slo_s=0.0,
+                  ilp_window=4, ilp_time_limit=2.0)
+SWEEP_FRACS = (0.2, 0.25, 0.3, 0.35, 0.4)
+SWEEP_ACCEPTED = [[1454, 491, 1318, 937, 491, 433],
+                  [1454, 491, 1318, 937, 491, 539],
+                  [1448, 484, 1305, 925, 485, 649],
+                  [1368, 465, 1223, 854, 449, 760],
+                  [1270, 436, 1140, 782, 424, 868]]
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bandwidth (the mask
 # kernels' and the split's bound: they move bytes and do no arithmetic
@@ -976,6 +1021,290 @@ def run_graph_path(torch):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: the placement service
+# ---------------------------------------------------------------------------
+
+def serve_stream(svc, reqs, horizon):
+    """tests/test_serve.py's driving loop: submit in order, draining one
+    micro-batch whenever the queue is full, then drain and flush."""
+    for r in reqs:
+        while not svc.submit(r):
+            svc.drain(max_batches=1)
+    svc.drain()
+    svc.flush(horizon)
+    return svc
+
+
+def decisions_of(svc):
+    return {v: (d.accepted, d.gpu, d.start, d.tier)
+            for v, d in svc.decisions.items()}
+
+
+def service_result(B, svc, events, policy):
+    """The service's SimResult: its final snapshot read through the
+    replay's ``_finalize`` and ``result_from_arrays``."""
+    import torch
+    st = svc._statics[svc.tier_name]
+    snap = {k: torch.as_tensor(v) for k, v in svc._snapshot().items()}
+    res = B.result_from_arrays(events, policy, {
+        k: v.numpy() for k, v in B._finalize(st, snap).items()})
+    if res.accepted_ids != svc.accepted_ids():
+        raise AssertionError("the snapshot's accepted VMs differ from the "
+                             "service's decisions")
+    return res
+
+
+def profile_service(torch, svc, reqs, n=640):
+    """Where a service stream's time goes: ``torch.profiler`` over the
+    first ``n`` requests submitted and drained through ``svc`` (its
+    runner's graphs captured already).  Returns the device's busy share
+    of the profiled wall time, device µs per request, device operations
+    and copies per batch, and the share of device time in the copies
+    between device buffers (the state and tables copied into the runner
+    and the state back)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for r in reqs[:n]:
+            while not svc.submit(r):
+                svc.drain(max_batches=1)
+        svc.drain()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.time_range.elapsed_us() for e in dev)
+    kinds = {}
+    for e in dev:
+        k = e.name[:60]
+        c, us = kinds.get(k, (0, 0.0))
+        kinds[k] = (c + 1, us + e.time_range.elapsed_us())
+    copies = {k: v for k, v in kinds.items() if k.startswith("Memcpy")}
+    dtod_us = sum(us for k, (_, us) in copies.items() if "DtoD" in k)
+    return {"requests": n, "batches": svc.batches,
+            "profiled_wall_us_per_request": wall_us / n,
+            "device_busy_share": dev_us / wall_us if dev else None,
+            "device_us_per_request": dev_us / n if dev else None,
+            "device_ops_per_batch": len(dev) / max(svc.batches, 1),
+            "copies_per_batch": {k: c / max(svc.batches, 1)
+                                 for k, (c, _) in copies.items()},
+            "device_to_device_copy_share": dtod_us / dev_us if dev else None,
+            "top_device_ops_by_time": sorted(
+                ([k, c, us] for k, (c, us) in kinds.items()),
+                key=lambda r: -r[2])[:8]}
+
+
+def serve_configs(B):
+    """(name, policy, ServeConfig knobs) of phase 4's five replays."""
+    return [(name, pol, {k: v for k, v in kw.items()
+                         if k != "score_backend"})
+            for name, pol, kw in replay_configs(B)]
+
+
+def run_service(torch):
+    """Phase 6: the placement service on the card.  (a) The full-scale
+    request stream through ``PlacementService.for_trace`` at micro-batches
+    of 64, all five policies, twice (the first captures the graphs): the
+    second stream's results equal ``DIGESTS``, MCC/MECC launch their pick
+    once per arrival and nothing else launches, the runners hold graphs,
+    host synchronisations number at most one per batch plus GRMU's
+    consolidating step-ends (a third stream, in torch's sync debug mode),
+    and device memory is flat across the five streams.  (b) The flash
+    crowd at BENCH_serve.json's size: online == offline, 373 accepted;
+    the ("GRMU", "FF") ladder at slo_s=0 degrades once and ends on FF.
+    (c) Checkpoint at half the full-scale GRMU stream, restore into a
+    fresh service: the decisions equal the uninterrupted stream's.
+    (d) The ("ILP", "GRMU", "FF") ladder on the small stream: card ==
+    CPU.  (e) The sweep at full scale equals ``SWEEP_ACCEPTED``.  Returns
+    the pick kernels' launches over the five timed streams."""
+    import gc
+    import tempfile
+    import warnings
+    from repro_torch.core import batched as B
+    from repro_torch.core.bucketing import pad_events
+    from repro_torch.kernels import mask_scores as K
+    from repro_torch.serve import (PlacementService, ServeConfig,
+                                   requests_from_trace)
+    from repro_torch.workload.alibaba import TraceConfig, generate
+    from repro_torch.workload.flashcrowd import (FlashCrowdConfig,
+                                                 generate_flash_crowd)
+    from repro_torch.workload.synthetic import (SyntheticConfig,
+                                                generate_events)
+    cluster, vms = generate(TraceConfig(scale=1.0, seed=1))
+    events = B.build_events(vms, cluster)
+    reqs, horizon = requests_from_trace(events)
+    n_arr = sum(type(r).__name__ == "Arrival" for r in reqs)
+    if (len(reqs), n_arr) != (SERVE_REQUESTS, SERVE_ARRIVALS):
+        raise AssertionError(f"{len(reqs)} requests, {n_arr} arrivals")
+    configs = serve_configs(B)
+
+    def service(name, kw):
+        return PlacementService.for_trace(
+            events, ServeConfig(policy=name, micro_batch=SERVE_BATCH, **kw),
+            device="cuda")
+
+    # (a) The first pass captures every graph the streams need.
+    for name, _, kw in configs:
+        serve_stream(service(name, kw), reqs, horizon)
+    torch.cuda.synchronize()
+    gc.collect()
+    mem = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    rows, totals, ref = [], {}, None
+    for name, pol, kw in configs:
+        K.reset_launches()
+        t0 = time.perf_counter()
+        svc = serve_stream(service(name, kw), reqs, horizon)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        for k, c in launches.items():
+            totals[k] = totals.get(k, 0) + c
+        pick = {"MCC": "mcc_pick", "MECC": "ecc_pick"}.get(name)
+        if launches != {k: n_arr if k == pick else 0 for k in launches}:
+            raise AssertionError(f"service {name}: mask kernels launched "
+                                 f"{launches}")
+        if result_digest(service_result(B, svc, events, pol)) \
+                != DIGESTS[name]:
+            raise AssertionError(f"service {name}: digest differs from the "
+                                 "JAX reference")
+        runner = svc.runner
+        if not (runner.graphed and runner.graphs):
+            raise AssertionError(f"service {name}: the runner holds no "
+                                 "graph")
+        st = svc.stats()
+        rows.append({
+            "phase": "6 service", "policy": name,
+            "micro_batch": SERVE_BATCH, "requests": len(reqs),
+            "arrivals": st["decisions"], "accepted": st["accepted"],
+            "wall_s": wall, "arrivals_per_s": st["decisions"] / wall,
+            "p50_ms": st["p50_ms"], "p99_ms": st["p99_ms"],
+            "queue_high_watermark": st["queue_high_watermark"],
+            "batches": svc.batches, "graphs": len(runner.graphs),
+            "expiry_width": runner.step.width,
+            "capture_s": runner.capture_s, "launches": launches,
+            "digest_matches_jax": True})
+        if name == "GRMU":
+            ref = (decisions_of(svc), svc.accepted_ids(), svc.migrations())
+        del svc, runner
+    gc.collect()
+    flat = mem == (torch.cuda.memory_allocated(),
+                   torch.cuda.memory_reserved())
+    for row, (name, _, kw) in zip(rows, configs):
+        row["profile"] = profile_service(torch, service(name, kw), reqs)
+    if not flat:
+        raise AssertionError("device memory moved across the five service "
+                             "streams")
+    # Host synchronisations, a third stream each in sync debug mode.
+    trace = B.trace_from_numpy(B.trace_arrays(events), "cpu")
+    for row, (name, pol, kw) in zip(rows, configs):
+        st = B.replay_statics(events, pol, **kw)
+        n_cons = B.plan_events(st, trace, last_cons=0.0).keys.count(
+            (B.STEP_END, True))
+        svc = service(name, kw)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                serve_stream(svc, reqs, horizon)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("called a synchronizing" in str(w.message)
+                    for w in seen)
+        if syncs > svc.batches + n_cons or not syncs:
+            raise AssertionError(f"service {name}: {syncs} host "
+                                 f"synchronisations in {svc.batches} "
+                                 f"batches, {n_cons} consolidating "
+                                 "step-ends")
+        row.update(host_syncs=syncs, consolidating_step_ends=n_cons,
+                   memory_flat=flat)
+        print(json.dumps(row), flush=True)
+
+    # (b) The flash crowd at BENCH_serve.json's size.
+    fc = generate_flash_crowd(FlashCrowdConfig(**FLASH_CFG))
+    freqs, fh = requests_from_trace(fc)
+    svc = serve_stream(PlacementService.for_trace(
+        fc, ServeConfig(policy="GRMU", micro_batch=SERVE_BATCH),
+        device="cuda"), freqs, fh)
+    off = B.replay(pad_events(fc), B.GRMU, device="cuda")
+    ladder = serve_stream(PlacementService.for_trace(
+        fc, ServeConfig(policy="GRMU", tiers=("GRMU", "FF"),
+                        micro_batch=SERVE_BATCH, slo_s=0.0),
+        device="cuda"), freqs, fh)
+    switches = [e["event"] for e in ladder.switch_events]
+    if (svc.accepted_ids() != off.accepted_ids
+            or svc.stats()["accepted"] != FLASH_ACCEPTED
+            or switches != ["degrade"] or ladder.tier_name != "FF"):
+        raise AssertionError(f"flash crowd: online {svc.stats()['accepted']}"
+                             f", offline {off.accepted}, ladder {switches} "
+                             f"ending on {ladder.tier_name}")
+    print(json.dumps({
+        "phase": "6 flash crowd", **FLASH_CFG, "requests": len(freqs),
+        "accepted_online": svc.stats()["accepted"],
+        "accepted_offline": off.accepted, "decisions_match": True,
+        "p50_ms": svc.stats()["p50_ms"], "p99_ms": svc.stats()["p99_ms"],
+        "ladder_switches": switches, "ladder_final_tier": ladder.tier_name,
+        "ladder_occupancy": ladder.tier_occupancy}), flush=True)
+
+    # (c) Checkpoint at half the full-scale GRMU stream, restore.
+    half = len(reqs) // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        a = service("GRMU", GRMU_FULL)
+        for r in reqs[:half]:
+            while not a.submit(r):
+                a.drain(max_batches=1)
+        a.drain()
+        a.checkpoint(tmp)
+        b = service("GRMU", GRMU_FULL)
+        if not b.restore(tmp):
+            raise AssertionError("no checkpoint to restore")
+        for r in reqs[half:]:
+            while not b.submit(r):
+                b.drain(max_batches=1)
+        b.drain()
+        b.flush(horizon)
+    got, (want, want_ids, want_mig) = decisions_of(b), ref
+    if (b.accepted_ids() != want_ids or b.migrations() != want_mig
+            or got != {v: want[v] for v in got}):
+        raise AssertionError("restored GRMU service differs from the "
+                             "uninterrupted stream")
+    print(f"phase 6: GRMU checkpointed at request {half} of {len(reqs)}, "
+          f"restored: {len(got)} later decisions and migrations "
+          f"{b.migrations()} equal the uninterrupted stream's", flush=True)
+
+    # (d) The ILP -> GRMU -> FF ladder, card == CPU.
+    small = generate_events(SyntheticConfig(**SERVE_SMALL))
+    sreqs, sh = requests_from_trace(small)
+    runs = {dev: serve_stream(PlacementService.for_trace(
+        small, ServeConfig(**ILP_LADDER), device=dev), sreqs, sh)
+        for dev in ("cuda", "cpu")}
+    card, cpu = runs["cuda"], runs["cpu"]
+    if (decisions_of(card) != decisions_of(cpu)
+            or card.migrations() != cpu.migrations()
+            or [e["to"] for e in card.switch_events] != ["GRMU", "FF"]):
+        raise AssertionError("ILP ladder: card != CPU")
+    print(f"phase 6: ({', '.join(ILP_LADDER['tiers'])}) ladder at slo_s=0: "
+          f"card == CPU, occupancy {card.tier_occupancy}", flush=True)
+
+    # (e) The heavy-capacity sweep at full scale.
+    seconds = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        got = B.sweep_heavy_capacity(events, SWEEP_FRACS, device="cuda")
+        seconds.append(time.perf_counter() - t0)
+        if got.tolist() != SWEEP_ACCEPTED:
+            raise AssertionError(f"sweep: {got.tolist()}")
+    print(json.dumps({
+        "phase": "6 sweep", "fracs": SWEEP_FRACS,
+        "accepted_totals": got.sum(axis=1).tolist(),
+        "first_s": seconds[0], "s_per_capacity": seconds[1] / len(
+            SWEEP_FRACS), "equals_jax": True}), flush=True)
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # Phase 2b: the attention kernel
 # ---------------------------------------------------------------------------
 
@@ -1707,6 +2036,7 @@ def main() -> int:
     launches, profiles = timed_phase("phase 4", run_main_path, torch)
     timed_phase("phase 4b", run_streaming_and_telemetry, torch, profiles)
     timed_phase("phase 4c", run_graph_path, torch)
+    service_launches = timed_phase("phase 6", run_service, torch)
     timed_phase("phase 5 card vs CPU", check_card_vs_cpu_prefill, torch)
     fa_launches, _ = timed_phase("phase 5 bf16", run_serving, torch)
     f32_launches, _ = timed_phase("phase 5 float32", run_f32_prefill, torch)
@@ -1730,6 +2060,9 @@ def main() -> int:
             bound_us_at_1M=big_t["bound_ms"] * 1e3,
             bound_by_at_1M=big_t["bound_by"],
             host_us_at_1M=big_t["host_us"]))
+        if name in ("mcc_pick", "ecc_pick"):
+            # The placement service's five full-scale streams (phase 6).
+            rows[-1]["service_launches"] = service_launches.get(name, 0)
     # Attention: the bf16 kernel's launches from the serving path, the
     # float32 kernel's and the split's from the float32 prefill.
     for name, tname, path, runs in (

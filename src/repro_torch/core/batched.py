@@ -917,15 +917,19 @@ def run_events(st: ReplayStatics, state: Dict[str, torch.Tensor],
 EVENT_ROWS = 1 << 16
 
 
-def replay_key(st: ReplayStatics, trace: Trace, state0, *variant) -> tuple:
+def replay_key(st: ReplayStatics, trace: Trace, state0, *variant,
+               width: Optional[int] = None) -> tuple:
     """The compile-cache key of a runner: the statics, ``variant`` (the
-    streaming engine's ``"chunk", chunk_events``) and the bucket shape a
-    runner's graphs fix, (N, G, H, S, A, W) with W the MECC expiry width,
-    on one device."""
+    streaming engine's ``"chunk", chunk_events``, the decision step's
+    ``"serve", rows``) and the bucket shape a runner's graphs fix, (N, G,
+    H, S, A, W) with W the MECC expiry width (``width``, else the trace's
+    :func:`expiry_width`), on one device."""
     d = trace.dev
+    if width is None:
+        width = expiry_width(trace, st)
     shape = (d["vm_pids"].shape[0], d["gpu_mid"].shape[0],
              d["cpu_cap"].shape[0], state0["hourly"].shape[0],
-             d["arr_times"].shape[0], expiry_width(trace, st))
+             d["arr_times"].shape[0], width)
     return (st, *variant, shape, str(trace.device))
 
 
@@ -954,7 +958,8 @@ class Runner:
     nothing; the warm-up runs on throwaway rows)."""
 
     def __init__(self, st: ReplayStatics, trace: Trace,
-                 state0: Dict[str, torch.Tensor], rows: int):
+                 state0: Dict[str, torch.Tensor], rows: int,
+                 width: Optional[int] = None):
         dev = trace.device
         self.st, self.device, self.rows = st, dev, rows
         self.graphed = dev.type == "cuda"
@@ -967,7 +972,7 @@ class Runner:
             torch.zeros(rows, dtype=torch.float32, device=dev),
             torch.zeros(1, dtype=torch.int64, device=dev),
             torch.zeros(2, dtype=torch.int32, device=dev),
-            expiry_width(trace, st))
+            expiry_width(trace, st) if width is None else width)
         self.graphs: Dict[tuple, "torch.cuda.CUDAGraph"] = {}
         self.launches: Dict[tuple, Dict[str, int]] = {}
         self.pool = None
@@ -1050,8 +1055,15 @@ class Runner:
 
     def replay(self, keys: List[tuple]) -> None:
         """Run the staged rows, one call per key: a graph launch on the
-        card, the eager step on the CPU and for consolidating step-ends."""
+        card, the eager step on the CPU and for consolidating step-ends.
+        On the card a key that :meth:`load` did not capture (the runner
+        was closed since) raises rather than run eagerly."""
         graphs, step = self.graphs, self.step
+        if self.graphed:
+            missing = set(keys) - graphs.keys() - {(STEP_END, True)}
+            if missing:
+                raise RuntimeError(f"keys {sorted(missing)} have no captured "
+                                   "graph; load() the runner first")
         for fn in [graphs[k].replay if k in graphs else step.op(k)
                    for k in keys]:
             fn()
@@ -1145,6 +1157,153 @@ def replay(events: EventTrace, policy: int, heavy_capacity=None,
         events, policy, {k: v.cpu().numpy() for k, v in out.items()})
 
 
+def sweep_heavy_capacity(events: EventTrace, fracs, device: DeviceLike = None,
+                         **cfg) -> np.ndarray:
+    """Fig. 6 on ``device`` (``None`` = the CUDA device): the GRMU replay
+    at each basket capacity ``round(frac * num_gpus)``.  Defaults to the
+    'DB' configuration (defrag & consolidation off — the point whose
+    acceptance the paper's sweep explores); pass ``defrag=True`` /
+    ``consolidation_interval=...`` for full GRMU.  Returns (len(fracs),
+    num_profiles) int32 accepted-per-reference-profile.
+
+    The JAX package ``vmap``s the replay over the capacities; here every
+    capacity replays through one runner (:func:`make_replay`): GRMU's
+    capacities are device scalars of its state, so its graphs are
+    captured once and each capacity is one ``run(cap)``."""
+    cfg.setdefault("defrag", False)
+    cfg.setdefault("consolidation_interval", None)
+    caps = np.round(np.asarray(fracs) * events.num_gpus).astype(np.int32)
+    run = make_replay(events, GRMU, device, **cfg)
+    return np.stack([run(int(c))["accepted"].cpu().numpy() for c in caps])
+
+
+# ---------------------------------------------------------------------------
+# The placement service's decision step
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class HostCarry:
+    """What a decision-step caller carries on the host from one
+    micro-batch to the next, beside its state: GRMU's last consolidation
+    time (``None`` without consolidation; the host plans which step-ends
+    consolidate), the host mirror of ``state["mecc_ptr"]`` and the MECC
+    expiry width W so far (the largest count one arrival has expired,
+    rounded up to a power of two).  The step updates it in place."""
+    last_cons: Optional[np.float32] = None
+    mecc_ptr: int = 0
+    width: int = 0
+
+
+def host_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``a`` on ``device`` without a host synchronisation: on the card
+    through pinned memory, a non-blocking copy."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def _expire_ahead(st: ReplayStatics, arr_times: np.ndarray,
+                  times: np.ndarray, ptr: int) -> Tuple[int, int]:
+    """(the most observations one arrival at ``times`` expires, the
+    expiry pointer after them) from the pointer ``ptr``: the scan's
+    two-pointer loop on the host, over the sorted observation times, with
+    the float32 cutoffs the step computes."""
+    if not len(times):
+        return 0, ptr
+    cutoff = times.astype(np.float32) - np.float32(st.mecc_window)
+    ptrs = np.maximum.accumulate(np.maximum(
+        np.searchsorted(arr_times, cutoff, side="left"), ptr))
+    return int(np.diff(ptrs, prepend=ptr).max()), int(ptrs[-1])
+
+
+class DecisionStep:
+    """The placement service's micro-batch step (:func:`make_decision_step`).
+
+    ``step(state, ev, rest, heavy_capacity, carry, read=None)`` runs one
+    batch of event rows on the caller's ``state`` and returns ``(state,
+    rows)``: ``ev`` holds the batch's event arrays (host numpy, the keys
+    of :data:`EVENT_KEYS`; PAD rows are dropped), ``rest`` is the caller's
+    :class:`Trace` (its resident tensors and their host mirrors: the VM
+    table, the MECC observation times, the GPU hosts), ``carry`` its
+    :class:`HostCarry`, and ``rows`` the ``vmrow`` rows ``[lo, hi)`` of
+    ``read`` as numpy (``None`` without ``read``).  The state is updated
+    in place and returned: the JAX package's contract (state and resident
+    tables in, state out) on a :class:`Runner`.
+
+    A runner is shared through the replay compile cache by every caller
+    with the same statics, bucket shape and row count, and it owns static
+    buffers; so each call copies the caller's resident tensors and state
+    into the runner (on the card, keys it has not captured are captured
+    on that copy, which is then copied in again: :meth:`Runner.load`),
+    stages the batch's rows with one host-to-device copy, replays them
+    and copies the state back.
+    Two callers of one configuration never see each other's state.  The
+    only host synchronisations are the copy of the read rows to the host
+    and GRMU's consolidating step-ends.  MECC's runner is the one of the
+    width W that covers every arrival so far: the host computes each
+    batch's expiry counts from the observation times it stamped."""
+
+    def __init__(self, st: ReplayStatics):
+        self.st = st
+        self.runner: Optional[Runner] = None
+
+    def __call__(self, state: Dict[str, torch.Tensor],
+                 ev: Dict[str, np.ndarray], rest: Trace, heavy_capacity: int,
+                 carry: HostCarry, read: Optional[Tuple[int, int]] = None):
+        st, dev = self.st, rest.device
+        kind = np.asarray(ev["kind"])
+        sel = np.flatnonzero(kind != PAD)
+        host = dict(rest.host, **{k: np.asarray(ev[k]) for k in EVENT_KEYS})
+        plan = plan_events(st, Trace(dev, host, {}, sel),
+                           last_cons=carry.last_cons)
+        if st.policy == MECC:
+            arr = sel[kind[sel] == ARRIVAL]
+            most, carry.mecc_ptr = _expire_ahead(st, rest.host["arr_times"],
+                                                 host["time"][arr],
+                                                 carry.mecc_ptr)
+            if most > carry.width:
+                carry.width = 1 << (most - 1).bit_length()
+        rows = len(kind)
+        runner = self.runner = compile_cache.cached_replay_fn(
+            replay_key(st, rest, state, "serve", rows, width=carry.width),
+            lambda: Runner(st, rest, state, rows, width=carry.width))
+        runner.load(rest, state, heavy_capacity, plan.keys)
+        n = len(sel)
+        if n:
+            arg = np.where(kind[sel] == STEP_END, host["idx"][sel],
+                           host["vm_index"][sel]).astype(np.int64)
+            bits = host["time"][sel].astype(np.float32).view(np.int32)
+            buf = host_to_device(np.concatenate([arg, bits.astype(np.int64)]),
+                                 dev)
+            runner.stage(buf[:n], buf[n:].to(torch.int32).view(torch.float32))
+            runner.replay(plan.keys)
+        for k, v in state.items():
+            v.copy_(runner.state[k])
+        if plan.last_cons is not None:
+            carry.last_cons = plan.last_cons
+            state["last_cons"].fill_(float(plan.last_cons))
+        out = None
+        if read is not None:
+            out = state["vmrow"][read[0]:read[1]].cpu().numpy()
+        return state, out
+
+
+def make_decision_step(st: ReplayStatics) -> DecisionStep:
+    """The online placement service's micro-batch decision step (see
+    :class:`DecisionStep`).  Its runners come from the replay compile
+    cache under ``replay_key(st, rest, state, "serve", rows, width=W)``,
+    so a service's whole life on one tier runs one set of captured graphs
+    (a new MECC width W adds a runner).  Batches compose: a stream of
+    micro-batches gives exactly an offline replay's decisions of the same
+    event order, for any batch size.  Telemetry statics are refused, as
+    in the JAX package."""
+    if st.telemetry:
+        raise ValueError("the serving decision step does not support "
+                         "in-scan telemetry statics")
+    return DecisionStep(st)
+
+
 def result_from_arrays(events: EventTrace, policy: int, out: dict
                        ) -> SimResult:
     """Assemble a SimResult from ``run``'s output arrays (host side, in
@@ -1186,6 +1345,8 @@ def result_from_arrays(events: EventTrace, policy: int, out: dict
 
 __all__ = ["EventTrace", "build_events", "build_events_arrays",
            "make_replay", "replay", "result_from_arrays", "run_events",
+           "sweep_heavy_capacity", "make_decision_step", "DecisionStep",
+           "HostCarry", "host_to_device",
            "plan_events", "Plan", "Step", "Runner", "replay_key",
            "expiry_width", "EVENT_KEYS", "EVENT_ROW_KEYS", "EVENT_ROWS",
            "default_heavy_capacity", "trace_arrays", "trace_from_numpy",

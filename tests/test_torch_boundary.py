@@ -56,6 +56,13 @@ def _port_modules():
 
 
 def test_import_loads_no_jax_and_no_repro():
+    mods = _port_modules()
+    for m in ("repro_torch.serve.placement", "repro_torch.serve.queue",
+              "repro_torch.launch.checkpoint", "repro_torch.launch.serve",
+              "repro_torch.core.policies", "repro_torch.core.grmu",
+              "repro_torch.core.ilp", "repro_torch.core.policy_core_np",
+              "repro_torch.sim.engine", "repro_torch.workload.flashcrowd"):
+        assert m in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {_port_modules()!r}:\n"
@@ -151,11 +158,16 @@ def test_copied_tables_equal_originals(name):
 # Modules the port carries as copies, by path under the package; the
 # changed ones with the number of their lines that differ from the
 # original (the changes their header names).
-COPIES = ("core/mig.py", "core/tables.py", "models/config.py",
-          "obs/reasons.py", "sim/cluster.py", "sim/metrics.py",
-          "workload/alibaba.py", "workload/synthetic.py")
+COPIES = ("core/ilp.py", "core/mig.py", "core/tables.py", "models/config.py",
+          "obs/reasons.py", "serve/queue.py", "sim/cluster.py",
+          "sim/engine.py", "sim/metrics.py", "workload/alibaba.py",
+          "workload/flashcrowd.py", "workload/synthetic.py")
 CHANGED_COPIES = {"configs/tinyllama_1_1b.py": 1, "core/bucketing.py": 4,
-                  "obs/report.py": 3}
+                  "core/grmu.py": 1, "core/policies.py": 1,
+                  "core/policy_core_np.py": 1, "obs/report.py": 3}
+# Copies under another name: the port's own policy_core is torch-only,
+# so the numpy-generic original is policy_core_np.
+RENAMED_COPIES = {"core/policy_core_np.py": "core/policy_core.py"}
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -169,9 +181,10 @@ def test_copied_module_text_equals_original(rel):
 
 @pytest.mark.parametrize("rel", sorted(CHANGED_COPIES))
 def test_copied_module_changes_only_what_its_header_names(rel):
+    src = RENAMED_COPIES.get(rel, rel)
     port = (PORT_DIR / rel).read_text().splitlines()
-    orig = (ROOT / "src" / "repro" / rel).read_text().splitlines()
-    assert port[0].startswith(f"# Copied from repro/{rel} (the JAX package)")
+    orig = (ROOT / "src" / "repro" / src).read_text().splitlines()
+    assert port[0].startswith(f"# Copied from repro/{src} (the JAX package)")
     added = [ln for ln in difflib.ndiff(orig, port[1:])
              if ln.startswith("+ ")]
     assert len(added) == CHANGED_COPIES[rel], added
@@ -401,3 +414,47 @@ def test_chip_smoke_times_picks_on_a_fleet_with_a_gpu_on_every_host(n,
     assert (np.diff(gpu_host) >= 0).all()
     same_host = gpu_host[1:] == gpu_host[:-1]
     assert (cap_g[1:] == cap_g[:-1])[same_host].all()
+
+
+def test_chip_smoke_sweep_is_the_jax_sweep_at_full_scale():
+    """Phase 6 (e): the JAX sweep (vmapped GRMU DB replays) over
+    ``SWEEP_FRACS`` of the full-scale trace's GPUs."""
+    smoke = _chip_smoke()
+    jc, jvms = jalibaba.generate(jalibaba.TraceConfig(scale=1.0, seed=1))
+    events = JB.build_events(jvms, jc)
+    got = JB.sweep_heavy_capacity(events, np.asarray(smoke.SWEEP_FRACS))
+    assert got.tolist() == smoke.SWEEP_ACCEPTED
+    assert got.sum(axis=1).tolist() == [5124, 5230, 5296, 5119, 4920]
+
+
+def test_chip_smoke_service_streams_are_the_replay_traces():
+    """Phase 6's request streams: the full-scale trace's (8,604 requests,
+    8,063 arrivals) and the flash crowd at BENCH_serve.json's size, where
+    the JAX service accepts 373 online and offline."""
+    import json
+    from repro.serve import (PlacementService, ServeConfig,
+                             requests_from_trace)
+    from repro.workload.flashcrowd import (FlashCrowdConfig,
+                                           generate_flash_crowd)
+    smoke = _chip_smoke()
+    jc, jvms = jalibaba.generate(jalibaba.TraceConfig(scale=1.0, seed=1))
+    reqs, _ = requests_from_trace(JB.build_events(jvms, jc))
+    n_arr = sum(type(r).__name__ == "Arrival" for r in reqs)
+    assert (len(reqs), n_arr) == (smoke.SERVE_REQUESTS,
+                                  smoke.SERVE_ARRIVALS)
+    bench = json.loads((ROOT / "BENCH_serve.json").read_text())
+    cfg = smoke.FLASH_CFG
+    assert (cfg["n_vms"], cfg["n_gpus"], bench["micro_batch"]) == (
+        bench["n_vms"], bench["n_gpus"], smoke.SERVE_BATCH)
+    fc = generate_flash_crowd(FlashCrowdConfig(**cfg))
+    freqs, h = requests_from_trace(fc)
+    assert len(freqs) == bench["n_requests"]
+    svc = PlacementService.for_trace(fc, ServeConfig(
+        policy="GRMU", micro_batch=smoke.SERVE_BATCH))
+    for r in freqs:
+        while not svc.submit(r):
+            svc.drain(max_batches=1)
+    svc.drain()
+    svc.flush(h)
+    assert svc.stats()["accepted"] == smoke.FLASH_ACCEPTED == bench[
+        "accepted_online"]

@@ -21,7 +21,10 @@ kernel once per layer.  A replay with telemetry on must give the CPU's
 decisions, reasons and series, with one pick per MCC/MECC arrival.  The
 replay's captured graphs must give the eager loop's outputs for all five
 policies, synchronise with the host only at GRMU's consolidations, and
-count one pick per arrival and replay.
+count one pick per arrival and replay.  The placement service must decide
+on the card as on the CPU (GRMU, MECC), capture its graphs again after
+the compile cache evicted its runner, and read back at most once per
+micro-batch (plus GRMU's consolidations).
 """
 import re
 
@@ -366,3 +369,130 @@ def test_prefill_launches_the_kernel_once_per_layer():
                            "flash_attention_f32": 0, "split_bf16x3": 0}
     assert logits.shape == (2, 1, cfg.vocab)
     assert torch.isfinite(logits.float()).all()
+
+
+# ---------------------------------------------------------------------------
+# The placement service on the card
+# ---------------------------------------------------------------------------
+
+SERVE_KW = {"GRMU": dict(consolidation_interval=6.0), "MECC": {},
+            "FF": {}}
+
+
+def _service(events, device, **cfg):
+    from repro_torch.serve import PlacementService, ServeConfig
+    return PlacementService.for_trace(events, ServeConfig(**cfg),
+                                      device=device)
+
+
+def _serve(events, device, svc=None, **cfg):
+    from repro_torch.serve import requests_from_trace
+    reqs, horizon = requests_from_trace(events)
+    svc = svc or _service(events, device, **cfg)
+    for r in reqs:
+        while not svc.submit(r):
+            svc.drain(max_batches=1)
+    svc.drain()
+    svc.flush(horizon)
+    return svc
+
+
+def _service_decisions(svc):
+    return {v: (d.accepted, d.gpu, d.start, d.tier)
+            for v, d in svc.decisions.items()}
+
+
+@pytest.mark.parametrize("policy", ["GRMU", "MECC"])
+def test_service_on_card_equals_cpu(policy):
+    """A stream through the card's captured graphs decides as the CPU's
+    eager step: every decision, the migrations, the accepted ids; MECC
+    launches its pick once per arrival."""
+    _need_card()
+    events = _small_trace()
+    cfg = dict(policy=policy, micro_batch=64, **SERVE_KW[policy])
+    K.reset_launches()
+    card = _serve(events, "cuda", **cfg)
+    arrivals = int((events.kind == B.ARRIVAL).sum())
+    assert K.LAUNCHES["ecc_pick"] == (arrivals if policy == "MECC" else 0)
+    cpu = _serve(events, "cpu", **cfg)
+    assert card.runner.graphed and card.runner.graphs
+    assert _service_decisions(card) == _service_decisions(cpu)
+    assert card.accepted_ids() == cpu.accepted_ids()
+    assert card.migrations() == cpu.migrations()
+
+
+def test_service_captures_again_after_eviction():
+    """With the compile cache bounded to one entry, a GRMU -> FF -> GRMU
+    ladder evicts each tier's runner when the other tier fetches its own;
+    coming back, the service captures the graphs again (a closed runner
+    refuses to replay keys it holds no graph for) and decides as the
+    CPU."""
+    from repro_torch.core import compile_cache
+    _need_card()
+    events = _small_trace()
+    cfg = dict(tiers=("GRMU", "FF"), micro_batch=16, slo_s=0.0,
+               recover_after=2)
+    from repro_torch.serve import (PlacementService, ServeConfig,
+                                   requests_from_trace)
+    reqs, horizon = requests_from_trace(events)
+    runs = {}
+    prev = compile_cache.set_max_entries(1)
+    try:
+        for dev in ("cuda", "cpu"):
+            svc = PlacementService.for_trace(events, ServeConfig(**cfg),
+                                             device=dev)
+            half = len(reqs) // 2
+            for r in reqs[:half]:
+                assert svc.submit(r)
+            step = svc._step_fn
+            svc.drain(max_batches=1)        # GRMU's batch, then FF
+            first = step.runner
+            svc.drain()
+            assert svc.tier_name == "FF"
+            svc.governor.slo_s = 1e9
+            for r in reqs[half:]:
+                assert svc.submit(r)
+            svc.drain()
+            svc.flush(horizon)
+            assert svc.tier_name == "GRMU"
+            if dev == "cuda":
+                assert svc.runner.graphs and svc.runner is not first
+                assert not first.graphs           # closed on eviction
+                with pytest.raises(RuntimeError, match="no captured"):
+                    first.replay([(B.DEPARTURE,)])
+            runs[dev] = svc
+    finally:
+        compile_cache.set_max_entries(prev)
+    assert compile_cache.cache_stats()["evictions"] > 0
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert _service_decisions(card) == _service_decisions(cpu)
+    assert card.migrations() == cpu.migrations()
+
+
+@pytest.mark.parametrize("policy", ["FF", "MECC", "GRMU"])
+def test_service_reads_back_once_per_batch(policy):
+    """Once its graphs are captured, a stream synchronises with the host
+    at most once per micro-batch (the copy of its arrivals' decisions)
+    plus once per GRMU consolidating step-end.  (Building a service
+    copies its tables to the card from pageable memory, which
+    synchronises; that is outside the count.)"""
+    import warnings
+    _need_card()
+    events = _small_trace()
+    cfg = dict(policy=policy, micro_batch=64, **SERVE_KW[policy])
+    _serve(events, "cuda", **cfg)
+    svc = _service(events, "cuda", **cfg)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _serve(events, "cuda", svc)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("called a synchronizing" in str(w.message) for w in seen)
+    st = B.replay_statics(events, B.__dict__[policy], **SERVE_KW[policy])
+    n_cons = B.plan_events(
+        st, B.trace_from_numpy(B.trace_arrays(events), "cpu"),
+        last_cons=0.0).keys.count((B.STEP_END, True))
+    assert 0 < syncs <= svc.batches + n_cons
