@@ -64,6 +64,19 @@ Phases (each raises on failure; nothing is caught):
      events/s through the graphs and through the eager loop
      (``run_events``, whose outputs must equal the graphs') in this
      process, graphs per runner and capture seconds.
+  4d. The sharded fleet (``run_sharded``; ``repro_torch.core.sharded``).
+     (a) One rank over NCCL on the card, in this process: the full-scale
+     trace padded with ``pad_events(shards=1)``, the five policies (GRMU
+     as in ``DIGESTS``, MCC/MECC through the tables) through the sharded
+     runners' graphs equal ``DIGESTS``, with no pick or score kernel
+     launch, host synchronisations at most the consolidating step-ends
+     and device memory flat; events/s sharded and unsharded on the same
+     trace in turns, graphs per runner; with telemetry ``DIGESTS`` and
+     ``TELE_DIGESTS``, chunked at 1,000 events ``DIGESTS``.  The group is
+     destroyed after (a).  (b) K = 2 and K = 4 ranks over gloo on the
+     CPU (``sharded.spawn_fleet``, one process per rank) on the scale-0.1
+     trace padded with ``shards=K``, GRMU (defrag, consolidation) and
+     MECC: each equals the card's unsharded replay of that trace.
   2b. The attention kernels vs their plain version (``flash_attention_ref``)
      on the card: TinyLlama's heads (H 32 / KV 4, hd 64), hd 128 with GQA
      4:1, MHA, MQA, hd 32, causal and non-causal with Sq != Sk, a 96-key
@@ -124,7 +137,9 @@ Phases (each raises on failure; nothing is caught):
      ``SWEEP_FRACS``: equals the JAX sweep's ``SWEEP_ACCEPTED``; seconds
      per capacity.
   7. Prints the kernel table as one JSON line (the picks' rows add the
-     service's launches, ``service_launches``), the card line again, and
+     service's launches, ``service_launches``; every mask kernel's row
+     its launches on the sharded path, ``sharded_launches``), the card
+     line again, and
      as its last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is present, or when
@@ -557,6 +572,16 @@ def replay_configs(B):
             ("MCC", B.MCC, dict(score_backend="kernel")),
             ("MECC", B.MECC, dict(score_backend="kernel")),
             ("GRMU", B.GRMU, GRMU_FULL)]
+
+
+def tables_configs(B):
+    """(name, policy, knobs) of phase 4's five replays without their
+    score backend: the placement service's ``ServeConfig`` knobs (phase
+    6, which resolves the backend itself) and the sharded fleet's
+    settings (phase 4d, tables only)."""
+    return [(name, pol, {k: v for k, v in kw.items()
+                         if k != "score_backend"})
+            for name, pol, kw in replay_configs(B)]
 
 
 def check_card_vs_cpu():
@@ -1021,6 +1046,163 @@ def run_graph_path(torch):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4d: the sharded fleet
+# ---------------------------------------------------------------------------
+
+def fleet_replays(events, configs, cap, device):
+    """Phase 4d (b), on each rank that ``spawn_fleet`` starts: the
+    sharded replays of ``configs`` in a fleet of the group's world size."""
+    import torch.distributed as dist
+    from repro_torch.core import sharded as SH
+    k = dist.get_world_size()
+    return [SH.replay_sharded(events, pol, cap, num_shards=k, device=device,
+                              **kw) for _, pol, kw in configs]
+
+
+def run_sharded(torch):
+    """Phase 4d: the sharded fleet.  (a) One rank over NCCL on the card,
+    in this process (``sharded.fleet_group`` makes it a one-rank group):
+    the full-scale trace padded with ``pad_events(shards=1)``, the five
+    policies through the sharded runners' graphs, with the checks of
+    ``graph_replay``: each digest equals ``DIGESTS``, no pick or score
+    kernel launches, host synchronisations at most the consolidating
+    step-ends, device memory flat; events/s sharded and unsharded on the
+    same padded trace, in turns; then with telemetry (``DIGESTS`` and
+    ``TELE_DIGESTS``) and chunked at ``CHUNK_EVENTS`` (``DIGESTS``).
+    (b) K = 2 and K = 4 ranks over gloo on the CPU (``spawn_fleet``) on
+    the scale-0.1 trace padded with ``shards=K``, GRMU (defrag,
+    consolidation) and MECC: each equals the card's unsharded replay.
+    Returns the mask kernels' launches over (a)'s replays."""
+    import torch.distributed as dist
+    from repro_torch.core import batched as B
+    from repro_torch.core import compile_cache
+    from repro_torch.core import sharded as SH
+    from repro_torch.core import streaming as ST
+    from repro_torch.core.bucketing import pad_events
+    from repro_torch.kernels import mask_scores as K
+    from repro_torch.workload.alibaba import TraceConfig, generate
+    cluster, vms = generate(TraceConfig(scale=1.0, seed=1))
+    unpadded = B.build_events(vms, cluster)
+    events = pad_events(unpadded, shards=1)
+    n_events = len(unpadded.kind)
+    cap = B.default_heavy_capacity(events)
+    totals = {}
+
+    def count(launches, what):
+        for k, c in launches.items():
+            totals[k] = totals.get(k, 0) + c
+        if any(launches.values()):
+            raise AssertionError(f"4d {what}: mask kernels launched "
+                                 f"{launches} on the sharded path")
+
+    # (a) One rank over NCCL: the plain replays, timed beside unsharded.
+    for (name, pol, kw), (_, _, ukw) in zip(tables_configs(B),
+                                             replay_configs(B)):
+        run = SH.make_sharded_replay(events, pol, num_shards=1, **kw)
+        if dist.get_backend() != "nccl" or run.runner.device.type != "cuda":
+            raise AssertionError("4d: the one-rank fleet is not NCCL on "
+                                 "the card")
+        out, syncs, launches, flat = graph_replay(torch, run, cap)
+        count(launches, f"plain {name}")
+        if result_digest(B.result_from_arrays(events, pol, out)) \
+                != DIGESTS[name]:
+            raise AssertionError(f"4d sharded {name}: digest differs from "
+                                 "the JAX reference")
+        n_cons = run.plan.keys.count((B.STEP_END, True))
+        if len(syncs) > n_cons or (n_cons and not syncs):
+            raise AssertionError(f"4d sharded {name}: {len(syncs)} host "
+                                 f"synchronisations, {n_cons} "
+                                 f"consolidating step-ends: {syncs[:3]}")
+        if not flat:
+            raise AssertionError(f"4d sharded {name}: device memory grew "
+                                 "from one replay to the next")
+        unsharded = B.make_replay(events, pol, device="cuda", **ukw)
+        unsharded(cap)
+        rates = {"sharded": [], "unsharded": []}
+        for which in ("unsharded", "sharded", "sharded", "unsharded"):
+            fn = run if which == "sharded" else unsharded
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(cap)
+            torch.cuda.synchronize()
+            rates[which].append(n_events / (time.perf_counter() - t0))
+        print(json.dumps({
+            "phase": "4d (a) sharded K=1 nccl", "policy": name,
+            "events": n_events, "padded_gpus": len(events.gpu_model_id),
+            "graphs": len(run.runner.graphs),
+            "capture_s": run.runner.capture_s, "host_syncs": len(syncs),
+            "consolidating_step_ends": n_cons, "launches": launches,
+            "memory_flat": flat, "events_per_s": rates["sharded"],
+            "unsharded_events_per_s": rates["unsharded"],
+            "unsharded_score_backend": ukw.get("score_backend", "tables"),
+            "digest_matches_jax": True}), flush=True)
+    # Telemetry, then chunked at CHUNK_EVENTS.
+    for name, pol, kw in tables_configs(B):
+        run = SH.make_sharded_replay(events, pol, num_shards=1,
+                                     telemetry=True, **kw)
+        K.reset_launches()
+        out, dt = _timed(torch, run, cap)
+        count(dict(K.LAUNCHES), f"telemetry {name}")
+        if (result_digest(B.result_from_arrays(events, pol, out))
+                != DIGESTS[name]
+                or telemetry_digest(events, out) != TELE_DIGESTS[name]):
+            raise AssertionError(f"4d sharded {name} with telemetry: "
+                                 "digests differ from the JAX reference")
+        chunked = ST.make_chunked_replay(unpadded, pol,
+                                         chunk_events=CHUNK_EVENTS,
+                                         num_shards=1, **kw)
+        K.reset_launches()
+        cout, cdt = _timed(torch, chunked, cap)
+        count(dict(K.LAUNCHES), f"chunked {name}")
+        if result_digest(B.result_from_arrays(chunked.events, pol, cout)) \
+                != DIGESTS[name]:
+            raise AssertionError(f"4d sharded {name} chunked: digest "
+                                 "differs from the JAX reference")
+        print(json.dumps({
+            "phase": "4d (a) sharded K=1 nccl, telemetry and chunked",
+            "policy": name, "telemetry_events_per_s": n_events / dt,
+            "telemetry_graphs": len(run.runner.graphs),
+            "chunked_events_per_s": n_events / cdt,
+            "num_chunks": chunked.num_chunks,
+            "chunked_graphs": len(chunked.runner.graphs),
+            "digests_match_jax": True}), flush=True)
+    # The one-rank group ends with the runners that captured its
+    # collectives.
+    compile_cache.clear_cache()
+    torch.cuda.synchronize()
+    dist.destroy_process_group()
+
+    # (b) K = 2 and K = 4 ranks over gloo, against the card's unsharded
+    # replay of the same padded trace.
+    c01, v01 = generate(TraceConfig(scale=0.1, seed=1))
+    ev01 = B.build_events(v01, c01)
+    configs = [(name, pol, kw) for name, pol, kw in tables_configs(B)
+               if name in ("GRMU", "MECC")]
+    for k in (2, 4):
+        pv = pad_events(ev01, shards=k)
+        kcap = B.default_heavy_capacity(pv)
+        want = [B.replay(pv, pol, kcap, device="cuda", **kw)
+                for _, pol, kw in configs]
+        t0 = time.perf_counter()
+        got = SH.spawn_fleet(fleet_replays, k, pv, configs, kcap,
+                             device="cpu", timeout=300)
+        wall = time.perf_counter() - t0
+        for (name, _, _), w, g in zip(configs, want, got):
+            if not same_result(w, g):
+                raise AssertionError(f"4d (b) K={k} {name}: the gloo fleet "
+                                     "!= the card's unsharded replay")
+        print(json.dumps({
+            "phase": "4d (b) sharded gloo", "ranks": k,
+            "policies": [c[0] for c in configs],
+            "accepted": [g.accepted for g in got],
+            "migrations": [[g.intra_migrations, g.inter_migrations]
+                           for g in got],
+            "padded_gpus": len(pv.gpu_model_id), "spawn_and_run_s": wall,
+            "equal_card_unsharded": True}), flush=True)
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the placement service
 # ---------------------------------------------------------------------------
 
@@ -1096,13 +1278,6 @@ def profile_service(torch, svc, reqs, n=640):
                 key=lambda r: -r[2])[:8]}
 
 
-def serve_configs(B):
-    """(name, policy, ServeConfig knobs) of phase 4's five replays."""
-    return [(name, pol, {k: v for k, v in kw.items()
-                         if k != "score_backend"})
-            for name, pol, kw in replay_configs(B)]
-
-
 def run_service(torch):
     """Phase 6: the placement service on the card.  (a) The full-scale
     request stream through ``PlacementService.for_trace`` at micro-batches
@@ -1138,7 +1313,7 @@ def run_service(torch):
     n_arr = sum(type(r).__name__ == "Arrival" for r in reqs)
     if (len(reqs), n_arr) != (SERVE_REQUESTS, SERVE_ARRIVALS):
         raise AssertionError(f"{len(reqs)} requests, {n_arr} arrivals")
-    configs = serve_configs(B)
+    configs = tables_configs(B)
 
     def service(name, kw):
         return PlacementService.for_trace(
@@ -2036,6 +2211,7 @@ def main() -> int:
     launches, profiles = timed_phase("phase 4", run_main_path, torch)
     timed_phase("phase 4b", run_streaming_and_telemetry, torch, profiles)
     timed_phase("phase 4c", run_graph_path, torch)
+    sharded_launches = timed_phase("phase 4d", run_sharded, torch)
     service_launches = timed_phase("phase 6", run_service, torch)
     timed_phase("phase 5 card vs CPU", check_card_vs_cpu_prefill, torch)
     fa_launches, _ = timed_phase("phase 5 bf16", run_serving, torch)
@@ -2063,6 +2239,9 @@ def main() -> int:
         if name in ("mcc_pick", "ecc_pick"):
             # The placement service's five full-scale streams (phase 6).
             rows[-1]["service_launches"] = service_launches.get(name, 0)
+        # The sharded fleet's replays (phase 4d (a)) score through the
+        # tables: 0 for every mask kernel.
+        rows[-1]["sharded_launches"] = sharded_launches.get(name, 0)
     # Attention: the bf16 kernel's launches from the serving path, the
     # float32 kernel's and the split's from the float32 prefill.
     for name, tname, path, runs in (

@@ -30,7 +30,9 @@ Scoring: ``score_backend="tables"`` gathers from the per-model mask
 tables (``policy_core``); ``"kernel"`` scores MCC/MECC arrivals with the
 CUDA kernels of :mod:`repro_torch.kernels.mask_scores` (on a CPU device,
 their plain versions), ``"auto"`` picks ``"kernel"`` for MCC/MECC on a
-single-model fleet.
+single-model fleet.  A sharded fleet (:mod:`.sharded`, ``num_shards``)
+scores each rank's slice of GPUs through the tables and reconciles the
+ranks' candidates with one all-gather per arrival.
 
 Telemetry (``telemetry=True``, :mod:`repro_torch.obs.inscan`) adds the
 decision code of each arrival as a 4th ``vmrow`` column and, at each
@@ -64,6 +66,7 @@ from ..sim.metrics import SimResult
 from .mig import A100_40GB, DeviceModel, PROFILE_INDEX
 from . import compile_cache
 from . import policy_core as pc
+from . import sharded
 
 FF, BF, MCC, MECC, GRMU = pc.FF, pc.BF, pc.MCC, pc.MECC, pc.GRMU
 
@@ -298,6 +301,8 @@ class ReplayStatics:
     score_backend: str = "tables"
     # In-replay telemetry (repro_torch.obs.inscan).  Off by default.
     telemetry: bool = False
+    # Sharded-fleet replay (repro_torch.core.sharded): the shard count.
+    num_shards: int = 0
 
 
 def replay_statics(events: EventTrace, policy: int, *,
@@ -309,12 +314,14 @@ def replay_statics(events: EventTrace, policy: int, *,
                    telemetry: bool = False,
                    num_shards: int = 0) -> ReplayStatics:
     """Resolve user cfg (including ``score_backend="auto"``) against the
-    trace's fleet into a hashable :class:`ReplayStatics`."""
-    if num_shards:
-        raise NotImplementedError("sharded replay is not ported yet")
+    trace's fleet into a hashable :class:`ReplayStatics`.  Sharded
+    statics (``num_shards`` > 0) score through the tables: ``"auto"``
+    resolves to them and ``"kernel"`` raises, as the JAX package refuses
+    Pallas scoring under shards."""
     kernel_ok = policy in (MCC, MECC) and len(events.models) == 1
     if score_backend == "auto":
-        score_backend = "kernel" if kernel_ok else "tables"
+        score_backend = ("kernel" if kernel_ok and not num_shards
+                         else "tables")
     if score_backend not in ("tables", "kernel"):
         raise ValueError(f"unknown score_backend {score_backend!r}; "
                          "expected 'tables', 'kernel' or 'auto'")
@@ -322,11 +329,15 @@ def replay_statics(events: EventTrace, policy: int, *,
         raise ValueError(
             "score_backend='kernel' needs policy MCC/MECC on a single-model "
             f"fleet (got policy={policy}, M={len(events.models)})")
+    if score_backend == "kernel" and num_shards:
+        raise ValueError("kernel scoring is not supported on the sharded "
+                         "path; use score_backend='tables'")
     return ReplayStatics(
         policy=policy, models=tuple(events.models), defrag=defrag,
         consolidation_interval=consolidation_interval,
         defrag_trigger=defrag_trigger, mecc_window=mecc_window,
-        score_backend=score_backend, telemetry=telemetry)
+        score_backend=score_backend, telemetry=telemetry,
+        num_shards=num_shards)
 
 
 def _gpu_full(events: EventTrace) -> np.ndarray:
@@ -566,12 +577,18 @@ class Step:
 
     ``dev`` holds the trace's resident tensors (:func:`trace_from_numpy`)
     and ``host`` its numpy arrays (consolidation reads the GPU hosts
-    there); ``width`` is the MECC expiry width (:func:`expiry_width`)."""
+    there); ``width`` is the MECC expiry width (:func:`expiry_width`).
+    Sharded statics need ``group``, the fleet's process group: the step
+    then owns this rank's ``sharded.FleetShard`` (its GPU slice and the
+    all-gather's buffers), and an arrival scores the slice and reconciles
+    the ranks' candidates (``sharded.select_gpu_sharded`` /
+    ``grmu_select_sharded``); every other operation stays replicated."""
 
     def __init__(self, st: ReplayStatics, state: Dict[str, torch.Tensor],
                  dev: Dict[str, torch.Tensor], host: Dict[str, np.ndarray],
                  ev_arg: torch.Tensor, ev_time: torch.Tensor,
-                 cur: torch.Tensor, caps: torch.Tensor, width: int):
+                 cur: torch.Tensor, caps: torch.Tensor, width: int,
+                 group=None):
         self.st, self.state, self.dev, self.host = st, state, dev, host
         self.ev_arg, self.ev_time, self.cur, self.caps = (ev_arg, ev_time,
                                                           cur, caps)
@@ -587,6 +604,13 @@ class Step:
             self.code_table, self.basket_cols = obs_inscan.device_tables(
                 str(device))
         self.width = width
+        self.shard = None
+        if st.num_shards:
+            if group is None:
+                raise ValueError("sharded statics need the fleet's process "
+                                 "group (repro_torch.core.sharded)")
+            self.shard = sharded.FleetShard(group, st.num_shards,
+                                            dev["gpu_mid"].shape[0], device)
         self._ops: Dict[tuple, Callable[[], None]] = {}
         if st.policy == MECC:
             # MECC's counts are added through their flat (M * NP) view:
@@ -658,9 +682,14 @@ class Step:
             basket = s["basket"]
             heavy_cap, light_cap = self.caps[0:1], self.caps[1:2]
             host_ok = (host_used[ghost] + need <= cap_g).all(dim=1)
-            pick, grew, grow_idx = pc.grmu_select(
-                T, mid, free, pids, heavy, host_ok, basket, heavy_cap,
-                light_cap)
+            if self.shard is None:
+                pick, grew, grow_idx = pc.grmu_select(
+                    T, mid, free, pids, heavy, host_ok, basket, heavy_cap,
+                    light_cap)
+            else:
+                pick, grew, grow_idx = sharded.grmu_select_sharded(
+                    T, mid, free, pids, heavy, host_ok, basket, heavy_cap,
+                    light_cap, self.shard)
             want = pc.HEAVY_BASKET if heavy else pc.LIGHT_BASKET
             if st.telemetry:
                 # Read before the basket grows.
@@ -673,6 +702,10 @@ class Step:
             if st.telemetry:
                 # The fused pick keeps its host headroom to itself.
                 host_ok = (host_used[ghost] + need <= cap_g).all(dim=1)
+        elif self.shard is not None:
+            host_ok = (host_used[ghost] + need <= cap_g).all(dim=1)
+            pick = sharded.select_gpu_sharded(st.policy, T, mid, free, pids,
+                                              host_ok, mecc_w, self.shard)
         else:
             host_ok = (host_used[ghost] + need <= cap_g).all(dim=1)
             pick = pc.select_gpu(st.policy, T, mid, free, pids, host_ok,
@@ -921,9 +954,10 @@ def replay_key(st: ReplayStatics, trace: Trace, state0, *variant,
                width: Optional[int] = None) -> tuple:
     """The compile-cache key of a runner: the statics, ``variant`` (the
     streaming engine's ``"chunk", chunk_events``, the decision step's
-    ``"serve", rows``) and the bucket shape a runner's graphs fix, (N, G,
-    H, S, A, W) with W the MECC expiry width (``width``, else the trace's
-    :func:`expiry_width`), on one device."""
+    ``"serve", rows``, a sharded fleet's ``"shard", K, rank, group`` where
+    the JAX cache keys ``(st, k, "shard")``) and the bucket shape a runner's
+    graphs fix, (N, G, H, S, A, W) with W the MECC expiry width
+    (``width``, else the trace's :func:`expiry_width`), on one device."""
     d = trace.dev
     if width is None:
         width = expiry_width(trace, st)
@@ -955,11 +989,17 @@ class Runner:
     graph's replay may have reused.  A replay of a graph that holds a
     pick kernel adds that pick to ``mask_scores.LAUNCHES``; the warm-up's
     and the capture's counts are taken back out (the capture launches
-    nothing; the warm-up runs on throwaway rows)."""
+    nothing; the warm-up runs on throwaway rows).
+
+    A sharded runner (``group``, the fleet's process group) runs one
+    all-gather per arrival, in its warm-ups and captures as in its
+    replays, so every rank must capture the same keys in the same order:
+    :meth:`load` takes them in the plan's order, which every rank plans
+    alike from the same trace."""
 
     def __init__(self, st: ReplayStatics, trace: Trace,
                  state0: Dict[str, torch.Tensor], rows: int,
-                 width: Optional[int] = None):
+                 width: Optional[int] = None, group=None):
         dev = trace.device
         self.st, self.device, self.rows = st, dev, rows
         self.graphed = dev.type == "cuda"
@@ -972,7 +1012,7 @@ class Runner:
             torch.zeros(rows, dtype=torch.float32, device=dev),
             torch.zeros(1, dtype=torch.int64, device=dev),
             torch.zeros(2, dtype=torch.int32, device=dev),
-            expiry_width(trace, st) if width is None else width)
+            expiry_width(trace, st) if width is None else width, group)
         self.graphs: Dict[tuple, "torch.cuda.CUDAGraph"] = {}
         self.launches: Dict[tuple, Dict[str, int]] = {}
         self.pool = None
@@ -1119,13 +1159,20 @@ def make_replay(events: EventTrace, policy: int,
     :data:`EVENT_ROWS` at a time.  On the card a failed capture or graph
     launch raises; nothing falls back to the eager loop.  ``run.runner``
     and ``run.plan`` are the runner and the trace's :class:`Plan`."""
-    device = resolve_device(device)
-    st = replay_statics(events, policy, **cfg)
+    return runner_replay(events, replay_statics(events, policy, **cfg),
+                         resolve_device(device))
+
+
+def runner_replay(events: EventTrace, st: ReplayStatics,
+                  device: torch.device, *variant, group=None) -> Callable:
+    """:func:`make_replay`'s ``run`` for resolved statics, its runner
+    cached under ``replay_key(..., *variant)``; ``group`` is a sharded
+    fleet's process group (``sharded.make_sharded_replay``)."""
     trace = trace_from_numpy(trace_arrays(events), device)
     state0 = init_state(events, st, device)
     runner = compile_cache.cached_replay_fn(
-        replay_key(st, trace, state0),
-        lambda: Runner(st, trace, state0, EVENT_ROWS))
+        replay_key(st, trace, state0, *variant),
+        lambda: Runner(st, trace, state0, EVENT_ROWS, group=group))
     plan = plan_events(st, trace, last_cons=0.0)
     d = trace.dev
 
@@ -1345,6 +1392,7 @@ def result_from_arrays(events: EventTrace, policy: int, out: dict
 
 __all__ = ["EventTrace", "build_events", "build_events_arrays",
            "make_replay", "replay", "result_from_arrays", "run_events",
+           "runner_replay",
            "sweep_heavy_capacity", "make_decision_step", "DecisionStep",
            "HostCarry", "host_to_device",
            "plan_events", "Plan", "Step", "Runner", "replay_key",

@@ -31,6 +31,12 @@ it steps chunk i, to overlap the copy with the scan; the port's runner
 has one chunk buffer, which the next chunk's copy would overwrite before
 the step has read it, so it stages each chunk just before its step (the
 copy is one device-to-device copy on the step's stream).
+
+``num_shards`` composes with :mod:`.sharded`, as in the JAX module: the
+trace is padded with ``pad_events(..., shards=K)`` and the chunk step is
+this rank's sharded runner (replicated state, its slice of GPUs scored,
+one all-gather per arrival), under the key ``"shard-chunk", K, rank,
+group, chunk_events``.
 """
 from __future__ import annotations
 
@@ -42,7 +48,7 @@ import numpy as np
 from ..device import DeviceLike, resolve_device
 from ..obs import recorder as obs_recorder
 from ..sim.metrics import SimResult
-from . import compile_cache
+from . import compile_cache, sharded
 from .batched import (EVENT_KEYS, EventTrace, Runner, _finalize,
                       default_heavy_capacity, init_state, plan_events,
                       replay_key, replay_statics, result_from_arrays,
@@ -82,24 +88,30 @@ def make_chunked_replay(events: EventTrace, policy: int, *,
                         device: DeviceLike = None, **cfg) -> Callable:
     """Chunk-streaming twin of ``batched.make_replay`` — same outputs,
     same decisions.  The trace is padded so the event dimension splits
-    evenly into ``chunk_events``-row chunks; the returned
-    ``run(heavy_capacity)`` exposes ``run.num_chunks``,
-    ``run.chunk_events``, ``run.events`` (the padded trace),
-    ``run.runner`` and ``run.plan`` (``batched.Plan``)."""
+    evenly into ``chunk_events``-row chunks (and, with ``num_shards``,
+    its GPUs over the shards); the returned ``run(heavy_capacity)``
+    exposes ``run.num_chunks``, ``run.chunk_events``, ``run.events`` (the
+    padded trace), ``run.runner`` and ``run.plan`` (``batched.Plan``).
+    With ``num_shards`` this is one rank of a sharded fleet
+    (``sharded.fleet_group``), on the rank's device."""
     if chunk_events < 1:
         raise ValueError(f"chunk_events must be >= 1, got {chunk_events}")
+    events = pad_events(events, event_multiple=chunk_events,
+                        shards=num_shards or 1)
+    group, k, variant = None, 0, ("chunk", chunk_events)
     if num_shards:
-        raise NotImplementedError("sharded replay is not ported yet; see "
-                                  "ROADMAP.md, Queue 2")
+        group, rank = sharded.fleet_group(num_shards, device)
+        k = num_shards
+        device = sharded.rank_device(device, rank)
+        variant = ("shard-chunk", k, rank, group, chunk_events)
     device = resolve_device(device)
-    events = pad_events(events, event_multiple=chunk_events)
-    st = replay_statics(events, policy, **cfg)
+    st = replay_statics(events, policy, num_shards=k, **cfg)
     tr = trace_arrays(events)
     trace = trace_from_numpy(tr, device)
     state0 = init_state(events, st, device)
     runner = compile_cache.cached_replay_fn(
-        replay_key(st, trace, state0, "chunk", chunk_events),
-        lambda: Runner(st, trace, state0, chunk_events))
+        replay_key(st, trace, state0, *variant),
+        lambda: Runner(st, trace, state0, chunk_events, group=group))
     finalize = compile_cache.cached_replay_fn(
         (st, "finalize"), lambda: functools.partial(_finalize, st))
     n_chunks = len(events.kind) // chunk_events

@@ -61,7 +61,9 @@ def test_import_loads_no_jax_and_no_repro():
               "repro_torch.launch.checkpoint", "repro_torch.launch.serve",
               "repro_torch.core.policies", "repro_torch.core.grmu",
               "repro_torch.core.ilp", "repro_torch.core.policy_core_np",
-              "repro_torch.sim.engine", "repro_torch.workload.flashcrowd"):
+              "repro_torch.sim.engine", "repro_torch.workload.flashcrowd",
+              "repro_torch.core.sharded", "repro_torch.core.adaptive",
+              "repro_torch.core.podsched", "repro_torch.core.enumerate"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
@@ -158,7 +160,9 @@ def test_copied_tables_equal_originals(name):
 # Modules the port carries as copies, by path under the package; the
 # changed ones with the number of their lines that differ from the
 # original (the changes their header names).
-COPIES = ("core/ilp.py", "core/mig.py", "core/tables.py", "models/config.py",
+COPIES = ("core/adaptive.py", "core/enumerate.py", "core/ilp.py",
+          "core/mig.py", "core/podsched.py", "core/tables.py",
+          "models/config.py",
           "obs/reasons.py", "serve/queue.py", "sim/cluster.py",
           "sim/engine.py", "sim/metrics.py", "workload/alibaba.py",
           "workload/flashcrowd.py", "workload/synthetic.py")

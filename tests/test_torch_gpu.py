@@ -24,7 +24,8 @@ policies, synchronise with the host only at GRMU's consolidations, and
 count one pick per arrival and replay.  The placement service must decide
 on the card as on the CPU (GRMU, MECC), capture its graphs again after
 the compile cache evicted its runner, and read back at most once per
-micro-batch (plus GRMU's consolidations).
+micro-batch (plus GRMU's consolidations).  One rank of a sharded fleet
+over NCCL must decide through its captured graphs as the CPU.
 """
 import re
 
@@ -496,3 +497,31 @@ def test_service_reads_back_once_per_batch(policy):
         st, B.trace_from_numpy(B.trace_arrays(events), "cpu"),
         last_cons=0.0).keys.count((B.STEP_END, True))
     assert 0 < syncs <= svc.batches + n_cons
+
+
+def test_sharded_one_rank_over_nccl_on_card():
+    """One rank on cuda:0 with NCCL, in a fresh process (this one may hold
+    a gloo group already, and a process has one default group): the five
+    policies through the sharded runners' captured graphs, unchunked and
+    GRMU chunked, decide as the unsharded replay on the CPU."""
+    from _torch_sharded_ranks import fleet_outputs
+    from repro_torch.core import sharded as SH
+    from repro_torch.core.bucketing import pad_events
+    _need_card()
+    events = pad_events(_small_trace(), shards=1)
+    cap = B.default_heavy_capacity(events)
+    grmu = dict(defrag=True, consolidation_interval=6.0)
+    cfgs = {"FF": (B.FF, {}), "BF": (B.BF, {}), "MCC": (B.MCC, {}),
+            "MECC": (B.MECC, {}), "GRMU": (B.GRMU, grmu)}
+    runs = [(name, pol, kw, None) for name, (pol, kw) in cfgs.items()]
+    runs.append(("GRMU-chunked", B.GRMU, grmu, 32))
+    got = SH.spawn_fleet(fleet_outputs, 1, events, events, cap, runs,
+                         timeout=300)
+    assert got["indivisible"] is None
+    for name, (pol, kw) in cfgs.items():
+        res, _, graphs = got[name]
+        assert graphs > 0, name
+        cpu = B.replay(events, pol, cap, device="cpu", **kw)
+        assert (res.accepted_ids, res.hourly_active_hw, res.migrations) == (
+            cpu.accepted_ids, cpu.hourly_active_hw, cpu.migrations), name
+    assert got["GRMU-chunked"][0].accepted_ids == got["GRMU"][0].accepted_ids

@@ -94,5 +94,10 @@ def test_score_backend_resolution():
         B.replay_statics(events, B.MCC, score_backend="pallas")
     assert B.replay_statics(events, B.MCC, telemetry=True).telemetry
     assert not st.telemetry
-    with pytest.raises(NotImplementedError):
-        B.replay_statics(events, B.MCC, num_shards=2)
+    # Sharded statics score through the tables, as the JAX package's.
+    sharded = B.replay_statics(events, B.MCC, num_shards=2)
+    assert (sharded.score_backend, sharded.num_shards) == ("tables", 2)
+    assert B.replay_statics(events, B.MCC).num_shards == 0
+    with pytest.raises(ValueError, match="sharded"):
+        B.replay_statics(events, B.MCC, score_backend="kernel",
+                         num_shards=1)

@@ -154,8 +154,14 @@ def test_event_multiple_need_not_be_a_power_of_two():
         ST.make_chunked_replay(tev, B.FF, chunk_events=0, device="cpu")
     with pytest.raises(ValueError):
         bucketing.pad_events(tev, shards=3)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        ST.make_chunked_replay(tev, B.FF, num_shards=2, device="cpu")
+    # A chunked one-rank fleet runs (tests/test_torch_sharded.py holds it
+    # and K = 2 against the JAX replay).
+    run = ST.make_chunked_replay(tev, B.FF, chunk_events=100, num_shards=1,
+                                 device="cpu")
+    assert run.runner.step.shard.num_shards == 1
+    assert_same_result(B.result_from_arrays(run.events, B.FF, {
+        k: v.numpy() for k, v in run(3).items()}),
+        B.replay(tev, B.FF, 3, device="cpu"))
 
 
 def test_chunked_replay_runs_on_the_card_by_default():
