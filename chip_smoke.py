@@ -80,7 +80,11 @@ Phases (each raises on failure; nothing is caught):
   2b. The attention kernels vs their plain version (``flash_attention_ref``)
      on the card: TinyLlama's heads (H 32 / KV 4, hd 64), hd 128 with GQA
      4:1, MHA, MQA, hd 32, causal and non-causal with Sq != Sk, a 96-key
-     window, a ragged S = 1000 and the requests' prefill (B 8, S 128), in
+     window, a ragged S = 1000, the requests' prefill (B 8, S 128), and
+     the zoo's other head dims (hd 16 with the smoke heads H 4 / KV 2;
+     StableLM-3B's H 32 / KV 32 / hd 80 at a ragged S 1000; H 32 / KV 32 /
+     hd 112, causal with a 300-key window over a ragged S 1000, the shape
+     of Zamba2-7B's shared attention), in
      bf16 (``fa_fwd_wgmma<hd, false>``; 3e-2, and within half a bf16 ulp
      of the plain version in float32) and float32 (``split_bf16x3`` of q,
      k and v, then ``fa_fwd_wgmma<hd, true>``; 2e-5), each dtype reaching
@@ -92,13 +96,19 @@ Phases (each raises on failure; nothing is caught):
      where each kernel, the plain version and PyTorch's
      ``scaled_dot_product_attention`` (timed only) are timed, and in
      float32 the kernel and the plain version are held against the float64
-     function (``attention_f64``, the kernel within 2e-5).
+     function (``attention_f64``, the kernel within 2e-5).  Then, in bf16,
+     the same check, timings and bound at each phase 5c model's prefill
+     shape (B 4, S 4096: H 32 / KV 32 / hd 128, H 32 / KV 8 / hd 128,
+     H 32 / KV 32 / hd 80, H 12 / KV 2 / hd 128), and in float32 at
+     StableLM-3B's float32 prefill shape (B 1, S 4096, H 32 / KV 32 /
+     hd 80): the kernel within 2e-5 of the plain version and of the
+     float64 function, timed beside both.
   5. The serving path at full width: TinyLlama-1.1B (22 layers, bf16,
      random weights from a seeded generator) through
      ``registry.make_step``.  Prefill of 4 x 4096 tokens (tokens/s, the
      attention kernel's share of device time and prefill's ten costliest
      device operations, 22 launches per call, logits vs the same prefill
-     with the plain attention); then 8 requests of
+     with the plain attention within PREFILL_TOL); then 8 requests of
      128-token prompts: first token from ``prefill``, cache filled by
      ``decode_step`` over the prompt, 32 greedy tokens (decode tokens/s;
      prefill's logits vs the teacher-forced decode's within 0.15).  A
@@ -115,6 +125,19 @@ Phases (each raises on failure; nothing is caught):
      each as the model's attention, against float64 attention.  Fails
      if the kernel is further from float64 than the plain version
      (``ACCURACY_LOGITS_RATIO``).
+  5c. The dense zoo at full width (``run_zoo``, after 5b): DeepSeek-7B,
+     Mistral-NeMo-12B, StableLM-3B and Qwen2-VL-2B, one at a time, each
+     in bf16 with random weights drawn on the card from a seeded
+     generator and freed before the next.  Each as phase 5 serves
+     TinyLlama (``serve_model``): prefill 4 x 4096 through
+     ``registry.make_step`` with exactly ``n_layers`` bf16 kernel launches
+     per call and no other route (tokens/s, the kernel's share of device
+     time, logits vs the plain attention within PREFILL_TOL, or else
+     phase 5b's float64 logits gate on five seeds); then 8 requests of
+     32-token prompts and 8 greedy tokens (cut from phase 5's 128 + 32
+     for time; prefill vs teacher-forced decode within 0.15); the peak
+     device memory.  StableLM-3B also runs the float32 prefill 1 x 4096
+     (32 float32 kernel and 96 split launches per call).
   6. The placement service (``run_service``; after phase 4c).  (a) The
      full-scale trace as a request stream (8,604 requests, 8,063
      arrivals) through ``PlacementService.for_trace`` at micro-batches of
@@ -138,7 +161,10 @@ Phases (each raises on failure; nothing is caught):
      per capacity.
   7. Prints the kernel table as one JSON line (the picks' rows add the
      service's launches, ``service_launches``; every mask kernel's row
-     its launches on the sharded path, ``sharded_launches``), the card
+     its launches on the sharded path, ``sharded_launches``; the
+     attention rows their launches and head dim per serving path,
+     phases 5 and 5c, the head dims phase 2b checked and, for bf16, the
+     times at each phase 5c model's prefill shape), the card
      line again, and
      as its last line ``{"ok": true, "device": {...}}``.
 
@@ -259,6 +285,12 @@ ARCH = "tinyllama_1_1b"
 PREFILL_B, PREFILL_S = 4, 4096          # SHAPES["prefill_32k"] cut for time
 F32_PREFILL_B = 1                       # the float32 prefill: 1 x 4096
 N_REQ, PROMPT, GEN, MAX_SEQ = 8, 128, 32, 4096
+# Phase 5c: the dense zoo at full width, in this order; ZOO_F32 also runs
+# the float32 prefill.  Its requests are phase 5's cut from 128 + 32 to 32
+# prompt + 8 generated tokens, for time.
+ZOO = ("deepseek_7b", "mistral_nemo_12b", "stablelm_3b", "qwen2_vl_2b")
+ZOO_F32 = "stablelm_3b"
+ZOO_PROMPT, ZOO_GEN = 32, 8
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # tests/test_flash_attention.py
 # The bf16 kernel rounds its float32 result once, and the plain version
 # computes in float32 from the same upcast inputs, so on phase 2b's random
@@ -284,6 +316,7 @@ PREFILL_TOL = (0.1, 0.15)
 # L2 over the seeds) within this factor of the plain version's.  Measured
 # on the H100 (PERF.md): 0.64x the count, 0.95x the logits error.
 ACCURACY_LOGITS_RATIO = 1.25
+ACCURACY_SEEDS = (0, 1, 2, 3, 4)
 
 
 def result_digest(res) -> str:
@@ -1495,6 +1528,12 @@ ATTN_CASES = {
     "window96": (1, 512, 512, 8, 2, 64, True, 96),
     "ragged1000": (2, 1000, 1000, 32, 4, 64, True, None),
     "request_prefill": (N_REQ, PROMPT, PROMPT, 32, 4, 64, True, None),
+    # The zoo's other head dims: the smoke configs' heads (hd 16),
+    # StableLM-3B's (hd 80, ragged), Zamba2-7B's shared attention (hd 112,
+    # window over ragged tiles).
+    "smoke_hd16": (2, 256, 256, 4, 2, 16, True, None),
+    "stablelm_hd80": (1, 1000, 1000, 32, 32, 80, True, None),
+    "zamba2_hd112_window300": (1, 1000, 1000, 32, 32, 112, True, 300),
 }
 # float32 only: one row's softmax over 256 key tiles, where a tensor-core
 # sum carried across tiles would drift (the kernel merges per tile).
@@ -1671,7 +1710,6 @@ def time_attention(torch, err):
     float64 function, the kernel within ATTN_TOL, and the split of q is
     timed beside its plain version.  Returns {dtype name or "split":
     timings}."""
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA, ref
     cfg = _tinyllama()
     B, S, H, KV = PREFILL_B, PREFILL_S, cfg.n_heads, cfg.n_kv_heads
@@ -1687,18 +1725,7 @@ def time_attention(torch, err):
               f"{tname}; max abs diff {err}", flush=True)
         vs_f64 = None
         if dtype == torch.float32:
-            truth = attention_f64(q, k, v)
-            vs_f64 = {name: (x.double() - truth).abs().max().item()
-                      for name, x in (("kernel", got), (
-                          "plain", ref.flash_attention_ref(q, k, v)))}
-            del truth
-            print(f"phase 2b: float32 at B {B} S {S}, max abs error "
-                  f"against float64: kernel {vs_f64['kernel']:.3g}, plain "
-                  f"version {vs_f64['plain']:.3g}", flush=True)
-            if not vs_f64["kernel"] <= ATTN_TOL[tname]:
-                raise AssertionError(f"float32 attention kernel is "
-                                     f"{vs_f64['kernel']} from float64 "
-                                     f"(limit {ATTN_TOL[tname]})")
+            vs_f64 = f32_vs_f64(torch, got, q, k, v, f"B {B} S {S}")
             s_ms, s_by = split_bound_ms(q.numel())
             out["split"] = dict(
                 ms=event_ms(torch, lambda: FA.split_bf16x3(q), 20),
@@ -1711,24 +1738,105 @@ def time_attention(torch, err):
                   f"{out['split']['plain_ms']:.4f} ms, bound {s_ms:.4f} ms "
                   f"({s_by})", flush=True)
         del got
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        b_ms, b_by = attention_bound_ms(B, S, S, H, KV, hd, True, None,
-                                        tname)
-        t = out[tname] = dict(
-            ms=event_ms(torch, lambda: FA.flash_attention(q, k, v), 10),
-            plain_ms=event_ms(torch, lambda: ref.flash_attention_ref(
-                q, k, v), 3),
-            library_ms=event_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), 10),
-            bound_ms=b_ms, bound_by=b_by, max_abs_err_vs_f64=vs_f64,
-            shape=dict(B=B, S=S, H=H, KV=KV, hd=hd, dtype=tname,
-                       causal=True))
+        t = out[tname] = attention_timings(torch, q, k, v, plain_iters=3)
+        t["max_abs_err_vs_f64"] = vs_f64
         print(f"phase 2b: attention at B {B} S {S} H {H} KV {KV} hd {hd} "
               f"{tname} causal: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
-        del q, k, v, qt, kt, vt
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})", flush=True)
+        del q, k, v
     return out
+
+
+def f32_vs_f64(torch, got, q, k, v, where):
+    """Causal float32 attention: the kernel's output ``got`` and the plain
+    version, each held against the float64 function; the kernel must be
+    within ATTN_TOL.  Returns {kernel, plain: max abs error}."""
+    from repro_torch.kernels import ref
+    truth = attention_f64(q, k, v)
+    vs_f64 = {name: (x.double() - truth).abs().max().item()
+              for name, x in (("kernel", got), (
+                  "plain", ref.flash_attention_ref(q, k, v)))}
+    del truth
+    print(f"phase 2b: float32 at {where}, max abs error against float64: "
+          f"kernel {vs_f64['kernel']:.3g}, plain version "
+          f"{vs_f64['plain']:.3g}", flush=True)
+    if not vs_f64["kernel"] <= ATTN_TOL["float32"]:
+        raise AssertionError(f"float32 attention kernel at {where} is "
+                             f"{vs_f64['kernel']} from float64 (limit "
+                             f"{ATTN_TOL['float32']})")
+    return vs_f64
+
+
+def attention_timings(torch, q, k, v, plain_iters):
+    """Causal attention on q, k, v: ms per call of the kernel's wrapper,
+    of the plain version and of scaled_dot_product_attention (the
+    yardstick; the port never calls it), CUDA events after a warm-up,
+    with the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA, ref
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    tname = str(q.dtype).split(".")[-1]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    b_ms, b_by = attention_bound_ms(B, S, S, H, KV, hd, True, None, tname)
+    return dict(
+        ms=event_ms(torch, lambda: FA.flash_attention(q, k, v), 10),
+        plain_ms=event_ms(torch, lambda: ref.flash_attention_ref(q, k, v),
+                          plain_iters),
+        library_ms=event_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 10),
+        bound_ms=b_ms, bound_by=b_by,
+        shape=dict(B=B, S=S, H=H, KV=KV, hd=hd, dtype=tname, causal=True))
+
+
+def zoo_attention_shape(cfg):
+    """(B, S, H, KV, hd) of a model's prefill attention at the slice's
+    prefill shape."""
+    return (PREFILL_B, PREFILL_S, cfg.n_heads, cfg.n_kv_heads,
+            cfg.resolved_head_dim)
+
+
+def time_zoo_attention(torch, err):
+    """Phase 2b at each phase 5c model's prefill shape (B 4, S 4096, its
+    heads), bf16: the kernel held against the plain version
+    (``hold_attention``, folded into ``err``), then ``attention_timings``.
+    Then ZOO_F32's float32 prefill shape (F32_PREFILL_B x PREFILL_S): the
+    float32 kernel held against the plain version within ATTN_TOL and
+    against the float64 function (``f32_vs_f64``), and timed.  Returns
+    ({arch: bf16 timings}, {ZOO_F32: float32 timings})."""
+    from repro_torch.configs import get_config
+    out = {}
+    for arch in ZOO:
+        B, S, H, KV, hd = zoo_attention_shape(get_config(arch))
+        q, k, v = _qkv(torch, B, S, S, H, KV, hd, torch.bfloat16, seed=2)
+        got = attention_on_its_route(torch, q, k, v)
+        hold_attention(torch, f"{arch} prefill", got, q, k, v, True, None,
+                       err)
+        del got
+        t = out[arch] = attention_timings(torch, q, k, v, plain_iters=2)
+        print(f"phase 2b: attention at {arch}'s prefill shape B {B} S {S} "
+              f"H {H} KV {KV} hd {hd} bfloat16 causal: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}); max abs diff {err}", flush=True)
+        del q, k, v
+    _, S, H, KV, hd = zoo_attention_shape(get_config(ZOO_F32))
+    B = F32_PREFILL_B
+    q, k, v = _qkv(torch, B, S, S, H, KV, hd, torch.float32, seed=3)
+    got = attention_on_its_route(torch, q, k, v)
+    where = f"{ZOO_F32}'s float32 prefill shape B {B} S {S} H {H} KV {KV} " \
+            f"hd {hd}"
+    hold_attention(torch, where, got, q, k, v, True, None, err)
+    vs_f64 = f32_vs_f64(torch, got, q, k, v, where)
+    del got
+    t = attention_timings(torch, q, k, v, plain_iters=2)
+    t["max_abs_err_vs_f64"] = vs_f64
+    print(f"phase 2b: attention at {where} float32 causal: kernel "
+          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA "
+          f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}); max abs diff {err}", flush=True)
+    return out, {ZOO_F32: t}
 
 
 # ---------------------------------------------------------------------------
@@ -1844,20 +1952,20 @@ def check_card_vs_cpu_prefill(torch):
           f"{rel:.3g}, max {elem:.3g})", flush=True)
 
 
-def run_f32_prefill(torch):
-    """Phase 5, the float32 attention route's path: TinyLlama-1.1B at full
-    width in float32 (random weights from a seeded generator), prefill of
-    F32_PREFILL_B x PREFILL_S tokens through registry.make_step.  Launch
-    counts are read over the timed calls alone: per call one float32
-    kernel launch and three splits per layer, no bf16 launch.  Reports
-    wall time, the kernel's share of device time and the logits against
-    the same prefill with the plain attention.  Returns (launches,
-    result)."""
+def run_f32_prefill(torch, cfg=None):
+    """Phase 5, the float32 attention route's path: ``cfg`` (None:
+    TinyLlama-1.1B; phase 5c: StableLM-3B) at full width in float32
+    (random weights from a seeded generator), prefill of F32_PREFILL_B x
+    PREFILL_S tokens through registry.make_step.  Launch counts are read
+    over the timed calls alone: per call one float32 kernel launch and
+    three splits per layer, no bf16 launch.  Reports wall time, the
+    kernel's share of device time and the logits against the same prefill
+    with the plain attention.  Returns (launches, result)."""
     from repro_torch.kernels import flash_attention as FA, ref
     from repro_torch.models import registry
     from repro_torch.models import transformer as M
     from repro_torch.models.config import ShapeConfig
-    cfg = _tinyllama()
+    cfg = cfg or _tinyllama()
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = M.init_params(cfg, gen, torch.float32)
     prefill = registry.make_step(cfg, ShapeConfig(
@@ -1895,8 +2003,8 @@ def run_f32_prefill(torch):
     rel, elem = _rel_errors(torch, logits, plain)
     share, dev_us, top_ops = prefill_attention_share(torch, prefill, model,
                                                      batch)
-    result = {"batch": F32_PREFILL_B, "seq": PREFILL_S, "dtype": "float32",
-              "layers": cfg.n_layers, "wall_s": wall_s,
+    result = {"model": cfg.name, "batch": F32_PREFILL_B, "seq": PREFILL_S,
+              "dtype": "float32", "layers": cfg.n_layers, "wall_s": wall_s,
               "tokens_per_s": F32_PREFILL_B * PREFILL_S / wall_s,
               "device_ms": dev_us / 1e3 if share is not None else None,
               "attention_share_of_device_time": share,
@@ -1914,48 +2022,61 @@ def run_f32_prefill(torch):
     return launches, result
 
 
-def run_serving(torch):
-    """Phase 5: TinyLlama-1.1B at full width on the card, through
-    registry.make_step.  Returns the kernel's launches on this path."""
+def serve_model(torch, cfg, *, n_prefill, prompt, gen, profile_steps, what,
+                f64_gate=False):
+    """One model at full width in bf16 (random weights drawn on the card
+    from a seeded generator) through registry.make_step: ``n_prefill``
+    timed prefills of PREFILL_B x PREFILL_S tokens (exactly ``n_layers``
+    bf16 kernel launches per call and no other route), then N_REQ
+    requests of ``prompt``-token prompts (first token from prefill, cache
+    filled by decode_step over the prompt) and ``gen`` greedy tokens; the
+    launches are counted from 0 over this path alone.  Reports tokens/s,
+    the attention kernel's share of device time and prefill's costliest
+    device operations, the logits against the same prefill with the plain
+    attention, prefill's logits against the teacher-forced decode's
+    (within 0.15), a profile of ``profile_steps`` decode steps and the
+    peak device memory, as one JSON line under ``what``.  Where kernel vs
+    plain exceeds PREFILL_TOL, the model must pass phase 5b's float64
+    logits gate on ACCURACY_SEEDS instead (``logits_ratio_gate``) when
+    ``f64_gate`` (phase 5c's 30-40-layer models); otherwise it fails.
+    Returns (launches, result)."""
     from repro_torch.kernels import flash_attention as FA, ref
     from repro_torch.models import registry
     from repro_torch.models import transformer as M
     from repro_torch.models.config import ShapeConfig
     from repro_torch.serve import llm_decode as D
-    cfg = _tinyllama()
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rng = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
-    model = M.init_params(cfg, gen)
+    model = M.init_params(cfg, rng)
     torch.cuda.synchronize()
-    print(f"phase 5: {cfg.name} ({registry.total_param_count(cfg)} "
-          f"parameters, bf16) initialized on the card in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    prefill_shape = ShapeConfig("prefill_4k", PREFILL_S, PREFILL_B, "prefill")
-    prefill = registry.make_step(cfg, prefill_shape)
+    init_s = time.perf_counter() - t0
+    n_params = registry.total_param_count(cfg)
+    print(f"{what}: {cfg.name} ({n_params} parameters, bf16) initialized "
+          f"on the card in {init_s:.2f} s", flush=True)
+    prefill = registry.make_step(cfg, ShapeConfig("prefill_4k", PREFILL_S,
+                                                  PREFILL_B, "prefill"))
     decode = registry.make_step(cfg, ShapeConfig("decode_4k", MAX_SEQ, N_REQ,
                                                  "decode"))
-    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
-                           generator=gen, device="cuda")
-    batch = {"tokens": tokens}
+    batch = {"tokens": torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                                     generator=rng, device="cuda")}
     prefill(model, batch)                                # warm-up
     torch.cuda.synchronize()
+    bf16_only = {"flash_attention_f32": 0, "split_bf16x3": 0}
 
     FA.reset_launches()
-    # -- the main path: prefill, then requests -------------------------------
-    n_prefill = 3
+    # -- this model's path: prefill, then requests ---------------------------
     t0 = time.perf_counter()
     for _ in range(n_prefill):
         logits = prefill(model, batch)
     torch.cuda.synchronize()
     prefill_s = (time.perf_counter() - t0) / n_prefill
-    if FA.LAUNCHES != {"flash_attention": n_prefill * cfg.n_layers,
-                       "flash_attention_f32": 0, "split_bf16x3": 0}:
-        raise AssertionError(
-            f"prefill launched the attention kernels {FA.LAUNCHES} in "
-            f"{n_prefill} calls, expected {cfg.n_layers} bf16 launches per "
-            f"call and no float32 one or split")
-
-    prompts = torch.randint(0, cfg.vocab, (N_REQ, PROMPT), generator=gen,
+    want = {"flash_attention": n_prefill * cfg.n_layers, **bf16_only}
+    if FA.LAUNCHES != want:
+        raise AssertionError(f"{cfg.name} prefill launched {FA.LAUNCHES} "
+                             f"in {n_prefill} calls, expected {want}")
+    prompts = torch.randint(0, cfg.vocab, (N_REQ, prompt), generator=rng,
                             device="cuda")
     t0 = time.perf_counter()
     first = prefill(model, {"tokens": prompts})          # (N, 1, V)
@@ -1963,7 +2084,7 @@ def run_serving(torch):
     req_prefill_s = time.perf_counter() - t0
     cache = D.init_cache(cfg, N_REQ, MAX_SEQ)
     t0 = time.perf_counter()
-    for t in range(PROMPT):
+    for t in range(prompt):
         step_logits, cache = decode(model, {
             "cache": cache, "tokens": prompts[:, t:t + 1],
             "pos": torch.full((N_REQ,), t, dtype=torch.int32,
@@ -1971,32 +2092,28 @@ def run_serving(torch):
     torch.cuda.synchronize()
     fill_s = time.perf_counter() - t0
     nxt = first.argmax(-1)                               # (N, 1)
-    generated = [nxt]
     t0 = time.perf_counter()
-    for i in range(GEN):
+    for i in range(gen):
         out, cache = decode(model, {
             "cache": cache, "tokens": nxt,
-            "pos": torch.full((N_REQ,), PROMPT + i, dtype=torch.int32,
+            "pos": torch.full((N_REQ,), prompt + i, dtype=torch.int32,
                               device="cuda")})
         nxt = out.argmax(-1)
-        generated.append(nxt)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     launches = dict(FA.LAUNCHES)
-    # -- end of the main path -------------------------------------------------
-    want = (n_prefill + 1) * cfg.n_layers
-    if launches != {"flash_attention": want, "flash_attention_f32": 0,
-                    "split_bf16x3": 0}:
-        raise AssertionError(f"attention launches on the main path "
-                             f"{launches}, expected {want} bf16 and no "
-                             f"float32 one or split")
-
+    # -- end of this model's path ---------------------------------------------
+    want = {"flash_attention": (n_prefill + 1) * cfg.n_layers, **bf16_only}
+    if launches != want:
+        raise AssertionError(f"{cfg.name}: attention launches on its path "
+                             f"{launches}, expected {want}")
     for name, x, shape in (("prefill", logits, (PREFILL_B, 1, cfg.vocab)),
                            ("request prefill", first, (N_REQ, 1, cfg.vocab)),
                            ("decode", out, (N_REQ, 1, cfg.vocab))):
         if tuple(x.shape) != shape or not torch.isfinite(x.float()).all():
-            raise AssertionError(f"{name} logits: shape {tuple(x.shape)}, "
-                                 f"want {shape}, or not finite")
+            raise AssertionError(f"{cfg.name} {name} logits: shape "
+                                 f"{tuple(x.shape)}, want {shape}, or not "
+                                 f"finite")
     tf_rel, tf_elem = _rel_errors(torch, step_logits, first)
     tf_ok = torch.allclose(step_logits.float(), first.float(), rtol=0.15,
                            atol=0.15)
@@ -2009,10 +2126,15 @@ def run_serving(torch):
                                                      batch)
     decode_profile = profile_decode(torch, lambda i: decode(model, {
         "cache": cache, "tokens": nxt,
-        "pos": torch.full((N_REQ,), PROMPT + GEN + i, dtype=torch.int32,
-                          device="cuda")}))
-
+        "pos": torch.full((N_REQ,), prompt + gen + i,
+                          dtype=torch.int32, device="cuda")}),
+        n=profile_steps)
+    peak = torch.cuda.max_memory_allocated()
+    hd = cfg.resolved_head_dim
     result = {
+        "model": cfg.name, "parameters": n_params, "layers": cfg.n_layers,
+        "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads, "head_dim": hd,
+        "init_s": init_s, "peak_device_bytes": peak,
         "prefill": {"batch": PREFILL_B, "seq": PREFILL_S,
                     "wall_s": prefill_s,
                     "tokens_per_s": PREFILL_B * PREFILL_S / prefill_s,
@@ -2022,31 +2144,53 @@ def run_serving(torch):
                     "launches_per_call": cfg.n_layers,
                     "vs_plain_attention": {"relative_l2": pl_rel,
                                            "max_over_scale": pl_elem}},
-        "requests": {"n": N_REQ, "prompt": PROMPT, "generated": GEN,
-                     "max_seq": MAX_SEQ,
-                     "prefill_s": req_prefill_s,
+        "requests": {"n": N_REQ, "prompt": prompt, "generated": gen,
+                     "max_seq": MAX_SEQ, "prefill_s": req_prefill_s,
                      "prompt_fill_decode_tokens_per_s":
-                         N_REQ * PROMPT / fill_s,
-                     "decode_tokens_per_s": N_REQ * GEN / gen_s,
+                         N_REQ * prompt / fill_s,
+                     "decode_tokens_per_s": N_REQ * gen / gen_s,
                      "decode_profile": decode_profile,
                      "prefill_vs_teacher_forced": {
                          "relative_l2": tf_rel, "max_over_scale": tf_elem,
                          "argmax_agreement": agree}},
     }
-    print(json.dumps({"serving": result}), flush=True)
+    del model, cache, logits, first, plain
+    torch.cuda.empty_cache()
+    over_tol = not (pl_rel <= PREFILL_TOL[0] and pl_elem <= PREFILL_TOL[1])
+    if over_tol and f64_gate:
+        # Rounding amplified through the model's peaked layers (phase 5b):
+        # then the kernel must be no further from float64 attention than
+        # the plain version, on five seeds.
+        rows = prefill_logits_vs_f64(torch, cfg, ACCURACY_SEEDS)
+        result["prefill_logits_vs_f64"] = rows
+        kern, plain_err = logits_ratio_gate(rows, cfg.name)
+        print(f"{what}: {cfg.name} kernel vs plain prefill logits "
+              f"{pl_rel:.4g} / {pl_elem:.4g} exceed {PREFILL_TOL}; against "
+              f"float64 attention over seeds {ACCURACY_SEEDS}: kernel "
+              f"{kern:.4g}, plain version {plain_err:.4g}", flush=True)
+    print(json.dumps({what: result}), flush=True)
     if not tf_ok:
         raise AssertionError(
-            f"prefill's last logits vs the teacher-forced decode's differ "
-            f"beyond 0.15 (relative L2 {tf_rel}, max {tf_elem})")
-    if not (pl_rel <= PREFILL_TOL[0] and pl_elem <= PREFILL_TOL[1]):
+            f"{cfg.name}: prefill's last logits vs the teacher-forced "
+            f"decode's differ beyond 0.15 (relative L2 {tf_rel}, max "
+            f"{tf_elem})")
+    if over_tol and not f64_gate:
         raise AssertionError(
-            f"full-width prefill logits, kernel vs plain attention: "
-            f"relative L2 {pl_rel} max {pl_elem}, tolerance {PREFILL_TOL}")
+            f"{cfg.name}: full-width prefill logits, kernel vs plain "
+            f"attention: relative L2 {pl_rel} max {pl_elem}, tolerance "
+            f"{PREFILL_TOL}")
     if share is None:
-        raise AssertionError("the profiler saw no device time in prefill")
-    del model, cache
-    torch.cuda.empty_cache()
+        raise AssertionError(f"the profiler saw no device time in "
+                             f"{cfg.name}'s prefill")
     return launches, result
+
+
+def run_serving(torch):
+    """Phase 5: TinyLlama-1.1B at full width on the card (``serve_model``:
+    3 timed prefills, 8 requests of 128 + 32 tokens).  Returns the
+    kernel's launches on this path and the result."""
+    return serve_model(torch, _tinyllama(), n_prefill=3, prompt=PROMPT,
+                       gen=GEN, profile_steps=4, what="serving")
 
 
 # ---------------------------------------------------------------------------
@@ -2112,31 +2256,23 @@ def against_truth(torch, q, k, v, causal=True, window=None):
     return got, {n: error_vs_truth(torch, x, truth) for n, x in outs.items()}
 
 
-def attention_accuracy(torch, seeds=(0, 1, 2, 3, 4)):
-    """Phase 5b, after the main path: the bf16 kernel and the plain
-    version, each against the float64 function, at the prefill shape on
-    random inputs and layer by layer in a full-width prefill (seed 0: the
-    main path's model and tokens); then
-    prefill logits on several seeds with each of them, and with float64
-    attention, as the model's attention (``_rel_errors`` against the
-    float64-attention prefill, and kernel vs plain, PREFILL_TOL's
-    measure)."""
+def prefill_logits_vs_f64(torch, cfg, seeds, first_seed=None):
+    """Prefill logits (PREFILL_B x PREFILL_S, bf16) on each seed's model
+    and tokens with the kernel, the plain version and float64 attention as
+    the model's attention: per seed ``_rel_errors`` of kernel vs plain
+    (PREFILL_TOL's measure) and of each against the float64-attention
+    prefill.  ``first_seed(prefill, model, batch)`` runs on the first
+    seed's model before it is freed."""
     from repro_torch.kernels import ref
     from repro_torch.models import registry
     from repro_torch.models import transformer as M
     from repro_torch.models.config import ShapeConfig
-    cfg = _tinyllama()
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q, k, v = _qkv(torch, PREFILL_B, PREFILL_S, PREFILL_S, H, KV, hd,
-                   torch.bfloat16, seed=1)
-    _, at_shape = against_truth(torch, q, k, v)
-    del q, k, v
     prefill = registry.make_step(cfg, ShapeConfig("prefill_4k", PREFILL_S,
                                                   PREFILL_B, "prefill"))
     routes = {"plain": ref.flash_attention_ref,
               "f64": lambda q, k, v, causal=True, window=None: attention_f64(
                   q, k, v, causal, window).to(q.dtype)}
-    layers, logits = [], []
+    rows = []
     for seed in seeds:
         gen = torch.Generator(device="cuda").manual_seed(seed)
         model = M.init_params(cfg, gen)
@@ -2150,16 +2286,52 @@ def attention_accuracy(torch, seeds=(0, 1, 2, 3, 4)):
             torch, out["kernel"], out["plain"])}
         for name in ("kernel", "plain"):
             row[f"{name}_vs_f64"] = _rel_errors(torch, out[name], out["f64"])
-        logits.append(row)
-        if seed == seeds[0]:
-            def watch(q, k, v, causal=True, window=None):
-                got, errs = against_truth(torch, q, k, v, causal, window)
-                layers.append(errs)
-                return got
-            with attention_as(watch):
-                prefill(model, batch)
+        rows.append(row)
+        if first_seed is not None and seed == seeds[0]:
+            first_seed(prefill, model, batch)
         del model, out
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def logits_ratio_gate(rows, what):
+    """The kernel's prefill logits may be no further from float64
+    attention (mean relative L2 over the seeds) than ACCURACY_LOGITS_RATIO
+    times the plain version's.  Returns (kernel, plain)."""
+    kern, plain = (sum(r[f"{n}_vs_f64"][0] for r in rows) / len(rows)
+                   for n in ("kernel", "plain"))
+    if not kern <= ACCURACY_LOGITS_RATIO * plain:
+        raise AssertionError(
+            f"{what}: prefill logits vs float64 attention: kernel {kern}, "
+            f"plain version {plain} (limit {ACCURACY_LOGITS_RATIO}x)")
+    return kern, plain
+
+
+def attention_accuracy(torch, seeds=ACCURACY_SEEDS):
+    """Phase 5b, after the main path: the bf16 kernel and the plain
+    version, each against the float64 function, at the prefill shape on
+    random inputs and layer by layer in a full-width prefill (seed 0: the
+    main path's model and tokens); then
+    prefill logits on several seeds with each of them, and with float64
+    attention, as the model's attention (``prefill_logits_vs_f64``)."""
+    cfg = _tinyllama()
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q, k, v = _qkv(torch, PREFILL_B, PREFILL_S, PREFILL_S, H, KV, hd,
+                   torch.bfloat16, seed=1)
+    _, at_shape = against_truth(torch, q, k, v)
+    del q, k, v
+    layers = []
+
+    def by_layer(prefill, model, batch):
+        def watch(q, k, v, causal=True, window=None):
+            got, errs = against_truth(torch, q, k, v, causal, window)
+            layers.append(errs)
+            return got
+        with attention_as(watch):
+            prefill(model, batch)
+
+    logits = prefill_logits_vs_f64(torch, cfg, seeds, by_layer)
     result = {"at_prefill_shape": at_shape, "by_layer": layers,
               "prefill_logits": logits}
     print(json.dumps({"attention_accuracy": result}), flush=True)
@@ -2171,13 +2343,33 @@ def attention_accuracy(torch, seeds=(0, 1, 2, 3, 4)):
                 f"beyond half a bf16 ulp of float64 than the plain version "
                 f"({errs['kernel']['n_over_half_ulp']} > "
                 f"{errs['plain']['n_over_half_ulp']})")
-    kern, plain = (sum(r[f"{n}_vs_f64"][0] for r in logits) / len(logits)
-                   for n in ("kernel", "plain"))
-    if not kern <= ACCURACY_LOGITS_RATIO * plain:
-        raise AssertionError(
-            f"prefill logits vs float64 attention: kernel {kern}, plain "
-            f"version {plain} (limit {ACCURACY_LOGITS_RATIO}x)")
+    logits_ratio_gate(logits, cfg.name)
     return result
+
+
+# ---------------------------------------------------------------------------
+# Phase 5c: the dense zoo at full width
+# ---------------------------------------------------------------------------
+
+def run_zoo(torch):
+    """Phase 5c: each ZOO model at full width in bf16 (``serve_model``),
+    one at a time, each freed before the next; ZOO_F32 also runs the
+    float32 prefill (``run_f32_prefill``).  Returns ({path: launches},
+    {path: result}), the float32 path keyed "<arch> float32"."""
+    from repro_torch.configs import get_config
+    launches, results = {}, {}
+    for arch in ZOO:
+        t = time.perf_counter()
+        cfg = get_config(arch)
+        launches[arch], results[arch] = serve_model(
+            torch, cfg, n_prefill=2, prompt=ZOO_PROMPT, gen=ZOO_GEN,
+            profile_steps=2, what="zoo_serving", f64_gate=True)
+        if arch == ZOO_F32:
+            key = f"{arch} float32"
+            launches[key], results[key] = run_f32_prefill(torch, cfg)
+        print(f"phase 5c: {arch} took {time.perf_counter() - t:.1f} s",
+              flush=True)
+    return launches, results
 
 
 def main() -> int:
@@ -2207,6 +2399,8 @@ def main() -> int:
     timing = timed_phase("phase 2 timing", time_kernels, torch, np)
     fa_err = timed_phase("phase 2b checks", check_attention, torch)
     fa_time = timed_phase("phase 2b timing", time_attention, torch, fa_err)
+    zoo_time, zoo_f32_time = timed_phase("phase 2b zoo timing",
+                                         time_zoo_attention, torch, fa_err)
     timed_phase("phase 3", check_card_vs_cpu)
     launches, profiles = timed_phase("phase 4", run_main_path, torch)
     timed_phase("phase 4b", run_streaming_and_telemetry, torch, profiles)
@@ -2217,6 +2411,7 @@ def main() -> int:
     fa_launches, _ = timed_phase("phase 5 bf16", run_serving, torch)
     f32_launches, _ = timed_phase("phase 5 float32", run_f32_prefill, torch)
     timed_phase("phase 5b", attention_accuracy, torch)
+    zoo_launches, _ = timed_phase("phase 5c", run_zoo, torch)
 
     rows = []
     floor = timing["launch_floor"]
@@ -2242,22 +2437,38 @@ def main() -> int:
         # The sharded fleet's replays (phase 4d (a)) score through the
         # tables: 0 for every mask kernel.
         rows[-1]["sharded_launches"] = sharded_launches.get(name, 0)
-    # Attention: the bf16 kernel's launches from the serving path, the
-    # float32 kernel's and the split's from the float32 prefill.
-    for name, tname, path, runs in (
-            ("flash_attention", "bfloat16", "bf16 serving", fa_launches),
-            ("flash_attention_f32", "float32", "float32 prefill",
-             f32_launches),
-            ("split_bf16x3", "split", "float32 prefill", f32_launches)):
+    # Attention: each kernel's launches on the serving paths that reach it,
+    # each path counted from 0 (phase 5 TinyLlama, phase 5c the zoo), with
+    # the head dim it runs there; the head dims phase 2b held against the
+    # plain version; times at TinyLlama's prefill shape, and at each phase
+    # 5c model's that runs the kernel (``at_model_prefill_shapes``).
+    from repro_torch.configs import get_config
+    bf16_paths = {ARCH: fa_launches}
+    bf16_paths.update({a: zoo_launches[a] for a in ZOO})
+    f32_paths = {ARCH: f32_launches,
+                 ZOO_F32: zoo_launches[f"{ZOO_F32} float32"]}
+    checked = sorted({c[5] for c in ATTN_CASES.values()})
+    for name, tname, paths in (
+            ("flash_attention", "bfloat16", bf16_paths),
+            ("flash_attention_f32", "float32", f32_paths),
+            ("split_bf16x3", "split", f32_paths)):
         t = fa_time[tname]
+        by_path = {a: runs[name] for a, runs in paths.items()}
         rows.append(dict(
             name=name, route="cuda", source=FA_SOURCE, replaces=FA_REPLACES,
-            launches=runs[name], on_main_path=tname == "bfloat16",
-            path=path, max_abs_err=fa_err[tname], max_abs_err_by_dtype=fa_err,
+            launches=sum(by_path.values()), on_main_path=tname == "bfloat16",
+            path=("bf16 serving" if tname == "bfloat16"
+                  else "float32 prefill"),
+            launches_by_path=by_path,
+            head_dims={a: get_config(a).resolved_head_dim for a in paths},
+            head_dims_checked=checked,
+            max_abs_err=fa_err[tname], max_abs_err_by_dtype=fa_err,
             max_abs_err_vs_f64=t.get("max_abs_err_vs_f64"),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
-            shape=t["shape"]))
+            shape=t["shape"],
+            at_model_prefill_shapes={"bfloat16": zoo_time,
+                                     "float32": zoo_f32_time}.get(tname)))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@
 
 ``get_config(name)`` returns the full published configuration;
 ``get_smoke_config(name)`` returns a reduced same-family configuration for
-CPU smoke tests.  Only the dense TinyLlama is ported so far; any other
-name of the JAX package's zoo raises and points at ROADMAP.md.
+CPU smoke tests.  The dense decoders (DeepSeek-7B, Mistral-NeMo-12B,
+StableLM-3B, TinyLlama-1.1B) and Qwen2-VL-2B's backbone are ported; any
+other name of the JAX package's zoo raises and points at ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -12,7 +13,12 @@ import importlib
 
 from ..models.config import ModelConfig
 
+# The JAX package's ARCH_IDS, in its order, limited to the ported ones.
 ARCH_IDS = [
+    "qwen2_vl_2b",
+    "deepseek_7b",
+    "mistral_nemo_12b",
+    "stablelm_3b",
     "tinyllama_1_1b",
 ]
 

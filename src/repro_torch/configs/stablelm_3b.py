@@ -1,0 +1,16 @@
+# Copied from repro/configs/stablelm_3b.py (the JAX package); imports the port's config.
+"""stablelm-3b [dense] — 32L d_model=2560 32H (GQA kv=32) d_ff=6912
+vocab=50304 [hf:stabilityai/stablelm-2-1_6b; unverified].
+"""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="stablelm-3b", family="dense",
+    n_layers=32, d_model=2560, n_heads=32, n_kv_heads=32,
+    d_ff=6912, vocab=50304, rope_theta=1e4,
+)
+
+
+def smoke_config() -> ModelConfig:
+    return CONFIG.scaled(n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
+                         d_ff=128, vocab=256)

@@ -61,21 +61,26 @@
 // place through 4-D tensor maps over (B, S, heads, hd) (float32: over
 // (3B, S, heads, hd), the planes stacked on the batch axis), so query
 // head h reads KV head h / (H / KV) with no transpose and no expanded
-// K/V; its zero fill covers ragged Sq and Sk.  Tiles land 128B-swizzled
-// (64B for hd 32; hd 128 as two 64-column boxes), the layout wgmma's
-// descriptors name.  Per K/V tile a consumer warpgroup runs S = Q K^T as
-// hd/16 wgmmas per pass (A and B from shared memory, K-major), the online
-// softmax on the accumulator's registers (row max and sum are quad
-// shuffles; mask tests only on tiles that cross the diagonal, the window
-// edge or Sk), splits p into its three bf16 terms directly in the
-// A-fragment layout (the S accumulator's pair of columns per register is
-// the A fragment's), and runs P V as BK/16 wgmmas per pass with A from
-// registers and B the V tile read MN-major (transposed).  No p tile passes
-// through shared memory.  The output is stored from registers, rows past
-// Sq skipped.  The float32 kernel holds three planes of Q and of each K
-// and V tile, so its tiles are smaller (Cfg): BK 64 and three stages at
-// hd 32 / 64 (192 KB of shared memory at hd 64), BK 32 and two stages at
-// hd 128.
+// K/V; its zero fill covers ragged Sq and Sk.  Tiles land swizzled in
+// TMA boxes, the layout wgmma's descriptors name: 64-column boxes of
+// 128-byte rows where hd is a multiple of 64 (hd 128 two of them), one
+// 32-column box of 64-byte rows at hd 32, and otherwise 16-column boxes of
+// 32-byte rows (hd 16 one, hd 80 five, hd 112 seven), one k16 step each.
+// Per K/V tile a consumer warpgroup runs S = Q K^T as hd/16 wgmmas per
+// pass (A and B from shared memory, K-major), the online softmax on the
+// accumulator's registers (row max and sum are quad shuffles; mask tests
+// only on tiles that cross the diagonal, the window edge or Sk), splits
+// p into its three bf16 terms directly in the A-fragment layout (the S
+// accumulator's pair of columns per register is the A fragment's), and
+// runs P V as BK/16 wgmmas per pass with A from registers and B the V
+// tile read MN-major (transposed).  No p tile passes through shared
+// memory.  The output is stored from registers, rows past Sq skipped.
+// The float32 kernel holds three planes of Q and of each K and V tile, so
+// its tiles are smaller.  Cfg takes the tile and the ring depth from the
+// shared-memory budget: bf16 BK 128 at hd <= 64, else 64, three stages;
+// float32 BK 64 and three stages at hd 16 / 32 / 64 (193 KB at hd 64),
+// BK 32 and three stages at hd 80 / 112 (151 / 211 KB), BK 32 and two
+// stages at hd 128 (193 KB).
 //
 // Bound.  Operations: the function needs 4 * B * H * hd * (visible pairs)
 // flops, 0.275 TFLOP at the prefill shape (B 4, S 4096, H 32, hd 64,
@@ -127,25 +132,47 @@ __host__ __device__ constexpr int pass_b(int t) {
   return t == 0 || t == 4 ? 1 : t == 2 ? 2 : 0;
 }
 
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory a CTA may take
+
+// Shared memory of one CTA: 1024 bytes of slack to align the tiles to the
+// swizzle atom, then PLANES planes of Q, the ring of `stages` stages of K
+// and V tiles of `bk` keys, and 1 + 2 * stages mbarriers.
+constexpr int smem_bytes(int hd, int planes, int bk, int stages) {
+  return 1024 + planes * BQ * hd * 2 + stages * 2 * planes * bk * hd * 2 +
+         8 * (1 + 2 * stages);
+}
+
 template <int HD, bool F32>
 struct Cfg {
   // bf16 planes per operand: float32 q, k and v come as three.
   static constexpr int PLANES = F32 ? 3 : 1;
-  // keys per tile, and the K/V ring depth
-  static constexpr int BK = F32 ? (HD == 128 ? 32 : 64) : (HD <= 64 ? 128 : 64);
-  static constexpr int STAGES = F32 && HD == 128 ? 2 : 3;
-  static constexpr int ROWB = HD >= 64 ? 128 : 64;  // swizzled row, bytes
+  // Keys per tile and the K/V ring depth, from the shared-memory budget:
+  // the widest tile the registers allow (S holds BK / 2 floats a thread
+  // beside the HD / 2 of O, and float32's HD / 2 of one tile's P V), with
+  // three stages if they fit, else half the tile with three, else half
+  // the tile with two.
+  static constexpr int BK_MAX = F32 ? 64 : (HD <= 64 ? 128 : 64);
+  static constexpr bool FULL3 = smem_bytes(HD, PLANES, BK_MAX, 3) <= SMEM_MAX;
+  static constexpr bool HALF3 =
+      smem_bytes(HD, PLANES, BK_MAX / 2, 3) <= SMEM_MAX;
+  static constexpr int BK = FULL3 ? BK_MAX : BK_MAX / 2;
+  static constexpr int STAGES = FULL3 || HALF3 ? 3 : 2;
+  // Swizzled row in bytes: 128 (64-column TMA boxes) where hd is a
+  // multiple of 64, 64 (one 32-column box) at hd 32, else 32 (16-column
+  // boxes: hd 16 one, hd 80 five, hd 112 seven).
+  static constexpr int ROWB = HD % 64 == 0 ? 128 : HD % 32 == 0 ? 64 : 32;
   static constexpr int CHUNK = ROWB / 2;  // bf16 columns per TMA box
   static constexpr int NCHUNK = HD / CHUNK;
   static constexpr int KPC = CHUNK / 16;  // k16 steps per chunk
-  static constexpr int LAYOUT = ROWB == 128 ? 1 : 2;  // descriptor: B128/B64
+  // Descriptor layout type: 1 = 128B, 2 = 64B, 3 = 32B swizzle.
+  static constexpr int LAYOUT = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;
   static constexpr int Q_BYTES = BQ * HD * 2;   // one plane of Q
   static constexpr int KV_BYTES = BK * HD * 2;  // one plane of a K or V tile
   static constexpr int STAGE_BYTES = 2 * PLANES * KV_BYTES;  // K, then V
-  // 1024 of slack to align the tiles to the swizzle atom, then Q, the
-  // ring and 1 + 2 * STAGES mbarriers.
-  static constexpr int SMEM = 1024 + PLANES * Q_BYTES + STAGES * STAGE_BYTES +
-                              8 * (1 + 2 * STAGES);
+  static constexpr int SMEM = smem_bytes(HD, PLANES, BK, STAGES);
+  static_assert(HD % CHUNK == 0, "hd must be whole TMA boxes");
+  static_assert(BK == 32 || BK == 64 || BK == 128, "S = Q K^T is n32/64/128");
+  static_assert(SMEM <= SMEM_MAX, "shared memory per CTA");
 };
 
 // ---------------------------------------------------------------------------
@@ -244,7 +271,7 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
 }
 
 // MN-major operand (V as B of O = P V): hd runs along a swizzled row,
-// 64-column chunks BK * ROWB apart (leading offset), 8-key groups 8 * ROWB
+// CHUNK-column boxes BK * ROWB apart (leading offset), 8-key groups 8 * ROWB
 // apart (stride offset).
 template <typename C>
 __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
@@ -256,119 +283,66 @@ __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
 // shared memory, both K-major; the first of a chain overwrites D
 // (accumulate = 0).  wgmma_rs: A from registers (four b32, two bf16 each,
 // in the A-fragment layout), B MN-major (transposed), always accumulates.
-__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
+// S = Q K^T runs at N = BK (32, 64, 128), P V at N = hd (16 to 128).
+//
+// The operand lists are generated: ACC_n names the asm operands %0 ..
+// %(n - 1), the accumulator's registers, and OUT_n binds them to d[0 ..
+// n - 1]; the remaining operands follow at %n on.
+#define ACC_8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define ACC_16 ACC_8 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define ACC_24 ACC_16 ", %16, %17, %18, %19, %20, %21, %22, %23"
+#define ACC_32 ACC_24 ", %24, %25, %26, %27, %28, %29, %30, %31"
+#define ACC_40 ACC_32 ", %32, %33, %34, %35, %36, %37, %38, %39"
+#define ACC_48 ACC_40 ", %40, %41, %42, %43, %44, %45, %46, %47"
+#define ACC_56 ACC_48 ", %48, %49, %50, %51, %52, %53, %54, %55"
+#define ACC_64 ACC_56 ", %56, %57, %58, %59, %60, %61, %62, %63"
+#define OUT4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define OUT8(i) OUT4(i), OUT4(i + 4)
+#define OUT_8 OUT8(0)
+#define OUT_16 OUT_8, OUT8(8)
+#define OUT_24 OUT_16, OUT8(16)
+#define OUT_32 OUT_24, OUT8(24)
+#define OUT_40 OUT_32, OUT8(32)
+#define OUT_48 OUT_40, OUT8(40)
+#define OUT_56 OUT_48, OUT8(48)
+#define OUT_64 OUT_56, OUT8(56)
+#define STR_(x) #x
+#define STR(x) STR_(x)
 
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
+// NF floats a thread (N = 2 NF); P0 .. P5 are the operand numbers NF ..
+// NF + 5, spelled out because asm operand numbers are literal text.
+#define WGMMA_SS(NF, N, P0, P1, P2)                                        \
+  __device__ __forceinline__ void wgmma_ss(float(&d)[NF], uint64_t da,     \
+                                           uint64_t db, int accumulate) {  \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" STR(P2) ", 0;\n"     \
+                 "wgmma.mma_async.sync.aligned.m64n" STR(N)                \
+                 "k16.f32.bf16.bf16 {" ACC_##NF "}, %" STR(P0) ", %" STR(  \
+                     P1) ", p, 1, 1, 0, 0;\n}\n"                           \
+                 : OUT_##NF                                                \
+                 : "l"(da), "l"(db), "r"(accumulate));                     \
+  }
+#define WGMMA_RS(NF, N, P0, P1, P2, P3, P4, P5)                              \
+  __device__ __forceinline__ void wgmma_rs(float(&d)[NF], const uint32_t* a, \
+                                           uint64_t db) {                    \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" STR(P5) ", 0;\n"       \
+                 "wgmma.mma_async.sync.aligned.m64n" STR(N)                  \
+                 "k16.f32.bf16.bf16 {" ACC_##NF "}, {%" STR(P0) ", %" STR(   \
+                     P1) ", %" STR(P2) ", %" STR(P3) "}, %" STR(P4)          \
+                 ", p, 1, 1, 1;\n}\n"                                        \
+                 : OUT_##NF                                                  \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
+                   "r"(1));                                                  \
+  }
 
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t* a,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
+WGMMA_SS(16, 32, 16, 17, 18)
+WGMMA_SS(32, 64, 32, 33, 34)
+WGMMA_SS(64, 128, 64, 65, 66)
+WGMMA_RS(8, 16, 8, 9, 10, 11, 12, 13)
+WGMMA_RS(16, 32, 16, 17, 18, 19, 20, 21)
+WGMMA_RS(32, 64, 32, 33, 34, 35, 36, 37)
+WGMMA_RS(40, 80, 40, 41, 42, 43, 44, 45)
+WGMMA_RS(56, 112, 56, 57, 58, 59, 60, 61)
+WGMMA_RS(64, 128, 64, 65, 66, 67, 68, 69)
 
 // p -> (hi, mid, lo) bf16 terms with hi + mid + lo == p exactly (see the
 // note at the top), for two neighbouring columns packed as one A-fragment
@@ -729,11 +703,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int KV, float scale, int causal, int window,
            cudaStream_t stream) {
   using C = Cfg<HD, F32>;
-  static_assert(C::SMEM <= 232448, "shared memory per CTA");
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return ERR_NO_ENCODER;
-  const CUtensorMapSwizzle sw = C::ROWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                               : CU_TENSOR_MAP_SWIZZLE_64B;
+  const CUtensorMapSwizzle sw = C::ROWB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : C::ROWB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_32B;
   // float32: the planes stacked on the batch axis, (3B, S, heads, hd).
   const int NB = C::PLANES * B;
   CUtensorMap tq, tk, tv;
@@ -757,6 +731,13 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
+// The head dims both entries take, one instantiation of each kernel per
+// dim: every multiple of 16 the model zoo uses (the smoke configs 16,
+// TinyLlama 64, StableLM-3B 80, Zamba2-7B's shared attention 112, the
+// others 128).  The wrapper's HEAD_DIMS (kernels/flash_attention.py) is
+// this list; tests/test_torch_attention.py holds the two equal.
+#define HEAD_DIMS(X) X(16) X(32) X(64) X(80) X(112) X(128)
+
 template <bool F32>
 int forward(const void* q, const void* k, const void* v, void* o, int B,
             int Sq, int Sk, int H, int KV, int hd, float scale, int causal,
@@ -765,15 +746,12 @@ int forward(const void* q, const void* k, const void* v, void* o, int B,
   if (Sk <= 0 || KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 32:
-      return launch<32, F32>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal,
-                             window, st);
-    case 64:
-      return launch<64, F32>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal,
-                             window, st);
-    case 128:
-      return launch<128, F32>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal,
-                              window, st);
+#define CASE(HD)                                                     \
+  case HD:                                                           \
+    return launch<HD, F32>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, \
+                           window, st);
+    HEAD_DIMS(CASE)
+#undef CASE
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -786,8 +764,8 @@ int forward(const void* q, const void* k, const void* v, void* o, int B,
 // that refused the launch, or ERR_NO_ENCODER / ERR_TENSOR_MAP (negative).
 //
 // fa_forward_bf16: bf16 q (B, Sq, H, hd) and k, v (B, Sk, KV, hd),
-// contiguous and 16-byte aligned; bf16 o (B, Sq, H, hd); hd in {32, 64,
-// 128}; window <= 0 means no window.
+// contiguous and 16-byte aligned; bf16 o (B, Sq, H, hd); hd one of
+// HEAD_DIMS (above); window <= 0 means no window.
 extern "C" int fa_forward_bf16(const void* q, const void* k, const void* v,
                                void* o, int B, int Sq, int Sk, int H, int KV,
                                int hd, float scale, int causal, int window,

@@ -33,7 +33,10 @@ import torch
 from . import ref
 from ._build import load
 
-HEAD_DIMS = (32, 64, 128)
+# The head dims the kernels take: csrc/flash_attention_sm90.cu's HEAD_DIMS
+# list, one instantiation each (tests/test_torch_attention.py holds the
+# two equal).  Any multiple of 16 would tile; these are the zoo's.
+HEAD_DIMS = (16, 32, 64, 80, 112, 128)
 SOURCE = "flash_attention_sm90"
 # dtype -> (C entry point, LAUNCHES key)
 ROUTES = {
@@ -128,10 +131,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Causality is top-left aligned (query i sees keys 0..i), as in the
     Pallas kernel; ``window`` keeps keys with kpos > qpos - window.  CUDA
     tensors must be bfloat16 or float32 (each dtype has its kernel) with hd
-    in {32, 64, 128}; Sq and Sk may be any length.  The plain version
-    (CPU tensors) runs with its default chunks, which need Sq and Sk at
-    most 1024 or multiples of it.  ``positions_q0`` must be 0 on either
-    device: the Pallas kernel has no such argument.
+    in ``HEAD_DIMS``; Sq and Sk may be any length.  The plain
+    version (CPU tensors) runs with its default chunks, which need Sq and
+    Sk at most 1024 or multiples of it.  ``positions_q0`` must be 0 on
+    either device: the Pallas kernel has no such argument.
     """
     _check(q, k, v, window)
     if positions_q0 != 0:
@@ -144,7 +147,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}: the CUDA "
+                         f"kernels are instantiated for these only")
     if q.dtype not in ROUTES:
         raise TypeError(f"dtype {q.dtype} not in {list(ROUTES)}")
     if q.device.index != torch.cuda.current_device():

@@ -1,5 +1,5 @@
-# Port of repro/models/layers.py (the JAX package), dense subset: norms, RoPE, GQA attention, SwiGLU.
-"""Core dense-decoder layers: RMSNorm, RoPE, GQA attention, SwiGLU.
+# Port of repro/models/layers.py (the JAX package), dense subset: norms, RoPE / M-RoPE, GQA attention, SwiGLU.
+"""Core dense-decoder layers: RMSNorm, RoPE / M-RoPE, GQA attention, SwiGLU.
 
 Each block is an ``nn.Module`` whose parameters carry the JAX tree's names
 and the JAX layout ``(d_in, d_out)``: the port computes ``x @ W`` as
@@ -10,8 +10,8 @@ function by function.
 
 Prefill attention goes through :func:`flash_attention`, the wrapper of the
 CUDA kernel (its plain version for CPU tensors); single-token decode
-attention is plain torch.  M-RoPE (Qwen2-VL), MLA and MoE are not ported
-yet and raise.
+attention is plain torch.  MLA and MoE are not ported yet: the model
+raises for their families (``transformer.check_family``).
 """
 from __future__ import annotations
 
@@ -78,19 +78,41 @@ def _rope_freqs_on(head_dim: int, theta: float,
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                mrope_sections: Optional[Tuple[int, ...]] = None):
-    """x: (B, S, H, hd); positions: (B, S).  Split-half rotation with
-    float64 frequencies cast to float32 and float32 angles."""
-    if mrope_sections is not None or positions.dim() != 2:
-        raise NotImplementedError("M-RoPE (Qwen2-VL) is not ported yet; "
-                                  "see ROADMAP.md, Queue 2")
+    """x: (B, S, H, hd); positions: (B, S) or (3, B, S) for M-RoPE.
+    Split-half rotation with float64 frequencies cast to float32 and
+    float32 angles.
+
+    M-RoPE (Qwen2-VL): the head_dim/2 frequency channels are split into
+    ``mrope_sections``, each driven by its own position axis (temporal,
+    height, width).  With text-only position ids all three axes coincide
+    and M-RoPE degenerates to standard RoPE.  (B, S) positions ignore the
+    sections, as in the JAX function."""
     hd = x.shape[-1]
     freqs = _rope_freqs_on(hd, float(theta), x.device)         # (hd/2,)
-    angles = positions[..., None].to(f32) * freqs              # (B,S,hd/2)
+    if positions.dim() == 2:                                   # (B, S)
+        angles = positions[..., None].to(f32) * freqs          # (B,S,hd/2)
+    else:                                                      # (3, B, S)
+        if mrope_sections is None:
+            raise ValueError("(3, B, S) positions need mrope_sections")
+        parts, start = [], 0
+        for axis, sec in enumerate(mrope_sections):
+            parts.append(positions[axis][..., None].to(f32)
+                         * freqs[start:start + sec])
+            start += sec
+        angles = torch.cat(parts, dim=-1)                      # (B,S,hd/2)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(f32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def default_mrope_sections(head_dim: int) -> Tuple[int, int, int]:
+    """Qwen2-VL uses [16, 24, 24] for head_dim 128; scale proportionally."""
+    half = head_dim // 2
+    t = half // 4
+    h = (half - t) // 2
+    return (t, h, half - t - h)
 
 
 # ---------------------------------------------------------------------------
@@ -136,21 +158,15 @@ class Attention(nn.Module):
             setattr(self, name, _param(p.shape, device, dtype))
 
 
-def _check_rope(cfg: ModelConfig) -> None:
-    if cfg.mrope:
-        raise NotImplementedError("M-RoPE (Qwen2-VL) is not ported yet; "
-                                  "see ROADMAP.md, Queue 2")
-
-
 def attention_qkv(attn: Attention, x, cfg: ModelConfig, positions):
-    _check_rope(cfg)
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     q = (x @ attn.wq).reshape(B, S, cfg.n_heads, hd)
     k = (x @ attn.wk).reshape(B, S, cfg.n_kv_heads, hd)
     v = (x @ attn.wv).reshape(B, S, cfg.n_kv_heads, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    sections = default_mrope_sections(hd) if cfg.mrope else None
+    q = apply_rope(q, positions, cfg.rope_theta, sections)
+    k = apply_rope(k, positions, cfg.rope_theta, sections)
     return q, k, v
 
 
@@ -172,12 +188,13 @@ def attention_decode(attn: Attention, x, cfg: ModelConfig, cache, pos, *,
     is the same) and returns ``(out (B,1,D), cache)``.  ``window`` is
     accepted for the JAX signature; as there, the ring buffer alone bounds
     what a step sees."""
-    _check_rope(cfg)
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     q = (x @ attn.wq).reshape(B, 1, cfg.n_heads, hd)
     k = (x @ attn.wk).reshape(B, 1, cfg.n_kv_heads, hd)
     v = (x @ attn.wv).reshape(B, 1, cfg.n_kv_heads, hd)
+    # One text position per request: M-RoPE's three axes would coincide,
+    # which is plain RoPE, so the vlm family takes this path too.
     posb = pos[:, None]
     q = apply_rope(q, posb, cfg.rope_theta)
     k = apply_rope(k, posb, cfg.rope_theta)
@@ -223,7 +240,7 @@ def mlp_apply(ffn: SwiGLU, x):
 
 __all__ = [
     "rmsnorm_spec", "rmsnorm", "RMSNorm", "rope_freqs", "apply_rope",
-    "flash_attention", "decode_attention", "attention_spec", "Attention",
-    "attention_qkv", "attention_apply", "attention_decode", "mlp_spec",
-    "SwiGLU", "mlp_apply",
+    "default_mrope_sections", "flash_attention", "decode_attention",
+    "attention_spec", "Attention", "attention_qkv", "attention_apply",
+    "attention_decode", "mlp_spec", "SwiGLU", "mlp_apply",
 ]

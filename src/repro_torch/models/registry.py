@@ -1,23 +1,89 @@
-# Port of repro/models/registry.py (the JAX package): serving step builders and parameter counts.
-"""Registry: (architecture x input shape) -> step function.
+# Port of repro/models/registry.py (the JAX package): serving step builders, input specs, cells and parameter counts.
+"""Registry: (architecture x input shape) -> step function + input specs.
 
   * ``prefill_32k``  — ``prefill``   (full-context forward, last logits),
   * ``decode_32k`` / ``long_500k`` — ``decode_step`` (one new token against
     a seq_len cache).
 
-Training (``train_4k``) is not ported yet and raises.  Parameter counts
-and ``model_flops`` are the JAX package's formulas over the port's specs.
+Training (``train_4k``) is not ported yet: its step and its input specs
+raise.  ``input_specs`` returns tensors on the ``meta`` device, which
+carry shape and dtype and allocate nothing (a ``decode_32k`` cache is
+hundreds of GB), as the JAX package's ``ShapeDtypeStruct``s do.
+``cell_supported`` encodes the applicability matrix (long_500k only for
+sub-quadratic archs).  Parameter counts and ``model_flops`` are the JAX
+package's formulas over the port's specs.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict, Tuple
 
+import torch
+
+from ..configs import ARCH_IDS, get_config, get_smoke_config
 from ..device import DeviceLike, resolve_device
 from ..serve import llm_decode as serve_engine
-from .config import ModelConfig, ShapeConfig
+from .config import SHAPES, ModelConfig, ShapeConfig
 from .params import param_count
 from .transformer import check_family, stacked_model_spec
 
+META = torch.device("meta")
+
+
+def cell_supported(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, ("pure full-attention arch: O(S^2) prefill/cache at "
+                       "524288 ctx — skipped per brief (see DESIGN.md)")
+    return True, ""
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta tensors: shape and dtype, no allocation)
+# ---------------------------------------------------------------------------
+
+def _train_not_ported():
+    return NotImplementedError(
+        "training (train/step.py, train/optimizer.py) is not ported yet; "
+        "see ROADMAP.md, Queue 2")
+
+
+def train_input_specs(cfg: ModelConfig, shape: ShapeConfig):
+    raise _train_not_ported()
+
+
+def prefill_input_specs(cfg: ModelConfig,
+                        shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    check_family(cfg)
+    B, S = shape.global_batch, shape.seq_len
+    return {"tokens": torch.empty((B, S), dtype=torch.int32, device=META)}
+
+
+def decode_input_specs(cfg: ModelConfig,
+                       shape: ShapeConfig) -> Dict[str, object]:
+    B, S = shape.global_batch, shape.seq_len
+    return {
+        "cache": serve_engine.init_cache(cfg, B, S, device=META),
+        "tokens": torch.empty((B, 1), dtype=torch.int32, device=META),
+        "pos": torch.empty((B,), dtype=torch.int32, device=META),
+    }
+
+
+def input_specs(arch_or_cfg, shape_name: str, *, smoke: bool = False):
+    if isinstance(arch_or_cfg, str):
+        cfg = (get_smoke_config(arch_or_cfg) if smoke
+               else get_config(arch_or_cfg))
+    else:
+        cfg = arch_or_cfg
+    shape = SHAPES[shape_name]
+    if shape.kind == "train":
+        return train_input_specs(cfg, shape)
+    if shape.kind == "prefill":
+        return prefill_input_specs(cfg, shape)
+    return decode_input_specs(cfg, shape)
+
+
+# ---------------------------------------------------------------------------
+# Step builders
+# ---------------------------------------------------------------------------
 
 def make_step(cfg: ModelConfig, shape: ShapeConfig, *,
               device: DeviceLike = None) -> Callable:
@@ -25,9 +91,7 @@ def make_step(cfg: ModelConfig, shape: ShapeConfig, *,
     must live on ``device`` (None: the CUDA device)."""
     check_family(cfg)
     if shape.kind == "train":
-        raise NotImplementedError(
-            "training (train/step.py, train/optimizer.py) is not ported "
-            "yet; see ROADMAP.md, Queue 2")
+        raise _train_not_ported()
     device = resolve_device(device)
 
     def _on_device(model):
@@ -64,7 +128,8 @@ def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
 
 
 def active_param_count(cfg: ModelConfig) -> int:
-    """Parameters touched per token (the dense family touches all)."""
+    """Parameters touched per token (the dense and vlm families touch
+    all)."""
     return total_param_count(cfg)
 
 
@@ -72,5 +137,19 @@ def total_param_count(cfg: ModelConfig) -> int:
     return param_count(stacked_model_spec(cfg))
 
 
-__all__ = ["make_step", "model_flops", "active_param_count",
-           "total_param_count"]
+ALL_CELLS = [(a, s) for a in ARCH_IDS for s in SHAPES]
+
+
+def supported_cells():
+    out = []
+    for a, s in ALL_CELLS:
+        cfg = get_config(a)
+        ok, why = cell_supported(cfg, SHAPES[s])
+        out.append((a, s, ok, why))
+    return out
+
+
+__all__ = ["input_specs", "make_step", "cell_supported", "model_flops",
+           "active_param_count", "total_param_count", "ALL_CELLS",
+           "supported_cells", "train_input_specs", "prefill_input_specs",
+           "decode_input_specs"]

@@ -1,4 +1,4 @@
-# Port of repro/models/transformer.py (the JAX package), dense family only.
+# Port of repro/models/transformer.py (the JAX package), dense and vlm families only.
 """Dense decoder LM: embedding, pre-norm GQA + SwiGLU layers, final norm.
 
 ``Transformer`` holds the parameters under the JAX tree's names
@@ -6,12 +6,13 @@
 ``lm_head`` when embeddings are untied).  The JAX package stacks each layer
 leaf with a leading ``n_layers`` axis and scans over it; the port keeps a
 ``ModuleList`` and loops.  ``forward``, ``logits_fn`` and ``lm_forward``
-take the module.  Families other than ``dense`` raise and point at
+take the module.  The ``vlm`` family (Qwen2-VL) is the dense decoder with
+M-RoPE over (3, B, S) positions.  Other families raise and point at
 ROADMAP.md.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -24,11 +25,15 @@ from .params import P, init_tree
 f32 = torch.float32
 
 
+FAMILIES = ("dense", "vlm")
+
+
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.moe is not None or cfg.mla is not None:
+    if (cfg.family not in FAMILIES or cfg.moe is not None
+            or cfg.mla is not None):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (the port "
-            "runs the dense family); see ROADMAP.md, Queue 2")
+            f"runs the families {FAMILIES}); see ROADMAP.md, Queue 2")
 
 
 # ---------------------------------------------------------------------------
@@ -104,16 +109,34 @@ class Transformer(nn.Module):
             self.lm_head = L._param((cfg.d_model, cfg.vocab), device, dtype)
 
 
+def _leaves(tree: Dict[str, Any], prefix: str = ""):
+    """(dotted name, tensor) of every leaf of a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + k + ".")
+        else:
+            yield prefix + k, v
+
+
 def load_stacked(model: Transformer, tree: Dict[str, Any]) -> Transformer:
     """Set ``model``'s parameters from a tree shaped like
     ``stacked_model_spec`` (layer leaves carry a leading ``n_layers``
     axis, split here into the ``ModuleList``).  Each tensor must already
     have the parameter's device and dtype; a layer's parameter is a view
-    of the stacked tensor (no copy)."""
+    of the stacked tensor (no copy).  Builds no reference cycle, so a
+    model is freed as soon as its last reference goes."""
     params = dict(model.named_parameters())
-    seen = set()
-
-    def put(name, t):
+    todo = []
+    for name, v in _leaves(tree):
+        if name.startswith("layers."):
+            if v.shape[0] != len(model.layers):
+                raise ValueError(f"{name}: {v.shape[0]} layers, model "
+                                 f"has {len(model.layers)}")
+            rest = name[len("layers."):]
+            todo += [(f"layers.{i}.{rest}", v[i]) for i in range(v.shape[0])]
+        else:
+            todo.append((name, v))
+    for name, t in todo:
         old = params.get(name)
         if old is None:
             raise KeyError(f"{name}: not a parameter of the model")
@@ -123,25 +146,7 @@ def load_stacked(model: Transformer, tree: Dict[str, Any]) -> Transformer:
         owner, _, attr = name.rpartition(".")
         mod = model.get_submodule(owner) if owner else model
         setattr(mod, attr, nn.Parameter(t, requires_grad=False))
-        seen.add(name)
-
-    def walk(sub, prefix):
-        for k, v in sub.items():
-            name = prefix + k
-            if isinstance(v, dict):
-                walk(v, name + ".")
-            elif name.startswith("layers."):
-                rest = name[len("layers."):]
-                if v.shape[0] != len(model.layers):
-                    raise ValueError(f"{name}: {v.shape[0]} layers, model "
-                                     f"has {len(model.layers)}")
-                for i in range(v.shape[0]):
-                    put(f"layers.{i}.{rest}", v[i])
-            else:
-                put(name, v)
-
-    walk(tree, "")
-    missing = sorted(set(params) - seen)
+    missing = sorted(set(params) - {name for name, _ in todo})
     if missing:
         raise KeyError(f"tree lacks parameters {missing}")
     return model
@@ -162,7 +167,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 def _positions(cfg: ModelConfig, batch: int, seq: int,
+               mrope_positions: Optional[torch.Tensor],
                device: torch.device) -> torch.Tensor:
+    """The vlm family's (3, B, S) ``mrope_positions`` where given, else
+    (B, S) text positions: M-RoPE with three equal axes is plain RoPE."""
+    if cfg.mrope and mrope_positions is not None:
+        return mrope_positions                  # (3, B, S) from frontend stub
     return torch.arange(seq, device=device)[None].expand(batch, seq)
 
 
@@ -176,16 +186,19 @@ def _decoder_layer_fwd(cfg: ModelConfig, layer: DecoderLayer, x, positions):
 
 
 def forward(model: Transformer, tokens_or_embeds: torch.Tensor,
-            cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+            cfg: ModelConfig, *,
+            mrope_positions: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (hidden_states (B,S,D), aux_loss ()); the dense family's
-    aux is 0."""
+    aux is 0.  ``mrope_positions`` (3, B, S): the vlm family's position
+    ids (default: every axis 0..S-1)."""
     check_family(cfg)
     if not tokens_or_embeds.is_floating_point():
         x = model.embedding[tokens_or_embeds]
     else:
         x = tokens_or_embeds
     B, Sq = x.shape[:2]
-    positions = _positions(cfg, B, Sq, x.device)
+    positions = _positions(cfg, B, Sq, mrope_positions, x.device)
     for layer in model.layers:
         x = _decoder_layer_fwd(cfg, layer, x, positions)
     x = L.rmsnorm(model.final_norm.scale, x)
@@ -198,9 +211,10 @@ def logits_fn(model: Transformer, hidden, cfg: ModelConfig):
     return hidden @ model.lm_head
 
 
-def lm_forward(model: Transformer, tokens, cfg: ModelConfig):
-    """tokens -> (logits (B,S,V) in the model dtype, aux)."""
-    hidden, aux = forward(model, tokens, cfg)
+def lm_forward(model: Transformer, tokens, cfg: ModelConfig, **kw):
+    """tokens -> (logits (B,S,V) in the model dtype, aux); ``kw`` goes to
+    :func:`forward`."""
+    hidden, aux = forward(model, tokens, cfg, **kw)
     return logits_fn(model, hidden, cfg), aux
 
 

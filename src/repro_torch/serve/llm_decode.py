@@ -1,4 +1,4 @@
-# Port of repro/serve/llm_decode.py (the JAX package), dense family only.
+# Port of repro/serve/llm_decode.py (the JAX package), dense and vlm families only.
 """LLM inference: prefill (last-token logits) and a single-token decode
 step against a KV cache — **not** the placement serving layer.
 

@@ -3,7 +3,9 @@ tensors) against the JAX package's two attention functions, on the CPU.
 
 The cases are those of tests/test_flash_attention.py — MHA, GQA 4:1, MQA,
 head dims 32/64/128, non-causal with Sq != Sk, a 96-key sliding window,
-bf16 — plus a ragged S = 1000, with inputs made by numpy from a seed.
+bf16 — plus a ragged S = 1000 and the zoo's other head dims (16, the smoke
+configs; 80, StableLM-3B; 112 windowed, Zamba2-7B's shared attention),
+with inputs made by numpy from a seed.
 Each is held against ``repro.models.layers.flash_attention`` (the jnp
 chunked function the port copies) and, for a few, against
 ``flash_attention_pallas(interpret=True)`` (each of those costs a Pallas
@@ -34,8 +36,11 @@ CASES = {
     "window96": (1, 256, 256, 4, 2, 64, True, 96, "f32"),
     "bf16": (1, 128, 128, 4, 4, 64, True, None, "bf16"),
     "ragged1000": (1, 1000, 1000, 4, 1, 64, True, None, "f32"),
+    "hd16": (2, 128, 128, 4, 2, 16, True, None, "f32"),
+    "hd80": (1, 256, 256, 4, 4, 80, True, None, "f32"),
+    "hd112_window": (1, 256, 256, 4, 4, 112, True, 96, "f32"),
 }
-PALLAS_CASES = ["gqa4", "window96", "bf16"]
+PALLAS_CASES = ["gqa4", "window96", "bf16", "hd80"]
 
 
 def _inputs(B, Sq, Sk, H, KV, hd, dtype, seed=0):
@@ -165,3 +170,20 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         K.flash_attention(q, k, v, window=0)
     with pytest.raises(ValueError, match="positions_q0"):
         K.flash_attention(q, k, v, positions_q0=64)
+
+
+def test_head_dims_are_the_kernel_sources_list():
+    """The wrapper's HEAD_DIMS is the list the CUDA source instantiates
+    (its HEAD_DIMS X-macro, expanded in forward<F32>'s switch), and the
+    docstring refers to it by name, with no list of its own to drift."""
+    import re
+    from repro_torch.kernels import _build
+    sm90 = (_build.CSRC / "flash_attention_sm90.cu").read_text()
+    (listed,) = re.findall(r"#define HEAD_DIMS\(X\) ((?:X\(\d+\) ?)+)",
+                           sm90)
+    assert tuple(int(d) for d in re.findall(r"\d+", listed)) == K.HEAD_DIMS
+    assert K.HEAD_DIMS == (16, 32, 64, 80, 112, 128)
+    assert "HEAD_DIMS(CASE)" in sm90
+    doc = K.flash_attention.__doc__
+    assert "``HEAD_DIMS``" in doc and not re.search(r"\{\d+(, \d+)*\}", doc)
+    assert all(hd % 16 == 0 for hd in K.HEAD_DIMS)

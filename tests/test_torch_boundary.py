@@ -166,7 +166,10 @@ COPIES = ("core/adaptive.py", "core/enumerate.py", "core/ilp.py",
           "obs/reasons.py", "serve/queue.py", "sim/cluster.py",
           "sim/engine.py", "sim/metrics.py", "workload/alibaba.py",
           "workload/flashcrowd.py", "workload/synthetic.py")
-CHANGED_COPIES = {"configs/tinyllama_1_1b.py": 1, "core/bucketing.py": 4,
+CHANGED_COPIES = {"configs/deepseek_7b.py": 1,
+                  "configs/mistral_nemo_12b.py": 1,
+                  "configs/qwen2_vl_2b.py": 1, "configs/stablelm_3b.py": 1,
+                  "configs/tinyllama_1_1b.py": 1, "core/bucketing.py": 4,
                   "core/grmu.py": 1, "core/policies.py": 1,
                   "core/policy_core_np.py": 1, "obs/report.py": 3}
 # Copies under another name: the port's own policy_core is torch-only,
@@ -337,6 +340,31 @@ def test_chip_smoke_attention_bound_at_the_prefill_shape(dtype_name,
     got, by = smoke.attention_bound_ms(B, S, S, 32, 4, 64, True, None,
                                        dtype_name)
     assert by == bound_by and got == pytest.approx(bound_ms, rel=1e-3)
+
+
+@pytest.mark.parametrize("arch,shape,bound_ms", [
+    ("deepseek_7b", (4, 4096, 32, 32, 128), 0.5563),
+    ("mistral_nemo_12b", (4, 4096, 32, 8, 128), 0.5563),
+    ("stablelm_3b", (4, 4096, 32, 32, 80), 0.3477),
+    ("qwen2_vl_2b", (4, 4096, 12, 2, 128), 0.2086),
+])
+def test_chip_smoke_zoo_attention_shapes_and_bounds(arch, shape, bound_ms):
+    """Phase 5c's models are ported architectures; phase 2b times the bf16
+    kernel at each one's prefill shape (B 4, S 4096, its heads), where the
+    causal bound is operations at 989 TFLOP/s."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    smoke = _chip_smoke()
+    assert set(smoke.ZOO) <= set(ARCH_IDS) and smoke.ZOO_F32 in smoke.ZOO
+    assert smoke.ARCH not in smoke.ZOO and arch in smoke.ZOO
+    assert smoke.zoo_attention_shape(get_config(arch)) == shape
+    B, S, H, KV, hd = shape
+    got, by = smoke.attention_bound_ms(B, S, S, H, KV, hd, True, None,
+                                       "bfloat16")
+    assert by == "operations" and got == pytest.approx(bound_ms, rel=1e-3)
+    # Phase 2b's cases launch every head dim the kernels take.
+    assert sorted({c[5] for c in smoke.ATTN_CASES.values()}) == sorted(
+        HEAD_DIMS)
 
 
 def test_chip_smoke_split_bound_and_route_launches():

@@ -17,7 +17,10 @@ of the plain version in float32), float32 also over a 16,384-key row;
 bf16 must reach only the bf16 kernel and float32 only the split (three
 launches) and the float32 kernel; the split kernel must equal
 ``ref.split_bf16x3`` bit for bit; and ``prefill`` must launch the bf16
-kernel once per layer.  A replay with telemetry on must give the CPU's
+kernel once per layer (TinyLlama's hd 64 and StableLM's hd 80); each new
+architecture's smoke config (hd 16) must prefill on the card as on the
+CPU; a head dim the kernels do not take must raise on a CUDA tensor,
+naming the ones they do.  A replay with telemetry on must give the CPU's
 decisions, reasons and series, with one pick per MCC/MECC arrival.  The
 replay's captured graphs must give the eager loop's outputs for all five
 policies, synchronise with the host only at GRMU's consolidations, and
@@ -292,6 +295,9 @@ ATTN_CASES = [
     (8, 128, 128, 32, 4, 64, True, None),        # the requests' prefill
     (2, 450, 450, 8, 2, 32, True, 200),          # window over tiles, ragged
     (4, 4096, 4096, 32, 4, 64, True, None),      # the serving prefill
+    (2, 256, 256, 4, 2, 16, True, None),         # the smoke configs' hd 16
+    (1, 1000, 1000, 32, 32, 80, True, None),     # StableLM-3B, ragged
+    (1, 1000, 1000, 32, 32, 112, True, 300),     # Zamba2-7B's shared attn
 ]
 
 
@@ -359,6 +365,20 @@ def test_prefill_launches_the_kernel_once_per_layer():
     cfg = get_config("tinyllama_1_1b").scaled(
         n_layers=3, d_model=512, n_heads=8, n_kv_heads=1, d_ff=1024,
         vocab=512)
+    _prefill_launches_once_per_layer(cfg)
+
+
+def test_hd80_prefill_launches_the_kernel_once_per_layer():
+    """StableLM-3B's head dim 80 (d_model 320 over 4 heads), 3 layers."""
+    _need_card()
+    cfg = get_config("stablelm_3b").scaled(
+        n_layers=3, d_model=320, n_heads=4, n_kv_heads=4, d_ff=640,
+        vocab=512)
+    assert cfg.resolved_head_dim == 80
+    _prefill_launches_once_per_layer(cfg)
+
+
+def _prefill_launches_once_per_layer(cfg):
     model = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     tokens = torch.randint(0, cfg.vocab, (2, 100), device="cuda")
     step = registry.make_step(cfg, ShapeConfig("prefill_100", 100, 2,
@@ -370,6 +390,39 @@ def test_prefill_launches_the_kernel_once_per_layer():
                            "flash_attention_f32": 0, "split_bf16x3": 0}
     assert logits.shape == (2, 1, cfg.vocab)
     assert torch.isfinite(logits.float()).all()
+
+
+@pytest.mark.parametrize("arch", ["qwen2_vl_2b", "deepseek_7b",
+                                  "mistral_nemo_12b", "stablelm_3b"])
+def test_smoke_config_prefill_on_card_equals_cpu(arch):
+    """The smoke config (hd 16) in float32: prefill on the card (the
+    float32 kernel) equals prefill on the CPU (the plain version, which
+    tests/test_torch_llm.py holds against the JAX package)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serve import llm_decode as D
+    cfg = get_smoke_config(arch)
+    cpu, card = (M.init_params(cfg, torch.Generator().manual_seed(3),
+                               torch.float32, device=dev)
+                 for dev in ("cpu", "cuda"))
+    tokens = torch.randint(0, cfg.vocab, (2, 200),
+                           generator=torch.Generator().manual_seed(4))
+    FA.reset_launches()
+    got = D.prefill(card, tokens.cuda(), cfg, 200).cpu()
+    assert FA.LAUNCHES["flash_attention_f32"] == cfg.n_layers
+    want = D.prefill(cpu, tokens, cfg, 200)
+    err = (got - want).norm() / want.norm()
+    assert err <= 1e-4, err
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-3 * max(1.0, want.abs().max().item()))
+
+
+def test_head_dim_outside_the_list_raises_on_card():
+    _need_card()
+    q = torch.zeros((1, 64, 4, 72), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match=re.escape(str(FA.HEAD_DIMS))):
+        FA.flash_attention(q, q, q)
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,22 @@
-"""The port's dense-LM serving slice against the JAX package, on the CPU.
+"""The port's LLM serving slice against the JAX package, on the CPU.
 
 The same inputs, made with numpy from a seed, and the same weights (a JAX
 ``init_params`` tree carried across with ``params_from_numpy``) go through
 both packages:
 
-  * module by module: ``rmsnorm``, ``apply_rope``, ``attention_apply``,
-    ``attention_decode`` (output and cache), ``mlp_apply``;
+  * module by module: ``rmsnorm``, ``apply_rope`` (M-RoPE too, and
+    ``default_mrope_sections``), ``attention_apply``, ``attention_decode``
+    (output and cache), ``mlp_apply``;
   * the slice: ``lm_forward``, ``prefill`` and 8 ``decode_step``s (logits
-    and cache) on TinyLlama's smoke config and on a 2-layer variant with
-    TinyLlama's head dim 64 and GQA 8:1, through ``registry.make_step``.
+    and cache) through ``registry.make_step``, for every architecture the
+    port runs (``ARCH_IDS``): its smoke config, and a 2-layer variant at
+    the config's own head dim (``VARIANTS``: TinyLlama hd 64 with GQA 8:1,
+    DeepSeek MHA hd 128, Mistral-NeMo hd 128 with H * hd != d_model,
+    StableLM hd 80, Qwen2-VL hd 128 with GQA 3:1 and M-RoPE over 3-axis
+    positions that differ per axis);
+  * the registry: configs, parameter counts, ``model_flops``,
+    ``supported_cells`` and ``input_specs`` (meta tensors against JAX's
+    ``ShapeDtypeStruct``s).
 
 Tolerances, as (relative L2 error, max error over max(1, max |want|)):
 float32 weights (1e-4, 1e-3), measured at most (3.8e-5, 1.4e-4), from
@@ -27,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as JARCH_IDS
 from repro.configs import get_config as jget_config
 from repro.configs import get_smoke_config as jget_smoke
 from repro.models import layers as JL
@@ -46,17 +55,41 @@ ARCH = "tinyllama_1_1b"
 F32_TOL = (1e-4, 1e-3)
 BF16_TOL = (0.03, 0.15)
 
-
-def _hd64(cfg):
-    """2 layers at TinyLlama's head dim 64 and GQA 8:1."""
-    return cfg.scaled(n_layers=2, d_model=512, n_heads=8, n_kv_heads=1,
-                      d_ff=1024, vocab=512)
-
-
-CONFIGS = {
-    "smoke": (get_smoke_config(ARCH), jget_smoke(ARCH)),
-    "hd64": (_hd64(get_config(ARCH)), _hd64(jget_config(ARCH))),
+# Per architecture, a 2-layer variant at the config's own head dim: its
+# name and the fields scaled.
+VARIANTS = {
+    "tinyllama_1_1b": ("hd64", dict(d_model=512, n_heads=8, n_kv_heads=1,
+                                    d_ff=1024)),
+    "deepseek_7b": ("hd128", dict(d_model=512, n_heads=4, n_kv_heads=4,
+                                  d_ff=1024)),
+    # head_dim 128 stays: H * hd = 512 against d_model 320.
+    "mistral_nemo_12b": ("hd128", dict(d_model=320, n_heads=4, n_kv_heads=1,
+                                       d_ff=640, head_dim=128)),
+    "stablelm_3b": ("hd80", dict(d_model=320, n_heads=4, n_kv_heads=4,
+                                 d_ff=640)),
+    "qwen2_vl_2b": ("hd128", dict(d_model=384, n_heads=3, n_kv_heads=1,
+                                  d_ff=768)),
 }
+
+
+def _variant(cfg, arch):
+    return cfg.scaled(n_layers=2, vocab=512, **VARIANTS[arch][1])
+
+
+def _configs():
+    """{name: (port cfg, JAX cfg)}: each architecture's smoke config and
+    its variant.  TinyLlama's keep their names "smoke" and "hd64"; the
+    others are "<arch>.smoke" and "<arch>.<variant>"."""
+    out = {}
+    for arch in ARCH_IDS:
+        pre = "" if arch == ARCH else f"{arch}."
+        out[pre + "smoke"] = (get_smoke_config(arch), jget_smoke(arch))
+        out[pre + VARIANTS[arch][0]] = (_variant(get_config(arch), arch),
+                                        _variant(jget_config(arch), arch))
+    return out
+
+
+CONFIGS = _configs()
 DTYPES = {"f32": (torch.float32, jnp.float32),
           "bf16": (torch.bfloat16, jnp.bfloat16)}
 
@@ -93,24 +126,70 @@ def _pair(cfg_name, dtype_name, seed=0):
 
 
 def test_configs_are_the_jax_ones():
-    assert ARCH_IDS == ["tinyllama_1_1b"]
+    """The five ported architectures, in the JAX list's order; each config
+    and smoke config is JAX's; every other name raises."""
+    assert ARCH_IDS == ["qwen2_vl_2b", "deepseek_7b", "mistral_nemo_12b",
+                        "stablelm_3b", "tinyllama_1_1b"]
+    assert ARCH_IDS == [a for a in JARCH_IDS if a in ARCH_IDS]
+    for arch in ARCH_IDS:
+        assert (dataclasses.asdict(get_config(arch))
+                == dataclasses.asdict(jget_config(arch))), arch
+        assert (dataclasses.asdict(get_smoke_config(arch))
+                == dataclasses.asdict(jget_smoke(arch))), arch
     assert (dataclasses.asdict(get_config("tinyllama-1.1b"))
             == dataclasses.asdict(jget_config("tinyllama-1.1b")))
-    assert (dataclasses.asdict(get_smoke_config(ARCH))
-            == dataclasses.asdict(jget_smoke(ARCH)))
     assert {k: dataclasses.asdict(v) for k, v in SHAPES.items()} == {
         k: dataclasses.asdict(v) for k, v in JSHAPES.items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("deepseek_v2_236b")
+    for arch in sorted(set(JARCH_IDS) - set(ARCH_IDS)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_config(arch)
 
 
-def test_param_counts_and_flops_equal_jax():
-    cfg, jcfg = get_config(ARCH), jget_config(ARCH)
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_param_counts_and_flops_equal_jax(arch):
+    cfg, jcfg = get_config(arch), jget_config(arch)
     assert registry.total_param_count(cfg) == JR.total_param_count(jcfg)
     assert registry.active_param_count(cfg) == JR.active_param_count(jcfg)
     for name in SHAPES:
         assert registry.model_flops(cfg, SHAPES[name]) == JR.model_flops(
             jcfg, JSHAPES[name])
+
+
+def test_supported_cells_equal_jax():
+    """JAX's matrix restricted to the ported architectures, in order."""
+    assert registry.ALL_CELLS == [c for c in JR.ALL_CELLS
+                                  if c[0] in ARCH_IDS]
+    assert registry.supported_cells() == [
+        c for c in JR.supported_cells() if c[0] in ARCH_IDS]
+
+
+def _spec_shapes(tree):
+    """{dotted name: (shape, dtype name)} of a tree of meta tensors or of
+    JAX ShapeDtypeStructs."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update({f"{k}.{n}": s for n, s in _spec_shapes(v).items()})
+        else:
+            out[k] = (tuple(v.shape), str(v.dtype).split(".")[-1])
+    return out
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_input_specs_equal_jax(arch):
+    """Meta tensors of JAX's shapes and dtypes for the serving kinds (the
+    full-size decode cache allocates nothing); the train kind raises."""
+    for smoke in (False, True):
+        for name, shape in SHAPES.items():
+            if shape.kind == "train":
+                with pytest.raises(NotImplementedError, match="ROADMAP"):
+                    registry.input_specs(arch, name, smoke=smoke)
+                continue
+            got = registry.input_specs(arch, name, smoke=smoke)
+            want = JR.input_specs(arch, name, smoke=smoke)
+            assert _spec_shapes(got) == _spec_shapes(want), (arch, name)
+            assert all(t.device.type == "meta" for t in jax.tree.leaves(
+                got, is_leaf=lambda x: isinstance(x, torch.Tensor)))
 
 
 # ---------------------------------------------------------------------------
@@ -134,13 +213,42 @@ def test_apply_rope(hd):
     got = L.apply_rope(torch.as_tensor(x), torch.as_tensor(pos), 1e4)
     want = JL.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e4)
     _close(got, want, (1e-5, 1e-5))
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        L.apply_rope(torch.as_tensor(x), torch.as_tensor(pos), 1e4, (2, 3, 3))
+
+
+@pytest.mark.parametrize("hd", [16, 64, 128])
+def test_apply_mrope(hd):
+    """Sectioned rotation over random (3, B, S) positions, one axis per
+    section, against JAX's apply_rope; (B, S) positions ignore the
+    sections in both."""
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(2, 7, 4, hd)).astype(np.float32)
+    pos3 = rng.integers(0, 4096, size=(3, 2, 7)).astype(np.int32)
+    sections = L.default_mrope_sections(hd)
+    got = L.apply_rope(torch.as_tensor(x), torch.as_tensor(pos3), 1e6,
+                       sections)
+    want = JL.apply_rope(jnp.asarray(x), jnp.asarray(pos3), 1e6, sections)
+    _close(got, want, (1e-5, 1e-5))
+    got = L.apply_rope(torch.as_tensor(x), torch.as_tensor(pos3[0]), 1e6,
+                       sections)
+    want = JL.apply_rope(jnp.asarray(x), jnp.asarray(pos3[0]), 1e6)
+    _close(got, want, (1e-5, 1e-5))
+
+
+def test_default_mrope_sections_equal_jax():
+    for hd in range(16, 257, 2):
+        got = L.default_mrope_sections(hd)
+        assert got == JL.default_mrope_sections(hd), hd
+        assert sum(got) == hd // 2
+    assert L.default_mrope_sections(128) == (16, 24, 24)
 
 
 def _layer_inputs(cfg, B=2, S=64, seed=3):
-    x = np.random.default_rng(seed).normal(
-        size=(B, S, cfg.d_model)).astype(np.float32)
+    """x (B, S, d_model) and positions: (B, S) 0..S-1, or for M-RoPE
+    random (3, B, S) ids that differ per axis."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)
+    if cfg.mrope:
+        return x, rng.integers(0, 4 * S, size=(3, B, S)).astype(np.int32)
     pos = np.broadcast_to(np.arange(S)[None], (B, S)).astype(np.int32)
     return x, pos
 
@@ -192,7 +300,18 @@ def test_mlp_apply(cfg_name):
 
 @pytest.mark.parametrize("dtype_name", sorted(DTYPES))
 def test_params_from_numpy_carries_every_leaf(dtype_name):
-    cfg, jcfg, model, jp = _pair("smoke", dtype_name)
+    _check_every_leaf("smoke", dtype_name)
+
+
+@pytest.mark.parametrize("cfg_name", sorted(set(CONFIGS) - {"smoke"}))
+def test_params_from_numpy_loads_every_config(cfg_name):
+    """Every other config's tree carries across leaf by leaf (Mistral's
+    non-square wq / wo included)."""
+    _check_every_leaf(cfg_name, "f32")
+
+
+def _check_every_leaf(cfg_name, dtype_name):
+    cfg, jcfg, model, jp = _pair(cfg_name, dtype_name)
     flat, _ = jax.tree_util.tree_flatten_with_path(jp)
     names = set()
     for path, leaf in flat:
@@ -231,6 +350,30 @@ def test_init_params_keeps_the_jax_std_rule():
     assert torch.equal(a.layers[3].attn.wo, b.layers[3].attn.wo)
 
 
+def test_loaded_model_is_freed_without_the_garbage_collector():
+    """Loading builds no reference cycle: a model goes with its last
+    reference, so a serving process that frees one model before building
+    the next holds one at a time on the card."""
+    import gc
+    import weakref
+    cfg = get_smoke_config(ARCH)
+    jp = JM.init_params(jget_smoke(ARCH), jax.random.PRNGKey(0), jnp.float32)
+    tree = jax.tree.map(np.asarray, jp)
+    gc.collect()
+    gc.disable()
+    try:
+        for build in (lambda: M.init_params(cfg, torch.Generator(),
+                                            device="cpu"),
+                      lambda: convert.params_from_numpy(tree, cfg,
+                                                        device="cpu")):
+            model = build()
+            ref = weakref.ref(model)
+            del model
+            assert ref() is None
+    finally:
+        gc.enable()
+
+
 # ---------------------------------------------------------------------------
 # The slice
 # ---------------------------------------------------------------------------
@@ -250,6 +393,14 @@ def test_lm_forward_and_prefill_equal_jax(cfg_name, dtype_name):
     want, _ = JM.lm_forward(jp, jnp.asarray(tok), jcfg)
     assert got.dtype == DTYPES[dtype_name][0] and float(aux) == 0.0
     _close(got, want, tol)
+    if cfg.mrope:
+        # The frontend stub's 3-axis position ids, different per axis.
+        _, pos3 = _layer_inputs(cfg, 2, 64, seed=6)
+        got, _ = M.lm_forward(model, torch.as_tensor(tok), cfg,
+                              mrope_positions=torch.as_tensor(pos3))
+        want, _ = JM.lm_forward(jp, jnp.asarray(tok), jcfg,
+                                mrope_positions=jnp.asarray(pos3))
+        _close(got, want, tol)
     shape = ShapeConfig("prefill_64", 64, 2, "prefill")
     step = registry.make_step(cfg, shape, device="cpu")
     got = step(model, {"tokens": torch.as_tensor(tok)})
