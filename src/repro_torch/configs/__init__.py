@@ -4,8 +4,9 @@
 ``get_config(name)`` returns the full published configuration;
 ``get_smoke_config(name)`` returns a reduced same-family configuration for
 CPU smoke tests.  The dense decoders (DeepSeek-7B, Mistral-NeMo-12B,
-StableLM-3B, TinyLlama-1.1B) and Qwen2-VL-2B's backbone are ported; any
-other name of the JAX package's zoo raises and points at ROADMAP.md.
+StableLM-3B, TinyLlama-1.1B), Qwen2-VL-2B's backbone, Llama-4 Scout's MoE
+and Whisper-base's encoder-decoder are ported; any other name of the JAX
+package's zoo raises and points at ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -16,10 +17,12 @@ from ..models.config import ModelConfig
 # The JAX package's ARCH_IDS, in its order, limited to the ported ones.
 ARCH_IDS = [
     "qwen2_vl_2b",
+    "llama4_scout_17b_a16e",
     "deepseek_7b",
     "mistral_nemo_12b",
     "stablelm_3b",
     "tinyllama_1_1b",
+    "whisper_base",
 ]
 
 

@@ -3,9 +3,11 @@
 The JAX package's ``init_params`` returns a nested dict shaped like
 ``stacked_model_spec``; ``jax.tree.map(np.asarray, params)`` turns it into
 numpy arrays, which :func:`params_from_numpy` loads.  Names map one to one
-(``params["layers"]["attn"]["wq"][i]`` is ``layers.{i}.attn.wq``), the
-``(d_in, d_out)`` layout is kept, and the stacked ``n_layers`` axis is
-split into the ``ModuleList``.
+(``params["layers"]["attn"]["wq"][i]`` is ``layers.{i}.attn.wq``; an MoE's
+``params["layers"]["ffn"]["w_gate"][i]``, (E, d, f), is
+``layers.{i}.ffn.w_gate``; Whisper's ``enc_layers`` / ``dec_layers``
+likewise), the ``(d_in, d_out)`` layout is kept, and each stacked layers
+axis is split into its ``ModuleList``.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-# Port of repro/models/layers.py (the JAX package), dense subset: norms, RoPE / M-RoPE, GQA attention, SwiGLU.
-"""Core dense-decoder layers: RMSNorm, RoPE / M-RoPE, GQA attention, SwiGLU.
+# Port of repro/models/layers.py (the JAX package) without MLA: norms, RoPE / M-RoPE, GQA attention, SwiGLU, MoE.
+"""Core layers: RMSNorm, RoPE / M-RoPE, GQA attention, SwiGLU, MoE.
 
 Each block is an ``nn.Module`` whose parameters carry the JAX tree's names
 and the JAX layout ``(d_in, d_out)``: the port computes ``x @ W`` as
@@ -10,8 +10,9 @@ function by function.
 
 Prefill attention goes through :func:`flash_attention`, the wrapper of the
 CUDA kernel (its plain version for CPU tensors); single-token decode
-attention is plain torch.  MLA and MoE are not ported yet: the model
-raises for their families (``transformer.check_family``).
+attention is plain torch.  The MoE's expert products are batched matmuls,
+as the JAX package computes them outside any Pallas kernel.  MLA is not
+ported yet: the model raises for its family (``transformer.check_family``).
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.flash_attention import flash_attention
-from .config import ModelConfig
+from .config import ModelConfig, MoEConfig
 from .params import P
 
 f32 = torch.float32
@@ -238,9 +239,129 @@ def mlp_apply(ffn: SwiGLU, x):
     return h @ ffn.w_down
 
 
+# ---------------------------------------------------------------------------
+# Mixture of Experts (scatter dispatch with static capacity)
+# ---------------------------------------------------------------------------
+
+def moe_spec(cfg: ModelConfig) -> Dict[str, P]:
+    m: MoEConfig = cfg.moe
+    d = cfg.d_model
+    f = m.d_ff_expert or cfg.d_ff
+    spec = {
+        "router": P((d, m.n_experts), ("embed", "experts_vec")),
+        "w_gate": P((m.n_experts, d, f), ("experts", "embed", "mlp")),
+        "w_up": P((m.n_experts, d, f), ("experts", "embed", "mlp")),
+        "w_down": P((m.n_experts, f, d), ("experts", "mlp", "embed")),
+    }
+    if m.n_shared:
+        spec["shared"] = mlp_spec(d, f * m.n_shared)
+    return spec
+
+
+class MoE(nn.Module):
+    """MoE weights: ``router`` (d, E), the stacked experts ``w_gate`` /
+    ``w_up`` (E, d, f) and ``w_down`` (E, f, d), and the ``shared``
+    SwiGLU when the config has shared experts."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype):
+        super().__init__()
+        for name, p in moe_spec(cfg).items():
+            if name == "shared":
+                f = p["w_gate"].shape[1]
+                self.shared = SwiGLU(cfg.d_model, f, device=device,
+                                     dtype=dtype)
+            else:
+                setattr(self, name, _param(p.shape, device, dtype))
+
+
+def moe_route(moe: MoE, xt: torch.Tensor, cfg: ModelConfig,
+              capacity_factor: Optional[float] = None):
+    """Top-k routing of the tokens ``xt`` (T, D) with a static capacity of
+    ``C = max(1, ceil(T * K / E * cf))`` tokens per expert.
+
+    Returns ``(probs (T, E) float32, top_p (T, K) renormalised, flat_e
+    (T*K,), slot (T*K,), keep (T*K,), C)``: entry j of the flattened
+    (token, choice) pairs goes to expert ``flat_e[j]`` at slot ``flat_e *
+    C + rank`` when ``keep`` (its rank among the expert's pairs, in token
+    order, is below C), else to the drop bin ``E * C``.  Ties go to the
+    lowest expert index, as ``jax.lax.top_k``'s do (a stable descending
+    sort; ``torch.topk`` promises no order), and ranks come from a stable
+    sort by expert, as in the JAX function."""
+    m: MoEConfig = cfg.moe
+    T = xt.shape[0]
+    E, K = m.n_experts, m.top_k
+    cf = capacity_factor or m.capacity_factor
+    C = max(1, int(np.ceil(T * K / E * cf)))
+    logits = (xt @ moe.router).to(f32)                      # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, :K], top_e[:, :K]               # (T, K)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    flat_e = top_e.reshape(-1)                              # (T*K,)
+    slot, keep = moe_slots(flat_e, E, C)
+    return probs, top_p, flat_e, slot, keep, C
+
+
+def moe_slots(flat_e: torch.Tensor, E: int, C: int):
+    """The buffer slots of the (token, choice) pairs routed to the experts
+    ``flat_e`` (T*K,): ``(slot, keep)``, as :func:`moe_route` returns
+    them (ranks from a stable sort by expert; the drop bin ``E * C``)."""
+    n = flat_e.shape[0]
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    run_start = torch.searchsorted(
+        sorted_e, torch.arange(E, device=flat_e.device, dtype=sorted_e.dtype))
+    rank_sorted = torch.arange(n, device=flat_e.device) - run_start[sorted_e]
+    rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
+    keep = rank < C
+    slot = torch.where(keep, flat_e * C + rank, E * C)     # E*C = drop bin
+    return slot, keep
+
+
+def moe_apply(moe: MoE, x: torch.Tensor, cfg: ModelConfig,
+              capacity_factor: Optional[float] = None):
+    """x: (B, S, D) -> (out (B, S, D), aux ()).  Routing by
+    :func:`moe_route`; the kept pairs are scattered into an (E*C + 1, D)
+    buffer in x's dtype (each kept slot gets exactly one token, so the
+    add is exact), the experts run as batched matmuls with SiLU * up in
+    float32, and each pair's output, times its renormalised weight in x's
+    dtype, is summed over the K choices in x's dtype; then the shared
+    expert.  ``aux = E * sum(mean probs * assignment share)``, the JAX
+    function's load-balance term."""
+    m: MoEConfig = cfg.moe
+    B, S, D = x.shape
+    T = B * S
+    E, K = m.n_experts, m.top_k
+    xt = x.reshape(T, D)
+    probs, top_p, flat_e, slot, keep, C = moe_route(moe, xt, cfg,
+                                                    capacity_factor)
+
+    x_rep = xt.repeat_interleave(K, dim=0)                  # (T*K, D)
+    buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
+    buf.index_add_(0, slot, x_rep)
+    h = buf[:-1].reshape(E, C, D)
+    g = F.silu(torch.bmm(h, moe.w_gate).to(f32))
+    u = torch.bmm(h, moe.w_up).to(f32)
+    y = torch.bmm((g * u).to(x.dtype), moe.w_down)
+    y_slots = y.reshape(E * C, D)
+    gathered = torch.where(keep[:, None],
+                           y_slots[torch.clamp(slot, max=E * C - 1)],
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+    weighted = gathered * top_p.reshape(-1)[:, None].to(x.dtype)
+    out = weighted.reshape(T, K, D).sum(dim=1)
+
+    if m.n_shared:
+        out = out + mlp_apply(moe.shared, xt)
+    me = probs.mean(dim=0)                                  # (E,)
+    ce = torch.zeros((E,), dtype=f32, device=x.device).index_add_(
+        0, flat_e, torch.ones_like(flat_e, dtype=f32)) / T
+    aux = E * torch.sum(me * ce)
+    return out.reshape(B, S, D), aux
+
+
 __all__ = [
     "rmsnorm_spec", "rmsnorm", "RMSNorm", "rope_freqs", "apply_rope",
     "default_mrope_sections", "flash_attention", "decode_attention",
     "attention_spec", "Attention", "attention_qkv", "attention_apply",
-    "attention_decode", "mlp_spec", "SwiGLU", "mlp_apply",
+    "attention_decode", "mlp_spec", "SwiGLU", "mlp_apply", "moe_spec",
+    "MoE", "moe_route", "moe_slots", "moe_apply",
 ]

@@ -60,7 +60,9 @@ def init_tensor(p: P, generator: torch.Generator, dtype: torch.dtype,
     std = p.scale / math.sqrt(fan_in)
     x = torch.randn(p.shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
-    return (x * std).to(device=device, dtype=dtype)
+    # In place: the draw of a stacked leaf can be tens of GB (Scout's
+    # (8, 16, 5120, 8192) expert stack is 21.5 GB in float32).
+    return x.mul_(std).to(device=device, dtype=dtype)
 
 
 def init_tree(spec: Dict[str, Any], generator: torch.Generator,

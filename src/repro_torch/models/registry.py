@@ -1,7 +1,8 @@
 # Port of repro/models/registry.py (the JAX package): serving step builders, input specs, cells and parameter counts.
 """Registry: (architecture x input shape) -> step function + input specs.
 
-  * ``prefill_32k``  — ``prefill``   (full-context forward, last logits),
+  * ``prefill_32k``  — ``prefill``   (full-context forward, last logits;
+    encdec: ``encode`` over the frames, the last encoder state's logits),
   * ``decode_32k`` / ``long_500k`` — ``decode_step`` (one new token against
     a seq_len cache).
 
@@ -23,6 +24,7 @@ from ..configs import ARCH_IDS, get_config, get_smoke_config
 from ..device import DeviceLike, resolve_device
 from ..serve import llm_decode as serve_engine
 from .config import SHAPES, ModelConfig, ShapeConfig
+from . import transformer as M
 from .params import param_count
 from .transformer import check_family, stacked_model_spec
 
@@ -54,6 +56,9 @@ def prefill_input_specs(cfg: ModelConfig,
                         shape: ShapeConfig) -> Dict[str, torch.Tensor]:
     check_family(cfg)
     B, S = shape.global_batch, shape.seq_len
+    if cfg.family == "encdec":                          # stub frontend
+        return {"frames": torch.empty((B, S, cfg.d_model),
+                                      dtype=torch.bfloat16, device=META)}
     return {"tokens": torch.empty((B, S), dtype=torch.int32, device=META)}
 
 
@@ -103,6 +108,9 @@ def make_step(cfg: ModelConfig, shape: ShapeConfig, *,
     if shape.kind == "prefill":
         def prefill_fn(model, batch):
             _on_device(model)
+            if cfg.family == "encdec":
+                enc = M.encode(model, batch["frames"], cfg)
+                return M.logits_fn(model, enc[:, -1:], cfg)
             return serve_engine.prefill(model, batch["tokens"], cfg,
                                         shape.seq_len)
         return prefill_fn
@@ -128,9 +136,16 @@ def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
 
 
 def active_param_count(cfg: ModelConfig) -> int:
-    """Parameters touched per token (the dense and vlm families touch
-    all)."""
-    return total_param_count(cfg)
+    """Parameters touched per token (MoE: top-k + shared experts only)."""
+    total = total_param_count(cfg)
+    if cfg.moe is None:
+        return total
+    # subtract inactive routed experts
+    m = cfg.moe
+    f = m.d_ff_expert or cfg.d_ff
+    per_expert = 3 * cfg.d_model * f
+    inactive = (m.n_experts - m.top_k) * per_expert * cfg.n_layers
+    return total - inactive
 
 
 def total_param_count(cfg: ModelConfig) -> int:

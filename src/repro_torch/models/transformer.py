@@ -1,13 +1,20 @@
-# Port of repro/models/transformer.py (the JAX package), dense and vlm families only.
-"""Dense decoder LM: embedding, pre-norm GQA + SwiGLU layers, final norm.
+# Port of repro/models/transformer.py (the JAX package), dense, vlm, moe and encdec families.
+"""Decoder LM and Whisper's encoder-decoder: embedding, pre-norm layers,
+final norm.
 
 ``Transformer`` holds the parameters under the JAX tree's names
 (``embedding``, ``layers.{i}.{ln1,attn,ln2,ffn}.*``, ``final_norm.scale``,
-``lm_head`` when embeddings are untied).  The JAX package stacks each layer
-leaf with a leading ``n_layers`` axis and scans over it; the port keeps a
-``ModuleList`` and loops.  ``forward``, ``logits_fn`` and ``lm_forward``
-take the module.  The ``vlm`` family (Qwen2-VL) is the dense decoder with
-M-RoPE over (3, B, S) positions.  Other families raise and point at
+``lm_head`` when embeddings are untied; for ``encdec``
+``enc_layers.{i}.*``, ``dec_layers.{i}.{ln1,attn,ln_x,xattn,ln2,ffn}.*``
+and ``enc_norm.scale`` in place of ``layers``).  The JAX package stacks
+each layer leaf with a leading layers axis and scans over it; the port
+keeps a ``ModuleList`` and loops.  ``forward``, ``encode``, ``logits_fn``
+and ``lm_forward`` take the module.  The ``vlm`` family (Qwen2-VL) is the
+dense decoder with M-RoPE over (3, B, S) positions; ``moe`` (Llama-4
+Scout) has a routed MoE as each layer's FFN and sums its aux loss over
+layers; ``encdec`` (Whisper, frontend stubbed) runs a bidirectional
+encoder over frame embeddings and a decoder with cross attention to it.
+Other families (``mla_moe``, ``rwkv6``, ``hybrid``) raise and point at
 ROADMAP.md.
 """
 from __future__ import annotations
@@ -25,15 +32,15 @@ from .params import P, init_tree
 f32 = torch.float32
 
 
-FAMILIES = ("dense", "vlm")
+FAMILIES = ("dense", "vlm", "moe", "encdec")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if (cfg.family not in FAMILIES or cfg.moe is not None
-            or cfg.mla is not None):
+    if cfg.family not in FAMILIES or cfg.mla is not None:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (the port "
-            f"runs the families {FAMILIES}); see ROADMAP.md, Queue 2")
+            f"runs the families {FAMILIES}, without MLA); see ROADMAP.md, "
+            f"Queue 2")
 
 
 # ---------------------------------------------------------------------------
@@ -43,10 +50,34 @@ def check_family(cfg: ModelConfig) -> None:
 def layer_spec(cfg: ModelConfig) -> Dict[str, Any]:
     """One decoder layer (pre-norm)."""
     check_family(cfg)
-    return {"ln1": L.rmsnorm_spec(cfg.d_model),
-            "ln2": L.rmsnorm_spec(cfg.d_model),
-            "attn": L.attention_spec(cfg),
-            "ffn": L.mlp_spec(cfg.d_model, cfg.d_ff)}
+    spec: Dict[str, Any] = {"ln1": L.rmsnorm_spec(cfg.d_model),
+                            "ln2": L.rmsnorm_spec(cfg.d_model),
+                            "attn": L.attention_spec(cfg)}
+    if cfg.moe is not None:
+        spec["ffn"] = L.moe_spec(cfg)
+    else:
+        spec["ffn"] = L.mlp_spec(cfg.d_model, cfg.d_ff)
+    return spec
+
+
+def encoder_layer_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    return {
+        "ln1": L.rmsnorm_spec(cfg.d_model),
+        "attn": L.attention_spec(cfg),
+        "ln2": L.rmsnorm_spec(cfg.d_model),
+        "ffn": L.mlp_spec(cfg.d_model, cfg.d_ff),
+    }
+
+
+def decoder_xattn_layer_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    return {
+        "ln1": L.rmsnorm_spec(cfg.d_model),
+        "attn": L.attention_spec(cfg),
+        "ln_x": L.rmsnorm_spec(cfg.d_model),
+        "xattn": L.attention_spec(cfg),
+        "ln2": L.rmsnorm_spec(cfg.d_model),
+        "ffn": L.mlp_spec(cfg.d_model, cfg.d_ff),
+    }
 
 
 def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
@@ -54,10 +85,15 @@ def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
         "embedding": P((cfg.vocab, cfg.d_model), ("vocab", "embed"),
                        scale=1.0),
         "final_norm": L.rmsnorm_spec(cfg.d_model),
-        "layers": layer_spec(cfg),
     }
     if not cfg.tie_embeddings:
         spec["lm_head"] = P((cfg.d_model, cfg.vocab), ("embed", "vocab"))
+    if cfg.family == "encdec":
+        spec["enc_layers"] = encoder_layer_spec(cfg)      # stacked below
+        spec["dec_layers"] = decoder_xattn_layer_spec(cfg)
+        spec["enc_norm"] = L.rmsnorm_spec(cfg.d_model)
+    else:
+        spec["layers"] = layer_spec(cfg)
     return spec
 
 
@@ -71,7 +107,12 @@ def _stack_spec(spec, n):
 
 def stacked_model_spec(cfg: ModelConfig) -> Dict[str, Any]:
     spec = model_spec(cfg)
-    spec["layers"] = _stack_spec(spec["layers"], cfg.n_layers)
+    if cfg.family == "encdec":
+        spec["enc_layers"] = _stack_spec(spec["enc_layers"],
+                                         cfg.n_enc_layers)
+        spec["dec_layers"] = _stack_spec(spec["dec_layers"], cfg.n_layers)
+    else:
+        spec["layers"] = _stack_spec(spec["layers"], cfg.n_layers)
     return spec
 
 
@@ -80,31 +121,60 @@ def stacked_model_spec(cfg: ModelConfig) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 class DecoderLayer(nn.Module):
-    """One pre-norm layer's blocks: ``ln1``, ``attn``, ``ln2``, ``ffn``."""
+    """One pre-norm layer's blocks: ``ln1``, ``attn``, ``ln2``, ``ffn``
+    (a SwiGLU, or for the moe family an ``L.MoE``).  Whisper's encoder
+    layers have the same blocks, with a SwiGLU."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype, moe=False):
+        super().__init__()
+        self.ln1 = L.RMSNorm(cfg.d_model, device=device, dtype=dtype)
+        self.attn = L.Attention(cfg, device=device, dtype=dtype)
+        self.ln2 = L.RMSNorm(cfg.d_model, device=device, dtype=dtype)
+        self.ffn = (L.MoE(cfg, device=device, dtype=dtype) if moe else
+                    L.SwiGLU(cfg.d_model, cfg.d_ff, device=device,
+                             dtype=dtype))
+
+
+class DecoderXAttnLayer(nn.Module):
+    """Whisper's decoder layer: ``ln1``, ``attn`` (causal self attention),
+    ``ln_x``, ``xattn`` (cross attention to the encoder), ``ln2``,
+    ``ffn``."""
 
     def __init__(self, cfg: ModelConfig, *, device, dtype):
         super().__init__()
         self.ln1 = L.RMSNorm(cfg.d_model, device=device, dtype=dtype)
         self.attn = L.Attention(cfg, device=device, dtype=dtype)
+        self.ln_x = L.RMSNorm(cfg.d_model, device=device, dtype=dtype)
+        self.xattn = L.Attention(cfg, device=device, dtype=dtype)
         self.ln2 = L.RMSNorm(cfg.d_model, device=device, dtype=dtype)
         self.ffn = L.SwiGLU(cfg.d_model, cfg.d_ff, device=device, dtype=dtype)
 
 
 class Transformer(nn.Module):
-    """The dense decoder's parameters, allocated uninitialized on
-    ``device`` (None: the CUDA device); fill them with :func:`init_params`
-    or :func:`repro_torch.models.convert.params_from_numpy`."""
+    """The model's parameters, allocated uninitialized on ``device``
+    (None: the CUDA device); fill them with :func:`init_params` or
+    :func:`repro_torch.models.convert.params_from_numpy`.  An encdec
+    model holds ``enc_layers``, ``dec_layers`` and ``enc_norm`` in place
+    of ``layers``."""
 
     def __init__(self, cfg: ModelConfig, *, device: DeviceLike = None,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         check_family(cfg)
         device = resolve_device(device)
+        kw = dict(device=device, dtype=dtype)
         self.embedding = L._param((cfg.vocab, cfg.d_model), device, dtype)
-        self.layers = nn.ModuleList(
-            DecoderLayer(cfg, device=device, dtype=dtype)
-            for _ in range(cfg.n_layers))
-        self.final_norm = L.RMSNorm(cfg.d_model, device=device, dtype=dtype)
+        if cfg.family == "encdec":
+            self.enc_layers = nn.ModuleList(
+                DecoderLayer(cfg, **kw) for _ in range(cfg.n_enc_layers))
+            self.dec_layers = nn.ModuleList(
+                DecoderXAttnLayer(cfg, **kw) for _ in range(cfg.n_layers))
+            self.enc_norm = L.RMSNorm(cfg.d_model, **kw)
+        else:
+            self.layers = nn.ModuleList(
+                DecoderLayer(cfg, moe=cfg.moe is not None, **kw)
+                for _ in range(cfg.n_layers))
+        self.final_norm = L.RMSNorm(cfg.d_model, **kw)
         if not cfg.tie_embeddings:
             self.lm_head = L._param((cfg.d_model, cfg.vocab), device, dtype)
 
@@ -118,22 +188,29 @@ def _leaves(tree: Dict[str, Any], prefix: str = ""):
             yield prefix + k, v
 
 
+# The stacked trees' layer stacks: leaves under these carry a leading
+# layers axis.
+STACKS = ("layers", "enc_layers", "dec_layers")
+
+
 def load_stacked(model: Transformer, tree: Dict[str, Any]) -> Transformer:
     """Set ``model``'s parameters from a tree shaped like
-    ``stacked_model_spec`` (layer leaves carry a leading ``n_layers``
-    axis, split here into the ``ModuleList``).  Each tensor must already
-    have the parameter's device and dtype; a layer's parameter is a view
-    of the stacked tensor (no copy).  Builds no reference cycle, so a
-    model is freed as soon as its last reference goes."""
+    ``stacked_model_spec`` (leaves under ``STACKS`` carry a leading layers
+    axis, split here into the ``ModuleList``; an MoE's expert stacks are
+    then (E, d, f) a layer).  Each tensor must already have the
+    parameter's device and dtype; a layer's parameter is a view of the
+    stacked tensor (no copy).  Builds no reference cycle, so a model is
+    freed as soon as its last reference goes."""
     params = dict(model.named_parameters())
     todo = []
     for name, v in _leaves(tree):
-        if name.startswith("layers."):
-            if v.shape[0] != len(model.layers):
+        stack, _, rest = name.partition(".")
+        if stack in STACKS:
+            n = len(getattr(model, stack, ()))
+            if v.shape[0] != n:
                 raise ValueError(f"{name}: {v.shape[0]} layers, model "
-                                 f"has {len(model.layers)}")
-            rest = name[len("layers."):]
-            todo += [(f"layers.{i}.{rest}", v[i]) for i in range(v.shape[0])]
+                                 f"has {n} in {stack}")
+            todo += [(f"{stack}.{i}.{rest}", v[i]) for i in range(n)]
         else:
             todo.append((name, v))
     for name, t in todo:
@@ -177,32 +254,88 @@ def _positions(cfg: ModelConfig, batch: int, seq: int,
 
 
 def _decoder_layer_fwd(cfg: ModelConfig, layer: DecoderLayer, x, positions):
-    """One pre-norm decoder layer."""
+    """One pre-norm decoder layer; returns (x, aux): the MoE's aux loss,
+    else 0."""
     h = L.attention_apply(layer.attn, L.rmsnorm(layer.ln1.scale, x), cfg,
                           positions)
     x = x + h
-    h = L.mlp_apply(layer.ffn, L.rmsnorm(layer.ln2.scale, x))
-    return x + h
+    h_in = L.rmsnorm(layer.ln2.scale, x)
+    if cfg.moe is not None:
+        h, aux = L.moe_apply(layer.ffn, h_in, cfg)
+    else:
+        h, aux = L.mlp_apply(layer.ffn, h_in), None
+    return x + h, aux
 
 
 def forward(model: Transformer, tokens_or_embeds: torch.Tensor,
             cfg: ModelConfig, *,
-            mrope_positions: Optional[torch.Tensor] = None
+            mrope_positions: Optional[torch.Tensor] = None,
+            encoder_out: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (hidden_states (B,S,D), aux_loss ()); the dense family's
-    aux is 0.  ``mrope_positions`` (3, B, S): the vlm family's position
-    ids (default: every axis 0..S-1)."""
+    """Returns (hidden_states (B,S,D), aux_loss ()): the moe family's aux
+    summed over layers, else 0.  ``mrope_positions`` (3, B, S): the vlm
+    family's position ids (default: every axis 0..S-1).  ``encoder_out``
+    (B, S_enc, D): the encdec family's encoder states (:func:`encode`),
+    which its decoder needs."""
     check_family(cfg)
     if not tokens_or_embeds.is_floating_point():
         x = model.embedding[tokens_or_embeds]
     else:
-        x = tokens_or_embeds
+        x = tokens_or_embeds                    # stubbed frontend embeddings
     B, Sq = x.shape[:2]
     positions = _positions(cfg, B, Sq, mrope_positions, x.device)
+    aux = torch.zeros((), dtype=f32, device=x.device)
+    if cfg.family == "encdec":
+        return _encdec_forward(model, x, cfg, encoder_out, positions), aux
     for layer in model.layers:
-        x = _decoder_layer_fwd(cfg, layer, x, positions)
+        x, a = _decoder_layer_fwd(cfg, layer, x, positions)
+        if a is not None:
+            aux = aux + a
     x = L.rmsnorm(model.final_norm.scale, x)
-    return x, torch.zeros((), dtype=f32, device=x.device)
+    return x, aux
+
+
+def _encdec_forward(model: Transformer, x, cfg: ModelConfig, encoder_out,
+                    positions):
+    """Whisper's decoder: per layer causal self attention (RoPE), cross
+    attention to ``encoder_out`` (no RoPE, no mask), SwiGLU."""
+    if encoder_out is None:
+        raise ValueError("encdec needs encoder_out")
+    B, Sq = x.shape[:2]
+    hd = cfg.resolved_head_dim
+    for layer in model.dec_layers:
+        h = L.attention_apply(layer.attn, L.rmsnorm(layer.ln1.scale, x),
+                              cfg, positions)
+        x = x + h
+        # cross attention (bidirectional over encoder states)
+        xq = L.rmsnorm(layer.ln_x.scale, x)
+        q = (xq @ layer.xattn.wq).reshape(B, Sq, cfg.n_heads, hd)
+        k = (encoder_out @ layer.xattn.wk).reshape(B, -1, cfg.n_kv_heads, hd)
+        v = (encoder_out @ layer.xattn.wv).reshape(B, -1, cfg.n_kv_heads, hd)
+        o = L.flash_attention(q, k, v, causal=False)
+        x = x + o.reshape(B, Sq, -1) @ layer.xattn.wo
+        h = L.mlp_apply(layer.ffn, L.rmsnorm(layer.ln2.scale, x))
+        x = x + h
+    return L.rmsnorm(model.final_norm.scale, x)
+
+
+def encode(model: Transformer, frame_embeds: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """Whisper encoder over stubbed frame embeddings (B, S, D): per layer
+    bidirectional self attention (RoPE on q and k, ``causal=False``) and
+    SwiGLU, then ``enc_norm``."""
+    check_family(cfg)
+    x = frame_embeds
+    B, Sq = x.shape[:2]
+    positions = _positions(cfg, B, Sq, None, x.device)
+    for layer in model.enc_layers:
+        h_in = L.rmsnorm(layer.ln1.scale, x)
+        q, k, v = L.attention_qkv(layer.attn, h_in, cfg, positions)
+        o = L.flash_attention(q, k, v, causal=False)
+        x = x + o.reshape(B, Sq, -1) @ layer.attn.wo
+        h = L.mlp_apply(layer.ffn, L.rmsnorm(layer.ln2.scale, x))
+        x = x + h
+    return L.rmsnorm(model.enc_norm.scale, x)
 
 
 def logits_fn(model: Transformer, hidden, cfg: ModelConfig):
@@ -218,6 +351,8 @@ def lm_forward(model: Transformer, tokens, cfg: ModelConfig, **kw):
     return logits_fn(model, hidden, cfg), aux
 
 
-__all__ = ["model_spec", "stacked_model_spec", "layer_spec", "Transformer",
-           "DecoderLayer", "init_params", "load_stacked", "forward",
-           "logits_fn", "lm_forward", "check_family"]
+__all__ = ["model_spec", "stacked_model_spec", "layer_spec",
+           "encoder_layer_spec", "decoder_xattn_layer_spec", "Transformer",
+           "DecoderLayer", "DecoderXAttnLayer", "init_params",
+           "load_stacked", "forward", "encode", "logits_fn", "lm_forward",
+           "check_family"]

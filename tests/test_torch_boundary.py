@@ -167,9 +167,11 @@ COPIES = ("core/adaptive.py", "core/enumerate.py", "core/ilp.py",
           "sim/engine.py", "sim/metrics.py", "workload/alibaba.py",
           "workload/flashcrowd.py", "workload/synthetic.py")
 CHANGED_COPIES = {"configs/deepseek_7b.py": 1,
+                  "configs/llama4_scout_17b_a16e.py": 1,
                   "configs/mistral_nemo_12b.py": 1,
                   "configs/qwen2_vl_2b.py": 1, "configs/stablelm_3b.py": 1,
-                  "configs/tinyllama_1_1b.py": 1, "core/bucketing.py": 4,
+                  "configs/tinyllama_1_1b.py": 1,
+                  "configs/whisper_base.py": 1, "core/bucketing.py": 4,
                   "core/grmu.py": 1, "core/policies.py": 1,
                   "core/policy_core_np.py": 1, "obs/report.py": 3}
 # Copies under another name: the port's own policy_core is torch-only,
@@ -365,6 +367,41 @@ def test_chip_smoke_zoo_attention_shapes_and_bounds(arch, shape, bound_ms):
     # Phase 2b's cases launch every head dim the kernels take.
     assert sorted({c[5] for c in smoke.ATTN_CASES.values()}) == sorted(
         HEAD_DIMS)
+
+
+@pytest.mark.parametrize("name,bound_ms,bound_by", [
+    ("whisper_base prefill", 0.1390, "operations"),
+    ("whisper_base encode", 0.03727, "operations"),
+    ("whisper_base decoder", 0.004382, "bytes"),
+    ("whisper_base cross", 0.01113, "operations"),
+    ("llama4_scout_17b_a16e", 0.6950, "operations"),
+])
+def test_chip_smoke_5d_attention_shapes_and_bounds(name, bound_ms, bound_by):
+    """Phase 2b holds and times the bf16 kernel at every attention shape of
+    phase 5d's path: Whisper's encoder over the prefill cell's 4 x 4096
+    frames and over 8 x 1,500, both non-causal, its decoder's causal self
+    attention over 448 tokens and its cross attention (448 tokens over the
+    1,500 frames, non-causal), and Scout's causal prefill, each with its
+    model's heads; each bound is over the pairs the mask keeps (operations
+    at 989 TFLOP/s, or bytes at 3.35 TB/s for the decoder's short causal
+    rows), and the plain version's chunks divide the lengths."""
+    from repro_torch.configs import get_config
+    smoke = _chip_smoke()
+    B, Sq, Sk, H, KV, hd, causal = smoke.MODEL_ATTN_SHAPES[name]
+    cfg = get_config(name.split()[0])
+    assert (H, KV, hd) == (cfg.n_heads, cfg.n_kv_heads,
+                           cfg.resolved_head_dim)
+    assert causal == (cfg.family == "moe" or name.endswith("decoder"))
+    if name.endswith("prefill"):
+        assert (B, Sq, Sk) == (smoke.PREFILL_B, smoke.PREFILL_S,
+                               smoke.PREFILL_S)
+    got, by = smoke.attention_bound_ms(B, Sq, Sk, H, KV, hd, causal, None,
+                                       "bfloat16")
+    assert by == bound_by and got == pytest.approx(bound_ms, rel=1e-3)
+    for n in (Sq, Sk):
+        assert n % smoke.plain_chunk(n) == 0 and smoke.plain_chunk(n) <= 1024
+    assert [smoke.plain_chunk(n) for n in (1500, 448, 4096, 1000, 333)] == [
+        750, 448, 1024, 1000, 333]
 
 
 def test_chip_smoke_split_bound_and_route_launches():

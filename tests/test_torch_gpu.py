@@ -20,8 +20,11 @@ launches) and the float32 kernel; the split kernel must equal
 kernel once per layer (TinyLlama's hd 64 and StableLM's hd 80); each new
 architecture's smoke config (hd 16) must prefill on the card as on the
 CPU; a head dim the kernels do not take must raise on a CUDA tensor,
-naming the ones they do.  A replay with telemetry on must give the CPU's
-decisions, reasons and series, with one pick per MCC/MECC arrival.  The
+naming the ones they do.  Whisper's smoke config must encode and decode
+with cross attention on the card as on the CPU, and so must Scout's MoE
+route, drop and compute (moe_apply).  A replay with telemetry on must
+give the CPU's decisions, reasons and series, with one pick per MCC/MECC
+arrival.  The
 replay's captured graphs must give the eager loop's outputs for all five
 policies, synchronise with the host only at GRMU's consolidations, and
 count one pick per arrival and replay.  The placement service must decide
@@ -30,7 +33,9 @@ the compile cache evicted its runner, and read back at most once per
 micro-batch (plus GRMU's consolidations).  One rank of a sharded fleet
 over NCCL must decide through its captured graphs as the CPU.
 """
+import importlib.util
 import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -47,6 +52,18 @@ from repro_torch.models.config import ShapeConfig
 from repro_torch.workload.alibaba import TraceConfig, generate
 
 pytestmark = pytest.mark.gpu
+
+
+def _chip_smoke():
+    """The card script, for its plain attention (``plain_attention``)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+smoke = _chip_smoke()
 
 
 def _need_card():
@@ -298,6 +315,10 @@ ATTN_CASES = [
     (2, 256, 256, 4, 2, 16, True, None),         # the smoke configs' hd 16
     (1, 1000, 1000, 32, 32, 80, True, None),     # StableLM-3B, ragged
     (1, 1000, 1000, 32, 32, 112, True, 300),     # Zamba2-7B's shared attn
+    (8, 1500, 1500, 8, 8, 64, False, None),      # Whisper's encoder
+    (8, 448, 1500, 8, 8, 64, False, None),       # Whisper's cross attention
+    (8, 448, 448, 8, 8, 64, True, None),         # Whisper's decoder
+    (1, 1000, 1000, 40, 8, 128, True, None),     # Scout's GQA group of 5
 ]
 
 
@@ -320,7 +341,8 @@ def test_attention_kernel_equals_plain_version_on_card(case, dtype):
     want = {k_: int(k_ == key) for k_ in FA.LAUNCHES}
     want[FA.SPLIT] = 3 if dtype == torch.float32 else 0
     assert FA.LAUNCHES == want
-    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    # The plain version with chunks that divide Whisper's 1,500 frames.
+    want = smoke.plain_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     tol = 2e-5 if dtype == torch.float32 else 3e-2
     assert got.dtype == dtype
@@ -328,8 +350,8 @@ def test_attention_kernel_equals_plain_version_on_card(case, dtype):
     if dtype == torch.bfloat16:
         # One rounding of a float32 result: within half a bf16 ulp of the
         # plain version in float32 (atol: float32 summation order).
-        want32 = ref.flash_attention_ref(q.float(), k.float(), v.float(),
-                                         causal=causal, window=window)
+        want32 = smoke.plain_attention(q.float(), k.float(), v.float(),
+                                       causal=causal, window=window)
         torch.testing.assert_close(got.float(), want32, rtol=2.0 ** -8,
                                    atol=1e-5)
 
@@ -412,6 +434,77 @@ def test_smoke_config_prefill_on_card_equals_cpu(arch):
     got = D.prefill(card, tokens.cuda(), cfg, 200).cpu()
     assert FA.LAUNCHES["flash_attention_f32"] == cfg.n_layers
     want = D.prefill(cpu, tokens, cfg, 200)
+    err = (got - want).norm() / want.norm()
+    assert err <= 1e-4, err
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-3 * max(1.0, want.abs().max().item()))
+
+
+def test_whisper_smoke_on_card_equals_cpu():
+    """Whisper's smoke config in float32: the encoder prefill (non-causal,
+    64 frames) and forward over 24 tokens with cross attention to them
+    (Sq != Sk) on the card (the float32 kernel) equal the CPU's (the plain
+    version, which tests/test_torch_encdec.py holds against JAX)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config("whisper_base")
+    cpu, card = (M.init_params(cfg, torch.Generator().manual_seed(3),
+                               torch.float32, device=dev)
+                 for dev in ("cpu", "cuda"))
+    g = torch.Generator().manual_seed(4)
+    frames = torch.randn((2, 64, cfg.d_model), generator=g)
+    tokens = torch.randint(0, cfg.vocab, (2, 24), generator=g)
+    step = {dev: registry.make_step(cfg, ShapeConfig("prefill_64", 64, 2,
+                                                     "prefill"), device=dev)
+            for dev in ("cpu", "cuda")}
+    FA.reset_launches()
+    got = step["cuda"](card, {"frames": frames.cuda()}).cpu()
+    assert FA.LAUNCHES["flash_attention_f32"] == cfg.n_enc_layers
+    want = step["cpu"](cpu, {"frames": frames})
+    _hold_f32(got, want)
+    enc = M.encode(cpu, frames, cfg)
+    FA.reset_launches()
+    got, _ = M.lm_forward(card, tokens.cuda(), cfg, encoder_out=enc.cuda())
+    assert FA.LAUNCHES["flash_attention_f32"] == 2 * cfg.n_layers
+    want, _ = M.lm_forward(cpu, tokens, cfg, encoder_out=enc)
+    _hold_f32(got.cpu(), want)
+
+
+@pytest.mark.parametrize("experts,T", [(4, 64), (16, 1024)])
+def test_moe_apply_on_card_equals_cpu(experts, T):
+    """Scout's smoke MoE (4 experts, capacity 8) and 16 experts at
+    Scout's capacity 1.25 (drops) in float32: the same routes, slots and
+    output on the card as on the CPU (which tests/test_torch_moe.py holds
+    against JAX)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.config import MoEConfig
+    cfg = get_smoke_config("llama4_scout_17b_a16e")
+    if experts != 4:
+        cfg = cfg.scaled(moe=MoEConfig(n_experts=experts, top_k=1,
+                                       n_shared=1, d_ff_expert=128))
+    cpu, card = (M.init_params(cfg, torch.Generator().manual_seed(5),
+                               torch.float32, device=dev)
+                 for dev in ("cpu", "cuda"))
+    x = torch.randn((1, T, cfg.d_model),
+                    generator=torch.Generator().manual_seed(6))
+    got, aux = L.moe_apply(card.layers[0].ffn, x.cuda(), cfg)
+    want, want_aux = L.moe_apply(cpu.layers[0].ffn, x, cfg)
+    routes = [L.moe_route(m.layers[0].ffn, xt, cfg)
+              for m, xt in ((card, x[0].cuda()), (cpu, x[0]))]
+    for a, b in zip(routes[0][2:5], routes[1][2:5]):
+        assert torch.equal(a.cpu(), b)
+    assert (not routes[1][4].all()) == (experts == 16)
+    _hold_f32(got.cpu(), want)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=0)
+
+
+def _hold_f32(got, want):
+    """tests/test_torch_llm.py's F32_TOL: relative L2 1e-4, max 1e-3 of
+    max(1, max |want|)."""
     err = (got - want).norm() / want.norm()
     assert err <= 1e-4, err
     torch.testing.assert_close(got, want, rtol=0,

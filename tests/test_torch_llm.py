@@ -8,13 +8,15 @@ both packages:
     ``default_mrope_sections``), ``attention_apply``, ``attention_decode``
     (output and cache), ``mlp_apply``;
   * the slice: ``lm_forward``, ``prefill`` and 8 ``decode_step``s (logits
-    and cache) through ``registry.make_step``, for every architecture the
-    port runs (``ARCH_IDS``): its smoke config, and a 2-layer variant at
+    and cache) through ``registry.make_step``, for every dense and vlm
+    architecture (the moe and encdec families are in test_torch_moe.py and
+    test_torch_encdec.py): its smoke config, and a 2-layer variant at
     the config's own head dim (``VARIANTS``: TinyLlama hd 64 with GQA 8:1,
     DeepSeek MHA hd 128, Mistral-NeMo hd 128 with H * hd != d_model,
     StableLM hd 80, Qwen2-VL hd 128 with GQA 3:1 and M-RoPE over 3-axis
     positions that differ per axis);
-  * the registry: configs, parameter counts, ``model_flops``,
+  * the registry, for every architecture the port runs (``ARCH_IDS``):
+    configs, parameter counts, ``model_flops``,
     ``supported_cells`` and ``input_specs`` (meta tensors against JAX's
     ``ShapeDtypeStruct``s).
 
@@ -77,11 +79,13 @@ def _variant(cfg, arch):
 
 
 def _configs():
-    """{name: (port cfg, JAX cfg)}: each architecture's smoke config and
-    its variant.  TinyLlama's keep their names "smoke" and "hd64"; the
-    others are "<arch>.smoke" and "<arch>.<variant>"."""
+    """{name: (port cfg, JAX cfg)}: each dense or vlm architecture's smoke
+    config and its variant (the moe and encdec families have their own
+    files, tests/test_torch_moe.py and test_torch_encdec.py).  TinyLlama's
+    keep their names "smoke" and "hd64"; the others are "<arch>.smoke" and
+    "<arch>.<variant>"."""
     out = {}
-    for arch in ARCH_IDS:
+    for arch in (a for a in ARCH_IDS if a in VARIANTS):
         pre = "" if arch == ARCH else f"{arch}."
         out[pre + "smoke"] = (get_smoke_config(arch), jget_smoke(arch))
         out[pre + VARIANTS[arch][0]] = (_variant(get_config(arch), arch),
@@ -126,10 +130,11 @@ def _pair(cfg_name, dtype_name, seed=0):
 
 
 def test_configs_are_the_jax_ones():
-    """The five ported architectures, in the JAX list's order; each config
+    """The seven ported architectures, in the JAX list's order; each config
     and smoke config is JAX's; every other name raises."""
-    assert ARCH_IDS == ["qwen2_vl_2b", "deepseek_7b", "mistral_nemo_12b",
-                        "stablelm_3b", "tinyllama_1_1b"]
+    assert ARCH_IDS == ["qwen2_vl_2b", "llama4_scout_17b_a16e", "deepseek_7b",
+                        "mistral_nemo_12b", "stablelm_3b", "tinyllama_1_1b",
+                        "whisper_base"]
     assert ARCH_IDS == [a for a in JARCH_IDS if a in ARCH_IDS]
     for arch in ARCH_IDS:
         assert (dataclasses.asdict(get_config(arch))
@@ -451,11 +456,11 @@ def test_train_kind_and_other_families_raise():
     cfg = get_smoke_config(ARCH)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         registry.make_step(cfg, SHAPES["train_4k"], device="cpu")
-    moe = dataclasses.replace(cfg, family="moe")
+    rwkv = dataclasses.replace(cfg, family="rwkv6")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.Transformer(moe, device="cpu")
+        M.Transformer(rwkv, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        D.init_cache(moe, 1, 4, device="cpu")
+        D.init_cache(rwkv, 1, 4, device="cpu")
 
 
 def test_device_none_means_cuda_and_raises_without_a_card():
