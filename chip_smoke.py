@@ -106,9 +106,12 @@ Phases (each raises on failure; nothing is caught):
      Sk 1,500; Scout's causal prefill B 4, S 4096, H 40 / KV 8 / hd 128;
      the plain version with chunks that divide the lengths,
      ``plain_attention``),
-     and in float32 at StableLM-3B's float32 prefill shape (B 1, S 4096,
-     H 32 / KV 32 / hd 80): the kernel within 2e-5 of the plain version
-     and of the float64 function, timed beside both.
+     and at Zamba2-7B's windowed prefill shape (B 2, S 8,192, H 32 / KV
+     32, hd 112, causal, window 4,096; SDPA, which has no window
+     argument, over a boolean band mask), and in float32 at StableLM-3B's
+     float32 prefill shape (B 1, S 4096, H 32 / KV 32 / hd 80): the kernel
+     within 2e-5 of the plain version and of the float64 function, timed
+     beside both.
   5. The serving path at full width: TinyLlama-1.1B (22 layers, bf16,
      random weights from a seeded generator) through
      ``registry.make_step``.  Prefill of 4 x 4096 tokens (tokens/s, the
@@ -170,6 +173,28 @@ Phases (each raises on failure; nothing is caught):
      where nothing drops (``moe_teacher_forced``; at the served capacity
      a decode step and the request prefill drop different tokens, and
      those numbers are reported).
+  5e. RWKV-6-3B and Zamba2-7B at full width (``run_5e``, after 5d), bf16,
+     random weights drawn on the card, each through ``serve_model``.
+     Zamba2 (81 Mamba-2 layers, the shared attention + SwiGLU block before
+     each of 13 groups of 6, window 4,096, MHA 32 at hd 112): prefill 2 x
+     8,192 (``prefill_shape``), exactly 13 windowed bf16 launches a call,
+     each held against the plain version on its q, k, v within 3e-2
+     (``windowed_calls_vs_plain``), logits vs plain attention within
+     PREFILL_TOL or the float64 gate; the requests' prefill 13 launches;
+     its teacher-forced check
+     (``hybrid_teacher_forced``): the bf16 figures reported, the gate the
+     float32 model at full width cut to HYBRID_F32_LAYERS layers on a
+     float32 cache.  RWKV-6 (32 layers, d 2,560, H 40, hd 64; no
+     attention, 0 launches on every route): one warm-up and one timed
+     prefill of 4 x 4096 (a per-token loop), its device profile over
+     RWKV_PROFILE.  Both: 8 requests of 32 + 8 tokens, long_500k uncut
+     (``decode_long``: a 524,288-position cache, 32 steps at its last
+     positions, ms per step, its bytes equal to a 4,096-position
+     cache's), tokens/s, peak memory.  Then the float32 card-vs-CPU check
+     (``check_subq_card_vs_cpu``: narrow variants at the models' head dims,
+     prefill, 100 decode steps past the hybrid's ring, the caches; within
+     1e-4 / 1e-3 or twice what half a float32 ulp of noise moves the CPU
+     run, ``half_ulp_noise``).
   6. The placement service (``run_service``; after phase 4c).  (a) The
      full-scale trace as a request stream (8,604 requests, 8,063
      arrivals) through ``PlacementService.for_trace`` at micro-batches of
@@ -195,9 +220,9 @@ Phases (each raises on failure; nothing is caught):
      service's launches, ``service_launches``; every mask kernel's row
      its launches on the sharded path, ``sharded_launches``; the
      attention rows their launches and head dim per serving path,
-     phases 5, 5c and 5d, the head dims phase 2b checked and, for bf16,
-     the times at each phase 5c model's prefill shape and phase 5d's
-     attention shapes), the card line again, and
+     phases 5, 5c, 5d and 5e, the head dims phase 2b checked and, for
+     bf16, the times at each phase 5c model's prefill shape, phase 5d's
+     attention shapes and Zamba2's), the card line again, and
      as its last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is present, or when
@@ -338,6 +363,37 @@ WHISPER_B, WHISPER_FRAMES, WHISPER_TOKENS = 8, 1500, 448
 WHISPER_PROMPT, WHISPER_GEN = 32, 8
 SCOUT = "llama4_scout_17b_a16e"
 SCOUT_LAYERS = 8
+# Phase 5e: the sub-quadratic models at full width, in this order.  A
+# windowed model prefills prefill_shape(cfg): Zamba2-7B 2 x 8,192, the same
+# tokens per call, since at S 4,096 its 4,096-key window masks nothing.
+# RWKV-6's prefill is a per-token loop, host-bound (~20 s a 4 x 4096 call
+# on the H100 machine's host): one timed call after a warm-up over
+# RWKV_WARMUP tokens (the loop's shapes are the same at any S), its device
+# profile over RWKV_PROFILE (B, S) tokens (the profiler's cost grows with
+# the loop's ~8 events a token and layer).  long_500k runs
+# uncut: LONG_PROMPT tokens decoded at the cell's last positions.  The
+# hybrid's teacher-forced check is gated on its float32 model at full width
+# cut to HYBRID_F32_LAYERS layers (one group of 6 and the 2 left over; the
+# module's docstring, 5e).  Card vs CPU: SUBQ_SMALL's float32 models, a
+# prefill of 2 x SUBQ_SMALL_S and SUBQ_SMALL_STEPS decode steps (past the
+# hybrid's 64-slot ring), each output within CARD_CPU_TOL of the CPU's or,
+# where more, within NOISE_FACTOR times what half a float32 ulp of noise at
+# every block's input moves it on the CPU (``half_ulp_noise``): the
+# hybrid at the reference's init amplifies any rounding difference (noise
+# on its attention outputs alone moves a prefill's logits by 4e-4).
+ZAMBA2, RWKV6 = "zamba2_7b", "rwkv6_3b"
+RWKV_WARMUP, RWKV_PROFILE = (PREFILL_B, 64), (1, 256)
+LONG_PROMPT = 32
+HYBRID_F32_LAYERS = 8
+SUBQ_SMALL = {
+    RWKV6: dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=4, d_ff=512,
+                vocab=512, ssm=dict(head_dim=64)),
+    ZAMBA2: dict(n_layers=5, d_model=224, n_heads=2, n_kv_heads=2, d_ff=448,
+                 vocab=512, shared_attn_period=2, sliding_window=64,
+                 ssm=dict(d_state=64, head_dim=64, expand=2, chunk=128)),
+}
+SUBQ_SMALL_S, SUBQ_SMALL_STEPS = 256, 100
+CARD_CPU_TOL, NOISE_FACTOR = (1e-4, 1e-3), 2.0
 # Its teacher-forced check (``moe_teacher_forced``): the least share of
 # decode's own routes that must be prefill's, far above a wrong router's
 # 1 / 16.
@@ -1851,44 +1907,83 @@ def f32_vs_f64(torch, got, q, k, v, where):
     return vs_f64
 
 
-def attention_timings(torch, q, k, v, plain_iters, causal=True):
+def attention_timings(torch, q, k, v, plain_iters, causal=True,
+                      window=None):
     """Attention on q, k, v: ms per call of the kernel's wrapper, of the
     plain version and of scaled_dot_product_attention (the yardstick; the
-    port never calls it), CUDA events after a warm-up, with the bound
-    (the pairs the mask keeps: ``attention_pairs``)."""
+    port never calls it; with a window, which it has no argument for, over
+    a boolean band mask, ``band_mask``), CUDA events after a warm-up, with
+    the bound (the pairs the mask keeps: ``attention_pairs``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     B, S, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     tname = str(q.dtype).split(".")[-1]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    b_ms, b_by = attention_bound_ms(B, S, Sk, H, KV, hd, causal, None,
+    b_ms, b_by = attention_bound_ms(B, S, Sk, H, KV, hd, causal, window,
                                     tname)
     shape = dict(B=B, S=S, H=H, KV=KV, hd=hd, dtype=tname, causal=causal)
     if Sk != S:
         shape["Sk"] = Sk
+    if window:
+        shape["window"] = window
+        mask = band_mask(torch, S, Sk, window, q.device)
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    else:
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
     return dict(
-        ms=event_ms(torch, lambda: FA.flash_attention(q, k, v,
-                                                      causal=causal), 10),
-        plain_ms=event_ms(torch, lambda: plain_attention(q, k, v, causal),
+        ms=event_ms(torch, lambda: FA.flash_attention(
+            q, k, v, causal=causal, window=window), 10),
+        plain_ms=event_ms(torch, lambda: plain_attention(q, k, v, causal,
+                                                         window),
                           plain_iters),
-        library_ms=event_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=True), 10),
+        library_ms=event_ms(torch, library, 10),
         bound_ms=b_ms, bound_by=b_by, shape=shape)
 
 
+def band_mask(torch, Sq, Sk, window, device):
+    """The causal sliding window as a boolean (Sq, Sk) mask, True where a
+    query sees a key: kpos <= qpos and kpos > qpos - window."""
+    qpos = torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Sk, device=device)[None, :]
+    return (kpos <= qpos) & (kpos > qpos - window)
+
+
+def prefill_shape(cfg):
+    """(B, S) of a model's prefill on the card: PREFILL_B x PREFILL_S; for
+    a model with a sliding window, S twice the window at the same tokens
+    per call (a window as long as S would mask nothing)."""
+    if not cfg.sliding_window:
+        return PREFILL_B, PREFILL_S
+    S = 2 * cfg.sliding_window
+    return PREFILL_B * PREFILL_S // S, S
+
+
+def attention_calls(cfg):
+    """Attention calls (kernel launches on the card) per forward pass: one
+    per layer; the hybrid's shared block once per group; none for RWKV."""
+    if cfg.family == "rwkv6":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_period
+    return cfg.n_layers
+
+
 def zoo_attention_shape(cfg):
-    """(B, S, H, KV, hd) of a model's prefill attention at the slice's
-    prefill shape."""
-    return (PREFILL_B, PREFILL_S, cfg.n_heads, cfg.n_kv_heads,
+    """(B, S, H, KV, hd) of a model's prefill attention at its prefill
+    shape (``prefill_shape``)."""
+    return (*prefill_shape(cfg), cfg.n_heads, cfg.n_kv_heads,
             cfg.resolved_head_dim)
 
 
 def time_zoo_attention(torch, err):
     """Phase 2b at each phase 5c model's prefill shape (B 4, S 4096, its
-    heads) and at phase 5d's attention shapes (``MODEL_ATTN_SHAPES``),
-    bf16: the kernel held against the plain version (``hold_attention``,
-    folded into ``err``), then ``attention_timings``.
+    heads), at phase 5d's attention shapes (``MODEL_ATTN_SHAPES``) and at
+    Zamba2-7B's windowed prefill shape (B 2, S 8,192, H 32 / KV 32, hd 112,
+    window 4,096), bf16: the kernel held against the plain version
+    (``hold_attention``, folded into ``err``), then ``attention_timings``.
     Then ZOO_F32's float32 prefill shape (F32_PREFILL_B x PREFILL_S): the
     float32 kernel held against the plain version within ATTN_TOL and
     against the float64 function (``f32_vs_f64``), and timed.  Returns
@@ -1896,16 +1991,20 @@ def time_zoo_attention(torch, err):
     timings})."""
     from repro_torch.configs import get_config
     out = {}
-    for arch in ZOO:
-        B, S, H, KV, hd = zoo_attention_shape(get_config(arch))
+    for arch in ZOO + (ZAMBA2,):
+        cfg = get_config(arch)
+        B, S, H, KV, hd = zoo_attention_shape(cfg)
+        window = cfg.sliding_window
         q, k, v = _qkv(torch, B, S, S, H, KV, hd, torch.bfloat16, seed=2)
-        got = attention_on_its_route(torch, q, k, v)
-        hold_attention(torch, f"{arch} prefill", got, q, k, v, True, None,
+        got = attention_on_its_route(torch, q, k, v, window=window)
+        hold_attention(torch, f"{arch} prefill", got, q, k, v, True, window,
                        err)
         del got
-        t = out[arch] = attention_timings(torch, q, k, v, plain_iters=2)
+        t = out[arch] = attention_timings(torch, q, k, v, plain_iters=2,
+                                          window=window)
         print(f"phase 2b: attention at {arch}'s prefill shape B {B} S {S} "
-              f"H {H} KV {KV} hd {hd} bfloat16 causal: kernel "
+              f"H {H} KV {KV} hd {hd} window {window} bfloat16 causal: "
+              f"kernel "
               f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA "
               f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']}); max abs diff {err}", flush=True)
@@ -2148,31 +2247,33 @@ def init_on_card(torch, cfg, what):
 
 
 def prefill_step(torch, cfg):
-    """The prefill cell, PREFILL_B x PREFILL_S, through registry.make_step:
-    (inputs(gen) -> a batch of tokens, or of bf16 frames for an encoder-
-    decoder; run(model, batch) -> the last position's logits)."""
+    """The prefill cell at ``prefill_shape(cfg)`` (B x S) through
+    registry.make_step: (inputs(gen) -> a batch of tokens, or of bf16
+    frames for an encoder-decoder; run(model, batch) -> the last position's
+    logits)."""
     from repro_torch.models import registry
     from repro_torch.models.config import ShapeConfig
-    run = registry.make_step(cfg, ShapeConfig("prefill_4k", PREFILL_S,
-                                              PREFILL_B, "prefill"))
+    B, S = prefill_shape(cfg)
+    run = registry.make_step(cfg, ShapeConfig(f"prefill_{S}", S, B,
+                                              "prefill"))
 
     def inputs(gen):
         if cfg.family == "encdec":
             return {"frames": torch.randn(
-                (PREFILL_B, PREFILL_S, cfg.d_model), generator=gen,
+                (B, S, cfg.d_model), generator=gen,
                 device="cuda").to(torch.bfloat16)}
-        return {"tokens": torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
-                                        generator=gen, device="cuda")}
+        return {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                        device="cuda")}
     return inputs, run
 
 
 def recording_attention(calls):
-    """The kernel's wrapper, appending each call's (causal, Sq, Sk) to
-    ``calls``."""
+    """The kernel's wrapper, appending each call's (causal, Sq, Sk, window)
+    to ``calls``."""
     from repro_torch.kernels import flash_attention as FA
 
     def attend(q, k, v, causal=True, window=None):
-        calls.append((causal, q.shape[1], k.shape[1]))
+        calls.append((causal, q.shape[1], k.shape[1], window))
         return FA.flash_attention(q, k, v, causal=causal, window=window)
     return attend
 
@@ -2216,10 +2317,11 @@ class ServedPath:
 
 def decoder(torch, decode, model, cache):
     """Decoding through make_step's ``decode`` on ``cache`` (filled in
-    place): step(tokens (B, 1), t) -> the logits (B, 1, V) at position t;
-    generate(logits, t, n) -> the last logits of n greedy steps from
-    position t on, the first fed with ``logits``' argmax."""
-    B = cache["k"].shape[1]
+    place, or its entries replaced): step(tokens (B, 1), t) -> the logits
+    (B, 1, V) at position t; generate(logits, t, n) -> the last logits of n
+    greedy steps from position t on, the first fed with ``logits``'
+    argmax.  Every family's cache holds the batch at dim 1."""
+    B = next(iter(cache.values())).shape[1]
 
     def step(tokens, t):
         return decode(model, {"cache": cache, "tokens": tokens, "pos":
@@ -2374,24 +2476,28 @@ def moe_teacher_forced(torch, model, cfg, prompts):
 
 
 def serve_model(torch, cfg, *, n_prefill, prompt, gen, profile_steps, what,
-                f64_gate=False, inspect=None):
+                f64_gate=False, inspect=None, profile_batch=None,
+                warmup_batch=None):
     """One model at full width in bf16 (``init_on_card``) through
     registry.make_step, its path counted from 0 in parts (``ServedPath``):
-    ``n_prefill`` timed prefills of PREFILL_B x PREFILL_S tokens
-    (``n_layers`` causal launches a call), then N_REQ requests of
-    ``prompt``-token prompts (first token from prefill, ``n_layers``
-    launches; the cache filled by decode_step over the prompt, no launch)
-    and ``gen`` greedy tokens.  Holds the teacher-forced decode's last
-    logits within 0.15 of the request prefill's (an MoE model with
-    prefill's routes at a capacity where nothing drops,
-    ``moe_teacher_forced``; the served capacity's numbers are reported)
-    and prefill's logits against the same
-    prefill with the plain attention (``hold_vs_plain``, with the float64
-    gate when ``f64_gate``).  Reports tokens/s, the attention kernel's
-    share of prefill's device time and prefill's costliest device
-    operations, a profile of ``profile_steps`` decode steps and the peak
-    device memory, as one JSON line under ``what``; ``inspect(model,
-    batch)`` adds to the result.  Returns (launches, result)."""
+    ``n_prefill`` timed prefills at ``prefill_shape(cfg)``
+    (``attention_calls(cfg)`` causal launches a call, with the config's
+    window), then N_REQ requests of ``prompt``-token prompts (first token
+    from prefill, as many launches; the cache filled by decode_step over
+    the prompt, no launch) and ``gen`` greedy tokens.  Holds the
+    teacher-forced decode's last logits within 0.15 of the request
+    prefill's (an MoE model with prefill's routes at a capacity where
+    nothing drops, ``moe_teacher_forced``, the served capacity's numbers
+    reported; the hybrid through ``hybrid_teacher_forced``) and, for a
+    model with attention, prefill's logits against the same prefill with
+    the plain attention (``hold_vs_plain``, with the float64 gate when
+    ``f64_gate``).  Reports tokens/s, the attention kernel's share of
+    prefill's device time and prefill's costliest device operations (over
+    a prefill of ``profile_batch`` (B, S) tokens where given), a profile of
+    ``profile_steps`` decode steps and the peak device memory, as one JSON
+    line under ``what``; ``inspect(model, batch)`` adds to the result.  The
+    warm-up prefill runs over ``warmup_batch`` (B, S) tokens where given,
+    else over the cell's.  Returns (launches, result)."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.models import registry
     from repro_torch.models.config import ShapeConfig
@@ -2403,7 +2509,9 @@ def serve_model(torch, cfg, *, n_prefill, prompt, gen, profile_steps, what,
     batch = inputs(rng)
     prompts = torch.randint(0, cfg.vocab, (N_REQ, prompt), generator=rng,
                             device="cuda")
-    prefill(model, batch)                                # warm-up
+    prefill(model, batch if warmup_batch is None else {      # warm-up
+        "tokens": torch.randint(0, cfg.vocab, warmup_batch, generator=rng,
+                                device="cuda")})
     torch.cuda.synchronize()
     cache = D.init_cache(cfg, N_REQ, MAX_SEQ)
     step, generate = decoder(torch, decode, model, cache)
@@ -2421,24 +2529,34 @@ def serve_model(torch, cfg, *, n_prefill, prompt, gen, profile_steps, what,
     launches = dict(FA.LAUNCHES)
     # -- end of this model's path ---------------------------------------------
     L, V = cfg.n_layers, cfg.vocab
+    (B_p, S_p), n_attn = prefill_shape(cfg), attention_calls(cfg)
+    w = cfg.sliding_window
     path.expect(cfg, {
-        "prefill": [(True, PREFILL_S, PREFILL_S)] * (n_prefill * L),
-        "request prefill": [(True, prompt, prompt)] * L,
+        "prefill": [(True, S_p, S_p, w)] * (n_prefill * n_attn),
+        "request prefill": [(True, prompt, prompt, w)] * n_attn,
         "prompt": [], "decode": []})
-    check_logits(torch, cfg, (("prefill", logits, (PREFILL_B, 1, V)),
+    check_logits(torch, cfg, (("prefill", logits, (B_p, 1, V)),
                               ("request prefill", first, (N_REQ, 1, V)),
                               ("decode", out, (N_REQ, 1, V))))
-    if cfg.moe is None:
-        teacher = hold_teacher_forced(torch, cfg, "requests", last, first)
-    else:
+    if cfg.moe is not None:
         teacher = moe_teacher_forced(torch, model, cfg, prompts)
         teacher["served_capacity"] = dict(zip(
             ("relative_l2", "max_over_scale"),
             _rel_errors(torch, last, first)))
-    with attention_as(plain_attention):
-        vs_plain = _rel_errors(torch, logits, prefill(model, batch))
+    elif cfg.family == "hybrid":
+        teacher = hybrid_teacher_forced(torch, cfg, last, first, prompts)
+    else:
+        teacher = hold_teacher_forced(torch, cfg, "requests", last, first)
+    vs_plain = None
+    if n_attn:
+        with attention_as(plain_attention):
+            vs_plain = _rel_errors(torch, logits, prefill(model, batch))
+    profiled = batch if profile_batch is None else {"tokens": torch.randint(
+        0, V, profile_batch, generator=rng, device="cuda")}
     profile = device_profile(torch, f"{cfg.name}'s prefill", prefill, model,
-                             batch)
+                             profiled)
+    if profile_batch is not None:
+        profile["profiled_batch"] = list(profile_batch)
     nxt = out.argmax(-1)
     decode_profile = profile_decode(
         torch, lambda i: step(nxt, prompt + gen + i), n=profile_steps)
@@ -2452,12 +2570,11 @@ def serve_model(torch, cfg, *, n_prefill, prompt, gen, profile_steps, what,
         "layers": L, "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
         "head_dim": cfg.resolved_head_dim,
         "init_s": init_s, "peak_device_bytes": peak,
-        "prefill": {"batch": PREFILL_B, "seq": PREFILL_S,
+        "prefill": {"batch": B_p, "seq": S_p,
                     "wall_s": wall["prefill"] / n_prefill,
-                    "tokens_per_s": n_prefill * PREFILL_B * PREFILL_S
-                    / wall["prefill"],
-                    **profile, "launches_per_call": L,
-                    "vs_plain_attention": hold_vs_plain(
+                    "tokens_per_s": n_prefill * B_p * S_p / wall["prefill"],
+                    **profile, "launches_per_call": n_attn, "window": w,
+                    "vs_plain_attention": vs_plain and hold_vs_plain(
                         torch, cfg, what, vs_plain,
                         (inputs, prefill) if f64_gate else None)},
         "requests": {"n": N_REQ, "prompt": prompt, "generated": gen,
@@ -2471,6 +2588,61 @@ def serve_model(torch, cfg, *, n_prefill, prompt, gen, profile_steps, what,
     }
     print(json.dumps({what: result}), flush=True)
     return launches, result
+
+
+def hybrid_teacher_forced(torch, cfg, last, first, prompts):
+    """The hybrid's teacher-forced check.  In bf16 its two forms (the
+    chunked scan in prefill, the recurrent step in decode) part by rounding
+    that the reference's init amplifies: JAX's own bf16 forms part beyond
+    0.15 on a 5-layer variant (tests/test_torch_subquadratic.py).  So the
+    served bf16 model's figures (``last`` vs ``first``) are reported, and
+    the gate is the float32 model at full width cut to HYBRID_F32_LAYERS
+    layers (one group and the layers left over), on a float32 cache (the
+    reference's bf16 rings round a float32 model's keys in decode, not in
+    prefill): decode_step over ``prompts``, its last logits within 0.15 of
+    prefill's (``hold_teacher_forced``).  Also reported: its layer 0's
+    scan against its steps over the prompts, in float32."""
+    from repro_torch.models import layers as L, ssm as S
+    from repro_torch.models import transformer as M
+    from repro_torch.serve import llm_decode as D
+    rel, elem = _rel_errors(torch, last, first)
+    bf16 = {"relative_l2": rel, "max_over_scale": elem,
+            "within_0.15": torch.allclose(last.float(), first.float(),
+                                          rtol=0.15, atol=0.15),
+            "argmax_agreement": (last.argmax(-1) == first.argmax(-1))
+            .float().mean().item()}
+    small = cfg.scaled(n_layers=HYBRID_F32_LAYERS)
+    model = M.init_params(small, torch.Generator(device="cuda").manual_seed(1),
+                          torch.float32)
+    B, T = prompts.shape
+    with torch.inference_mode():
+        want = D.prefill(model, prompts, small, MAX_SEQ)
+        cache = {k: v.float() for k, v in D.init_cache(
+            small, B, MAX_SEQ).items()}
+        for t in range(T):
+            got, cache = D.decode_step(
+                model, cache, prompts[:, t:t + 1],
+                torch.full((B,), t, dtype=torch.int32, device="cuda"), small)
+        layer = model.layers[0]
+        h = L.rmsnorm(layer.ln1.scale, model.embedding[prompts])
+        scan = S.mamba2_scan(layer.mamba, h, small)
+        st, steps = S.mamba2_init_state(small, B, h.device), []
+        for t in range(T):
+            y, st = S.mamba2_step(layer.mamba, h[:, t:t + 1], st, small)
+            steps.append(y)
+        layer0 = _rel_errors(torch, torch.cat(steps, dim=1), scan)
+    f32 = hold_teacher_forced(torch, small, f"float32, {HYBRID_F32_LAYERS} "
+                              f"layers", got, want)
+    del model, cache
+    torch.cuda.empty_cache()
+    print(f"phase 5e: {cfg.name} teacher-forced decode vs prefill: bf16 "
+          f"{rel:.4g} / {elem:.4g} (within 0.15: {bf16['within_0.15']}); "
+          f"float32 at {HYBRID_F32_LAYERS} layers {f32['relative_l2']:.4g} / "
+          f"{f32['max_over_scale']:.4g}; layer 0 scan vs steps "
+          f"{layer0[0]:.3g}", flush=True)
+    return {"bf16": bf16, "float32": {"layers": HYBRID_F32_LAYERS, **f32},
+            "float32_layer0_scan_vs_steps": dict(zip(
+                ("relative_l2", "max_over_scale"), layer0))}
 
 
 def run_serving(torch):
@@ -2747,10 +2919,11 @@ def serve_whisper(torch, n_prefill=2):
     # -- end of this model's path ---------------------------------------------
     L_enc, L_dec, V = cfg.n_enc_layers, cfg.n_layers, cfg.vocab
     path.expect(cfg, {
-        "prefill": [(False, PREFILL_S, PREFILL_S)] * (n_prefill * L_enc),
-        "encode": [(False, WHISPER_FRAMES, WHISPER_FRAMES)] * L_enc,
-        "forward": [(True, WHISPER_TOKENS, WHISPER_TOKENS),
-                    (False, WHISPER_TOKENS, WHISPER_FRAMES)] * L_dec,
+        "prefill": [(False, PREFILL_S, PREFILL_S, None)] * (n_prefill
+                                                            * L_enc),
+        "encode": [(False, WHISPER_FRAMES, WHISPER_FRAMES, None)] * L_enc,
+        "forward": [(True, WHISPER_TOKENS, WHISPER_TOKENS, None),
+                    (False, WHISPER_TOKENS, WHISPER_FRAMES, None)] * L_dec,
         "prompt": [], "decode": []})
     check_logits(torch, cfg, (
         ("prefill", logits_a, (PREFILL_B, 1, V)),
@@ -2858,6 +3031,212 @@ def run_5d(torch):
     return launches, {WHISPER: whisper, SCOUT: scout}
 
 
+# ---------------------------------------------------------------------------
+# Phase 5e: RWKV-6-3B and Zamba2-7B at full width, long_500k uncut
+# ---------------------------------------------------------------------------
+
+def cache_bytes(cache):
+    return sum(v.numel() * v.element_size() for v in cache.values())
+
+
+def decode_long(torch, cfg, model, n=LONG_PROMPT):
+    """long_500k uncut through make_step's decode: ``init_cache(cfg, 1,
+    524288)``, ``n`` prompt tokens decoded at the cell's last positions
+    (524,288 - n to 524,287; the slots never written stay zero, as in
+    JAX's init).  The cache's bytes must equal a 4,096-position cache's
+    (the state does not grow with the context), before and after.  Returns
+    {"long_500k": ms per step, bytes, positions}."""
+    from repro_torch.models import registry
+    from repro_torch.models.config import SHAPES
+    from repro_torch.serve import llm_decode as D
+    shape = SHAPES["long_500k"]
+    B, S = shape.global_batch, shape.seq_len
+    cache = D.init_cache(cfg, B, S)
+    small = cache_bytes(D.init_cache(cfg, B, 4096, device="meta"))
+    at_init = cache_bytes(cache)
+    step, _ = decoder(torch, registry.make_step(cfg, shape), model, cache)
+    tokens = torch.randint(0, cfg.vocab, (B, n), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(2))
+    pos0 = S - n
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        logits = step(tokens[:, i:i + 1], pos0 + i)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    check_logits(torch, cfg, (("long_500k decode", logits,
+                               (B, 1, cfg.vocab)),))
+    after = cache_bytes(cache)
+    if not at_init == after == small:
+        raise AssertionError(f"{cfg.name} long_500k cache: {at_init} bytes "
+                             f"at init, {after} after {n} steps; a 4,096-"
+                             f"position cache holds {small}")
+    print(f"phase 5e: {cfg.name} long_500k: {n} steps at positions {pos0}-"
+          f"{S - 1}, {ms:.3f} ms per step, cache {after} bytes (== at 4,096 "
+          f"positions)", flush=True)
+    return {"long_500k": {"seq_len": S, "batch": B, "steps": n,
+                          "positions": [pos0, S - 1], "ms_per_step": ms,
+                          "cache_bytes": after,
+                          "cache_bytes_at_4096": small,
+                          "cache_shapes": {k: list(v.shape)
+                                           for k, v in cache.items()}}}
+
+
+def subq_small_config(arch):
+    """``arch``'s config cut to SUBQ_SMALL[arch] (tests/
+    test_torch_subquadratic.py's variants at the models' head dims)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import SSMConfig
+    kw = dict(SUBQ_SMALL[arch])
+    return get_config(arch).scaled(ssm=SSMConfig(**kw.pop("ssm")), **kw)
+
+
+@contextlib.contextmanager
+def half_ulp_noise(torch, seed=0):
+    """Within the block every RMSNorm output (each block's input, and the
+    final norm's) is multiplied by 1 + 2^-24 n, n standard normal from a
+    CPU generator seeded ``seed``: half a float32 ulp of noise, less than
+    any two float32 summation orders differ by."""
+    from repro_torch.models import layers as L
+    saved = L.rmsnorm
+    gen = torch.Generator().manual_seed(seed)
+
+    def noisy(scale, x, eps=1e-6):
+        out = saved(scale, x, eps)
+        n = torch.randn(out.shape, generator=gen).to(out.device)
+        return out * (1 + 2.0 ** -24 * n)
+    L.rmsnorm = noisy
+    try:
+        yield
+    finally:
+        L.rmsnorm = saved
+
+
+def subq_card_vs_cpu(torch, arch):
+    """SUBQ_SMALL[arch]'s float32 model on the card and on the CPU (the
+    same weights, from a CPU generator): prefill of 2 x SUBQ_SMALL_S
+    tokens, then SUBQ_SMALL_STEPS decode steps on a float32 cache (the
+    hybrid's 64-slot rings wrap), and the cache after.  Each output must
+    lie within CARD_CPU_TOL (relative L2, max over scale) of the CPU's or,
+    where larger, NOISE_FACTOR times the distance the CPU run moves under
+    ``half_ulp_noise``.  Returns {output: {card, noise, bound}}."""
+    from repro_torch.models import transformer as M
+    from repro_torch.serve import llm_decode as D
+    cfg = subq_small_config(arch)
+    gen = torch.Generator().manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab, (2, SUBQ_SMALL_S), generator=gen)
+    nxt = torch.randint(0, cfg.vocab, (2, SUBQ_SMALL_STEPS), generator=gen)
+
+    def run(dev):
+        model = M.init_params(cfg, torch.Generator().manual_seed(3),
+                              torch.float32, device=dev)
+        cache = {k: v.float() for k, v in D.init_cache(
+            cfg, 2, SUBQ_SMALL_S, device=dev).items()}
+        steps = []
+        for t in range(SUBQ_SMALL_STEPS):
+            logits, cache = D.decode_step(
+                model, cache, nxt[:, t:t + 1].to(dev),
+                torch.full((2,), t, dtype=torch.int32, device=dev), cfg)
+            steps.append(logits)
+        return {"prefill": D.prefill(model, tokens.to(dev), cfg,
+                                     SUBQ_SMALL_S),
+                "decode": torch.cat(steps, dim=1),
+                **{f"cache {k}": v.cpu() for k, v in cache.items()}}
+    cpu, card = run("cpu"), run("cuda")
+    with half_ulp_noise(torch):
+        noise = run("cpu")
+    out = {}
+    for name, want in cpu.items():
+        got = _rel_errors(torch, card[name].cpu(), want)
+        yard = _rel_errors(torch, noise[name], want)
+        bound = tuple(max(t, NOISE_FACTOR * y)
+                      for t, y in zip(CARD_CPU_TOL, yard))
+        out[name] = {"card": got, "noise": yard, "bound": bound}
+        if not (got[0] <= bound[0] and got[1] <= bound[1]):
+            raise AssertionError(f"{cfg.name} float32 {name}: card != CPU "
+                                 f"(relative L2, max {got}; bound {bound}, "
+                                 f"half an ulp of noise {yard})")
+    return out
+
+
+def check_subq_card_vs_cpu(torch):
+    """Phase 5e: ``subq_card_vs_cpu`` for RWKV-6 (2 layers, hd 64) and the
+    hybrid (5 layers of period 2, window 64, attention hd 112).  Returns
+    {arch: its result}."""
+    out = {}
+    for arch in (RWKV6, ZAMBA2):
+        res = out[arch] = subq_card_vs_cpu(torch, arch)
+        worst = max(r["card"] for r in res.values())
+        noise = max(r["noise"] for r in res.values())
+        print(f"phase 5e: {arch} float32 narrow variant, prefill, "
+              f"{SUBQ_SMALL_STEPS} decode steps and cache: card == CPU "
+              f"(worst relative L2 / max {worst[0]:.3g} / {worst[1]:.3g}; "
+              f"half an ulp of noise moves the CPU's {noise[0]:.3g} / "
+              f"{noise[1]:.3g})", flush=True)
+    return out
+
+
+def windowed_calls_vs_plain(torch, cfg, model, batch):
+    """Each windowed attention call of one served prefill (Zamba2: 13),
+    the kernel held against the plain version on the same q, k, v within
+    ATTN_TOL (``hold_attention``'s first test; a model's near-tied rows
+    are not within half an ulp, phase 5b).  Returns {"windowed_calls":
+    the largest abs difference, the calls}; {} for a model without a
+    window."""
+    from repro_torch.kernels import flash_attention as FA
+    if not cfg.sliding_window:
+        return {}
+    diffs = []
+
+    def watch(q, k, v, causal=True, window=None):
+        got = FA.flash_attention(q, k, v, causal=causal, window=window)
+        want = plain_attention(q, k, v, causal, window)
+        diffs.append((got.float() - want.float()).abs().max().item())
+        tol = ATTN_TOL["bfloat16"]
+        if not torch.allclose(got.float(), want.float(), rtol=tol,
+                              atol=tol):
+            raise AssertionError(f"{cfg.name}: windowed call {len(diffs)}, "
+                                 f"kernel != plain (max {diffs[-1]})")
+        return got
+    with torch.inference_mode(), attention_as(watch):
+        prefill_step(torch, cfg)[1](model, batch)
+    if len(diffs) != attention_calls(cfg):
+        raise AssertionError(f"{cfg.name}: {len(diffs)} attention calls")
+    print(f"phase 5e: {cfg.name} prefill's {len(diffs)} windowed calls: "
+          f"kernel == plain (max abs diff {max(diffs):.4g})", flush=True)
+    return {"windowed_calls": {"n": len(diffs), "max_abs_diff": max(diffs)}}
+
+
+def run_5e(torch):
+    """Phase 5e: Zamba2-7B, then RWKV-6-3B, each at full width in bf16
+    through ``serve_model`` (Zamba2 with the float64 gate; RWKV's prefill
+    one warm-up and one timed call, profiled over RWKV_PROFILE), each with
+    long_500k uncut (``decode_long``); then ``check_subq_card_vs_cpu``.
+    Returns ({model: launches}, {model: result})."""
+    from repro_torch.configs import get_config
+    launches, results = {}, {}
+    for arch in (ZAMBA2, RWKV6):
+        t = time.perf_counter()
+        cfg = get_config(arch)
+        rwkv = cfg.family == "rwkv6"
+        launches[arch], results[arch] = serve_model(
+            torch, cfg, n_prefill=1 if rwkv else 2, prompt=ZOO_PROMPT,
+            gen=ZOO_GEN, profile_steps=2, what="subquadratic_serving",
+            f64_gate=not rwkv, profile_batch=RWKV_PROFILE if rwkv else None,
+            warmup_batch=RWKV_WARMUP if rwkv else None,
+            inspect=lambda model, batch, cfg=cfg: {
+                **decode_long(torch, cfg, model),
+                **windowed_calls_vs_plain(torch, cfg, model, batch)})
+        print(f"phase 5e: {arch} took {time.perf_counter() - t:.1f} s",
+              flush=True)
+    t = time.perf_counter()
+    results["card_vs_cpu"] = check_subq_card_vs_cpu(torch)
+    print(f"phase 5e: float32 card vs CPU took "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    return launches, results
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2899,6 +3278,7 @@ def main() -> int:
     timed_phase("phase 5b", attention_accuracy, torch)
     zoo_launches, _ = timed_phase("phase 5c", run_zoo, torch)
     launches_5d, _ = timed_phase("phase 5d", run_5d, torch)
+    launches_5e, _ = timed_phase("phase 5e", run_5e, torch)
 
     rows = []
     floor = timing["launch_floor"]
@@ -2926,14 +3306,16 @@ def main() -> int:
         rows[-1]["sharded_launches"] = sharded_launches.get(name, 0)
     # Attention: each kernel's launches on the serving paths that reach it,
     # each path counted from 0 (phase 5 TinyLlama, phase 5c the zoo, phase
-    # 5d Whisper's prefill / encode / forward and Scout), with the head dim
-    # it runs there; the head dims phase 2b held against the plain version;
-    # times at TinyLlama's prefill shape, and at each phase 5c / 5d model's
-    # that runs the kernel (``at_model_prefill_shapes``).
+    # 5d Whisper's prefill / encode / forward and Scout, phase 5e Zamba2 and
+    # RWKV-6, which launches none), with the head dim it runs there; the
+    # head dims phase 2b held against the plain version; times at
+    # TinyLlama's prefill shape, and at each phase 5c / 5d / 5e model's that
+    # runs the kernel (``at_model_prefill_shapes``).
     from repro_torch.configs import get_config
     bf16_paths = {ARCH: fa_launches}
     bf16_paths.update({a: zoo_launches[a] for a in ZOO})
     bf16_paths.update(launches_5d)
+    bf16_paths.update(launches_5e)
     f32_paths = {ARCH: f32_launches,
                  ZOO_F32: zoo_launches[f"{ZOO_F32} float32"]}
     checked = sorted({c[5] for c in ATTN_CASES.values()})

@@ -4,9 +4,10 @@
 ``get_config(name)`` returns the full published configuration;
 ``get_smoke_config(name)`` returns a reduced same-family configuration for
 CPU smoke tests.  The dense decoders (DeepSeek-7B, Mistral-NeMo-12B,
-StableLM-3B, TinyLlama-1.1B), Qwen2-VL-2B's backbone, Llama-4 Scout's MoE
-and Whisper-base's encoder-decoder are ported; any other name of the JAX
-package's zoo raises and points at ROADMAP.md.
+StableLM-3B, TinyLlama-1.1B), Qwen2-VL-2B's backbone, Llama-4 Scout's MoE,
+Whisper-base's encoder-decoder, RWKV-6-3B and Zamba2-7B (Mamba-2 with a
+shared attention block) are ported; any other name of the JAX package's
+zoo raises and points at ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ ARCH_IDS = [
     "stablelm_3b",
     "tinyllama_1_1b",
     "whisper_base",
+    "rwkv6_3b",
+    "zamba2_7b",
 ]
 
 

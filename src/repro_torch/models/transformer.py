@@ -1,4 +1,4 @@
-# Port of repro/models/transformer.py (the JAX package), dense, vlm, moe and encdec families.
+# Port of repro/models/transformer.py (the JAX package), dense, vlm, moe, encdec, rwkv6 and hybrid families.
 """Decoder LM and Whisper's encoder-decoder: embedding, pre-norm layers,
 final norm.
 
@@ -6,16 +6,23 @@ final norm.
 (``embedding``, ``layers.{i}.{ln1,attn,ln2,ffn}.*``, ``final_norm.scale``,
 ``lm_head`` when embeddings are untied; for ``encdec``
 ``enc_layers.{i}.*``, ``dec_layers.{i}.{ln1,attn,ln_x,xattn,ln2,ffn}.*``
-and ``enc_norm.scale`` in place of ``layers``).  The JAX package stacks
+and ``enc_norm.scale`` in place of ``layers``; for ``rwkv6``
+``layers.{i}.{ln1,ln2,tm,cm}.*``; for ``hybrid`` ``layers.{i}.{ln1,mamba}.*``
+and the unstacked ``shared.{ln1,attn,ln2,ffn}.*``).  The JAX package stacks
 each layer leaf with a leading layers axis and scans over it; the port
 keeps a ``ModuleList`` and loops.  ``forward``, ``encode``, ``logits_fn``
 and ``lm_forward`` take the module.  The ``vlm`` family (Qwen2-VL) is the
 dense decoder with M-RoPE over (3, B, S) positions; ``moe`` (Llama-4
 Scout) has a routed MoE as each layer's FFN and sums its aux loss over
 layers; ``encdec`` (Whisper, frontend stubbed) runs a bidirectional
-encoder over frame embeddings and a decoder with cross attention to it.
-Other families (``mla_moe``, ``rwkv6``, ``hybrid``) raise and point at
-ROADMAP.md.
+encoder over frame embeddings and a decoder with cross attention to it;
+``rwkv6`` (RWKV-6) has time-mix and channel-mix layers, each prefill
+starting from zero carries; ``hybrid`` (Zamba2) runs its Mamba-2 layers in
+groups of ``shared_attn_period``, the weight-shared attention + SwiGLU
+block (sliding window ``cfg.sliding_window``) before each group, through
+:func:`hybrid_forward`.  As in JAX, :func:`forward` on a hybrid config runs
+the Mamba-2 layers alone; :func:`lm_forward` and the serving prefill take
+``hybrid_forward``.  MLA (``mla_moe``) raises and points at ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -26,13 +33,14 @@ from torch import nn
 
 from ..device import DeviceLike, resolve_device
 from . import layers as L
+from . import ssm as S
 from .config import ModelConfig
 from .params import P, init_tree
 
 f32 = torch.float32
 
 
-FAMILIES = ("dense", "vlm", "moe", "encdec")
+FAMILIES = ("dense", "vlm", "moe", "encdec", "rwkv6", "hybrid")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -50,6 +58,17 @@ def check_family(cfg: ModelConfig) -> None:
 def layer_spec(cfg: ModelConfig) -> Dict[str, Any]:
     """One decoder layer (pre-norm)."""
     check_family(cfg)
+    if cfg.family == "rwkv6":
+        return {
+            "ln1": L.rmsnorm_spec(cfg.d_model),
+            "ln2": L.rmsnorm_spec(cfg.d_model),
+            **S.rwkv6_spec(cfg),
+        }
+    if cfg.family == "hybrid":
+        return {
+            "ln1": L.rmsnorm_spec(cfg.d_model),
+            "mamba": S.mamba2_spec(cfg),
+        }
     spec: Dict[str, Any] = {"ln1": L.rmsnorm_spec(cfg.d_model),
                             "ln2": L.rmsnorm_spec(cfg.d_model),
                             "attn": L.attention_spec(cfg)}
@@ -58,6 +77,16 @@ def layer_spec(cfg: ModelConfig) -> Dict[str, Any]:
     else:
         spec["ffn"] = L.mlp_spec(cfg.d_model, cfg.d_ff)
     return spec
+
+
+def shared_block_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    """Zamba2's weight-shared attention+MLP block."""
+    return {
+        "ln1": L.rmsnorm_spec(cfg.d_model),
+        "attn": L.attention_spec(cfg),
+        "ln2": L.rmsnorm_spec(cfg.d_model),
+        "ffn": L.mlp_spec(cfg.d_model, cfg.d_ff),
+    }
 
 
 def encoder_layer_spec(cfg: ModelConfig) -> Dict[str, Any]:
@@ -94,6 +123,8 @@ def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
         spec["enc_norm"] = L.rmsnorm_spec(cfg.d_model)
     else:
         spec["layers"] = layer_spec(cfg)
+    if cfg.family == "hybrid":
+        spec["shared"] = shared_block_spec(cfg)     # not stacked
     return spec
 
 
@@ -123,7 +154,8 @@ def stacked_model_spec(cfg: ModelConfig) -> Dict[str, Any]:
 class DecoderLayer(nn.Module):
     """One pre-norm layer's blocks: ``ln1``, ``attn``, ``ln2``, ``ffn``
     (a SwiGLU, or for the moe family an ``L.MoE``).  Whisper's encoder
-    layers have the same blocks, with a SwiGLU."""
+    layers and Zamba2's shared block have the same blocks, with a
+    SwiGLU."""
 
     def __init__(self, cfg: ModelConfig, *, device, dtype, moe=False):
         super().__init__()
@@ -150,12 +182,42 @@ class DecoderXAttnLayer(nn.Module):
         self.ffn = L.SwiGLU(cfg.d_model, cfg.d_ff, device=device, dtype=dtype)
 
 
+class RWKVLayer(nn.Module):
+    """An RWKV-6 layer: ``ln1``, ``tm`` (time-mix), ``ln2``, ``cm``
+    (channel-mix)."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype):
+        super().__init__()
+        self.ln1 = L.RMSNorm(cfg.d_model, device=device, dtype=dtype)
+        self.ln2 = L.RMSNorm(cfg.d_model, device=device, dtype=dtype)
+        self.tm = S.RWKVTimeMix(cfg, device=device, dtype=dtype)
+        self.cm = S.RWKVChannelMix(cfg, device=device, dtype=dtype)
+
+
+class MambaLayer(nn.Module):
+    """A Zamba2 backbone layer: ``ln1``, ``mamba`` (Mamba-2)."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype):
+        super().__init__()
+        self.ln1 = L.RMSNorm(cfg.d_model, device=device, dtype=dtype)
+        self.mamba = S.Mamba2(cfg, device=device, dtype=dtype)
+
+
+def _layer(cfg: ModelConfig, **kw) -> nn.Module:
+    if cfg.family == "rwkv6":
+        return RWKVLayer(cfg, **kw)
+    if cfg.family == "hybrid":
+        return MambaLayer(cfg, **kw)
+    return DecoderLayer(cfg, moe=cfg.moe is not None, **kw)
+
+
 class Transformer(nn.Module):
     """The model's parameters, allocated uninitialized on ``device``
     (None: the CUDA device); fill them with :func:`init_params` or
     :func:`repro_torch.models.convert.params_from_numpy`.  An encdec
     model holds ``enc_layers``, ``dec_layers`` and ``enc_norm`` in place
-    of ``layers``."""
+    of ``layers``; a hybrid one also holds ``shared``, Zamba2's
+    weight-shared block."""
 
     def __init__(self, cfg: ModelConfig, *, device: DeviceLike = None,
                  dtype: torch.dtype = torch.bfloat16):
@@ -172,8 +234,9 @@ class Transformer(nn.Module):
             self.enc_norm = L.RMSNorm(cfg.d_model, **kw)
         else:
             self.layers = nn.ModuleList(
-                DecoderLayer(cfg, moe=cfg.moe is not None, **kw)
-                for _ in range(cfg.n_layers))
+                _layer(cfg, **kw) for _ in range(cfg.n_layers))
+        if cfg.family == "hybrid":
+            self.shared = DecoderLayer(cfg, **kw)
         self.final_norm = L.RMSNorm(cfg.d_model, **kw)
         if not cfg.tie_embeddings:
             self.lm_head = L._param((cfg.d_model, cfg.vocab), device, dtype)
@@ -253,9 +316,21 @@ def _positions(cfg: ModelConfig, batch: int, seq: int,
     return torch.arange(seq, device=device)[None].expand(batch, seq)
 
 
-def _decoder_layer_fwd(cfg: ModelConfig, layer: DecoderLayer, x, positions):
+def _decoder_layer_fwd(cfg: ModelConfig, layer: nn.Module, x, positions):
     """One pre-norm decoder layer; returns (x, aux): the MoE's aux loss,
-    else 0."""
+    else None.  An RWKV layer starts from zero carries and state, as in
+    JAX; a hybrid config's layer is its Mamba-2 block alone."""
+    if cfg.family == "rwkv6":
+        st = S.rwkv6_init_state(cfg, x.shape[0], x.device)
+        h, _, _ = S.rwkv6_time_mix_scan(
+            layer.tm, L.rmsnorm(layer.ln1.scale, x), cfg, st["tm_x"],
+            st["tm_state"])
+        x = x + h
+        h, _ = S.rwkv6_channel_mix(
+            layer.cm, L.rmsnorm(layer.ln2.scale, x), st["cm_x"])
+        return x + h, None
+    if cfg.family == "hybrid":
+        return _mamba_layer_fwd(cfg, layer, x), None
     h = L.attention_apply(layer.attn, L.rmsnorm(layer.ln1.scale, x), cfg,
                           positions)
     x = x + h
@@ -267,6 +342,18 @@ def _decoder_layer_fwd(cfg: ModelConfig, layer: DecoderLayer, x, positions):
     return x + h, aux
 
 
+def _mamba_layer_fwd(cfg: ModelConfig, layer: MambaLayer, x):
+    return x + S.mamba2_scan(layer.mamba, L.rmsnorm(layer.ln1.scale, x), cfg)
+
+
+def _shared_block_fwd(cfg: ModelConfig, block: DecoderLayer, x, positions):
+    h = L.attention_apply(block.attn, L.rmsnorm(block.ln1.scale, x), cfg,
+                          positions, window=cfg.sliding_window)
+    x = x + h
+    h = L.mlp_apply(block.ffn, L.rmsnorm(block.ln2.scale, x))
+    return x + h
+
+
 def forward(model: Transformer, tokens_or_embeds: torch.Tensor,
             cfg: ModelConfig, *,
             mrope_positions: Optional[torch.Tensor] = None,
@@ -276,7 +363,9 @@ def forward(model: Transformer, tokens_or_embeds: torch.Tensor,
     summed over layers, else 0.  ``mrope_positions`` (3, B, S): the vlm
     family's position ids (default: every axis 0..S-1).  ``encoder_out``
     (B, S_enc, D): the encdec family's encoder states (:func:`encode`),
-    which its decoder needs."""
+    which its decoder needs.  A hybrid config runs its Mamba-2 layers
+    alone, as JAX's ``forward`` does; :func:`hybrid_forward` is its
+    model."""
     check_family(cfg)
     if not tokens_or_embeds.is_floating_point():
         x = model.embedding[tokens_or_embeds]
@@ -293,6 +382,27 @@ def forward(model: Transformer, tokens_or_embeds: torch.Tensor,
             aux = aux + a
     x = L.rmsnorm(model.final_norm.scale, x)
     return x, aux
+
+
+def hybrid_forward(model: Transformer, tokens: torch.Tensor,
+                   cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zamba2: groups of ``shared_attn_period`` Mamba-2 layers, the shared
+    block before each; the ``n_layers % period`` layers left over run
+    after the last group without it.  Returns (hidden (B,S,D), aux 0)."""
+    check_family(cfg)
+    x = model.embedding[tokens]
+    B, Sq = x.shape[:2]
+    positions = _positions(cfg, B, Sq, None, x.device)
+    period = cfg.shared_attn_period
+    n_groups = cfg.n_layers // period
+    for gi in range(n_groups):
+        x = _shared_block_fwd(cfg, model.shared, x, positions)
+        for layer in model.layers[gi * period:(gi + 1) * period]:
+            x = _mamba_layer_fwd(cfg, layer, x)
+    for layer in model.layers[n_groups * period:]:
+        x = _mamba_layer_fwd(cfg, layer, x)
+    x = L.rmsnorm(model.final_norm.scale, x)
+    return x, torch.zeros((), dtype=f32, device=x.device)
 
 
 def _encdec_forward(model: Transformer, x, cfg: ModelConfig, encoder_out,
@@ -346,13 +456,17 @@ def logits_fn(model: Transformer, hidden, cfg: ModelConfig):
 
 def lm_forward(model: Transformer, tokens, cfg: ModelConfig, **kw):
     """tokens -> (logits (B,S,V) in the model dtype, aux); ``kw`` goes to
-    :func:`forward`."""
-    hidden, aux = forward(model, tokens, cfg, **kw)
+    :func:`forward` (a hybrid config: :func:`hybrid_forward`)."""
+    if cfg.family == "hybrid":
+        hidden, aux = hybrid_forward(model, tokens, cfg)
+    else:
+        hidden, aux = forward(model, tokens, cfg, **kw)
     return logits_fn(model, hidden, cfg), aux
 
 
 __all__ = ["model_spec", "stacked_model_spec", "layer_spec",
-           "encoder_layer_spec", "decoder_xattn_layer_spec", "Transformer",
-           "DecoderLayer", "DecoderXAttnLayer", "init_params",
-           "load_stacked", "forward", "encode", "logits_fn", "lm_forward",
-           "check_family"]
+           "shared_block_spec", "encoder_layer_spec",
+           "decoder_xattn_layer_spec", "Transformer", "DecoderLayer",
+           "DecoderXAttnLayer", "RWKVLayer", "MambaLayer", "init_params",
+           "load_stacked", "forward", "hybrid_forward", "encode",
+           "logits_fn", "lm_forward", "check_family"]

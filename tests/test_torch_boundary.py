@@ -171,7 +171,8 @@ CHANGED_COPIES = {"configs/deepseek_7b.py": 1,
                   "configs/mistral_nemo_12b.py": 1,
                   "configs/qwen2_vl_2b.py": 1, "configs/stablelm_3b.py": 1,
                   "configs/tinyllama_1_1b.py": 1,
-                  "configs/whisper_base.py": 1, "core/bucketing.py": 4,
+                  "configs/whisper_base.py": 1, "configs/rwkv6_3b.py": 1,
+                  "configs/zamba2_7b.py": 1, "core/bucketing.py": 4,
                   "core/grmu.py": 1, "core/policies.py": 1,
                   "core/policy_core_np.py": 1, "obs/report.py": 3}
 # Copies under another name: the port's own policy_core is torch-only,
@@ -402,6 +403,46 @@ def test_chip_smoke_5d_attention_shapes_and_bounds(name, bound_ms, bound_by):
         assert n % smoke.plain_chunk(n) == 0 and smoke.plain_chunk(n) <= 1024
     assert [smoke.plain_chunk(n) for n in (1500, 448, 4096, 1000, 333)] == [
         750, 448, 1024, 1000, 333]
+
+
+def test_chip_smoke_windowed_prefill_shape_and_bound():
+    """Phase 5e prefills a windowed model at S twice its window with the
+    cell's tokens per call (Zamba2-7B: 2 x 8,192; at 4,096 its 4,096-key
+    window masks nothing), and phase 2b times the kernel there: 25,167,872
+    kept pairs a sequence, 7.22e11 flop, 0.730 ms at 989 TFLOP/s.  Launches
+    per forward: the shared block's 13 groups, none for RWKV-6."""
+    from repro_torch.configs import get_config
+    smoke = _chip_smoke()
+    zamba, rwkv = get_config(smoke.ZAMBA2), get_config(smoke.RWKV6)
+    assert smoke.prefill_shape(zamba) == (2, 8192)
+    assert smoke.prefill_shape(rwkv) == (smoke.PREFILL_B, smoke.PREFILL_S)
+    assert smoke.zoo_attention_shape(zamba) == (2, 8192, 32, 32, 112)
+    pairs = smoke.attention_pairs(8192, 8192, True, 4096)
+    assert pairs == 25_167_872
+    assert 4.0 * 2 * 32 * 112 * pairs == pytest.approx(7.22e11, rel=1e-3)
+    got, by = smoke.attention_bound_ms(2, 8192, 8192, 32, 32, 112, True,
+                                       4096, "bfloat16")
+    assert by == "operations" and got == pytest.approx(0.7299, rel=1e-3)
+    assert [smoke.attention_calls(get_config(a)) for a in (
+        smoke.ZAMBA2, smoke.RWKV6, smoke.ARCH)] == [13, 0, 22]
+    mask = smoke.band_mask(torch, 6, 6, 2, "cpu")
+    assert mask.sum(1).tolist() == [1, 2, 2, 2, 2, 2]
+    assert int(smoke.band_mask(torch, 8192, 8192, 4096, "cpu").sum()) == pairs
+
+
+def test_chip_smoke_subquadratic_variants_are_the_cpu_tests():
+    """Phase 5e's float32 card-vs-CPU models are
+    tests/test_torch_subquadratic.py's variants at the models' head dims,
+    and the hybrid's ring wraps within its decode steps."""
+    import test_torch_subquadratic as T
+    smoke = _chip_smoke()
+    for arch, name in ((smoke.RWKV6, "rwkv.hd64"),
+                       (smoke.ZAMBA2, "hybrid.hd112")):
+        assert smoke.subq_small_config(arch) == T.CONFIGS[name][0][0]
+    hybrid = smoke.subq_small_config(smoke.ZAMBA2)
+    assert hybrid.sliding_window < smoke.SUBQ_SMALL_STEPS
+    assert smoke.SUBQ_SMALL_S % hybrid.ssm.chunk == 0
+    assert smoke.LONG_PROMPT <= 4096 and smoke.ZOO_PROMPT % 32 == 0
 
 
 def test_chip_smoke_split_bound_and_route_launches():

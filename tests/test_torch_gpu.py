@@ -22,7 +22,10 @@ architecture's smoke config (hd 16) must prefill on the card as on the
 CPU; a head dim the kernels do not take must raise on a CUDA tensor,
 naming the ones they do.  Whisper's smoke config must encode and decode
 with cross attention on the card as on the CPU, and so must Scout's MoE
-route, drop and compute (moe_apply).  A replay with telemetry on must
+route, drop and compute (moe_apply).  RWKV-6 and the Mamba-2 hybrid
+(float32, at the models' head dims) must prefill and decode on the card as
+on the CPU, past the hybrid's ring, and the hybrid's prefill must launch
+the bf16 kernel once per shared-block call, with its window.  A replay with telemetry on must
 give the CPU's decisions, reasons and series, with one pick per MCC/MECC
 arrival.  The
 replay's captured graphs must give the eager loop's outputs for all five
@@ -319,6 +322,7 @@ ATTN_CASES = [
     (8, 448, 1500, 8, 8, 64, False, None),       # Whisper's cross attention
     (8, 448, 448, 8, 8, 64, True, None),         # Whisper's decoder
     (1, 1000, 1000, 40, 8, 128, True, None),     # Scout's GQA group of 5
+    (2, 8192, 8192, 32, 32, 112, True, 4096),    # Zamba2-7B's prefill
 ]
 
 
@@ -671,3 +675,41 @@ def test_sharded_one_rank_over_nccl_on_card():
         assert (res.accepted_ids, res.hourly_active_hw, res.migrations) == (
             cpu.accepted_ids, cpu.hourly_active_hw, cpu.migrations), name
     assert got["GRMU-chunked"][0].accepted_ids == got["GRMU"][0].accepted_ids
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_3b", "zamba2_7b"])
+def test_subquadratic_model_on_card_equals_cpu(arch):
+    """chip_smoke's float32 variants (RWKV hd 64, 2 layers; the hybrid with
+    window 64, attention hd 112, 5 layers of period 2): prefill of 2 x 256
+    tokens and 100 decode steps on a float32 cache (the hybrid's 64-slot
+    rings wrap) on the card equal the CPU's (which
+    tests/test_torch_subquadratic.py holds against JAX), caches too:
+    within 1e-4 / 1e-3, or twice what half a float32 ulp of noise moves
+    the CPU's (``subq_card_vs_cpu``; the hybrid amplifies rounding)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = smoke.subq_card_vs_cpu(torch, arch)
+    assert set(res) >= {"prefill", "decode"}
+    if arch == "rwkv6_3b":
+        assert all(r["bound"] == smoke.CARD_CPU_TOL for r in res.values())
+
+
+def test_hybrid_prefill_launches_the_kernel_once_per_group():
+    """A bf16 hybrid (3 groups of 2 and a layer left over, hd 112): one
+    windowed launch of the bf16 kernel per shared-block call, none else."""
+    _need_card()
+    cfg = smoke.subq_small_config("zamba2_7b").scaled(n_layers=7)
+    model = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 256), device="cuda")
+    step = registry.make_step(cfg, ShapeConfig("prefill_256", 256, 2,
+                                               "prefill"))
+    calls = []
+    FA.reset_launches()
+    with smoke.attention_as(smoke.recording_attention(calls)):
+        logits = step(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert calls == [(True, 256, 256, 64)] * 3
+    assert FA.LAUNCHES == {"flash_attention": 3, "flash_attention_f32": 0,
+                           "split_bf16x3": 0}
+    assert logits.shape == (2, 1, cfg.vocab)
+    assert torch.isfinite(logits.float()).all()

@@ -10,7 +10,8 @@ both packages:
   * the slice: ``lm_forward``, ``prefill`` and 8 ``decode_step``s (logits
     and cache) through ``registry.make_step``, for every dense and vlm
     architecture (the moe and encdec families are in test_torch_moe.py and
-    test_torch_encdec.py): its smoke config, and a 2-layer variant at
+    test_torch_encdec.py, rwkv6 and hybrid in test_torch_subquadratic.py):
+    its smoke config, and a 2-layer variant at
     the config's own head dim (``VARIANTS``: TinyLlama hd 64 with GQA 8:1,
     DeepSeek MHA hd 128, Mistral-NeMo hd 128 with H * hd != d_model,
     StableLM hd 80, Qwen2-VL hd 128 with GQA 3:1 and M-RoPE over 3-axis
@@ -130,11 +131,11 @@ def _pair(cfg_name, dtype_name, seed=0):
 
 
 def test_configs_are_the_jax_ones():
-    """The seven ported architectures, in the JAX list's order; each config
+    """The nine ported architectures, in the JAX list's order; each config
     and smoke config is JAX's; every other name raises."""
     assert ARCH_IDS == ["qwen2_vl_2b", "llama4_scout_17b_a16e", "deepseek_7b",
                         "mistral_nemo_12b", "stablelm_3b", "tinyllama_1_1b",
-                        "whisper_base"]
+                        "whisper_base", "rwkv6_3b", "zamba2_7b"]
     assert ARCH_IDS == [a for a in JARCH_IDS if a in ARCH_IDS]
     for arch in ARCH_IDS:
         assert (dataclasses.asdict(get_config(arch))
@@ -150,10 +151,17 @@ def test_configs_are_the_jax_ones():
             get_config(arch)
 
 
+# The sub-quadratic models' counts (JAX's total_param_count): each fits
+# one card whole in bf16.
+PARAM_COUNTS = {"rwkv6_3b": 2_905_459_200, "zamba2_7b": 6_633_487_952}
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_param_counts_and_flops_equal_jax(arch):
     cfg, jcfg = get_config(arch), jget_config(arch)
     assert registry.total_param_count(cfg) == JR.total_param_count(jcfg)
+    if arch in PARAM_COUNTS:
+        assert registry.total_param_count(cfg) == PARAM_COUNTS[arch]
     assert registry.active_param_count(cfg) == JR.active_param_count(jcfg)
     for name in SHAPES:
         assert registry.model_flops(cfg, SHAPES[name]) == JR.model_flops(
@@ -166,6 +174,9 @@ def test_supported_cells_equal_jax():
                                   if c[0] in ARCH_IDS]
     assert registry.supported_cells() == [
         c for c in JR.supported_cells() if c[0] in ARCH_IDS]
+    # long_500k: only the sub-quadratic architectures.
+    assert {a for a, s, ok, _ in registry.supported_cells()
+            if s == "long_500k" and ok} == {"rwkv6_3b", "zamba2_7b"}
 
 
 def _spec_shapes(tree):
@@ -456,11 +467,11 @@ def test_train_kind_and_other_families_raise():
     cfg = get_smoke_config(ARCH)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         registry.make_step(cfg, SHAPES["train_4k"], device="cpu")
-    rwkv = dataclasses.replace(cfg, family="rwkv6")
+    mla = dataclasses.replace(cfg, family="mla_moe")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.Transformer(rwkv, device="cpu")
+        M.Transformer(mla, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        D.init_cache(rwkv, 1, 4, device="cpu")
+        D.init_cache(mla, 1, 4, device="cpu")
 
 
 def test_device_none_means_cuda_and_raises_without_a_card():
