@@ -84,14 +84,16 @@ Phases (each raises on failure; nothing is caught):
      the zoo's other head dims (hd 16 with the smoke heads H 4 / KV 2;
      StableLM-3B's H 32 / KV 32 / hd 80 at a ragged S 1000; H 32 / KV 32 /
      hd 112, causal with a 300-key window over a ragged S 1000, the shape
-     of Zamba2-7B's shared attention), in
-     bf16 (``fa_fwd_wgmma<hd, false>``; 3e-2, and within half a bf16 ulp
-     of the plain version in float32) and float32 (``split_bf16x3`` of q,
-     k and v, then ``fa_fwd_wgmma<hd, true>``; 2e-5), each dtype reaching
-     only its own kernels; in float32 also a long accumulation (non-causal,
-     Sq 1024 over Sk 16,384).  The split kernel is held bit for bit
-     against ``ref.split_bf16x3`` (normal, tiny and zero inputs, a ragged
-     length and an unaligned view).  Then the same check at the slice's
+     of Zamba2-7B's shared attention), and at the (q/k, v) head-dim pair
+     (192, 128) of DeepSeek-V2's MLA (``PAIR_ATTN_CASES``: H 16 causal over
+     a ragged S 1000, H 8 / KV 2 non-causal Sq 200 over Sk 333), in
+     bf16 (``fa_fwd_wgmma<hd, hd_v, false>``; 3e-2, within half a bf16
+     ulp of the plain version in float32) and float32 (``split_bf16x3`` of
+     q, k and v, then ``fa_fwd_wgmma<hd, hd_v, true>``; 2e-5), each dtype
+     reaching only its own kernels; in float32 also a long accumulation
+     (non-causal, Sq 1024 over Sk 16,384).  The split kernel is held bit
+     for bit against ``ref.split_bf16x3`` (normal, tiny and zero inputs, a
+     ragged length and an unaligned view).  Then the same check at the slice's
      prefill shape (B 4, S 4096, H 32, KV 4, hd 64, causal) in both dtypes,
      where each kernel, the plain version and PyTorch's
      ``scaled_dot_product_attention`` (timed only) are timed, and in
@@ -104,14 +106,16 @@ Phases (each raises on failure; nothing is caught):
      encoder at B 4, S 4096 and at B 8, S 1,500, both non-causal, its
      decoder's causal B 8, S 448 and its cross attention Sq 448 over
      Sk 1,500; Scout's causal prefill B 4, S 4096, H 40 / KV 8 / hd 128;
-     the plain version with chunks that divide the lengths,
-     ``plain_attention``),
+     DeepSeek-V2's causal prefill B 4, S 4096, H 128, q/k 192 against v
+     128, SDPA there without ``enable_gqa``; the plain version with chunks
+     that divide the lengths, ``plain_attention``),
      and at Zamba2-7B's windowed prefill shape (B 2, S 8,192, H 32 / KV
      32, hd 112, causal, window 4,096; SDPA, which has no window
      argument, over a boolean band mask), and in float32 at StableLM-3B's
-     float32 prefill shape (B 1, S 4096, H 32 / KV 32 / hd 80): the kernel
-     within 2e-5 of the plain version and of the float64 function, timed
-     beside both.
+     float32 prefill shape (B 1, S 4096, H 32 / KV 32 / hd 80) and at
+     DeepSeek-V2's (B 1, S 4096, H 128, 192 / 128): the kernel within
+     2e-5 of the plain version and of the float64 function, timed beside
+     both.
   5. The serving path at full width: TinyLlama-1.1B (22 layers, bf16,
      random weights from a seeded generator) through
      ``registry.make_step``.  Prefill of 4 x 4096 tokens (tokens/s, the
@@ -195,6 +199,24 @@ Phases (each raises on failure; nothing is caught):
      prefill, 100 decode steps past the hybrid's ring, the caches; within
      1e-4 / 1e-3 or twice what half a float32 ulp of noise moves the CPU
      run, ``half_ulp_noise``).
+  5f. DeepSeek-V2 (MLA + MoE) at full width (``run_5f``, after 5e), bf16,
+     random weights drawn on the card: ``get_config("deepseek_v2_236b")
+     .scaled(n_layers=DSV2_LAYERS)`` (4 of 60 layers, listed as
+     ``reduced``) through ``serve_model`` as phase 5d serves Scout:
+     prefill 4 x 4096 with 4 launches of the kernel's (192, 128)
+     instantiation a call, each held against the plain version on its own
+     q, k, v (``pair_calls_vs_plain``), logits vs plain attention within
+     PREFILL_TOL or the float64 gate, 8 requests of 32 + 8 tokens against
+     a 4,096-position latent cache (its bytes beside the K/V it expands
+     to, ``latent_cache``), layer 0's routing (160 experts, top-6), the
+     teacher-forced check with prefill's routes at a capacity where
+     nothing drops (``mla_teacher_forced``: the bf16 figures reported, the
+     0.15 gated on the float32 model at full width cut to DSV2_F32_LAYERS
+     layers, as 5e gates the hybrid), peak memory.  Then the
+     float32 narrow variant (``mla_card_vs_cpu``: MLA_SMALL, the real
+     head dims, 2 layers; the float32 route at the pair): prefill, 32
+     decode steps on a float32 latent cache and the cache, card == CPU
+     within CARD_CPU_TOL.
   6. The placement service (``run_service``; after phase 4c).  (a) The
      full-scale trace as a request stream (8,604 requests, 8,063
      arrivals) through ``PlacementService.for_trace`` at micro-batches of
@@ -220,9 +242,11 @@ Phases (each raises on failure; nothing is caught):
      service's launches, ``service_launches``; every mask kernel's row
      its launches on the sharded path, ``sharded_launches``; the
      attention rows their launches and head dim per serving path,
-     phases 5, 5c, 5d and 5e, the head dims phase 2b checked and, for
-     bf16, the times at each phase 5c model's prefill shape, phase 5d's
-     attention shapes and Zamba2's), the card line again, and
+     phases 5, 5c, 5d, 5e and 5f (DeepSeek-V2's the pair [192, 128]), the
+     head dims and pairs phase 2b checked and the times at each phase 5c
+     model's prefill shape, phase 5d's and 5f's attention shapes and
+     Zamba2's, in float32 StableLM-3B's and DeepSeek-V2's), the card line
+     again, and
      as its last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is present, or when
@@ -398,11 +422,33 @@ CARD_CPU_TOL, NOISE_FACTOR = (1e-4, 1e-3), 2.0
 # decode's own routes that must be prefill's, far above a wrong router's
 # 1 / 16.
 MOE_ROUTE_AGREEMENT = 0.5
+# Phase 5f: DeepSeek-V2 (MLA + MoE) at full width, its 60 layers cut to
+# DSV2_LAYERS: 238.9B parameters do not fit one card; 4 layers are 16.4B
+# (32.8 GB in bf16; the init's float32 draw of one (4, 160, 5120, 1536)
+# expert stack is 20 GB, and 5 layers would near Scout's 58.8 GB peak).
+# Its prefill attention takes q/k at 192 (nope 128 + rope 64) against v
+# at 128: one launch of the kernel's (192, 128) instantiation a layer.
+# Card vs CPU: MLA_SMALL, tests/test_torch_mla.py's float32 2-layer
+# variant at those head dims (the float32 route at the pair), prefill of 2
+# x MLA_SMALL_S tokens and MLA_SMALL_STEPS decode steps on a float32
+# latent cache of MLA_SMALL_S positions, within CARD_CPU_TOL.
+DSV2 = "deepseek_v2_236b"
+DSV2_LAYERS = 4
+# Its teacher-forced gate runs in float32 at full width on DSV2_F32_LAYERS
+# layers (``mla_teacher_forced``; 34 GB beside the served bf16 model).
+DSV2_F32_LAYERS = 2
+MLA_SMALL = dict(n_layers=2, d_model=256, n_heads=2, n_kv_heads=2, d_ff=512,
+                 vocab=512,
+                 mla=dict(kv_lora_rank=64, q_lora_rank=96, rope_head_dim=64,
+                          nope_head_dim=128, v_head_dim=128),
+                 moe=dict(n_experts=16, top_k=6, n_shared=2, d_ff_expert=64))
+MLA_SMALL_S, MLA_SMALL_STEPS = 256, 32
 # Phase 2b: the bf16 kernel at every attention shape of phase 5d's path,
 # (B, Sq, Sk, H, KV, hd, causal): Whisper's encoder over the prefill
 # cell's frames (a) and over its own 1,500 (b), its decoder's causal self
 # attention and its cross attention (b), Scout's prefill (its GQA group
-# of 5).
+# of 5); and phase 5f's, DeepSeek-V2's MLA prefill, hd given as the (q/k,
+# v) pair (192, 128).
 MODEL_ATTN_SHAPES = {
     "whisper_base prefill": (PREFILL_B, PREFILL_S, PREFILL_S, 8, 8, 64,
                              False),
@@ -414,6 +460,7 @@ MODEL_ATTN_SHAPES = {
                            64, False),
     "llama4_scout_17b_a16e": (PREFILL_B, PREFILL_S, PREFILL_S, 40, 8, 128,
                               True),
+    DSV2: (PREFILL_B, PREFILL_S, PREFILL_S, 128, 128, (192, 128), True),
 }
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # tests/test_flash_attention.py
 # The bf16 kernel rounds its float32 result once, and the plain version
@@ -1664,6 +1711,27 @@ ATTN_CASES = {
 F32_ATTN_CASES = {
     "long_noncausal": (1, 1024, 16384, 8, 2, 64, False, None),
 }
+# Both dtypes at the (q/k, v) head-dim pairs (``HEAD_DIM_PAIRS``): MLA's
+# heads over ragged tiles, causal, and non-causal with Sq != Sk and GQA.
+PAIR_ATTN_CASES = {
+    "mla_ragged1000": (1, 1000, 1000, 16, 16, (192, 128), True, None),
+    "mla_noncausal_ragged": (1, 200, 333, 8, 2, (192, 128), False, None),
+}
+
+
+def head_dims_of(hd):
+    """(q/k head dim, v head dim) of a case's ``hd``: an int (both) or a
+    pair."""
+    return tuple(hd) if isinstance(hd, tuple) else (hd, hd)
+
+
+def attention_head_dims(cfg):
+    """The head dim a model's prefill attention runs at: the config's, or
+    MLA's (nope + rope, v) pair."""
+    if cfg.mla is None:
+        return cfg.resolved_head_dim
+    m = cfg.mla
+    return (m.nope_head_dim + m.rope_head_dim, m.v_head_dim)
 
 
 def attention_pairs(Sq, Sk, causal, window) -> int:
@@ -1676,9 +1744,14 @@ def attention_pairs(Sq, Sk, causal, window) -> int:
 
 
 def attention_bound_ms(B, Sq, Sk, H, KV, hd, causal, window, dtype_name):
+    """max(operations at the dtype's peak, bytes at HBM's rate): 2 * B * H
+    * (hd + hd_v) flops a kept pair (S = q k^T at hd, p v at hd_v); q, k,
+    v read and o written once.  ``hd`` an int or a (q/k, v) pair."""
+    hd, hd_v = head_dims_of(hd)
     itemsize = {"bfloat16": 2, "float32": 4}[dtype_name]
-    flops = 4.0 * B * H * hd * attention_pairs(Sq, Sk, causal, window)
-    nbytes = itemsize * (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd)
+    flops = 2.0 * B * H * (hd + hd_v) * attention_pairs(Sq, Sk, causal,
+                                                        window)
+    nbytes = itemsize * (B * Sq * H * (hd + hd_v) + B * Sk * KV * (hd + hd_v))
     t_ops = flops / PEAK_ATTN_FLOPS_PER_S[dtype_name]
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -1702,9 +1775,13 @@ def plain_attention(q, k, v, causal=True, window=None):
 
 
 def _qkv(torch, B, Sq, Sk, H, KV, hd, dtype, seed=0):
+    """Random q (B, Sq, H, hd), k (B, Sk, KV, hd), v (B, Sk, KV, hd_v) on
+    the card; ``hd`` an int or a (q/k, v) pair."""
+    hd, hd_v = head_dims_of(hd)
     g = torch.Generator(device="cuda").manual_seed(seed)
     return [torch.randn(shape, generator=g, device="cuda").to(dtype)
-            for shape in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd))]
+            for shape in ((B, Sq, H, hd), (B, Sk, KV, hd),
+                          (B, Sk, KV, hd_v))]
 
 
 def hold_attention(torch, name, got, q, k, v, causal, window, err):
@@ -1803,7 +1880,8 @@ def check_attention(torch):
     split and its kernel (``hold_attention``); the split kernel equals its
     plain version bit for bit (``check_split``)."""
     err = {"split": check_split(torch)}
-    cases = [(name, c, dtype) for name, c in ATTN_CASES.items()
+    cases = [(name, c, dtype)
+             for name, c in (*ATTN_CASES.items(), *PAIR_ATTN_CASES.items())
              for dtype in (torch.bfloat16, torch.float32)]
     cases += [(name, c, torch.float32) for name, c in F32_ATTN_CASES.items()]
     for name, (B, Sq, Sk, H, KV, hd, causal, window), dtype in cases:
@@ -1812,8 +1890,9 @@ def check_attention(torch):
         hold_attention(torch, name, got, q, k, v, causal, window, err)
     torch.cuda.synchronize()
     print(f"phase 2b: attention kernels == plain version at "
-          f"{len(ATTN_CASES)} shapes x 2 dtypes and {len(F32_ATTN_CASES)} "
-          f"float32 one(s); max abs diff {err}", flush=True)
+          f"{len(ATTN_CASES)} shapes and {len(PAIR_ATTN_CASES)} at head-dim "
+          f"pairs x 2 dtypes and {len(F32_ATTN_CASES)} float32 one(s); max "
+          f"abs diff {err}", flush=True)
     return err
 
 
@@ -1912,27 +1991,33 @@ def attention_timings(torch, q, k, v, plain_iters, causal=True,
     """Attention on q, k, v: ms per call of the kernel's wrapper, of the
     plain version and of scaled_dot_product_attention (the yardstick; the
     port never calls it; with a window, which it has no argument for, over
-    a boolean band mask, ``band_mask``), CUDA events after a warm-up, with
-    the bound (the pairs the mask keeps: ``attention_pairs``)."""
+    a boolean band mask, ``band_mask``; at unequal q/k and v widths
+    without ``enable_gqa``, which only the backends that refuse them
+    take), CUDA events after a warm-up, with the bound (the pairs the
+    mask keeps: ``attention_pairs``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     B, S, H, hd = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
+    Sk, KV, hd_v = k.shape[1], k.shape[2], v.shape[3]
     tname = str(q.dtype).split(".")[-1]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    b_ms, b_by = attention_bound_ms(B, S, Sk, H, KV, hd, causal, window,
-                                    tname)
+    b_ms, b_by = attention_bound_ms(B, S, Sk, H, KV, (hd, hd_v), causal,
+                                    window, tname)
     shape = dict(B=B, S=S, H=H, KV=KV, hd=hd, dtype=tname, causal=causal)
+    gqa = dict(enable_gqa=True)
+    if hd_v != hd:
+        shape["hd_v"] = hd_v
+        gqa = {}
     if Sk != S:
         shape["Sk"] = Sk
     if window:
         shape["window"] = window
         mask = band_mask(torch, S, Sk, window, q.device)
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+            qt, kt, vt, attn_mask=mask, **gqa)
     else:
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=causal, enable_gqa=True)
+            qt, kt, vt, is_causal=causal, **gqa)
     return dict(
         ms=event_ms(torch, lambda: FA.flash_attention(
             q, k, v, causal=causal, window=window), 10),
@@ -1973,9 +2058,10 @@ def attention_calls(cfg):
 
 def zoo_attention_shape(cfg):
     """(B, S, H, KV, hd) of a model's prefill attention at its prefill
-    shape (``prefill_shape``)."""
+    shape (``prefill_shape``); hd MLA's (q/k, v) pair for DeepSeek-V2
+    (``attention_head_dims``)."""
     return (*prefill_shape(cfg), cfg.n_heads, cfg.n_kv_heads,
-            cfg.resolved_head_dim)
+            attention_head_dims(cfg))
 
 
 def time_zoo_attention(torch, err):
@@ -1984,11 +2070,12 @@ def time_zoo_attention(torch, err):
     Zamba2-7B's windowed prefill shape (B 2, S 8,192, H 32 / KV 32, hd 112,
     window 4,096), bf16: the kernel held against the plain version
     (``hold_attention``, folded into ``err``), then ``attention_timings``.
-    Then ZOO_F32's float32 prefill shape (F32_PREFILL_B x PREFILL_S): the
-    float32 kernel held against the plain version within ATTN_TOL and
-    against the float64 function (``f32_vs_f64``), and timed.  Returns
-    ({arch or MODEL_ATTN_SHAPES name: bf16 timings}, {ZOO_F32: float32
-    timings})."""
+    Then the float32 prefill shape (F32_PREFILL_B x PREFILL_S) of ZOO_F32
+    and of DeepSeek-V2 (H 128, q/k 192 against v 128: the float32 route at
+    the pair): the float32 kernel held against the plain version within
+    ATTN_TOL and against the float64 function (``f32_vs_f64``), and timed.
+    Returns ({arch or MODEL_ATTN_SHAPES name: bf16 timings}, {ZOO_F32 or
+    DSV2: float32 timings})."""
     from repro_torch.configs import get_config
     out = {}
     for arch in ZOO + (ZAMBA2,):
@@ -2022,22 +2109,25 @@ def time_zoo_attention(torch, err):
               f"SDPA {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']}); max abs diff {err}", flush=True)
         del q, k, v
-    _, S, H, KV, hd = zoo_attention_shape(get_config(ZOO_F32))
-    B = F32_PREFILL_B
-    q, k, v = _qkv(torch, B, S, S, H, KV, hd, torch.float32, seed=3)
-    got = attention_on_its_route(torch, q, k, v)
-    where = f"{ZOO_F32}'s float32 prefill shape B {B} S {S} H {H} KV {KV} " \
-            f"hd {hd}"
-    hold_attention(torch, where, got, q, k, v, True, None, err)
-    vs_f64 = f32_vs_f64(torch, got, q, k, v, where)
-    del got
-    t = attention_timings(torch, q, k, v, plain_iters=2)
-    t["max_abs_err_vs_f64"] = vs_f64
-    print(f"phase 2b: attention at {where} float32 causal: kernel "
-          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA "
-          f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-          f"({t['bound_by']}); max abs diff {err}", flush=True)
-    return out, {ZOO_F32: t}
+    f32 = {}
+    for arch in (ZOO_F32, DSV2):
+        _, S, H, KV, hd = zoo_attention_shape(get_config(arch))
+        B = F32_PREFILL_B
+        q, k, v = _qkv(torch, B, S, S, H, KV, hd, torch.float32, seed=3)
+        got = attention_on_its_route(torch, q, k, v)
+        where = f"{arch}'s float32 prefill shape B {B} S {S} H {H} KV " \
+                f"{KV} hd {hd}"
+        hold_attention(torch, where, got, q, k, v, True, None, err)
+        vs_f64 = f32_vs_f64(torch, got, q, k, v, where)
+        del got
+        t = f32[arch] = attention_timings(torch, q, k, v, plain_iters=2)
+        t["max_abs_err_vs_f64"] = vs_f64
+        print(f"phase 2b: attention at {where} float32 causal: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}); max abs diff {err}", flush=True)
+        del q, k, v
+    return out, f32
 
 
 # ---------------------------------------------------------------------------
@@ -2345,16 +2435,19 @@ def check_logits(torch, cfg, outputs):
                                  f"finite")
 
 
-def hold_teacher_forced(torch, cfg, what, got, want):
+def hold_teacher_forced(torch, cfg, what, got, want, gate=True):
     """Teacher-forced decode logits ``got`` within 0.15 (the JAX package's
     bound) of ``want``, the same positions' logits from one pass over the
-    whole sequence.  Returns the errors and the argmax agreement."""
+    whole sequence; with ``gate`` False the figures are only reported.
+    Returns the errors, whether they are within 0.15 and the argmax
+    agreement."""
     rel, elem = _rel_errors(torch, got, want)
-    if not torch.allclose(got.float(), want.float(), rtol=0.15, atol=0.15):
+    within = torch.allclose(got.float(), want.float(), rtol=0.15, atol=0.15)
+    if gate and not within:
         raise AssertionError(
             f"{cfg.name} {what}: teacher-forced decode logits differ beyond "
             f"0.15 from one pass's (relative L2 {rel}, max {elem})")
-    return {"relative_l2": rel, "max_over_scale": elem,
+    return {"relative_l2": rel, "max_over_scale": elem, "within_0.15": within,
             "argmax_agreement": (got.argmax(-1) == want.argmax(-1)).float()
             .mean().item()}
 
@@ -2433,7 +2526,8 @@ class moe_routes:
         return self._routed(fn)
 
 
-def moe_teacher_forced(torch, model, cfg, prompts):
+def moe_teacher_forced(torch, model, cfg, prompts, gate=True,
+                       max_seq=MAX_SEQ):
     """An MoE model's teacher-forced check, on the given (served) model:
     prefill over ``prompts`` (B, S), then decode_step over them on a fresh
     cache in the model's dtype, its last logits within 0.15 of prefill's
@@ -2446,7 +2540,9 @@ def moe_teacher_forced(torch, model, cfg, prompts):
     difference between the two paths moves a bf16 router logit by an ulp,
     and a near tie then picks another expert.  The steps' own choices must
     agree with prefill's on at least MOE_ROUTE_AGREEMENT of the tokens (a
-    wrong router agrees by chance, 1 / E)."""
+    wrong router agrees by chance, 1 / E).  With ``gate`` False the 0.15
+    is reported, not enforced (``hold_teacher_forced``); the cache holds
+    ``max_seq`` positions."""
     import dataclasses
     from repro_torch.serve import llm_decode as D
     m = cfg.moe
@@ -2455,9 +2551,9 @@ def moe_teacher_forced(torch, model, cfg, prompts):
     B, S = prompts.shape
     routes = moe_routes(B, S)
     with routes.record():
-        first = D.prefill(model, prompts, nodrop, MAX_SEQ)
+        first = D.prefill(model, prompts, nodrop, max_seq)
     cache = {k: v.to(model.embedding.dtype) for k, v in D.init_cache(
-        nodrop, B, MAX_SEQ, device=prompts.device).items()}
+        nodrop, B, max_seq, device=prompts.device).items()}
     for t in range(S):
         with routes.replay(t):
             logits, cache = D.decode_step(
@@ -2470,7 +2566,7 @@ def moe_teacher_forced(torch, model, cfg, prompts):
                              f"prefill's on {agree} of the tokens (limit "
                              f"{MOE_ROUTE_AGREEMENT})")
     out = hold_teacher_forced(torch, cfg, "prefill's routes, nothing "
-                              "dropped", logits, first)
+                              "dropped", logits, first, gate)
     return {"capacity_factor": nodrop.moe.capacity_factor,
             "own_route_agreement": agree, **out}
 
@@ -2488,7 +2584,8 @@ def serve_model(torch, cfg, *, n_prefill, prompt, gen, profile_steps, what,
     teacher-forced decode's last logits within 0.15 of the request
     prefill's (an MoE model with prefill's routes at a capacity where
     nothing drops, ``moe_teacher_forced``, the served capacity's numbers
-    reported; the hybrid through ``hybrid_teacher_forced``) and, for a
+    reported; MLA through ``mla_teacher_forced``, the hybrid through
+    ``hybrid_teacher_forced``) and, for a
     model with attention, prefill's logits against the same prefill with
     the plain attention (``hold_vs_plain``, with the float64 gate when
     ``f64_gate``).  Reports tokens/s, the attention kernel's share of
@@ -2539,7 +2636,9 @@ def serve_model(torch, cfg, *, n_prefill, prompt, gen, profile_steps, what,
                               ("request prefill", first, (N_REQ, 1, V)),
                               ("decode", out, (N_REQ, 1, V))))
     if cfg.moe is not None:
-        teacher = moe_teacher_forced(torch, model, cfg, prompts)
+        teacher = (mla_teacher_forced(torch, cfg, model, prompts)
+                   if cfg.family == "mla_moe" else
+                   moe_teacher_forced(torch, model, cfg, prompts))
         teacher["served_capacity"] = dict(zip(
             ("relative_l2", "max_over_scale"),
             _rel_errors(torch, last, first)))
@@ -2568,7 +2667,7 @@ def serve_model(torch, cfg, *, n_prefill, prompt, gen, profile_steps, what,
     result = {
         "model": cfg.name, "parameters": registry.total_param_count(cfg),
         "layers": L, "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
-        "head_dim": cfg.resolved_head_dim,
+        "head_dim": attention_head_dims(cfg),
         "init_s": init_s, "peak_device_bytes": peak,
         "prefill": {"batch": B_p, "seq": S_p,
                     "wall_s": wall["prefill"] / n_prefill,
@@ -2660,7 +2759,7 @@ def run_serving(torch):
 def attention_f64(q, k, v, causal=True, window=None, q_chunk=512):
     """The attention function in float64 on the (exactly upcast) inputs:
     the truth the float32 plain version and both kernels approximate.
-    Same masks as the plain version; (B, Sq, H, hd) float64."""
+    Same masks as the plain version; (B, Sq, H, hd_v) float64."""
     import torch
     B, Sq, H, hd = q.shape
     Sk, G = k.shape[1], H // k.shape[2]
@@ -2990,16 +3089,16 @@ def first_layer_routing(torch, cfg, model, batch):
     tokens = batch["tokens"]
     B, S = tokens.shape
     layer = model.layers[0]
+    attend = L.mla_apply if cfg.family == "mla_moe" else L.attention_apply
     with torch.inference_mode():
         x = model.embedding[tokens]
         pos = torch.arange(S, device=x.device)[None].expand(B, S)
-        x = x + L.attention_apply(layer.attn, L.rmsnorm(layer.ln1.scale, x),
-                                  cfg, pos)
+        x = x + attend(layer.attn, L.rmsnorm(layer.ln1.scale, x), cfg, pos)
         h_in = L.rmsnorm(layer.ln2.scale, x).reshape(B * S, -1)
         _, _, flat_e, _, keep, C = L.moe_route(layer.ffn, h_in, cfg)
     share = 1.0 - keep.float().mean().item()
     per_expert = torch.bincount(flat_e, minlength=cfg.moe.n_experts)
-    print(f"phase 5d: {cfg.name} layer 0 at prefill: {share:.4%} of "
+    print(f"{cfg.name} layer 0 at prefill: {share:.4%} of "
           f"{B * S} tokens dropped at capacity {C} per expert (tokens per "
           f"expert {per_expert.tolist()})", flush=True)
     return {"first_layer_routing": {"tokens": B * S, "capacity": C,
@@ -3177,35 +3276,45 @@ def check_subq_card_vs_cpu(torch):
     return out
 
 
-def windowed_calls_vs_plain(torch, cfg, model, batch):
-    """Each windowed attention call of one served prefill (Zamba2: 13),
-    the kernel held against the plain version on the same q, k, v within
-    ATTN_TOL (``hold_attention``'s first test; a model's near-tied rows
-    are not within half an ulp, phase 5b).  Returns {"windowed_calls":
-    the largest abs difference, the calls}; {} for a model without a
-    window."""
+def prefill_calls_vs_plain(torch, cfg, model, batch):
+    """Each attention call of one served prefill, the kernel held against
+    the plain version on the same q, k, v within ATTN_TOL
+    (``hold_attention``'s first test; a model's near-tied rows are not
+    within half an ulp, phase 5b); there must be ``attention_calls(cfg)``.
+    Returns {"n": calls, "max_abs_diff", "head_dims": the calls' distinct
+    (q/k, v) head dims}."""
     from repro_torch.kernels import flash_attention as FA
-    if not cfg.sliding_window:
-        return {}
-    diffs = []
+    diffs, dims = [], set()
 
     def watch(q, k, v, causal=True, window=None):
         got = FA.flash_attention(q, k, v, causal=causal, window=window)
         want = plain_attention(q, k, v, causal, window)
         diffs.append((got.float() - want.float()).abs().max().item())
+        dims.add((q.shape[-1], v.shape[-1]))
         tol = ATTN_TOL["bfloat16"]
         if not torch.allclose(got.float(), want.float(), rtol=tol,
                               atol=tol):
-            raise AssertionError(f"{cfg.name}: windowed call {len(diffs)}, "
+            raise AssertionError(f"{cfg.name}: attention call {len(diffs)}, "
                                  f"kernel != plain (max {diffs[-1]})")
         return got
     with torch.inference_mode(), attention_as(watch):
         prefill_step(torch, cfg)[1](model, batch)
     if len(diffs) != attention_calls(cfg):
         raise AssertionError(f"{cfg.name}: {len(diffs)} attention calls")
-    print(f"phase 5e: {cfg.name} prefill's {len(diffs)} windowed calls: "
-          f"kernel == plain (max abs diff {max(diffs):.4g})", flush=True)
-    return {"windowed_calls": {"n": len(diffs), "max_abs_diff": max(diffs)}}
+    return {"n": len(diffs), "max_abs_diff": max(diffs),
+            "head_dims": sorted(dims)}
+
+
+def windowed_calls_vs_plain(torch, cfg, model, batch):
+    """``prefill_calls_vs_plain`` for a model with a window (Zamba2: 13
+    windowed calls) as {"windowed_calls": ...}; {} for one without."""
+    if not cfg.sliding_window:
+        return {}
+    out = prefill_calls_vs_plain(torch, cfg, model, batch)
+    print(f"phase 5e: {cfg.name} prefill's {out['n']} windowed calls: "
+          f"kernel == plain (max abs diff {out['max_abs_diff']:.4g})",
+          flush=True)
+    return {"windowed_calls": out}
 
 
 def run_5e(torch):
@@ -3235,6 +3344,194 @@ def run_5e(torch):
     print(f"phase 5e: float32 card vs CPU took "
           f"{time.perf_counter() - t:.1f} s", flush=True)
     return launches, results
+
+
+# ---------------------------------------------------------------------------
+# Phase 5f: DeepSeek-V2 (MLA + MoE) at full width
+# ---------------------------------------------------------------------------
+
+def pair_calls_vs_plain(torch, cfg, model, batch):
+    """``prefill_calls_vs_plain`` for an MLA model, each of its calls at the
+    (q/k, v) pair ``attention_head_dims(cfg)``, as {"pair_calls": ...}."""
+    out = prefill_calls_vs_plain(torch, cfg, model, batch)
+    if out["head_dims"] != [attention_head_dims(cfg)]:
+        raise AssertionError(f"{cfg.name}: prefill attention at head dims "
+                             f"{out['head_dims']}")
+    print(f"phase 5f: {cfg.name} prefill's {out['n']} attention calls at "
+          f"q/k {out['head_dims'][0][0]} against v {out['head_dims'][0][1]}: "
+          f"kernel == plain (max abs diff {out['max_abs_diff']:.4g})",
+          flush=True)
+    return {"pair_calls": out}
+
+
+def mla_teacher_forced(torch, cfg, model, prompts):
+    """DeepSeek-V2's teacher-forced check, ``moe_teacher_forced`` (prefill's
+    routes, nothing dropped) on two models.  The served bf16 model's
+    figures are reported, with the kernel and with the plain attention in
+    prefill, and its route agreement gated, not its 0.15: in bf16 the
+    model's prefill and its decode part by rounding that the reference's
+    init amplifies, as much with the plain attention as with the kernel
+    (beyond 0.15 on some inputs; PERF.md §6, PR 24).  The gate is the
+    float32 model at full width cut to DSV2_F32_LAYERS layers (weights
+    from a generator seeded 1 on ``prompts``' device) on a float32 latent
+    cache of the prompts' length, where the two are one function."""
+    from repro_torch.models import transformer as M
+    bf16 = moe_teacher_forced(torch, model, cfg, prompts, gate=False)
+    with attention_as(plain_attention):
+        plain = moe_teacher_forced(torch, model, cfg, prompts, gate=False)
+    small = cfg.scaled(n_layers=DSV2_F32_LAYERS)
+    dev = prompts.device
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    f32_model = M.init_params(small, gen, torch.float32, device=dev)
+    f32 = moe_teacher_forced(torch, f32_model, small, prompts,
+                             max_seq=prompts.shape[1])
+    del f32_model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"phase 5f: {cfg.name} teacher-forced decode vs prefill, prefill's "
+          f"routes: bf16 {bf16['relative_l2']:.4g} / "
+          f"{bf16['max_over_scale']:.4g} (within 0.15: "
+          f"{bf16['within_0.15']}, own routes "
+          f"{bf16['own_route_agreement']:.3f}); with plain attention "
+          f"{plain['relative_l2']:.4g} / "
+          f"{plain['max_over_scale']:.4g}; float32 at {DSV2_F32_LAYERS} "
+          f"layers {f32['relative_l2']:.4g} / {f32['max_over_scale']:.4g}",
+          flush=True)
+    return {"bf16": bf16, "bf16_plain_attention": plain,
+            "float32": {"layers": DSV2_F32_LAYERS, **f32}}
+
+
+def latent_cache(cfg):
+    """The served requests' latent cache (N_REQ x MAX_SEQ): its shapes and
+    bytes, beside the bytes of the K/V it expands to (q/k and v widths
+    over every head), which an MHA cache of this model would hold."""
+    from repro_torch.serve import llm_decode as D
+    cache = D.init_cache(cfg, N_REQ, MAX_SEQ, device="meta")
+    hd, hd_v = attention_head_dims(cfg)
+    expanded = 2 * cfg.n_layers * N_REQ * MAX_SEQ * cfg.n_heads * (hd + hd_v)
+    print(f"phase 5f: {cfg.name} latent cache {cache_bytes(cache)} bytes "
+          f"for {N_REQ} x {MAX_SEQ} positions (expanded K/V {expanded})",
+          flush=True)
+    return {"latent_cache": {"bytes": cache_bytes(cache),
+                             "expanded_kv_bytes": expanded,
+                             "shapes": {k: list(v.shape)
+                                        for k, v in cache.items()}}}
+
+
+def mla_small_config():
+    """DeepSeek-V2's smoke config scaled to MLA_SMALL (tests/
+    test_torch_mla.py's variant at the real head dims)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.config import MLAConfig, MoEConfig
+    kw = dict(MLA_SMALL)
+    return get_smoke_config(DSV2).scaled(mla=MLAConfig(**kw.pop("mla")),
+                                         moe=MoEConfig(**kw.pop("moe")), **kw)
+
+
+def mla_card_vs_cpu(torch):
+    """MLA_SMALL's float32 model on the card and on the CPU (the same
+    weights, from a CPU generator): prefill of 2 x MLA_SMALL_S tokens (one
+    float32 kernel launch at the (192, 128) pair and three splits a layer
+    on the card, counted from 0 over the card's run), then
+    MLA_SMALL_STEPS decode steps on a float32 latent cache, and the cache
+    after.  Each output within CARD_CPU_TOL (relative L2, max over scale)
+    of the CPU's.  Returns (the card's launches, {output: errors})."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as M
+    from repro_torch.serve import llm_decode as D
+    cfg = mla_small_config()
+    gen = torch.Generator().manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab, (2, MLA_SMALL_S), generator=gen)
+    nxt = torch.randint(0, cfg.vocab, (2, MLA_SMALL_STEPS), generator=gen)
+
+    def run(dev):
+        model = M.init_params(cfg, torch.Generator().manual_seed(3),
+                              torch.float32, device=dev)
+        first = D.prefill(model, tokens.to(dev), cfg, MLA_SMALL_S)
+        cache = {k: v.float() for k, v in D.init_cache(
+            cfg, 2, MLA_SMALL_S, device=dev).items()}
+        steps = []
+        for t in range(MLA_SMALL_STEPS):
+            logits, cache = D.decode_step(
+                model, cache, nxt[:, t:t + 1].to(dev),
+                torch.full((2,), t, dtype=torch.int32, device=dev), cfg)
+            steps.append(logits)
+        return {"prefill": first.cpu(), "decode": torch.cat(steps, 1).cpu(),
+                **{f"cache {k}": v.cpu() for k, v in cache.items()}}
+    cpu = run("cpu")
+    FA.reset_launches()
+    card = run("cuda")
+    launches = dict(FA.LAUNCHES)
+    want = {"flash_attention": 0, "flash_attention_f32": cfg.n_layers,
+            "split_bf16x3": 3 * cfg.n_layers}
+    if launches != want:
+        raise AssertionError(f"{cfg.name} float32 narrow variant launched "
+                             f"{launches}, expected {want}")
+    out = {}
+    for name, w in cpu.items():
+        got = out[name] = _rel_errors(torch, card[name], w)
+        if not (got[0] <= CARD_CPU_TOL[0] and got[1] <= CARD_CPU_TOL[1]):
+            raise AssertionError(f"{cfg.name} float32 {name}: card != CPU "
+                                 f"(relative L2, max {got}; tolerance "
+                                 f"{CARD_CPU_TOL})")
+    worst = max(out.values())
+    print(f"phase 5f: {cfg.name} float32 narrow variant (q/k 192, v 128), "
+          f"prefill, {MLA_SMALL_STEPS} decode steps and latent cache: card "
+          f"== CPU (worst relative L2 / max {worst[0]:.3g} / "
+          f"{worst[1]:.3g}; tolerance {CARD_CPU_TOL})", flush=True)
+    return launches, out
+
+
+def run_5f(torch):
+    """Phase 5f: DeepSeek-V2 at full width cut to DSV2_LAYERS layers
+    through ``serve_model`` (with the float64 gate; each prefill attention
+    call at the (192, 128) pair held against the plain version,
+    ``pair_calls_vs_plain``; layer 0's routing of the prefill batch; the
+    latent cache's bytes), then its float32 narrow variant card == CPU
+    (``mla_card_vs_cpu``).  Returns ({path: launches}, {path: result})."""
+    from repro_torch.configs import get_config
+    t = time.perf_counter()
+    full = get_config(DSV2)
+    cfg = full.scaled(n_layers=DSV2_LAYERS)
+    launches, results = {}, {}
+    launches[DSV2], results[DSV2] = serve_model(
+        torch, cfg, n_prefill=2, prompt=ZOO_PROMPT, gen=ZOO_GEN,
+        profile_steps=2, what="mla_serving", f64_gate=True,
+        inspect=lambda model, batch: {
+            "reduced": {"n_layers": [full.n_layers, DSV2_LAYERS]},
+            **latent_cache(cfg),
+            **pair_calls_vs_plain(torch, cfg, model, batch),
+            **first_layer_routing(torch, cfg, model, batch)})
+    print(f"phase 5f: {DSV2} took {time.perf_counter() - t:.1f} s",
+          flush=True)
+    t = time.perf_counter()
+    key = f"{DSV2} float32 narrow"
+    launches[key], results[key] = mla_card_vs_cpu(torch)
+    print(f"phase 5f: float32 card vs CPU took "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    return launches, results
+
+
+def attention_paths(fa_launches, f32_launches, zoo_launches, launches_5d,
+                    launches_5e, launches_5f):
+    """The serving paths that reach the attention kernels, each path's
+    launches counted from 0: ({bf16 path: launches}, {float32 path:
+    launches}).  bf16: phase 5 TinyLlama, phase 5c the zoo, phase 5d
+    Whisper's prefill / encode / forward and Scout, phase 5e Zamba2 and
+    RWKV-6 (which launches none), phase 5f DeepSeek-V2; float32: TinyLlama,
+    ZOO_F32 and DeepSeek-V2's narrow variant (phase 5f)."""
+    bf16_paths = {ARCH: fa_launches}
+    bf16_paths.update({a: zoo_launches[a] for a in ZOO})
+    bf16_paths.update(launches_5d)
+    bf16_paths.update(launches_5e)
+    bf16_paths[DSV2] = launches_5f[DSV2]
+    narrow = f"{DSV2} float32 narrow"
+    f32_paths = {ARCH: f32_launches,
+                 ZOO_F32: zoo_launches[f"{ZOO_F32} float32"],
+                 narrow: launches_5f[narrow]}
+    return bf16_paths, f32_paths
 
 
 def main() -> int:
@@ -3279,6 +3576,7 @@ def main() -> int:
     zoo_launches, _ = timed_phase("phase 5c", run_zoo, torch)
     launches_5d, _ = timed_phase("phase 5d", run_5d, torch)
     launches_5e, _ = timed_phase("phase 5e", run_5e, torch)
+    launches_5f, _ = timed_phase("phase 5f", run_5f, torch)
 
     rows = []
     floor = timing["launch_floor"]
@@ -3304,21 +3602,19 @@ def main() -> int:
         # The sharded fleet's replays (phase 4d (a)) score through the
         # tables: 0 for every mask kernel.
         rows[-1]["sharded_launches"] = sharded_launches.get(name, 0)
-    # Attention: each kernel's launches on the serving paths that reach it,
-    # each path counted from 0 (phase 5 TinyLlama, phase 5c the zoo, phase
-    # 5d Whisper's prefill / encode / forward and Scout, phase 5e Zamba2 and
-    # RWKV-6, which launches none), with the head dim it runs there; the
-    # head dims phase 2b held against the plain version; times at
-    # TinyLlama's prefill shape, and at each phase 5c / 5d / 5e model's that
-    # runs the kernel (``at_model_prefill_shapes``).
+    # Attention: each kernel's launches on the serving paths that reach it
+    # (``attention_paths``), with the head dim (MLA: the q/k, v pair) it
+    # runs there; the head dims and pairs phase 2b held against the plain
+    # version; times at TinyLlama's prefill shape, and at each phase 5c /
+    # 5d / 5e / 5f model's that runs the kernel
+    # (``at_model_prefill_shapes``).
     from repro_torch.configs import get_config
-    bf16_paths = {ARCH: fa_launches}
-    bf16_paths.update({a: zoo_launches[a] for a in ZOO})
-    bf16_paths.update(launches_5d)
-    bf16_paths.update(launches_5e)
-    f32_paths = {ARCH: f32_launches,
-                 ZOO_F32: zoo_launches[f"{ZOO_F32} float32"]}
+    bf16_paths, f32_paths = attention_paths(
+        fa_launches, f32_launches, zoo_launches, launches_5d, launches_5e,
+        launches_5f)
     checked = sorted({c[5] for c in ATTN_CASES.values()})
+    pairs_checked = sorted({head_dims_of(c[5])
+                            for c in PAIR_ATTN_CASES.values()})
     for name, tname, paths in (
             ("flash_attention", "bfloat16", bf16_paths),
             ("flash_attention_f32", "float32", f32_paths),
@@ -3331,9 +3627,9 @@ def main() -> int:
             path=("bf16 serving" if tname == "bfloat16"
                   else "float32 prefill"),
             launches_by_path=by_path,
-            head_dims={a: get_config(a.split()[0]).resolved_head_dim
+            head_dims={a: attention_head_dims(get_config(a.split()[0]))
                        for a in paths},
-            head_dims_checked=checked,
+            head_dims_checked=checked, head_dim_pairs_checked=pairs_checked,
             max_abs_err=fa_err[tname], max_abs_err_by_dtype=fa_err,
             max_abs_err_vs_f64=t.get("max_abs_err_vs_f64"),
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],

@@ -1,13 +1,14 @@
-# Port of repro/configs/__init__.py (the JAX package), limited to the architectures the port runs.
+# Port of repro/configs/__init__.py (the JAX package): the same architectures, imported lazily.
 """Architecture configs (one module per architecture the port runs).
 
 ``get_config(name)`` returns the full published configuration;
 ``get_smoke_config(name)`` returns a reduced same-family configuration for
-CPU smoke tests.  The dense decoders (DeepSeek-7B, Mistral-NeMo-12B,
-StableLM-3B, TinyLlama-1.1B), Qwen2-VL-2B's backbone, Llama-4 Scout's MoE,
-Whisper-base's encoder-decoder, RWKV-6-3B and Zamba2-7B (Mamba-2 with a
-shared attention block) are ported; any other name of the JAX package's
-zoo raises and points at ROADMAP.md.
+CPU smoke tests.  All ten architectures of the JAX package's zoo are
+ported: the dense decoders (DeepSeek-7B, Mistral-NeMo-12B, StableLM-3B,
+TinyLlama-1.1B), Qwen2-VL-2B's backbone, Llama-4 Scout's MoE,
+DeepSeek-V2's MLA + MoE, Whisper-base's encoder-decoder, RWKV-6-3B and
+Zamba2-7B (Mamba-2 with a shared attention block); any other name raises
+and points at ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -15,10 +16,11 @@ import importlib
 
 from ..models.config import ModelConfig
 
-# The JAX package's ARCH_IDS, in its order, limited to the ported ones.
+# The JAX package's ARCH_IDS, in its order.
 ARCH_IDS = [
     "qwen2_vl_2b",
     "llama4_scout_17b_a16e",
+    "deepseek_v2_236b",
     "deepseek_7b",
     "mistral_nemo_12b",
     "stablelm_3b",

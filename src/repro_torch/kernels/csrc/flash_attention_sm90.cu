@@ -2,9 +2,13 @@
 // attention with an online softmax, float32 statistics and accumulator,
 // its products on the tensor cores (wgmma).  Replaces the TPU Pallas
 // kernel flash_attention_pallas (src/repro/kernels/flash_attention.py:82,
-// body _fa_kernel) for bf16 q/k/v (fa_fwd_wgmma<HD, false>,
-// fa_forward_bf16) and for float32 q/k/v (fa_fwd_wgmma<HD, true>,
-// fa_forward_f32, fed the bf16 planes of split_bf16x3_kernel).
+// body _fa_kernel) for bf16 q/k/v (fa_fwd_wgmma<HD, HDV, false>,
+// fa_forward_bf16) and for float32 q/k/v (fa_fwd_wgmma<HD, HDV, true>,
+// fa_forward_f32, fed the bf16 planes of split_bf16x3_kernel).  HD is the
+// head dim of q and k, HDV that of v and o: equal for every model but
+// DeepSeek-V2's MLA, whose prefill attends with q/k 192 (nope 128 + rope
+// 64) against v 128, as the JAX package's layers.flash_attention does
+// with hd_v = v.shape[-1] (the Pallas body itself ties hd_v to hd).
 //
 // The function is the Pallas body's; its products are exact or within
 // float32's own rounding, and only its sums are the tensor core's:
@@ -66,28 +70,36 @@
 // 128-byte rows where hd is a multiple of 64 (hd 128 two of them), one
 // 32-column box of 64-byte rows at hd 32, and otherwise 16-column boxes of
 // 32-byte rows (hd 16 one, hd 80 five, hd 112 seven), one k16 step each.
-// Per K/V tile a consumer warpgroup runs S = Q K^T as hd/16 wgmmas per
+// Q and K tiles are laid out by the q/k width, V tiles by the v width
+// (MLA: three 64-column boxes of Q and K, two of V).
+// Per K/V tile a consumer warpgroup runs S = Q K^T as HD/16 wgmmas per
 // pass (A and B from shared memory, K-major), the online softmax on the
 // accumulator's registers (row max and sum are quad shuffles; mask tests
 // only on tiles that cross the diagonal, the window edge or Sk), splits
 // p into its three bf16 terms directly in the A-fragment layout (the S
 // accumulator's pair of columns per register is the A fragment's), and
-// runs P V as BK/16 wgmmas per pass with A from registers and B the V
-// tile read MN-major (transposed).  No p tile passes through shared
-// memory.  The output is stored from registers, rows past Sq skipped.
+// runs P V as BK/16 wgmmas of N = HDV per pass with A from registers and
+// B the V tile read MN-major (transposed).  No p tile passes through
+// shared memory.  The output is stored from registers, rows past Sq
+// skipped.
 // The float32 kernel holds three planes of Q and of each K and V tile, so
 // its tiles are smaller.  Cfg takes the tile and the ring depth from the
 // shared-memory budget: bf16 BK 128 at hd <= 64, else 64, three stages;
 // float32 BK 64 and three stages at hd 16 / 32 / 64 (193 KB at hd 64),
 // BK 32 and three stages at hd 80 / 112 (151 / 211 KB), BK 32 and two
-// stages at hd 128 (193 KB).
+// stages at hd 128 (193 KB), and BK 32 with one stage at MLA's (192, 128)
+// (205 KB: Q alone is 144 KB), where a tile's loads do not overlap its
+// products.  bf16 at (192, 128): BK 64, three stages (169 KB).
 //
-// Bound.  Operations: the function needs 4 * B * H * hd * (visible pairs)
-// flops, 0.275 TFLOP at the prefill shape (B 4, S 4096, H 32, hd 64,
-// causal), 0.278 ms at 989 TFLOP/s (bf16 dense), against ~0.13 GB of bf16
-// q/k/v/o (0.04 ms).  bf16: the split triples p @ v, so the kernel issues
-// 2x the function's tensor-core work; the design pays that rather than
-// round p (which is the other function, ATTN_P_BF16 = True).  float32:
+// Bound.  Operations: the function needs 2 * B * H * (hd + hd_v) *
+// (visible pairs) flops, 0.275 TFLOP at the prefill shape (B 4, S 4096,
+// H 32, hd 64, causal), 0.278 ms at 989 TFLOP/s (bf16 dense), against
+// ~0.13 GB of bf16 q/k/v/o (0.04 ms); MLA's prefill (B 4, S 4096, H 128,
+// 192 / 128) 2.75 TFLOP, 2.780 ms, against ~2.7 GB (0.8 ms).  bf16: the
+// split triples p @ v, so the kernel issues (hd + 3 hd_v) / (hd + hd_v)
+// times the function's tensor-core work (2x at equal widths, 1.8x at
+// MLA's); the design pays that rather than round p (which is the other
+// function, ATTN_P_BF16 = True).  float32:
 // six passes on both products, 6x the function's work, a floor of 1.668
 // ms at 989 / 6 TFLOP/s against ~0.30 GB of float32 q/k/v/o (0.09 ms);
 // the split pass moves 10 bytes per element (0.1 ms for q at that shape).
@@ -135,42 +147,63 @@ __host__ __device__ constexpr int pass_b(int t) {
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory a CTA may take
 
 // Shared memory of one CTA: 1024 bytes of slack to align the tiles to the
-// swizzle atom, then PLANES planes of Q, the ring of `stages` stages of K
-// and V tiles of `bk` keys, and 1 + 2 * stages mbarriers.
-constexpr int smem_bytes(int hd, int planes, int bk, int stages) {
-  return 1024 + planes * BQ * hd * 2 + stages * 2 * planes * bk * hd * 2 +
+// swizzle atom, then PLANES planes of Q (q/k width hd), the ring of
+// `stages` stages of K (hd) and V (v width hdv) tiles of `bk` keys, and
+// 1 + 2 * stages mbarriers.
+constexpr int smem_bytes(int hd, int hdv, int planes, int bk, int stages) {
+  return 1024 + planes * BQ * hd * 2 + stages * planes * bk * (hd + hdv) * 2 +
          8 * (1 + 2 * stages);
 }
 
-template <int HD, bool F32>
+// Swizzled row in bytes for a head dim: 128 (64-column TMA boxes) where it
+// is a multiple of 64, 64 (one 32-column box) at 32, else 32 (16-column
+// boxes: hd 16 one, hd 80 five, hd 112 seven); and the descriptor's
+// layout type for it: 1 = 128B, 2 = 64B, 3 = 32B swizzle.
+constexpr int row_bytes(int hd) {
+  return hd % 64 == 0 ? 128 : hd % 32 == 0 ? 64 : 32;
+}
+constexpr int desc_layout(int rowb) {
+  return rowb == 128 ? 1 : rowb == 64 ? 2 : 3;
+}
+
+// HD: the q/k head dim (Q and K tiles, S = Q K^T); HDV: the v head dim (V
+// tiles, P V, O).  HDV == HD gives every model's layout but MLA's.
+template <int HD, int HDV, bool F32>
 struct Cfg {
   // bf16 planes per operand: float32 q, k and v come as three.
   static constexpr int PLANES = F32 ? 3 : 1;
   // Keys per tile and the K/V ring depth, from the shared-memory budget:
   // the widest tile the registers allow (S holds BK / 2 floats a thread
-  // beside the HD / 2 of O, and float32's HD / 2 of one tile's P V), with
-  // three stages if they fit, else half the tile with three, else half
-  // the tile with two.
-  static constexpr int BK_MAX = F32 ? 64 : (HD <= 64 ? 128 : 64);
-  static constexpr bool FULL3 = smem_bytes(HD, PLANES, BK_MAX, 3) <= SMEM_MAX;
+  // beside the HDV / 2 of O, and float32's HDV / 2 of one tile's P V),
+  // with three stages if they fit, else half the tile with three, else
+  // half the tile with two, else with one.
+  static constexpr int BK_MAX = F32 ? 64 : (HD <= 64 && HDV <= 64 ? 128 : 64);
+  static constexpr bool FULL3 =
+      smem_bytes(HD, HDV, PLANES, BK_MAX, 3) <= SMEM_MAX;
   static constexpr bool HALF3 =
-      smem_bytes(HD, PLANES, BK_MAX / 2, 3) <= SMEM_MAX;
+      smem_bytes(HD, HDV, PLANES, BK_MAX / 2, 3) <= SMEM_MAX;
+  static constexpr bool HALF2 =
+      smem_bytes(HD, HDV, PLANES, BK_MAX / 2, 2) <= SMEM_MAX;
   static constexpr int BK = FULL3 ? BK_MAX : BK_MAX / 2;
-  static constexpr int STAGES = FULL3 || HALF3 ? 3 : 2;
-  // Swizzled row in bytes: 128 (64-column TMA boxes) where hd is a
-  // multiple of 64, 64 (one 32-column box) at hd 32, else 32 (16-column
-  // boxes: hd 16 one, hd 80 five, hd 112 seven).
-  static constexpr int ROWB = HD % 64 == 0 ? 128 : HD % 32 == 0 ? 64 : 32;
+  static constexpr int STAGES = FULL3 || HALF3 ? 3 : HALF2 ? 2 : 1;
+  // Q and K: rows of the q/k width.
+  static constexpr int ROWB = row_bytes(HD);
   static constexpr int CHUNK = ROWB / 2;  // bf16 columns per TMA box
   static constexpr int NCHUNK = HD / CHUNK;
   static constexpr int KPC = CHUNK / 16;  // k16 steps per chunk
-  // Descriptor layout type: 1 = 128B, 2 = 64B, 3 = 32B swizzle.
-  static constexpr int LAYOUT = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;
-  static constexpr int Q_BYTES = BQ * HD * 2;   // one plane of Q
-  static constexpr int KV_BYTES = BK * HD * 2;  // one plane of a K or V tile
-  static constexpr int STAGE_BYTES = 2 * PLANES * KV_BYTES;  // K, then V
-  static constexpr int SMEM = smem_bytes(HD, PLANES, BK, STAGES);
-  static_assert(HD % CHUNK == 0, "hd must be whole TMA boxes");
+  static constexpr int LAYOUT = desc_layout(ROWB);
+  // V: rows of the v width.
+  static constexpr int ROWB_V = row_bytes(HDV);
+  static constexpr int CHUNK_V = ROWB_V / 2;
+  static constexpr int NCHUNK_V = HDV / CHUNK_V;
+  static constexpr int LAYOUT_V = desc_layout(ROWB_V);
+  static constexpr int Q_BYTES = BQ * HD * 2;  // one plane of Q
+  static constexpr int K_BYTES = BK * HD * 2;  // one plane of a K tile
+  static constexpr int V_BYTES = BK * HDV * 2;  // one plane of a V tile
+  static constexpr int STAGE_BYTES = PLANES * (K_BYTES + V_BYTES);  // K, V
+  static constexpr int SMEM = smem_bytes(HD, HDV, PLANES, BK, STAGES);
+  static_assert(HD % CHUNK == 0 && HDV % CHUNK_V == 0,
+                "head dims must be whole TMA boxes");
   static_assert(BK == 32 || BK == 64 || BK == 128, "S = Q K^T is n32/64/128");
   static_assert(SMEM <= SMEM_MAX, "shared memory per CTA");
 };
@@ -270,12 +303,12 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
   return smem_desc(addr, 16, 8 * C::ROWB, C::LAYOUT);
 }
 
-// MN-major operand (V as B of O = P V): hd runs along a swizzled row,
-// CHUNK-column boxes BK * ROWB apart (leading offset), 8-key groups 8 * ROWB
-// apart (stride offset).
+// MN-major operand (V as B of O = P V): hd_v runs along a swizzled row,
+// CHUNK_V-column boxes BK * ROWB_V apart (leading offset), 8-key groups
+// 8 * ROWB_V apart (stride offset).
 template <typename C>
 __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
-  return smem_desc(addr, C::BK * C::ROWB, 8 * C::ROWB, C::LAYOUT);
+  return smem_desc(addr, C::BK * C::ROWB_V, 8 * C::ROWB_V, C::LAYOUT_V);
 }
 
 // wgmma m64nNk16, bf16 inputs, float32 accumulator, overloaded on the
@@ -283,7 +316,7 @@ __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
 // shared memory, both K-major; the first of a chain overwrites D
 // (accumulate = 0).  wgmma_rs: A from registers (four b32, two bf16 each,
 // in the A-fragment layout), B MN-major (transposed), always accumulates.
-// S = Q K^T runs at N = BK (32, 64, 128), P V at N = hd (16 to 128).
+// S = Q K^T runs at N = BK (32, 64, 128), P V at N = hd_v (16 to 128).
 //
 // The operand lists are generated: ACC_n names the asm operands %0 ..
 // %(n - 1), the accumulator's registers, and OUT_n binds them to d[0 ..
@@ -385,10 +418,11 @@ __device__ __forceinline__ float quad_sum(float x) {
 // 8 * (j >> 2) + 2 * (lane & 3) + (j & 1).  Registers 8kk..8kk+7 of S, as
 // four bf16 pairs, are exactly the A fragment of keys 16kk..16kk+15.
 //
-// F32 = false: bf16 q, k, v (B, S, heads, HD) and bf16 o.  F32 = true:
-// q, k, v as bf16 planes (3B, S, heads, HD), plane a of batch b at batch
-// index a * B + b, and float32 o.
-template <int HD, bool F32>
+// F32 = false: bf16 q, k (B, S, heads, HD), v (B, S, heads, HDV) and
+// bf16 o (B, Sq, H, HDV).  F32 = true: q, k, v as bf16 planes (3B, S,
+// heads, HD or HDV), plane a of batch b at batch index a * B + b, and
+// float32 o.
+template <int HD, int HDV, bool F32>
 __global__ void __launch_bounds__(THREADS, 1)
     fa_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
@@ -396,7 +430,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                  std::conditional_t<F32, float, __nv_bfloat16>* __restrict__ o,
                  int B, int Sq, int Sk, int H, int KV, float scale,
                  int causal, int window) {
-  using C = Cfg<HD, F32>;
+  using C = Cfg<HD, HDV, F32>;
   constexpr int BK = C::BK;
   constexpr int PLANES = C::PLANES;
   constexpr int STAGES = C::STAGES;
@@ -447,16 +481,21 @@ __global__ void __launch_bounds__(THREADS, 1)
         mbar_wait(empty_bar + 8 * s, ((i / STAGES) & 1) ^ 1);
         mbar_expect_tx(full_bar + 8 * s, C::STAGE_BYTES);
         const uint32_t s_k = s_kv + s * C::STAGE_BYTES;
-        const uint32_t s_v = s_k + PLANES * C::KV_BYTES;
+        const uint32_t s_v = s_k + PLANES * C::K_BYTES;
+        constexpr int NC =
+            C::NCHUNK > C::NCHUNK_V ? C::NCHUNK : C::NCHUNK_V;
 #pragma unroll
         for (int a = 0; a < PLANES; ++a)
 #pragma unroll
-          for (int c = 0; c < C::NCHUNK; ++c) {
-            const uint32_t off = a * C::KV_BYTES + c * BK * C::ROWB;
-            tma_load(s_k + off, &tm_k, full_bar + 8 * s, c * C::CHUNK, kvh,
-                     kt * BK, a * B + b);
-            tma_load(s_v + off, &tm_v, full_bar + 8 * s, c * C::CHUNK, kvh,
-                     kt * BK, a * B + b);
+          for (int c = 0; c < NC; ++c) {
+            if (c < C::NCHUNK)
+              tma_load(s_k + a * C::K_BYTES + c * BK * C::ROWB, &tm_k,
+                       full_bar + 8 * s, c * C::CHUNK, kvh, kt * BK,
+                       a * B + b);
+            if (c < C::NCHUNK_V)
+              tma_load(s_v + a * C::V_BYTES + c * BK * C::ROWB_V, &tm_v,
+                       full_bar + 8 * s, c * C::CHUNK_V, kvh, kt * BK,
+                       a * B + b);
           }
       }
     }
@@ -471,9 +510,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int row_lo = q0 + WG_ROWS * wg;
   const int r0 = row_lo + 16 * (warp % 4) + lane / 4;
   const uint32_t s_qa = s_q + wg * WG_ROWS * C::ROWB;
-  float acc[HD / 2];
+  float acc[HDV / 2];
 #pragma unroll
-  for (int j = 0; j < HD / 2; ++j) acc[j] = 0.0f;
+  for (int j = 0; j < HDV / 2; ++j) acc[j] = 0.0f;
   float m[2] = {MASKED, MASKED};
   float l[2] = {0.0f, 0.0f};
   mbar_wait(q_bar, 0);
@@ -481,7 +520,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
     const int s = i % STAGES;
     const uint32_t s_k = s_kv + s * C::STAGE_BYTES;
-    const uint32_t s_v = s_k + PLANES * C::KV_BYTES;
+    const uint32_t s_v = s_k + PLANES * C::K_BYTES;
     mbar_wait(full_bar + 8 * s, (i / STAGES) & 1);
 
     // S = Q K^T over hd in k16 steps (float32: per plane pass, smallest
@@ -493,7 +532,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int t = 0; t < (F32 ? PASSES : 1); ++t) {
       const uint32_t qa = s_qa + (F32 ? pass_a(t) : 0) * C::Q_BYTES;
-      const uint32_t kb = s_k + (F32 ? pass_b(t) : 0) * C::KV_BYTES;
+      const uint32_t kb = s_k + (F32 ? pass_b(t) : 0) * C::K_BYTES;
 #pragma unroll
       for (int j = 0; j < HD / 16; ++j) {
         const int c = j / C::KPC;
@@ -551,11 +590,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     if constexpr (!F32) {
       // O = O * alpha + P V, the three terms into the one accumulator.
 #pragma unroll
-      for (int j = 0; j < HD / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
+      for (int j = 0; j < HDV / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint64_t dv = mnmajor_desc<C>(s_v + kk * 16 * C::ROWB);
+        const uint64_t dv = mnmajor_desc<C>(s_v + kk * 16 * C::ROWB_V);
         wgmma_rs(acc, p[2] + 4 * kk, dv);
         wgmma_rs(acc, p[1] + 4 * kk, dv);
         wgmma_rs(acc, p[0] + 4 * kk, dv);
@@ -566,23 +605,23 @@ __global__ void __launch_bounds__(THREADS, 1)
     } else {
       // This tile's P V, plane passes smallest first, into a fresh
       // accumulator; then O = O * alpha + tile on the CUDA cores.
-      float tile[HD / 2];
+      float tile[HDV / 2];
 #pragma unroll
-      for (int j = 0; j < HD / 2; ++j) tile[j] = 0.0f;
+      for (int j = 0; j < HDV / 2; ++j) tile[j] = 0.0f;
       wgmma_fence();
 #pragma unroll
       for (int t = 0; t < PASSES; ++t) {
-        const uint32_t vb = s_v + pass_b(t) * C::KV_BYTES;
+        const uint32_t vb = s_v + pass_b(t) * C::V_BYTES;
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
           wgmma_rs(tile, p[pass_a(t)] + 4 * kk,
-                   mnmajor_desc<C>(vb + kk * 16 * C::ROWB));
+                   mnmajor_desc<C>(vb + kk * 16 * C::ROWB_V));
       }
       wgmma_commit();
       wgmma_wait_all();
       pin(tile);
 #pragma unroll
-      for (int j = 0; j < HD / 2; ++j)
+      for (int j = 0; j < HDV / 2; ++j)
         acc[j] = acc[j] * alpha[(j >> 1) & 1] + tile[j];
     }
     pin(p[0]);
@@ -597,9 +636,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int row = r0 + 8 * r;
     if (row >= Sq) continue;
     const float den = fmaxf(l[r], 1e-30f);
-    auto* out = o + (((int64_t)b * Sq + row) * H + h) * HD + 2 * (lane & 3);
+    auto* out = o + (((int64_t)b * Sq + row) * H + h) * HDV + 2 * (lane & 3);
 #pragma unroll
-    for (int c = 0; c < HD / 8; ++c) {
+    for (int c = 0; c < HDV / 8; ++c) {
       const float x = acc[4 * c + 2 * r] / den;
       const float y = acc[4 * c + 2 * r + 1] / den;
       if constexpr (F32)
@@ -698,63 +737,82 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD, bool F32>
+CUtensorMapSwizzle swizzle_of(int rowb) {
+  return rowb == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+         : rowb == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                      : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+
+template <int HD, int HDV, bool F32>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int KV, float scale, int causal, int window,
            cudaStream_t stream) {
-  using C = Cfg<HD, F32>;
+  using C = Cfg<HD, HDV, F32>;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return ERR_NO_ENCODER;
-  const CUtensorMapSwizzle sw = C::ROWB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : C::ROWB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUtensorMapSwizzle sw = swizzle_of(C::ROWB);
   // float32: the planes stacked on the batch axis, (3B, S, heads, hd).
   const int NB = C::PLANES * B;
   CUtensorMap tq, tk, tv;
   if (!make_map(enc, &tq, q, NB, Sq, H, HD, C::CHUNK, BQ, sw) ||
       !make_map(enc, &tk, k, NB, Sk, KV, HD, C::CHUNK, C::BK, sw) ||
-      !make_map(enc, &tv, v, NB, Sk, KV, HD, C::CHUNK, C::BK, sw))
+      !make_map(enc, &tv, v, NB, Sk, KV, HDV, C::CHUNK_V, C::BK,
+                swizzle_of(C::ROWB_V)))
     return ERR_TENSOR_MAP;
   static bool attr_set = false;  // per instantiation
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fa_fwd_wgmma<HD, F32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        C::SMEM);
+        fa_fwd_wgmma<HD, HDV, F32>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  fa_fwd_wgmma<HD, F32><<<grid, THREADS, C::SMEM, stream>>>(
+  fa_fwd_wgmma<HD, HDV, F32><<<grid, THREADS, C::SMEM, stream>>>(
       tq, tk, tv,
       static_cast<std::conditional_t<F32, float, __nv_bfloat16>*>(o), B, Sq,
       Sk, H, KV, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
-// The head dims both entries take, one instantiation of each kernel per
-// dim: every multiple of 16 the model zoo uses (the smoke configs 16,
-// TinyLlama 64, StableLM-3B 80, Zamba2-7B's shared attention 112, the
-// others 128).  The wrapper's HEAD_DIMS (kernels/flash_attention.py) is
-// this list; tests/test_torch_attention.py holds the two equal.
+// The head dims both entries take with q/k and v of one width, one
+// instantiation of each kernel per dim: every multiple of 16 the model zoo
+// uses (the smoke configs 16, TinyLlama 64, StableLM-3B 80, Zamba2-7B's
+// shared attention 112, the others 128).  The wrapper's HEAD_DIMS
+// (kernels/flash_attention.py) is this list; tests/test_torch_attention.py
+// holds the two equal.
 #define HEAD_DIMS(X) X(16) X(32) X(64) X(80) X(112) X(128)
+// The (q/k, v) pairs of unequal widths they take, one instantiation each:
+// DeepSeek-V2's MLA, nope 128 + rope 64 against v 128.  The wrapper's
+// HEAD_DIM_PAIRS is this list (held equal by the same test).
+#define HEAD_DIM_PAIRS(X) X(192, 128)
 
 template <bool F32>
 int forward(const void* q, const void* k, const void* v, void* o, int B,
-            int Sq, int Sk, int H, int KV, int hd, float scale, int causal,
-            int window, void* stream) {
+            int Sq, int Sk, int H, int KV, int hd, int hd_v, float scale,
+            int causal, int window, void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return 0;
   if (Sk <= 0 || KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-#define CASE(HD)                                                     \
-  case HD:                                                           \
-    return launch<HD, F32>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, \
-                           window, st);
-    HEAD_DIMS(CASE)
+  if (hd == hd_v) {
+    switch (hd) {
+#define CASE(HD)                                                         \
+  case HD:                                                               \
+    return launch<HD, HD, F32>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, \
+                               window, st);
+      HEAD_DIMS(CASE)
 #undef CASE
-    default:
-      return (int)cudaErrorInvalidValue;
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
+#define PAIR(HD, HDV)                                                  \
+  if (hd == HD && hd_v == HDV)                                         \
+    return launch<HD, HDV, F32>(q, k, v, o, B, Sq, Sk, H, KV, scale,   \
+                                causal, window, st);
+  HEAD_DIM_PAIRS(PAIR)
+#undef PAIR
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -763,25 +821,26 @@ int forward(const void* q, const void* k, const void* v, void* o, int B,
 // stream, does not synchronize, and returns cudaGetLastError(), the error
 // that refused the launch, or ERR_NO_ENCODER / ERR_TENSOR_MAP (negative).
 //
-// fa_forward_bf16: bf16 q (B, Sq, H, hd) and k, v (B, Sk, KV, hd),
-// contiguous and 16-byte aligned; bf16 o (B, Sq, H, hd); hd one of
-// HEAD_DIMS (above); window <= 0 means no window.
+// fa_forward_bf16: bf16 q (B, Sq, H, hd), k (B, Sk, KV, hd) and v (B, Sk,
+// KV, hd_v), contiguous and 16-byte aligned; bf16 o (B, Sq, H, hd_v); hd
+// == hd_v one of HEAD_DIMS, or (hd, hd_v) one of HEAD_DIM_PAIRS (above);
+// window <= 0 means no window.
 extern "C" int fa_forward_bf16(const void* q, const void* k, const void* v,
                                void* o, int B, int Sq, int Sk, int H, int KV,
-                               int hd, float scale, int causal, int window,
-                               void* stream) {
-  return forward<false>(q, k, v, o, B, Sq, Sk, H, KV, hd, scale, causal,
+                               int hd, int hd_v, float scale, int causal,
+                               int window, void* stream) {
+  return forward<false>(q, k, v, o, B, Sq, Sk, H, KV, hd, hd_v, scale, causal,
                         window, stream);
 }
 
 // fa_forward_f32: the same for float32 inputs, given as split_bf16x3's
-// planes: q (3, B, Sq, H, hd), k, v (3, B, Sk, KV, hd) bf16; float32 o
-// (B, Sq, H, hd).
+// planes: q (3, B, Sq, H, hd), k (3, B, Sk, KV, hd), v (3, B, Sk, KV,
+// hd_v) bf16; float32 o (B, Sq, H, hd_v).
 extern "C" int fa_forward_f32(const void* q, const void* k, const void* v,
                               void* o, int B, int Sq, int Sk, int H, int KV,
-                              int hd, float scale, int causal, int window,
-                              void* stream) {
-  return forward<true>(q, k, v, o, B, Sq, Sk, H, KV, hd, scale, causal,
+                              int hd, int hd_v, float scale, int causal,
+                              int window, void* stream) {
+  return forward<true>(q, k, v, o, B, Sq, Sk, H, KV, hd, hd_v, scale, causal,
                        window, stream);
 }
 

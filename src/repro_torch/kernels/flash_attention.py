@@ -4,17 +4,19 @@ Port of the Pallas kernel ``repro/kernels/flash_attention.py``
 (``flash_attention_pallas``): causal / sliding-window GQA attention
 forward with an online softmax and float32 statistics.
 
-:func:`flash_attention` takes q (B, Sq, H, hd) and k, v (B, Sk, KV, hd) in
-that layout, with no transpose and no expanded K/V.  A tensor on the CPU
-goes to the plain version :func:`.ref.flash_attention_ref`.  CUDA tensors
-go to one kernel per dtype, or the wrapper raises, both in
+:func:`flash_attention` takes q (B, Sq, H, hd), k (B, Sk, KV, hd) and v
+(B, Sk, KV, hd_v) in that layout, with no transpose and no expanded K/V;
+hd_v is hd but for DeepSeek-V2's MLA (q/k 192 against v 128, as the JAX
+package's ``layers.flash_attention`` takes ``hd_v = v.shape[-1]``).  A
+tensor on the CPU goes to the plain version :func:`.ref.flash_attention_ref`.
+CUDA tensors go to one kernel per dtype, or the wrapper raises, both in
 ``csrc/flash_attention_sm90.cu`` on the tensor cores:
 
-- bfloat16 -> ``fa_fwd_wgmma<hd, false>`` (p split exactly into three
-  bf16 terms for p @ v);
+- bfloat16 -> ``fa_fwd_wgmma<hd, hd_v, false>`` (p split exactly into
+  three bf16 terms for p @ v);
 - float32 -> :func:`split_bf16x3` of q, k and v into bf16 planes, then
-  ``fa_fwd_wgmma<hd, true>`` (six plane products per float32 product,
-  each tile's p @ v merged into the output on the CUDA cores).
+  ``fa_fwd_wgmma<hd, hd_v, true>`` (six plane products per float32
+  product, each tile's p @ v merged into the output on the CUDA cores).
 
 ``LAUNCHES`` counts each kernel's launches under its own key
 (``"flash_attention"`` the bf16 kernel, ``"flash_attention_f32"`` the
@@ -37,6 +39,9 @@ from ._build import load
 # list, one instantiation each (tests/test_torch_attention.py holds the
 # two equal).  Any multiple of 16 would tile; these are the zoo's.
 HEAD_DIMS = (16, 32, 64, 80, 112, 128)
+# The (q/k, v) head-dim pairs of unequal widths they take: the .cu's
+# HEAD_DIM_PAIRS list (held equal by the same test); DeepSeek-V2's MLA.
+HEAD_DIM_PAIRS = ((192, 128),)
 SOURCE = "flash_attention_sm90"
 # dtype -> (C entry point, LAUNCHES key)
 ROUTES = {
@@ -64,7 +69,8 @@ def _entry(name: str):
     if name == SPLIT:
         fn.argtypes = [P, P, ctypes.c_longlong, ctypes.c_longlong, P]
     else:
-        fn.argtypes = [P, P, P, P, I, I, I, I, I, I, ctypes.c_float, I, I, P]
+        fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I, ctypes.c_float, I,
+                       I, P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -106,10 +112,11 @@ def split_bf16x3(x: torch.Tensor) -> torch.Tensor:
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            window: Optional[int]) -> None:
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"want q (B,Sq,H,hd), k = v (B,Sk,KV,hd); got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or (
+            v.shape[:3] != k.shape[:3]):
+        raise ValueError(f"want q (B,Sq,H,hd), k (B,Sk,KV,hd), v "
+                         f"(B,Sk,KV,hd_v); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, _, H, hd = q.shape
     if k.shape[0] != B or k.shape[3] != hd or H % k.shape[2] != 0:
         raise ValueError(f"k/v {tuple(k.shape)} do not fit q "
@@ -123,15 +130,30 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window must be None or >= 1, got {window}")
 
 
+def check_head_dims(hd: int, hd_v: int) -> None:
+    """Raise unless the CUDA kernels take q/k head dim ``hd`` against v head
+    dim ``hd_v``: equal and in ``HEAD_DIMS``, or a pair of
+    ``HEAD_DIM_PAIRS``.  (The plain version takes any.)"""
+    if hd == hd_v and hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}: the CUDA "
+                         f"kernels are instantiated for these only")
+    if hd != hd_v and (hd, hd_v) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"head dims q/k {hd} against v {hd_v} not in "
+                         f"{HEAD_DIM_PAIRS}: the CUDA kernels are "
+                         f"instantiated for these pairs only")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     positions_q0: int = 0) -> torch.Tensor:
-    """Attention forward -> (B, Sq, H, hd) in q's dtype.
+    """Attention forward -> (B, Sq, H, hd_v) in q's dtype, scores scaled by
+    1 / sqrt(hd) (q's head dim).
 
     Causality is top-left aligned (query i sees keys 0..i), as in the
     Pallas kernel; ``window`` keeps keys with kpos > qpos - window.  CUDA
-    tensors must be bfloat16 or float32 (each dtype has its kernel) with hd
-    in ``HEAD_DIMS``; Sq and Sk may be any length.  The plain
+    tensors must be bfloat16 or float32 (each dtype has its kernel) with
+    hd == hd_v in ``HEAD_DIMS`` or (hd, hd_v) in ``HEAD_DIM_PAIRS``
+    (:func:`check_head_dims`); Sq and Sk may be any length.  The plain
     version (CPU tensors) runs with its default chunks, which need Sq and
     Sk at most 1024 or multiples of it.  ``positions_q0`` must be 0 on
     either device: the Pallas kernel has no such argument.
@@ -145,16 +167,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     B, Sq, H, hd = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}: the CUDA "
-                         f"kernels are instantiated for these only")
+    Sk, KV, hd_v = k.shape[1], k.shape[2], v.shape[3]
+    check_head_dims(hd, hd_v)
     if q.dtype not in ROUTES:
         raise TypeError(f"dtype {q.dtype} not in {list(ROUTES)}")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(f"q on {q.device}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    out = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     if Sk == 0:
@@ -166,7 +186,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     name, key = ROUTES[out.dtype]
     err = _entry(name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
-        H, KV, hd, 1.0 / math.sqrt(hd), int(causal), window or 0,
+        H, KV, hd, hd_v, 1.0 / math.sqrt(hd), int(causal), window or 0,
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: {_TMA_ERRORS.get(err, 'CUDA error')} "
@@ -176,4 +196,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 __all__ = ["flash_attention", "split_bf16x3", "LAUNCHES", "reset_launches",
-           "HEAD_DIMS", "ROUTES"]
+           "HEAD_DIMS", "HEAD_DIM_PAIRS", "check_head_dims", "ROUTES"]

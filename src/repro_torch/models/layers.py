@@ -1,5 +1,5 @@
-# Port of repro/models/layers.py (the JAX package) without MLA: norms, RoPE / M-RoPE, GQA attention, SwiGLU, MoE.
-"""Core layers: RMSNorm, RoPE / M-RoPE, GQA attention, SwiGLU, MoE.
+# Port of repro/models/layers.py (the JAX package): norms, RoPE / M-RoPE, GQA and MLA attention, SwiGLU, MoE.
+"""Core layers: RMSNorm, RoPE / M-RoPE, GQA and MLA attention, SwiGLU, MoE.
 
 Each block is an ``nn.Module`` whose parameters carry the JAX tree's names
 and the JAX layout ``(d_in, d_out)``: the port computes ``x @ W`` as
@@ -9,10 +9,12 @@ takes it, under the JAX function's name, so the two packages compare
 function by function.
 
 Prefill attention goes through :func:`flash_attention`, the wrapper of the
-CUDA kernel (its plain version for CPU tensors); single-token decode
-attention is plain torch.  The MoE's expert products are batched matmuls,
-as the JAX package computes them outside any Pallas kernel.  MLA is not
-ported yet: the model raises for its family (``transformer.check_family``).
+CUDA kernel (its plain version for CPU tensors); MLA's (DeepSeek-V2) with
+q/k at nope + rope against v at its own width.  Single-token decode
+attention is plain torch; MLA decodes against its latent cache, expanded
+through ``wkv_b`` at every step as in JAX.  The MoE's expert products are
+batched matmuls, as the JAX package computes them outside any Pallas
+kernel.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.flash_attention import flash_attention
-from .config import ModelConfig, MoEConfig
+from .config import MLAConfig, ModelConfig, MoEConfig
 from .params import P
 
 f32 = torch.float32
@@ -211,6 +213,124 @@ def attention_decode(attn: Attention, x, cfg: ModelConfig, cache, pos, *,
 
 
 # ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 Multi-head Latent Attention)
+# ---------------------------------------------------------------------------
+
+def mla_spec(cfg: ModelConfig) -> Dict[str, P]:
+    m: MLAConfig = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qk = m.nope_head_dim + m.rope_head_dim
+    return {
+        "wq_a": P((d, m.q_lora_rank), ("embed", "q_lora")),
+        "q_norm": P((m.q_lora_rank,), ("q_lora",), init="ones"),
+        "wq_b": P((m.q_lora_rank, H * qk), ("q_lora", "heads")),
+        "wkv_a": P((d, m.kv_lora_rank + m.rope_head_dim),
+                   ("embed", "kv_lora")),
+        "kv_norm": P((m.kv_lora_rank,), ("kv_lora",), init="ones"),
+        "wkv_b": P((m.kv_lora_rank, H * (m.nope_head_dim + m.v_head_dim)),
+                   ("kv_lora", "heads")),
+        "wo": P((H * m.v_head_dim, d), ("heads", "embed")),
+    }
+
+
+class MLA(nn.Module):
+    """MLA weights under the JAX names, in its layout: ``wq_a``, ``q_norm``
+    (an RMSNorm scale), ``wq_b``, ``wkv_a``, ``kv_norm``, ``wkv_b``,
+    ``wo``."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype):
+        super().__init__()
+        for name, p in mla_spec(cfg).items():
+            setattr(self, name, _param(p.shape, device, dtype))
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the two dtypes' promoted type, as jnp's ``@`` computes
+    a bf16 cache times float32 weights (or the reverse) in float32."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
+def _mla_q(mla: MLA, x, cfg: ModelConfig, positions):
+    """q (B, S, H, nope + rope): the nope part and the rotated rope part."""
+    m: MLAConfig = cfg.mla
+    B, S, _ = x.shape
+    qk_n = m.nope_head_dim
+    q_lat = rmsnorm(mla.q_norm, x @ mla.wq_a)
+    q = (q_lat @ mla.wq_b).reshape(B, S, cfg.n_heads, qk_n + m.rope_head_dim)
+    q_rope = apply_rope(q[..., qk_n:], positions, cfg.rope_theta)
+    return torch.cat([q[..., :qk_n], q_rope], dim=-1)
+
+
+def _mla_latent(mla: MLA, x, cfg: ModelConfig, positions):
+    """The latent ``c`` (B, S, kv_lora), normed, and the rotated shared key
+    ``k_rope`` (B, S, 1, rope)."""
+    kv_lora = cfg.mla.kv_lora_rank
+    ckv = x @ mla.wkv_a                            # (B, S, kv_lora + rope)
+    c = rmsnorm(mla.kv_norm, ckv[..., :kv_lora])
+    k_rope = apply_rope(ckv[..., None, kv_lora:], positions, cfg.rope_theta)
+    return c, k_rope
+
+
+def _mla_kv(mla: MLA, c, k_rope, cfg: ModelConfig):
+    """k (B, S, H, nope + rope) and v (B, S, H, v_head_dim) from the latent:
+    ``c @ wkv_b`` split into k's nope part and v, and ``k_rope`` repeated
+    over the H heads and concatenated, materialised as in JAX (the kernel
+    reads k through a TMA map, never a stride-0 view)."""
+    m: MLAConfig = cfg.mla
+    B, S = c.shape[:2]
+    H, qk_n = cfg.n_heads, m.nope_head_dim
+    kv = _matmul(c, mla.wkv_b).reshape(B, S, H, qk_n + m.v_head_dim)
+    k_nope, v = kv[..., :qk_n], kv[..., qk_n:]
+    k_rope = k_rope.to(k_nope.dtype).expand(B, S, H, m.rope_head_dim)
+    return torch.cat([k_nope, k_rope], dim=-1), v
+
+
+def _mla_qkv(mla: MLA, x, cfg: ModelConfig, positions):
+    """(q, k, v, c, k_rope) of the JAX function: q and k at nope + rope, v
+    at v_head_dim, the latent and the shared rotated key."""
+    q = _mla_q(mla, x, cfg, positions)
+    c, k_rope = _mla_latent(mla, x, cfg, positions)
+    k, v = _mla_kv(mla, c, k_rope, cfg)
+    return q, k, v, c, k_rope
+
+
+def mla_apply(mla: MLA, x, cfg: ModelConfig, positions):
+    """Causal MLA over x (B, S, D): the kernel's wrapper with q/k at nope +
+    rope against v at v_head_dim (scale 1 / sqrt(nope + rope))."""
+    q, k, v, _, _ = _mla_qkv(mla, x, cfg, positions)
+    o = flash_attention(q, k, v, causal=True)
+    B, S = x.shape[:2]
+    return o.reshape(B, S, -1) @ mla.wo
+
+
+def mla_decode(mla: MLA, x, cfg: ModelConfig, cache, pos):
+    """x: (B,1,D); cache: the *latent* ``{'c': (B,S,kv_lora), 'kr':
+    (B,S,1,rope)}``; pos: (B,) int.
+
+    Writes the new latent and rotated key into slot ``pos`` in place (no
+    ring: as in JAX, a position at or past S writes nothing), then expands
+    the whole cache through ``wkv_b`` and attends over the first
+    ``min(pos + 1, S)`` positions with the plain ``decode_attention``.
+    Returns ``(out (B,1,D), cache)``."""
+    q = _mla_q(mla, x, cfg, pos[:, None])
+    c_new, kr_new = _mla_latent(mla, x, cfg, pos[:, None])
+    c_all, kr_all = cache["c"], cache["kr"]
+    B, S = c_all.shape[:2]
+    rows = torch.arange(B, device=x.device)
+    slot = torch.clamp(pos, max=S - 1).long()
+    inside = (pos < S)[:, None]
+    c_all[rows, slot] = torch.where(inside, c_new[:, 0].to(c_all.dtype),
+                                    c_all[rows, slot])
+    kr_all[rows, slot] = torch.where(inside[..., None],
+                                     kr_new[:, 0].to(kr_all.dtype),
+                                     kr_all[rows, slot])
+    k, v = _mla_kv(mla, c_all, kr_all, cfg)
+    o = decode_attention(q, k, v, cache_len=torch.clamp(pos + 1, max=S))
+    return o.reshape(B, 1, -1) @ mla.wo, cache
+
+
+# ---------------------------------------------------------------------------
 # SwiGLU MLP
 # ---------------------------------------------------------------------------
 
@@ -362,6 +482,7 @@ __all__ = [
     "rmsnorm_spec", "rmsnorm", "RMSNorm", "rope_freqs", "apply_rope",
     "default_mrope_sections", "flash_attention", "decode_attention",
     "attention_spec", "Attention", "attention_qkv", "attention_apply",
-    "attention_decode", "mlp_spec", "SwiGLU", "mlp_apply", "moe_spec",
+    "attention_decode", "mla_spec", "MLA", "mla_apply", "mla_decode",
+    "mlp_spec", "SwiGLU", "mlp_apply", "moe_spec",
     "MoE", "moe_route", "moe_slots", "moe_apply",
 ]

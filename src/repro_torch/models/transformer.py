@@ -1,4 +1,4 @@
-# Port of repro/models/transformer.py (the JAX package), dense, vlm, moe, encdec, rwkv6 and hybrid families.
+# Port of repro/models/transformer.py (the JAX package): every family (dense, vlm, moe, mla_moe, encdec, rwkv6, hybrid).
 """Decoder LM and Whisper's encoder-decoder: embedding, pre-norm layers,
 final norm.
 
@@ -14,15 +14,19 @@ keeps a ``ModuleList`` and loops.  ``forward``, ``encode``, ``logits_fn``
 and ``lm_forward`` take the module.  The ``vlm`` family (Qwen2-VL) is the
 dense decoder with M-RoPE over (3, B, S) positions; ``moe`` (Llama-4
 Scout) has a routed MoE as each layer's FFN and sums its aux loss over
-layers; ``encdec`` (Whisper, frontend stubbed) runs a bidirectional
-encoder over frame embeddings and a decoder with cross attention to it;
-``rwkv6`` (RWKV-6) has time-mix and channel-mix layers, each prefill
+layers; ``mla_moe`` (DeepSeek-V2) is the moe family with Multi-head
+Latent Attention (``L.MLA``, ``attn.{wq_a,q_norm,wq_b,wkv_a,kv_norm,
+wkv_b,wo}``) in place of GQA; ``encdec`` (Whisper, frontend stubbed)
+runs a bidirectional encoder over frame embeddings and a decoder with
+cross attention to it; ``rwkv6`` (RWKV-6) has time-mix and channel-mix
+layers, each prefill
 starting from zero carries; ``hybrid`` (Zamba2) runs its Mamba-2 layers in
 groups of ``shared_attn_period``, the weight-shared attention + SwiGLU
 block (sliding window ``cfg.sliding_window``) before each group, through
 :func:`hybrid_forward`.  As in JAX, :func:`forward` on a hybrid config runs
 the Mamba-2 layers alone; :func:`lm_forward` and the serving prefill take
-``hybrid_forward``.  MLA (``mla_moe``) raises and points at ROADMAP.md.
+``hybrid_forward``.  A family the port does not know raises and points at
+ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -40,15 +44,14 @@ from .params import P, init_tree
 f32 = torch.float32
 
 
-FAMILIES = ("dense", "vlm", "moe", "encdec", "rwkv6", "hybrid")
+FAMILIES = ("dense", "vlm", "moe", "mla_moe", "encdec", "rwkv6", "hybrid")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES or cfg.mla is not None:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (the port "
-            f"runs the families {FAMILIES}, without MLA); see ROADMAP.md, "
-            f"Queue 2")
+            f"{cfg.name}: family {cfg.family!r} is not ported (the port "
+            f"runs the families {FAMILIES}); see ROADMAP.md, Queue 2")
 
 
 # ---------------------------------------------------------------------------
@@ -70,8 +73,11 @@ def layer_spec(cfg: ModelConfig) -> Dict[str, Any]:
             "mamba": S.mamba2_spec(cfg),
         }
     spec: Dict[str, Any] = {"ln1": L.rmsnorm_spec(cfg.d_model),
-                            "ln2": L.rmsnorm_spec(cfg.d_model),
-                            "attn": L.attention_spec(cfg)}
+                            "ln2": L.rmsnorm_spec(cfg.d_model)}
+    if cfg.family == "mla_moe":
+        spec["attn"] = L.mla_spec(cfg)
+    else:
+        spec["attn"] = L.attention_spec(cfg)
     if cfg.moe is not None:
         spec["ffn"] = L.moe_spec(cfg)
     else:
@@ -152,15 +158,17 @@ def stacked_model_spec(cfg: ModelConfig) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 class DecoderLayer(nn.Module):
-    """One pre-norm layer's blocks: ``ln1``, ``attn``, ``ln2``, ``ffn``
-    (a SwiGLU, or for the moe family an ``L.MoE``).  Whisper's encoder
-    layers and Zamba2's shared block have the same blocks, with a
-    SwiGLU."""
+    """One pre-norm layer's blocks: ``ln1``, ``attn`` (an ``L.Attention``,
+    or ``L.MLA`` with ``mla``), ``ln2``, ``ffn`` (a SwiGLU, or with ``moe``
+    an ``L.MoE``).  Whisper's encoder layers and Zamba2's shared block have
+    the same blocks, with GQA and a SwiGLU."""
 
-    def __init__(self, cfg: ModelConfig, *, device, dtype, moe=False):
+    def __init__(self, cfg: ModelConfig, *, device, dtype, moe=False,
+                 mla=False):
         super().__init__()
         self.ln1 = L.RMSNorm(cfg.d_model, device=device, dtype=dtype)
-        self.attn = L.Attention(cfg, device=device, dtype=dtype)
+        self.attn = (L.MLA if mla else L.Attention)(cfg, device=device,
+                                                    dtype=dtype)
         self.ln2 = L.RMSNorm(cfg.d_model, device=device, dtype=dtype)
         self.ffn = (L.MoE(cfg, device=device, dtype=dtype) if moe else
                     L.SwiGLU(cfg.d_model, cfg.d_ff, device=device,
@@ -208,7 +216,8 @@ def _layer(cfg: ModelConfig, **kw) -> nn.Module:
         return RWKVLayer(cfg, **kw)
     if cfg.family == "hybrid":
         return MambaLayer(cfg, **kw)
-    return DecoderLayer(cfg, moe=cfg.moe is not None, **kw)
+    return DecoderLayer(cfg, moe=cfg.moe is not None,
+                        mla=cfg.family == "mla_moe", **kw)
 
 
 class Transformer(nn.Module):
@@ -331,8 +340,8 @@ def _decoder_layer_fwd(cfg: ModelConfig, layer: nn.Module, x, positions):
         return x + h, None
     if cfg.family == "hybrid":
         return _mamba_layer_fwd(cfg, layer, x), None
-    h = L.attention_apply(layer.attn, L.rmsnorm(layer.ln1.scale, x), cfg,
-                          positions)
+    attend = L.mla_apply if cfg.family == "mla_moe" else L.attention_apply
+    h = attend(layer.attn, L.rmsnorm(layer.ln1.scale, x), cfg, positions)
     x = x + h
     h_in = L.rmsnorm(layer.ln2.scale, x)
     if cfg.moe is not None:

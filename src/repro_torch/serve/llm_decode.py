@@ -1,9 +1,11 @@
-# Port of repro/serve/llm_decode.py (the JAX package), dense, vlm, moe, encdec, rwkv6 and hybrid families.
+# Port of repro/serve/llm_decode.py (the JAX package): every family (dense, vlm, moe, mla_moe, encdec, rwkv6, hybrid).
 """LLM inference: prefill (last-token logits) and a single-token decode
 step against a KV cache — **not** the placement serving layer.
 
 Cache layouts: ``{'k', 'v'}: (L, B, S, KV, hd)``; encdec adds the cross
-attention's ``'xk'``, ``'xv'`` of the same shape; rwkv6 holds
+attention's ``'xk'``, ``'xv'`` of the same shape; mla_moe holds the
+*latent* ``'c'`` (L, B, S, kv_lora) and ``'kr'`` (L, B, S, 1, rope) bf16,
+each step re-expanding it through ``wkv_b`` as JAX does; rwkv6 holds
 ``'tm_state'`` (L, B, H, hd, hd) float32 and the token-shift carries
 ``'tm_x'``, ``'cm_x'`` (L, B, D) bf16; hybrid holds ``'ssm'`` (L, B, H, hd,
 N) float32 and, per shared-block call (``n_layers // shared_attn_period``
@@ -12,7 +14,8 @@ min(sliding_window or max_seq, max_seq)`` slots, ``'shared_k'`` /
 ``'shared_v'`` (G, B, W, KV, hd) bf16.  The SSM families' state does not
 grow with the context: this is what makes long_500k runnable.
 ``decode_step`` writes each layer's new K/V into slot ``pos % S`` (the
-ring's ``pos % W``) and each Mamba-2 state in place (JAX threads a new
+ring's ``pos % W``; MLA's latent into slot ``pos``) and each Mamba-2 state
+in place (JAX threads a new
 cache through its scan; the values are the same) and returns the cache;
 RWKV's entries are replaced by the step's, as JAX's are, so the carries
 take x's dtype (float32 in a float32 model after the first step).
@@ -44,6 +47,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     M.check_family(cfg)
     device = resolve_device(device)
     LN, hd = cfg.n_layers, cfg.resolved_head_dim
+    if cfg.family == "mla_moe":
+        m = cfg.mla
+        return {
+            "c": torch.zeros((LN, batch, max_seq, m.kv_lora_rank), dtype=bf16,
+                             device=device),
+            "kr": torch.zeros((LN, batch, max_seq, 1, m.rope_head_dim),
+                              dtype=bf16, device=device),
+        }
     if cfg.family == "rwkv6":
         H = cfg.d_model // cfg.ssm.head_dim
         shd = cfg.ssm.head_dim
@@ -80,8 +91,9 @@ def decode_step(model: M.Transformer, cache: Dict[str, torch.Tensor],
     """One token for every sequence.  tokens: (B,1) int; pos: (B,) int
     (current length of each sequence).  Returns (logits (B,1,V), cache).
     encdec: cross attention over all of ``xk`` / ``xv`` (no length mask,
-    as in JAX), q without RoPE; moe: the routed FFN at this step's T = B
-    tokens; rwkv6 and hybrid: :func:`_rwkv6_step` / :func:`_hybrid_step`."""
+    as in JAX), q without RoPE; moe and mla_moe: the routed FFN at this
+    step's T = B tokens; mla_moe: ``mla_decode`` against the latent cache;
+    rwkv6 and hybrid: :func:`_rwkv6_step` / :func:`_hybrid_step`."""
     M.check_family(cfg)
     x = model.embedding[tokens]                           # (B,1,D)
     if cfg.family == "rwkv6":
@@ -91,11 +103,14 @@ def decode_step(model: M.Transformer, cache: Dict[str, torch.Tensor],
         x = _hybrid_step(model, cache, x, pos, cfg)
         return _logits(model, x, cfg), cache
     encdec = cfg.family == "encdec"
+    mla = cfg.family == "mla_moe"
     layers = model.dec_layers if encdec else model.layers
+    names = ("c", "kr") if mla else ("k", "v")
+    attend = L.mla_decode if mla else L.attention_decode
     for i, layer in enumerate(layers):
-        lc = {"k": cache["k"][i], "v": cache["v"][i]}
-        h, _ = L.attention_decode(layer.attn,
-                                  L.rmsnorm(layer.ln1.scale, x), cfg, lc, pos)
+        lc = {n: cache[n][i] for n in names}
+        h, _ = attend(layer.attn, L.rmsnorm(layer.ln1.scale, x), cfg, lc,
+                      pos)
         x = x + h
         if encdec:
             # cross-attention against the precomputed encoder KV

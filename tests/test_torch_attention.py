@@ -5,7 +5,9 @@ The cases are those of tests/test_flash_attention.py — MHA, GQA 4:1, MQA,
 head dims 32/64/128, non-causal with Sq != Sk, a 96-key sliding window,
 bf16 — plus a ragged S = 1000 and the zoo's other head dims (16, the smoke
 configs; 80, StableLM-3B; 112 windowed, Zamba2-7B's shared attention),
-with inputs made by numpy from a seed.
+with inputs made by numpy from a seed.  (MLA's q/k 192 against v 128 is
+in tests/test_torch_mla.py; here, the wrapper's list of such pairs and
+its checks.)
 Each is held against ``repro.models.layers.flash_attention`` (the jnp
 chunked function the port copies) and, for a few, against
 ``flash_attention_pallas(interpret=True)`` (each of those costs a Pallas
@@ -138,7 +140,7 @@ def test_each_cuda_dtype_has_one_kernel():
     assert "fa_fwd_kernel" not in sm90
     # Both entries launch the one wgmma kernel, float32 with its planes.
     assert "forward<false>(" in sm90 and "forward<true>(" in sm90
-    assert "fa_fwd_wgmma<HD, F32><<<" in sm90
+    assert "fa_fwd_wgmma<HD, HDV, F32><<<" in sm90
     # The wrapper splits q, k and v before the float32 entry, and nowhere
     # else.
     body = inspect.getsource(K.flash_attention)
@@ -187,3 +189,46 @@ def test_head_dims_are_the_kernel_sources_list():
     doc = K.flash_attention.__doc__
     assert "``HEAD_DIMS``" in doc and not re.search(r"\{\d+(, \d+)*\}", doc)
     assert all(hd % 16 == 0 for hd in K.HEAD_DIMS)
+
+
+def test_head_dim_pairs_are_the_kernel_sources_list():
+    """The wrapper's HEAD_DIM_PAIRS is the (q/k, v) list the CUDA source
+    instantiates (its HEAD_DIM_PAIRS X-macro, expanded in forward<F32>
+    beside HEAD_DIMS): DeepSeek-V2's MLA, 192 against 128."""
+    import re
+    from repro_torch.kernels import _build
+    sm90 = (_build.CSRC / "flash_attention_sm90.cu").read_text()
+    (listed,) = re.findall(
+        r"#define HEAD_DIM_PAIRS\(X\) ((?:X\(\d+, \d+\) ?)+)", sm90)
+    pairs = tuple(tuple(int(d) for d in pair) for pair in re.findall(
+        r"X\((\d+), (\d+)\)", listed))
+    assert pairs == K.HEAD_DIM_PAIRS == ((192, 128),)
+    assert "HEAD_DIM_PAIRS(PAIR)" in sm90
+    assert all(hd % 16 == 0 and hd_v % 16 == 0 and hd != hd_v
+               for hd, hd_v in K.HEAD_DIM_PAIRS)
+
+
+def test_wrapper_checks_unequal_head_dims():
+    """``check_head_dims`` (the CUDA path's test) takes equal dims in
+    HEAD_DIMS and the listed pairs only: an unlisted pair (192 / 64, the
+    smoke config's 24 / 16) raises naming the pairs.  The shape checks of
+    either path raise when v's leading dims are not k's; on the CPU the
+    plain version takes any v width and returns (B, Sq, H, hd_v)."""
+    for hd in K.HEAD_DIMS:
+        K.check_head_dims(hd, hd)
+    K.check_head_dims(192, 128)
+    for hd, hd_v in ((192, 64), (24, 16), (128, 192), (192, 192)):
+        with pytest.raises(ValueError, match=r"\(192, 128\)|16, 32"):
+            K.check_head_dims(hd, hd_v)
+    rng = np.random.default_rng(5)
+    q = torch.as_tensor(rng.normal(size=(1, 64, 4, 24)).astype(np.float32))
+    k = torch.as_tensor(rng.normal(size=(1, 64, 2, 24)).astype(np.float32))
+    v = torch.as_tensor(rng.normal(size=(1, 64, 2, 16)).astype(np.float32))
+    K.reset_launches()
+    got = K.flash_attention(q, k, v)
+    assert tuple(got.shape) == (1, 64, 4, 16)
+    assert torch.equal(got, flash_attention_ref(q, k, v))
+    assert sum(K.LAUNCHES.values()) == 0
+    for bad in (v[:, :32], v[:, :, :1], v[0]):
+        with pytest.raises(ValueError, match="hd_v"):
+            K.flash_attention(q, k, bad)

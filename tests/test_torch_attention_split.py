@@ -29,7 +29,8 @@ nine plane products.  These tests pin:
 - a plain torch emulation of the kernel's arithmetic (the planes, the six
   passes smallest first, float32 sums, each key tile's p @ v merged as
   acc * alpha + tile) equals the JAX chunked function at 2e-5 on the
-  float32 cases of tests/test_torch_attention.py.
+  float32 cases of tests/test_torch_attention.py, and at MLA's q/k 192
+  against v 128 (BK 32, the tile ``Cfg`` takes there).
 
 Inputs are made by numpy from a seed.
 """
@@ -215,8 +216,9 @@ def _kernel_bk(hd):
     return 32 if hd == 128 else 64
 
 
-def emulate_f32_kernel(q, k, v, causal, window):
-    """fa_fwd_wgmma<hd, true>'s arithmetic in plain torch on the CPU: q, k
+def emulate_f32_kernel(q, k, v, causal, window, bk=None):
+    """fa_fwd_wgmma<hd, hd_v, true>'s arithmetic in plain torch on the CPU
+    (``bk`` keys a tile, by default ``_kernel_bk(hd)``): q, k
     and v as bf16 planes; per key tile, S = the six plane passes of q k^T
     summed in float32, smallest first, times 1/sqrt(hd); the Pallas masks
     (-1e30 masked; keys past Sk are absent, the kernel's -inf weighs 0);
@@ -237,11 +239,11 @@ def emulate_f32_kernel(q, k, v, causal, window):
 
     qp, kp, vp = planes(q, False), planes(k, True), planes(v, True)
     scale = torch.tensor(1.0 / np.sqrt(hd), dtype=torch.float32)
-    acc = torch.zeros(B, H, Sq, hd)
+    acc = torch.zeros(B, H, Sq, v.shape[-1])
     m = torch.full((B, H, Sq), -1e30)
     l = torch.zeros(B, H, Sq)
     qpos = torch.arange(Sq)[:, None]
-    BK = _kernel_bk(hd)
+    BK = bk or _kernel_bk(hd)
     for k0 in range(0, Sk, BK):
         kb = [t[:, :, k0:k0 + BK] for t in kp]
         vb = [t[:, :, k0:k0 + BK] for t in vp]
@@ -280,5 +282,23 @@ def test_f32_kernel_arithmetic_equals_jax_attention(name):
     got = emulate_f32_kernel(q, k, v, causal, window)
     want = jax_flash(jq, jk, jv, causal=causal, window=window)
     assert got.dtype == torch.float32 and tuple(got.shape) == (B, Sq, H, hd)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               rtol=TOL["f32"], atol=TOL["f32"])
+
+
+@pytest.mark.parametrize("causal,Sq,Sk,KV", [(True, 200, 200, 2),
+                                             (False, 96, 160, 1)])
+def test_f32_kernel_arithmetic_at_the_mla_pair_equals_jax(causal, Sq, Sk,
+                                                          KV):
+    """The float32 kernel's arithmetic at q/k 192 against v 128 in BK 32
+    tiles (Cfg at the pair: one stage), ragged tiles and GQA, against the
+    JAX chunked function with hd_v = v.shape[-1], float32 within 2e-5."""
+    rng = np.random.default_rng(9)
+    q, k, v = (rng.normal(size=s).astype(np.float32) for s in (
+        (1, Sq, 2, 192), (1, Sk, KV, 192), (1, Sk, KV, 128)))
+    got = emulate_f32_kernel(*(torch.as_tensor(a) for a in (q, k, v)),
+                             causal, None, bk=32)
+    want = jax_flash(*(jnp.asarray(a) for a in (q, k, v)), causal=causal)
+    assert tuple(got.shape) == (1, Sq, 2, 128)
     np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
                                rtol=TOL["f32"], atol=TOL["f32"])

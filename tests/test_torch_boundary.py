@@ -167,6 +167,7 @@ COPIES = ("core/adaptive.py", "core/enumerate.py", "core/ilp.py",
           "sim/engine.py", "sim/metrics.py", "workload/alibaba.py",
           "workload/flashcrowd.py", "workload/synthetic.py")
 CHANGED_COPIES = {"configs/deepseek_7b.py": 1,
+                  "configs/deepseek_v2_236b.py": 1,
                   "configs/llama4_scout_17b_a16e.py": 1,
                   "configs/mistral_nemo_12b.py": 1,
                   "configs/qwen2_vl_2b.py": 1, "configs/stablelm_3b.py": 1,
@@ -428,6 +429,94 @@ def test_chip_smoke_windowed_prefill_shape_and_bound():
     mask = smoke.band_mask(torch, 6, 6, 2, "cpu")
     assert mask.sum(1).tolist() == [1, 2, 2, 2, 2, 2]
     assert int(smoke.band_mask(torch, 8192, 8192, 4096, "cpu").sum()) == pairs
+
+
+def test_chip_smoke_mla_prefill_shape_and_bound():
+    """Phase 2b holds and times the kernel at DeepSeek-V2's prefill (B 4,
+    S 4096, H = KV = 128, causal) with q/k at 192 against v at 128: 2 * B
+    * H * (192 + 128) flops a kept pair, 2.749e12, 2.780 ms at 989
+    TFLOP/s, against ~2.68 GB of bf16 q, k, v and o (0.80 ms); float32's
+    six plane passes at B 1.  The pair is the wrapper's, and the model's
+    prefill attention runs at it."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import HEAD_DIM_PAIRS
+    smoke = _chip_smoke()
+    cfg = get_config(smoke.DSV2)
+    B, Sq, Sk, H, KV, hd, causal = smoke.MODEL_ATTN_SHAPES[smoke.DSV2]
+    assert (B, Sq, Sk, H, KV, hd, causal) == (
+        smoke.PREFILL_B, smoke.PREFILL_S, smoke.PREFILL_S, 128, 128,
+        (192, 128), True)
+    assert smoke.attention_head_dims(cfg) == hd
+    assert smoke.zoo_attention_shape(cfg) == (B, Sq, H, KV, hd)
+    assert hd in HEAD_DIM_PAIRS
+    assert {smoke.head_dims_of(c[5]) for c in smoke.PAIR_ATTN_CASES.values()
+            } == set(HEAD_DIM_PAIRS)
+    pairs = smoke.attention_pairs(Sq, Sk, True, None)
+    assert 2.0 * B * H * (192 + 128) * pairs == pytest.approx(2.749e12,
+                                                               rel=1e-3)
+    got, by = smoke.attention_bound_ms(B, Sq, Sk, H, KV, hd, True, None,
+                                       "bfloat16")
+    assert by == "operations" and got == pytest.approx(2.780, rel=1e-3)
+    nbytes = 2 * (B * Sq * H * 320 + B * Sk * KV * 320)
+    assert nbytes == pytest.approx(2.68e9, rel=2e-3)
+    got, by = smoke.attention_bound_ms(1, Sq, Sk, H, KV, hd, True, None,
+                                       "float32")
+    assert by == "operations" and got == pytest.approx(6 * 2.780 / 4,
+                                                       rel=1e-3)
+
+
+@pytest.mark.parametrize("hd", [16, 64, 80, 112, 128])
+def test_chip_smoke_attention_bound_at_equal_widths_is_unchanged(hd):
+    """A pair of equal widths is the int: 4 * B * H * hd flops a kept pair
+    and q, k, v, o of hd each, the numbers before MLA's pair was added."""
+    smoke = _chip_smoke()
+    for args in ((4, 4096, 4096, 32, 8), (8, 448, 1500, 8, 8)):
+        for dtype_name in ("bfloat16", "float32"):
+            for causal, window in ((True, None), (False, None), (True, 96)):
+                a = smoke.attention_bound_ms(*args, hd, causal, window,
+                                             dtype_name)
+                b = smoke.attention_bound_ms(*args, (hd, hd), causal, window,
+                                             dtype_name)
+                assert a == b
+    B, S, H, KV = 4, 4096, 32, 8
+    flops = 4.0 * B * H * hd * smoke.attention_pairs(S, S, True, None)
+    nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+    want = max(flops / 989e12, nbytes / 3.35e12) * 1e3
+    got, _ = smoke.attention_bound_ms(B, S, S, H, KV, hd, True, None,
+                                      "bfloat16")
+    assert got == pytest.approx(want, rel=1e-12)
+
+
+def test_chip_smoke_dsv2_cut_and_kernel_paths():
+    """Phase 5f serves DeepSeek-V2 at full width cut to DSV2_LAYERS = 4
+    layers: 16,412,759,040 parameters (32.8 GB in bf16), 4 launches a
+    prefill; the kernels line's bf16 paths gain it and its float32 paths
+    its narrow variant, whose head dims are the pair."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    smoke = _chip_smoke()
+    full = get_config(smoke.DSV2)
+    cfg = full.scaled(n_layers=smoke.DSV2_LAYERS)
+    assert smoke.DSV2_LAYERS == 4
+    assert registry.total_param_count(cfg) == 16_412_759_040
+    assert registry.total_param_count(full) == 238_851_281_920
+    assert smoke.attention_calls(cfg) == 4
+    assert smoke.prefill_shape(cfg) == (smoke.PREFILL_B, smoke.PREFILL_S)
+    small = smoke.mla_small_config()
+    assert smoke.attention_head_dims(small) == (192, 128)
+    assert (small.n_layers, small.mla.kv_lora_rank) == (2, 64)
+    run = {"flash_attention": 1, "flash_attention_f32": 0,
+           "split_bf16x3": 0}
+    bf16, f32 = smoke.attention_paths(
+        run, run, {**{a: run for a in smoke.ZOO},
+                   f"{smoke.ZOO_F32} float32": run},
+        {"whisper_base prefill": run, smoke.SCOUT: run},
+        {smoke.ZAMBA2: run, smoke.RWKV6: run},
+        {smoke.DSV2: run, f"{smoke.DSV2} float32 narrow": run})
+    assert smoke.DSV2 in bf16
+    assert f"{smoke.DSV2} float32 narrow" in f32
+    assert {smoke.attention_head_dims(get_config(a.split()[0]))
+            for a in f32 if a.startswith(smoke.DSV2)} == {(192, 128)}
 
 
 def test_chip_smoke_subquadratic_variants_are_the_cpu_tests():

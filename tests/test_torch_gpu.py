@@ -20,14 +20,18 @@ launches) and the float32 kernel; the split kernel must equal
 kernel once per layer (TinyLlama's hd 64 and StableLM's hd 80); each new
 architecture's smoke config (hd 16) must prefill on the card as on the
 CPU; a head dim the kernels do not take must raise on a CUDA tensor,
-naming the ones they do.  Whisper's smoke config must encode and decode
-with cross attention on the card as on the CPU, and so must Scout's MoE
-route, drop and compute (moe_apply).  RWKV-6 and the Mamba-2 hybrid
-(float32, at the models' head dims) must prefill and decode on the card as
-on the CPU, past the hybrid's ring, and the hybrid's prefill must launch
-the bf16 kernel once per shared-block call, with its window.  A replay with telemetry on must
-give the CPU's decisions, reasons and series, with one pick per MCC/MECC
-arrival.  The
+naming the ones they do.  The (q/k 192, v 128) pair of DeepSeek-V2's MLA
+must hold the same tolerances in both dtypes; its float32 narrow variant
+must prefill and decode on the card as on the CPU, and a bf16 MLA model at
+chip_smoke.DSV2_LAYERS layers must launch the bf16 kernel once a layer at
+the pair; an unlisted pair must raise.  Whisper's smoke config must
+encode and decode with cross attention on the card as on the CPU, and so
+must Scout's MoE route, drop and compute (moe_apply).  RWKV-6 and the
+Mamba-2 hybrid (float32, at the models' head dims) must prefill and
+decode on the card as on the CPU, past the hybrid's ring, and the
+hybrid's prefill must launch the bf16 kernel once per shared-block call,
+with its window.  A replay with telemetry on must give the CPU's
+decisions, reasons and series, with one pick per MCC/MECC arrival.  The
 replay's captured graphs must give the eager loop's outputs for all five
 policies, synchronise with the host only at GRMU's consolidations, and
 count one pick per arrival and replay.  The placement service must decide
@@ -306,7 +310,8 @@ def test_each_mask_scores_entry_point_has_its_wrapper():
         assert f'("mrt_{name}",' in inspect.getsource(K._lib.__wrapped__)
 
 
-# (B, Sq, Sk, H, KV, hd, causal, window)
+# (B, Sq, Sk, H, KV, hd, causal, window); hd an int, or MLA's (q/k, v)
+# pair.
 ATTN_CASES = [
     (2, 1000, 1000, 32, 4, 64, True, None),      # TinyLlama heads, ragged
     (1, 200, 333, 8, 2, 128, False, None),       # Sq != Sk, ragged
@@ -323,6 +328,9 @@ ATTN_CASES = [
     (8, 448, 448, 8, 8, 64, True, None),         # Whisper's decoder
     (1, 1000, 1000, 40, 8, 128, True, None),     # Scout's GQA group of 5
     (2, 8192, 8192, 32, 32, 112, True, 4096),    # Zamba2-7B's prefill
+    (1, 1000, 1000, 16, 16, (192, 128), True, None),  # MLA, ragged
+    (1, 200, 333, 8, 2, (192, 128), False, None),     # MLA, Sq != Sk, GQA
+    (4, 4096, 4096, 128, 128, (192, 128), True, None),  # MLA's prefill
 ]
 
 
@@ -333,10 +341,11 @@ def test_attention_kernel_equals_plain_version_on_card(case, dtype):
     _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     B, Sq, Sk, H, KV, hd, causal, window = case
+    hd, hd_v = smoke.head_dims_of(hd)
     g = torch.Generator(device="cuda").manual_seed(0)
     q = torch.randn((B, Sq, H, hd), generator=g, device="cuda").to(dtype)
     k = torch.randn((B, Sk, KV, hd), generator=g, device="cuda").to(dtype)
-    v = torch.randn((B, Sk, KV, hd), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, Sk, KV, hd_v), generator=g, device="cuda").to(dtype)
     FA.reset_launches()
     got = FA.flash_attention(q, k, v, causal=causal, window=window)
     # One launch of this dtype's kernel, none of the other's, and for
@@ -349,7 +358,7 @@ def test_attention_kernel_equals_plain_version_on_card(case, dtype):
     want = smoke.plain_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     tol = 2e-5 if dtype == torch.float32 else 3e-2
-    assert got.dtype == dtype
+    assert got.dtype == dtype and got.shape == (B, Sq, H, hd_v)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     if dtype == torch.bfloat16:
         # One rounding of a float32 result: within half a bf16 ulp of the
@@ -520,6 +529,50 @@ def test_head_dim_outside_the_list_raises_on_card():
     q = torch.zeros((1, 64, 4, 72), dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError, match=re.escape(str(FA.HEAD_DIMS))):
         FA.flash_attention(q, q, q)
+    # An unlisted (q/k, v) pair: 192 against 64.
+    q = torch.zeros((1, 64, 4, 192), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match=re.escape(str(FA.HEAD_DIM_PAIRS))):
+        FA.flash_attention(q, q, q[..., :64].contiguous())
+
+
+def test_mla_model_on_card_equals_cpu():
+    """chip_smoke's float32 narrow variant at MLA's head dims (q/k 192, v
+    128; tests/test_torch_mla.py's hd192): prefill of 2 x 256 tokens (the
+    float32 kernel at the pair, once a layer) and 32 decode steps on a
+    float32 latent cache on the card equal the CPU's, caches too, within
+    1e-4 / 1e-3 (``mla_card_vs_cpu``)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches, res = smoke.mla_card_vs_cpu(torch)
+    assert launches["flash_attention_f32"] == smoke.MLA_SMALL["n_layers"]
+    assert set(res) == {"prefill", "decode", "cache c", "cache kr"}
+
+
+def test_mla_prefill_launches_the_pair_kernel_once_per_layer():
+    """A bf16 MLA model at DSV2_LAYERS layers (the narrow variant's widths,
+    the real head dims): one launch of the bf16 kernel a layer, every call
+    at q/k 192 against v 128, none on another route."""
+    _need_card()
+    cfg = smoke.mla_small_config().scaled(n_layers=smoke.DSV2_LAYERS)
+    model = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 256), device="cuda")
+    step = registry.make_step(cfg, ShapeConfig("prefill_256", 256, 2,
+                                               "prefill"))
+    dims = []
+
+    def attend(q, k, v, causal=True, window=None):
+        dims.append((q.shape[-1], k.shape[-1], v.shape[-1], causal))
+        return FA.flash_attention(q, k, v, causal=causal, window=window)
+    FA.reset_launches()
+    with smoke.attention_as(attend):
+        logits = step(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert dims == [(192, 192, 128, True)] * smoke.DSV2_LAYERS == [
+        (192, 192, 128, True)] * 4
+    assert FA.LAUNCHES == {"flash_attention": 4, "flash_attention_f32": 0,
+                           "split_bf16x3": 0}
+    assert logits.shape == (2, 1, cfg.vocab)
+    assert torch.isfinite(logits.float()).all()
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,8 @@ both packages:
   * the slice: ``lm_forward``, ``prefill`` and 8 ``decode_step``s (logits
     and cache) through ``registry.make_step``, for every dense and vlm
     architecture (the moe and encdec families are in test_torch_moe.py and
-    test_torch_encdec.py, rwkv6 and hybrid in test_torch_subquadratic.py):
+    test_torch_encdec.py, rwkv6 and hybrid in test_torch_subquadratic.py,
+    mla_moe in test_torch_mla.py):
     its smoke config, and a 2-layer variant at
     the config's own head dim (``VARIANTS``: TinyLlama hd 64 with GQA 8:1,
     DeepSeek MHA hd 128, Mistral-NeMo hd 128 with H * hd != d_model,
@@ -131,12 +132,13 @@ def _pair(cfg_name, dtype_name, seed=0):
 
 
 def test_configs_are_the_jax_ones():
-    """The nine ported architectures, in the JAX list's order; each config
-    and smoke config is JAX's; every other name raises."""
-    assert ARCH_IDS == ["qwen2_vl_2b", "llama4_scout_17b_a16e", "deepseek_7b",
+    """All ten architectures of the JAX zoo, in the JAX list's order; each
+    config and smoke config is JAX's; any other name raises."""
+    assert ARCH_IDS == ["qwen2_vl_2b", "llama4_scout_17b_a16e",
+                        "deepseek_v2_236b", "deepseek_7b",
                         "mistral_nemo_12b", "stablelm_3b", "tinyllama_1_1b",
                         "whisper_base", "rwkv6_3b", "zamba2_7b"]
-    assert ARCH_IDS == [a for a in JARCH_IDS if a in ARCH_IDS]
+    assert ARCH_IDS == JARCH_IDS
     for arch in ARCH_IDS:
         assert (dataclasses.asdict(get_config(arch))
                 == dataclasses.asdict(jget_config(arch))), arch
@@ -146,14 +148,17 @@ def test_configs_are_the_jax_ones():
             == dataclasses.asdict(jget_config("tinyllama-1.1b")))
     assert {k: dataclasses.asdict(v) for k, v in SHAPES.items()} == {
         k: dataclasses.asdict(v) for k, v in JSHAPES.items()}
-    for arch in sorted(set(JARCH_IDS) - set(ARCH_IDS)):
+    for arch in sorted(set(JARCH_IDS) - set(ARCH_IDS)) + ["made_up_7b"]:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config(arch)
 
 
-# The sub-quadratic models' counts (JAX's total_param_count): each fits
-# one card whole in bf16.
-PARAM_COUNTS = {"rwkv6_3b": 2_905_459_200, "zamba2_7b": 6_633_487_952}
+# Counts pinned beside JAX's (total_param_count, active_param_count): the
+# sub-quadratic models (each fits one card whole in bf16) and DeepSeek-V2
+# (160 experts top-6 + 2 shared; no card holds it whole).
+PARAM_COUNTS = {"rwkv6_3b": 2_905_459_200, "zamba2_7b": 6_633_487_952,
+                "deepseek_v2_236b": 238_851_281_920}
+ACTIVE_PARAM_COUNTS = {"deepseek_v2_236b": 20_852_331_520}
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -163,17 +168,17 @@ def test_param_counts_and_flops_equal_jax(arch):
     if arch in PARAM_COUNTS:
         assert registry.total_param_count(cfg) == PARAM_COUNTS[arch]
     assert registry.active_param_count(cfg) == JR.active_param_count(jcfg)
+    if arch in ACTIVE_PARAM_COUNTS:
+        assert registry.active_param_count(cfg) == ACTIVE_PARAM_COUNTS[arch]
     for name in SHAPES:
         assert registry.model_flops(cfg, SHAPES[name]) == JR.model_flops(
             jcfg, JSHAPES[name])
 
 
 def test_supported_cells_equal_jax():
-    """JAX's matrix restricted to the ported architectures, in order."""
-    assert registry.ALL_CELLS == [c for c in JR.ALL_CELLS
-                                  if c[0] in ARCH_IDS]
-    assert registry.supported_cells() == [
-        c for c in JR.supported_cells() if c[0] in ARCH_IDS]
+    """JAX's matrix, every architecture ported, in order."""
+    assert registry.ALL_CELLS == JR.ALL_CELLS
+    assert registry.supported_cells() == JR.supported_cells()
     # long_500k: only the sub-quadratic architectures.
     assert {a for a, s, ok, _ in registry.supported_cells()
             if s == "long_500k" and ok} == {"rwkv6_3b", "zamba2_7b"}
@@ -464,14 +469,17 @@ def test_decode_steps_equal_jax(cfg_name, dtype_name):
 
 
 def test_train_kind_and_other_families_raise():
+    """Training is not ported; a family no config has (every family of
+    the zoo is ported) raises at the model and at the cache."""
     cfg = get_smoke_config(ARCH)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         registry.make_step(cfg, SHAPES["train_4k"], device="cpu")
-    mla = dataclasses.replace(cfg, family="mla_moe")
+    other = dataclasses.replace(cfg, family="made_up_family")
+    assert other.family not in {get_config(a).family for a in ARCH_IDS}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.Transformer(mla, device="cpu")
+        M.Transformer(other, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        D.init_cache(mla, 1, 4, device="cpu")
+        D.init_cache(other, 1, 4, device="cpu")
 
 
 def test_device_none_means_cuda_and_raises_without_a_card():

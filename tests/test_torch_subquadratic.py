@@ -175,7 +175,8 @@ def test_configs_resolve_the_families():
     full = get_config("zamba2_7b")
     assert (full.n_layers // full.shared_attn_period,
             full.n_layers % full.shared_attn_period) == (13, 3)
-    assert M.FAMILIES == ("dense", "vlm", "moe", "encdec", "rwkv6", "hybrid")
+    assert M.FAMILIES == ("dense", "vlm", "moe", "mla_moe", "encdec",
+                          "rwkv6", "hybrid")
 
 
 @pytest.mark.parametrize("dtype_name", sorted(DTYPES))
