@@ -116,6 +116,22 @@ Phases (each raises on failure; nothing is caught):
      DeepSeek-V2's (B 1, S 4096, H 128, 192 / 128): the kernel within
      2e-5 of the plain version and of the float64 function, timed beside
      both.
+  2c. The attention backward kernel (``csrc/flash_attention_bwd_sm90.cu``,
+     ``fa_bwd_dq`` then ``fa_bwd_dkdv``, float32 math on the CUDA cores,
+     templated on the input dtype) vs its plain version
+     (``ref.flash_attention_bwd_ref``) at every ``BWD_CASES`` case, bf16
+     and float32: every hd of ``HEAD_DIMS`` and the (192, 128) pair, GQA
+     groups 1, 4, 5 and 8, causal, non-causal with Sq != Sk, windows,
+     ragged S (``hold_attention_bwd``): the forward's output with its lse
+     equals serving's bit for bit, two backward launches are bitwise
+     equal, the lse within LSE_TOL of float64 logsumexp, bf16 gradients
+     within half a bf16 ulp of the plain backward in float32 plus
+     BWD_F32_ATOL of max |grad|, float32 within BWD_F32_TOL of float64
+     autograd and of the plain version.  Then at TinyLlama's training
+     attention shape (``TRAIN_ATTN_SHAPE``: B 4, S 4096, H 32, KV 4, hd
+     64, causal), bf16 held the same way, and in both dtypes the kernel,
+     the plain backward and SDPA's backward (timed only) timed beside
+     the bound (``attention_bwd_bound_ms``: 10 hd flops a pair).
   5. The serving path at full width: TinyLlama-1.1B (22 layers, bf16,
      random weights from a seeded generator) through
      ``registry.make_step``.  Prefill of 4 x 4096 tokens (tokens/s, the
@@ -217,6 +233,22 @@ Phases (each raises on failure; nothing is caught):
      head dims, 2 layers; the float32 route at the pair): prefill, 32
      decode steps on a float32 latent cache and the cache, card == CPU
      within CARD_CPU_TOL.
+  5g. Training (``run_training``, after 5f).  (a) TinyLlama-1.1B at full
+     width (22 layers, bf16, random weights drawn on the card) through
+     ``launch.train.train_loop`` and the registry's train step:
+     ``train_4k``'s seq 4096 with its global batch cut from 256 to TRAIN_B
+     (8, listed as ``reduced``) in TRAIN_MICRO (2) micro-batches, remat
+     "full", dense CE, AdamW's defaults; one warm-up step, TRAIN_STEPS (3)
+     timed (tokens/s, each step's loss and grad norm, finite), exactly 88
+     forward launches (22 layers x 2 micro-batches x the forward and its
+     recompute) and 44 backward launches a step; one more step profiled
+     (device ms, the ten costliest device operations, the attention
+     kernels' share); peak memory.  (b) Card vs CPU: TinyLlama's width
+     cut to 2 layers, float32, 3 steps of 2 x 256 on each on the same
+     weights and batches: losses, grad norms, AdamW's moments and the
+     parameters within CARD_CPU_TOL (parameters within PARAM_ATOL_LR lr
+     where |m| exceeds PARAM_KEEP of its max), the float32 forward, split
+     and backward launches counted.
   6. The placement service (``run_service``; after phase 4c).  (a) The
      full-scale trace as a request stream (8,604 requests, 8,063
      arrivals) through ``PlacementService.for_trace`` at micro-batches of
@@ -245,7 +277,12 @@ Phases (each raises on failure; nothing is caught):
      phases 5, 5c, 5d, 5e and 5f (DeepSeek-V2's the pair [192, 128]), the
      head dims and pairs phase 2b checked and the times at each phase 5c
      model's prefill shape, phase 5d's and 5f's attention shapes and
-     Zamba2's, in float32 StableLM-3B's and DeepSeek-V2's), the card line
+     Zamba2's, in float32 StableLM-3B's and DeepSeek-V2's; the forward
+     rows also their launches on phase 5g's training paths,
+     ``train_launches``), the backward's rows (bf16 and float32: launches
+     on phase 5g's paths and per train step, the head dims phase 2c
+     checked, times at TinyLlama's training attention shape beside the
+     plain backward, SDPA's backward and the bound), the card line
      again, and
      as its last line ``{"ok": true, "device": {...}}``.
 
@@ -1810,6 +1847,13 @@ def hold_attention(torch, name, got, q, k, v, causal, window, err):
                 f"from the plain version in float32 (limit 1)")
 
 
+def launch_counts(FA, **counts):
+    """Every ``FA.LAUNCHES`` key at 0 but ``counts``: the launches a path
+    must make and no other (the backward's keys included)."""
+    assert set(counts) <= set(FA.LAUNCHES), counts
+    return {n: counts.get(n, 0) for n in FA.LAUNCHES}
+
+
 def route_launches(FA, dtype):
     """The launches one wrapper call of ``dtype`` makes: its attention
     kernel once, and for float32 the split of q, k and v."""
@@ -2167,29 +2211,38 @@ class attention_as:
         return False
 
 
-def prefill_attention_share(torch, step, model, batch, n_top=10):
-    """The attention kernel's (``fa_fwd_wgmma``, either dtype) share of one
-    prefill's device time, from torch.profiler (None when the trace holds
-    no device events), the total device µs, and the ``n_top`` device
+def device_ops(torch, run, n_top=10):
+    """torch.profiler over ``run()``: its device events' µs by kernel-name
+    part (``us(part)``), the total device µs, and the ``n_top`` device
     operations that took the most time: [name, count, µs]."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        step(model, batch)
+        run()
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     total = sum(e.time_range.elapsed_us() for e in dev)
-    fa = sum(e.time_range.elapsed_us() for e in dev
-             if "fa_fwd_wgmma" in e.name)
     by_name = {}
     for e in dev:
-        n, us = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    top = sorted(([name[:120], n, us] for name, (n, us) in by_name.items()),
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    top = sorted(([name[:120], n, t] for name, (n, t) in by_name.items()),
                  key=lambda r: r[2], reverse=True)[:n_top]
-    return (fa / total if total else None), total, top
+
+    def us(part):
+        return sum(t for name, (_, t) in by_name.items() if part in name)
+    return us, total, top
+
+
+def prefill_attention_share(torch, step, model, batch, n_top=10):
+    """The attention kernel's (``fa_fwd_wgmma``, either dtype) share of one
+    prefill's device time, from torch.profiler (None when the trace holds
+    no device events), the total device µs, and the ``n_top`` device
+    operations that took the most time: [name, count, µs]."""
+    us, total, top = device_ops(torch, lambda: step(model, batch), n_top)
+    return (us("fa_fwd_wgmma") / total if total else None), total, top
 
 
 def profile_decode(torch, fn, n=4):
@@ -2274,9 +2327,8 @@ def run_f32_prefill(torch, cfg=None):
     torch.cuda.synchronize()
     wall_s = (time.perf_counter() - t0) / n_calls
     launches = dict(FA.LAUNCHES)
-    want = {"flash_attention": 0,
-            "flash_attention_f32": n_calls * cfg.n_layers,
-            "split_bf16x3": 3 * n_calls * cfg.n_layers}
+    want = launch_counts(FA, flash_attention_f32=n_calls * cfg.n_layers,
+                         split_bf16x3=3 * n_calls * cfg.n_layers)
     if launches != want:
         raise AssertionError(f"float32 prefill launched {launches}, "
                              f"expected {want}")
@@ -2394,9 +2446,9 @@ class ServedPath:
     def expect(self, cfg, want):
         """Each part made exactly the attention calls ``want[part]``, each
         one launch of the bf16 kernel, and no launch on another route."""
+        from repro_torch.kernels import flash_attention as FA
         for name, calls in want.items():
-            bf16 = {"flash_attention": len(calls), "flash_attention_f32": 0,
-                    "split_bf16x3": 0}
+            bf16 = launch_counts(FA, flash_attention=len(calls))
             got = self.calls[name]
             if got != calls or self.launches[name] != bf16:
                 raise AssertionError(
@@ -3464,8 +3516,8 @@ def mla_card_vs_cpu(torch):
     FA.reset_launches()
     card = run("cuda")
     launches = dict(FA.LAUNCHES)
-    want = {"flash_attention": 0, "flash_attention_f32": cfg.n_layers,
-            "split_bf16x3": 3 * cfg.n_layers}
+    want = launch_counts(FA, flash_attention_f32=cfg.n_layers,
+                         split_bf16x3=3 * cfg.n_layers)
     if launches != want:
         raise AssertionError(f"{cfg.name} float32 narrow variant launched "
                              f"{launches}, expected {want}")
@@ -3514,6 +3566,499 @@ def run_5f(torch):
     return launches, results
 
 
+# ---------------------------------------------------------------------------
+# Phase 2c: the attention backward kernel; phase 5g: training
+# ---------------------------------------------------------------------------
+
+FA_BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu"
+# The gradient the backward kernel computes has no Pallas kernel: the JAX
+# package differentiates its jnp chunked attention (jax.value_and_grad in
+# src/repro/train/step.py:131).
+FA_BWD_REPLACES = "src/repro/models/layers.py:128"
+# Phase 2c: (B, Sq, Sk, H, KV, hd, causal, window), each in bf16 and
+# float32: every head dim of HEAD_DIMS and the (192, 128) pair, GQA groups
+# 1, 4, 5 and 8, causal, non-causal with Sq != Sk, windows, ragged S.
+BWD_CASES = {
+    "tinyllama_g8": (2, 512, 512, 32, 4, 64, True, None),
+    "hd16_g1": (2, 256, 256, 4, 4, 16, True, None),
+    "hd32_noncausal_g4": (1, 200, 333, 8, 2, 32, False, None),
+    "hd64_noncausal_g4": (1, 256, 768, 8, 2, 64, False, None),
+    "hd64_window96": (1, 512, 512, 8, 2, 64, True, 96),
+    "hd80_ragged1000": (1, 1000, 1000, 8, 8, 80, True, None),
+    "hd112_window300_ragged": (1, 1000, 1000, 8, 8, 112, True, 300),
+    "hd128_g5": (1, 512, 512, 40, 8, 128, True, None),
+    "mla_ragged1000": (1, 1000, 1000, 16, 16, (192, 128), True, None),
+    "mla_noncausal_g4": (1, 200, 333, 8, 2, (192, 128), False, None),
+}
+# The bf16 gradients lie within half a bf16 ulp of the plain backward run
+# in float32 on the same (bf16) inputs, output and lse, plus BWD_F32_ATOL
+# of the gradient's max |want| for float32 summation order (measured
+# 1.25e-6 in float32); the float32 ones within BWD_F32_TOL of the float64
+# gradient's max |want| (torch autograd of ``attention_f64``) and of the
+# plain version's.  The lse within 1e-5 of torch.logsumexp of float64
+# scores.
+BWD_F32_ATOL, BWD_F32_TOL, LSE_TOL = 1e-5, 2e-5, 1e-5
+# TinyLlama's training attention: a micro-batch of 4 x 4096, H 32 / KV 4,
+# hd 64, causal (phase 5g (a)).
+TRAIN_ATTN_SHAPE = (4, 4096, 4096, 32, 4, 64, True, None)
+# Phase 5g (a): TinyLlama-1.1B at full width, train_4k's seq 4096 with its
+# global batch cut from 256 to TRAIN_B, TRAIN_MICRO micro-batches, remat
+# "full", dense CE, AdamW's defaults; one warm-up step, TRAIN_STEPS timed
+# and one profiled.  (b) card vs CPU: TinyLlama's width cut to
+# TRAIN_SMALL_LAYERS layers, float32, B x S = TRAIN_SMALL_SHAPE, three
+# steps on each, within CARD_CPU_TOL or TRAIN_NOISE_FACTOR times what half
+# a float32 ulp of noise moves the CPU run (``train_card_vs_cpu``: loss and
+# grad norm relative CARD_CPU_TOL[0]; the first step's gradient and the
+# final moments relative L2 and max over max |want|; parameters within
+# PARAM_ATOL_LR * lr where |m| exceeds PARAM_KEEP of its max, since the
+# first AdamW steps move a parameter by about lr * sign(g)).
+TRAIN_B, TRAIN_MICRO, TRAIN_STEPS = 8, 2, 3
+TRAIN_SMALL_LAYERS, TRAIN_SMALL_SHAPE, TRAIN_SMALL_STEPS = 2, (2, 256), 3
+PARAM_KEEP, PARAM_ATOL_LR = 1e-2, 0.05
+TRAIN_NOISE_FACTOR = 4.0
+
+
+def attention_bwd_bound_ms(B, Sq, Sk, H, KV, hd, causal, window,
+                           dtype_name):
+    """The gradient's bound: max(operations at the dtype's peak, bytes at
+    HBM's rate).  2 * B * H * (3 hd + 2 hd_v) flops a kept pair (S = q k^T
+    recomputed, dK and dQ at hd; dP = do v^T and dV at hd_v: 10 hd at
+    equal widths); q, k, v, o, do and lse read once, dq, dk, dv written
+    once."""
+    hd, hd_v = head_dims_of(hd)
+    itemsize = {"bfloat16": 2, "float32": 4}[dtype_name]
+    flops = 2.0 * B * H * (3 * hd + 2 * hd_v) * attention_pairs(
+        Sq, Sk, causal, window)
+    nbytes = (itemsize * (B * Sq * H * (2 * hd + 2 * hd_v)
+                          + 2 * B * Sk * KV * (hd + hd_v))
+              + 4 * B * H * Sq)
+    t_ops = flops / PEAK_ATTN_FLOPS_PER_S[dtype_name]
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def plain_attention_bwd(q, k, v, o, lse, do, causal=True, window=None):
+    """``ref.flash_attention_bwd_ref`` in float32 with ``plain_chunk``s."""
+    from repro_torch.kernels import ref
+    f = [x.float() for x in (q, k, v, o, do)]
+    return ref.flash_attention_bwd_ref(
+        *f[:4], lse, f[4], causal=causal, window=window,
+        q_chunk=plain_chunk(q.shape[1]), k_chunk=plain_chunk(k.shape[1]))
+
+
+def lse_f64(torch, q, k, causal, window):
+    """torch.logsumexp of the float64 scaled, masked scores: (B, H, Sq)."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    kd = k.double().repeat_interleave(H // k.shape[2], dim=2)
+    s = torch.einsum("bqhd,bshd->bhqs", q.double(), kd) / math.sqrt(hd)
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    keep = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= qpos >= kpos
+    if window:
+        keep &= kpos > qpos - window
+    return torch.logsumexp(s.masked_fill(~keep, -math.inf), dim=-1)
+
+
+def _bwd_inputs(torch, case, dtype, seed=0):
+    B, Sq, Sk, H, KV, hd, causal, window = case
+    q, k, v = _qkv(torch, B, Sq, Sk, H, KV, hd, dtype, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    do = torch.randn((B, Sq, H, head_dims_of(hd)[1]), generator=g,
+                     device="cuda").to(dtype)
+    return q, k, v, do, causal, window
+
+
+def hold_attention_bwd(torch, name, q, k, v, do, causal, window, err):
+    """One case of phase 2c: the forward with its lse (whose o must equal
+    the serving forward's bit for bit), the backward twice (bitwise
+    equal), the lse against float64, the gradients against the plain
+    backward (bf16: half an ulp + BWD_F32_ATOL; float32: BWD_F32_TOL)
+    and, in float32, against float64 autograd.  Folds the largest errors
+    into ``err``: per dtype the max abs difference from the plain version,
+    bf16's in half-ulps, float32's from float64 over max |grad|, the
+    lse's."""
+    from repro_torch.kernels import flash_attention as FA
+    tname = str(q.dtype).split(".")[-1]
+    o, lse = FA._forward(q, k, v, causal, window, want_lse=True)
+    if not torch.equal(o, FA.flash_attention(q, k, v, causal=causal,
+                                             window=window)):
+        raise AssertionError(f"attention backward {name} {tname}: the "
+                             f"forward's output moved with its lse")
+    before = dict(FA.LAUNCHES)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                 window=window)
+    again = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                   window=window)
+    moved = {n: FA.LAUNCHES[n] - before[n] for n in FA.LAUNCHES}
+    want_launch = launch_counts(FA, **{FA.BWD_ROUTES[q.dtype][1]: 2})
+    if moved != want_launch:
+        raise AssertionError(f"attention backward {name} {tname} launched "
+                             f"{moved}, expected {want_launch}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"attention backward {name} {tname}: two "
+                             f"launches differ (not deterministic)")
+    lse_err = (lse.double() - lse_f64(torch, q, k, causal, window)).abs()
+    lse_err = lse_err.max().item()
+    err["lse"] = max(err.get("lse", 0.0), lse_err)
+    if not lse_err <= LSE_TOL:
+        raise AssertionError(f"attention backward {name} {tname}: lse is "
+                             f"{lse_err} from float64 logsumexp")
+    want = plain_attention_bwd(q, k, v, o, lse, do, causal, window)
+    for part, g, w in zip(("dq", "dk", "dv"), got, want):
+        scale = max(1.0, w.abs().max().item())
+        diff = (g.float() - w).abs()
+        err[tname] = max(err.get(tname, 0.0), diff.max().item())
+        if g.dtype != q.dtype or g.shape != w.shape:
+            raise AssertionError(f"{name} {part}: {g.dtype} {g.shape}")
+        if q.dtype == torch.bfloat16:
+            ulps = (diff / (BF16_HALF_ULP * w.abs() + BWD_F32_ATOL * scale)
+                    ).max().item()
+            err["bf16_half_ulps"] = max(err.get("bf16_half_ulps", 0.0), ulps)
+            ok = ulps <= 1.0
+        else:
+            ok = diff.max().item() <= BWD_F32_TOL * scale
+        if not ok:
+            raise AssertionError(f"attention backward {name} {tname} {part}: "
+                                 f"kernel != plain version (max abs diff "
+                                 f"{diff.max().item()}, scale {scale})")
+    if q.dtype == torch.float32:
+        leaves = [x.double().requires_grad_() for x in (q, k, v)]
+        truth = torch.autograd.grad(
+            attention_f64(*leaves, causal=causal, window=window), leaves,
+            do.double())
+        for part, g, t in zip(("dq", "dk", "dv"), got, truth):
+            scale = max(1.0, t.abs().max().item())
+            e = (g.double() - t).abs().max().item() / scale
+            err["float32_vs_f64"] = max(err.get("float32_vs_f64", 0.0), e)
+            if not e <= BWD_F32_TOL:
+                raise AssertionError(f"attention backward {name} {part}: "
+                                     f"float32 kernel {e} (of max |grad|) "
+                                     f"from float64")
+
+
+def check_attention_bwd(torch):
+    """Phase 2c: the backward kernel (both dtypes) against its plain version
+    at every BWD_CASES case (``hold_attention_bwd``); then at TinyLlama's
+    training attention shape, held the same way in bf16, and timed in both
+    dtypes beside the plain backward and SDPA's backward
+    (``time_attention_bwd``).  Returns (err, {dtype: timings})."""
+    err = {}
+    for name, case in BWD_CASES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do, causal, window = _bwd_inputs(torch, case, dtype)
+            hold_attention_bwd(torch, name, q, k, v, do, causal, window, err)
+    torch.cuda.synchronize()
+    print(f"phase 2c: attention backward == plain version at "
+          f"{len(BWD_CASES)} shapes x 2 dtypes, deterministic; max errors "
+          f"{err}", flush=True)
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        times[str(dtype).split(".")[-1]] = time_attention_bwd(torch, dtype,
+                                                               err)
+    return err, times
+
+
+def time_attention_bwd(torch, dtype, err):
+    """At TRAIN_ATTN_SHAPE: bf16 held against the plain version (float32
+    is held at the cases; its float64 autograd would not fit here), then
+    ms per call of the backward kernel's wrapper, of the plain backward
+    and of scaled_dot_product_attention's backward (is_causal, enable_gqa;
+    the yardstick, which the port never calls), CUDA events, beside the
+    bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    B, Sq, Sk, H, KV, hd, causal, window = TRAIN_ATTN_SHAPE
+    tname = str(dtype).split(".")[-1]
+    q, k, v, do, _, _ = _bwd_inputs(torch, TRAIN_ATTN_SHAPE, dtype, seed=1)
+    o, lse = FA._forward(q, k, v, causal, window, want_lse=True)
+    if dtype == torch.bfloat16:
+        hold_attention_bwd(torch, "training shape", q, k, v, do, causal,
+                           window, err)
+    b_ms, b_by = attention_bwd_bound_ms(*TRAIN_ATTN_SHAPE, tname)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+    t = dict(
+        ms=event_ms(torch, lambda: FA.flash_attention_bwd(
+            q, k, v, o, lse, do, causal=causal, window=window), 10),
+        plain_ms=event_ms(torch, lambda: plain_attention_bwd(
+            q, k, v, o, lse, do, causal, window), 2),
+        library_ms=event_ms(torch, lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), 10),
+        bound_ms=b_ms, bound_by=b_by,
+        shape=dict(B=B, S=Sq, H=H, KV=KV, hd=hd, dtype=tname,
+                   causal=causal))
+    print(f"phase 2c: attention backward at B {B} S {Sq} H {H} KV {KV} hd "
+          f"{hd} {tname} causal: kernel {t['ms']:.3f} ms, plain "
+          f"{t['plain_ms']:.3f} ms, SDPA backward {t['library_ms']:.3f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return t
+
+
+def train_profile(torch, run):
+    """``device_ops`` over ``run()`` (one train step): device ms, the
+    attention kernels' share (forward ``fa_fwd_wgmma``, backward
+    ``fa_bwd_``), each's ms, and the ten costliest device operations."""
+    us, total, top = device_ops(torch, run)
+    if not total:
+        raise AssertionError("the profiler saw no device time in a train "
+                             "step")
+    fwd, bwd = us("fa_fwd_wgmma"), us("fa_bwd_")
+    return {"device_ms": total / 1e3,
+            "attention_share_of_device_time": (fwd + bwd) / total,
+            "attention_fwd_ms": fwd / 1e3, "attention_bwd_ms": bwd / 1e3,
+            "top_device_ops": top}
+
+
+def train_full_width(torch):
+    """Phase 5g (a): TinyLlama-1.1B at full width trained through
+    ``launch.train.train_loop`` with the registry's train step: seq 4096,
+    TRAIN_B sequences in TRAIN_MICRO micro-batches, remat "full", dense
+    CE, AdamW's defaults; one warm-up step, TRAIN_STEPS timed steps (the
+    launches counted per step: 2 forward launches a layer and micro-batch,
+    the forward and its recompute, and one backward), one profiled.
+    Returns (launches of the timed steps, result)."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train as LT
+    from repro_torch.models import flags, registry
+    from repro_torch.models import transformer as M
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train.optimizer import adamw_init
+    assert flags.REMAT_MODE == "full" and flags.CE_MODE == "dense"
+    cfg = _tinyllama()
+    shape = ShapeConfig("train_4k cut", PREFILL_S, TRAIN_B, "train")
+    model, _, init_s = init_on_card(torch, cfg, "phase 5g")
+    M.make_trainable(model)
+    opt = adamw_init(M.stacked_params(model))
+    step_fn = registry.make_step(cfg, shape, n_micro=TRAIN_MICRO)
+    log = []
+    loop = dict(data_cfg=DataConfig(0), device="cuda", log_every=1,
+                log=log.append)
+    t0 = time.perf_counter()
+    opt, rc = LT.train_loop(cfg, shape, model, opt, step_fn, start_step=0,
+                            steps=1, **loop)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    per_step, metrics = [], []
+
+    def on_step(step, m):
+        torch.cuda.synchronize()
+        per_step.append(dict(FA.LAUNCHES))
+        metrics.append({k: float(v) for k, v in m.items()})
+        FA.reset_launches()
+
+    FA.reset_launches()
+    t0 = time.perf_counter()
+    opt, rc2 = LT.train_loop(cfg, shape, model, opt, step_fn, start_step=1,
+                             steps=1 + TRAIN_STEPS, on_step=on_step, **loop)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: sum(p[n] for p in per_step) for n in FA.LAUNCHES}
+    n_attn = cfg.n_layers * TRAIN_MICRO
+    want = launch_counts(FA, flash_attention=2 * n_attn,
+                         flash_attention_bwd=n_attn)
+    if rc or rc2 or any(p != want for p in per_step):
+        raise AssertionError(f"phase 5g: rc {rc} {rc2}, launches per step "
+                             f"{per_step}, expected {want}")
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+               for m in metrics):
+        raise AssertionError(f"phase 5g: non-finite step {metrics}")
+    profile = train_profile(torch, lambda: LT.train_loop(
+        cfg, shape, model, opt, step_fn, start_step=1 + TRAIN_STEPS,
+        steps=2 + TRAIN_STEPS, **loop))
+    tokens = TRAIN_B * PREFILL_S
+    res = {"model": cfg.name, "layers": cfg.n_layers, "dtype": "bfloat16",
+           "seq": PREFILL_S, "global_batch": TRAIN_B, "n_micro": TRAIN_MICRO,
+           "reduced": {"global_batch": [256, TRAIN_B]}, "remat": "full",
+           "ce": "dense", "init_s": init_s, "warmup_step_s": warm_s,
+           "step_s": wall / TRAIN_STEPS, "tokens_per_s":
+               TRAIN_STEPS * tokens / wall,
+           "steps": metrics, "launches_per_step": want,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, **profile,
+           "log": log}
+    share = profile["attention_share_of_device_time"]
+    print(f"phase 5g: {cfg.name} at full width, {TRAIN_B} x {PREFILL_S} in "
+          f"{TRAIN_MICRO} micro-batches: {res['tokens_per_s']:.0f} tokens/s "
+          f"({res['step_s']:.3f} s a step), device {profile['device_ms']:.1f}"
+          f" ms a step, attention {share:.3f} of it (forward "
+          f"{profile['attention_fwd_ms']:.1f} ms, backward "
+          f"{profile['attention_bwd_ms']:.1f} ms), peak "
+          f"{res['peak_gb']:.1f} GB; steps {metrics}; launches per step "
+          f"{want}", flush=True)
+    print("phase 5g: top device ops " + json.dumps(profile["top_device_ops"]),
+          flush=True)
+    for line in log:
+        print(f"phase 5g: {line}", flush=True)
+    del model, opt
+    torch.cuda.empty_cache()
+    return launches, res
+
+
+def _tree_distance(got, want):
+    """Worst relative L2 and worst max |got - want| over max |want| of
+    two lists of tensors."""
+    rel = elem = 0.0
+    for a, b in zip(got, want):
+        rel = max(rel, ((a - b).norm() / b.norm()).item())
+        elem = max(elem, ((a - b).abs().max() / b.abs().max()).item())
+    return rel, elem
+
+
+def _params_over_lr(got, want, m, lr):
+    """Worst |got - want| over lr of parameter leaves where |m| exceeds
+    PARAM_KEEP of its max (the first AdamW steps move a parameter by about
+    lr * sign(g), so only a clear gradient fixes the update)."""
+    worst = 0.0
+    for a, b, mm in zip(got, want, m):
+        keep = mm.abs() > PARAM_KEEP * mm.abs().max()
+        if keep.any():
+            worst = max(worst, (a - b).abs()[keep].max().item() / lr)
+    return worst
+
+
+def _train_distances(torch, got, want, lr):
+    """How far one train run lies from another.  A run is (per-step
+    metrics, the final [params, m, v] leaves, [params, m] after the first
+    step).  The first step: its grad norm's relative difference, its
+    gradient (m after it: (1 - b1) g times the clip scale) as relative L2
+    and max over max |want|, the parameters over lr (``_params_over_lr``).
+    Every step's loss, relatively.  The trajectory: every step's grad
+    norm, the final moments and parameters."""
+    (gm, gs, g1), (wm, ws, w1) = got, want
+
+    def rel(key, a, b):
+        return abs(a[key] - b[key]) / abs(b[key])
+    d = {"loss": max(rel("loss", a, b) for a, b in zip(gm, wm)),
+         "first_grad_norm": rel("grad_norm", gm[0], wm[0])}
+    d["first_grad_rel_l2"], d["first_grad_max"] = _tree_distance(g1[1],
+                                                                 w1[1])
+    d["first_params_over_lr"] = _params_over_lr(g1[0], w1[0], w1[1], lr)
+    d["grad_norm"] = max(rel("grad_norm", a, b) for a, b in zip(gm, wm))
+    d["moments_rel_l2"], d["moments_max"] = _tree_distance(
+        gs[1] + gs[2], ws[1] + ws[2])
+    d["params_over_lr"] = _params_over_lr(gs[0], ws[0], ws[1], lr)
+    return d
+
+
+# The trajectory distances of ``_train_distances``: held only where half
+# a float32 ulp of noise moves the final moments by at most TRAIN_CHAOS
+# (relative L2); beyond it the run is chaotic after its first step.
+TRAJECTORY = ("grad_norm", "moments_rel_l2", "moments_max", "params_over_lr")
+TRAIN_CHAOS = 1e-2
+
+
+def train_card_vs_cpu(torch, cfg=None, shape=TRAIN_SMALL_SHAPE,
+                      steps=TRAIN_SMALL_STEPS):
+    """Phase 5g (b): a float32 model (default TinyLlama's width cut to
+    TRAIN_SMALL_LAYERS layers; the same weights on both, drawn on the CPU)
+    trained ``steps`` steps of ``shape`` (B, S) on the card and on the CPU
+    on the same batches.  Each distance of ``_train_distances`` must lie
+    within its tolerance (CARD_CPU_TOL[0] for losses, grad norms and
+    relative L2s, CARD_CPU_TOL[1] for the maxima, PARAM_ATOL_LR for the
+    parameters) or, where larger, TRAIN_NOISE_FACTOR times the distance
+    the CPU run moves under ``half_ulp_noise``.  The card differs from
+    the CPU at every operation (cuBLAS's summation order, the attention's
+    six-pass products within 2^-23 of each float32 product), not only at
+    the blocks' inputs, hence a factor of 4.  The first step and every
+    loss are always held; the trajectory (``TRAJECTORY``) only where the
+    noise moves the final moments by at most TRAIN_CHAOS.  At the
+    reference's init (std 1 / sqrt(n_layers) over the stacked layers) a
+    2-layer model at full width has scores in the thousands: the first
+    AdamW step moves every parameter by about lr * sign(g), so half an ulp
+    of noise, which flips the sign of small gradients, moves the next
+    steps' gradients by tens of percents (their distances are reported;
+    on the smoke config they are held).  The card's path launches the
+    float32 forward twice a layer and step and the float32 backward once.
+    Returns (launches, result)."""
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as M
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                             tree_leaves)
+    from repro_torch.train.step import make_train_step
+    cfg = cfg or _tinyllama().scaled(n_layers=TRAIN_SMALL_LAYERS)
+    B, S = shape
+    cut = ShapeConfig("train small", S, B, "train")
+    opt_cfg = AdamWConfig(warmup_steps=2)
+
+    def copies(tree):
+        # copies: on the CPU .cpu() would alias the tensors updated later
+        return [x.detach().to("cpu", copy=True) for x in tree_leaves(tree)]
+
+    def run(device):
+        model = M.make_trainable(M.init_params(
+            cfg, torch.Generator().manual_seed(0), torch.float32, device))
+        opt = adamw_init(M.stacked_params(model))
+        step = make_train_step(cfg, opt_cfg)
+        out = []
+        for s in range(steps):
+            opt, m = step(model, opt, batch_for_step(cfg, cut, s,
+                                                     device=device))
+            out.append({k: float(v) for k, v in m.items()})
+            if s == 0:
+                first = [copies(M.stacked_params(model)), copies(opt.m)]
+        return out, [copies(t) for t in (M.stacked_params(model), opt.m,
+                                         opt.v)], first
+
+    cpu = run("cpu")
+    with half_ulp_noise(torch):
+        noisy = run("cpu")
+    FA.reset_launches()
+    card = run("cuda")
+    launches = dict(FA.LAUNCHES)
+    n = steps * cfg.n_layers
+    want = launch_counts(FA, flash_attention_f32=2 * n,
+                         split_bf16x3=6 * n, flash_attention_bwd_f32=n)
+    if launches != want:
+        raise AssertionError(f"{cfg.name} training launched {launches}, "
+                             f"expected {want}")
+    l2, elem = CARD_CPU_TOL
+    tol = {"loss": l2, "first_grad_norm": l2, "first_grad_rel_l2": l2,
+           "first_grad_max": elem, "first_params_over_lr": PARAM_ATOL_LR,
+           "grad_norm": l2, "moments_rel_l2": l2, "moments_max": elem,
+           "params_over_lr": PARAM_ATOL_LR}
+    got = _train_distances(torch, card, cpu, opt_cfg.lr)
+    noise = _train_distances(torch, noisy, cpu, opt_cfg.lr)
+    chaotic = noise["moments_rel_l2"] > TRAIN_CHAOS
+    bound = {k: max(t, TRAIN_NOISE_FACTOR * noise[k])
+             for k, t in tol.items() if not (chaotic and k in TRAJECTORY)}
+    bad = {k: got[k] for k in bound if not got[k] <= bound[k]}
+    if bad:
+        raise AssertionError(f"{cfg.name} float32 training: card != CPU "
+                             f"{bad} (bounds {bound}, half an ulp of noise "
+                             f"{noise})")
+    held = ("chaotic after its first step: the trajectory reported, not "
+            "held" if chaotic else "the trajectory held")
+    print(f"phase 5g: {cfg.name}, {cfg.n_layers} layers, float32, {steps} "
+          f"steps of {B} x {S}: card == CPU ({held}), distances {got}; "
+          f"bounds {bound}; half an ulp of noise on the CPU: {noise}; card "
+          f"steps {card[0]}, CPU steps {cpu[0]}; launches {launches}",
+          flush=True)
+    return launches, {"card": card[0], "cpu": cpu[0], "distances": got,
+                      "noise": noise, "bounds": bound, "chaotic": chaotic}
+
+
+def run_training(torch):
+    """Phase 5g: (a) ``train_full_width``, (b) ``train_card_vs_cpu``.
+    Returns ({path: launches}, {path: result})."""
+    launches, results = {}, {}
+    t = time.perf_counter()
+    launches[ARCH], results[ARCH] = train_full_width(torch)
+    print(f"phase 5g: full width took {time.perf_counter() - t:.1f} s",
+          flush=True)
+    key = f"{ARCH} float32 {TRAIN_SMALL_LAYERS} layers"
+    launches[key], results[key] = train_card_vs_cpu(torch)
+    return launches, results
+
+
 def attention_paths(fa_launches, f32_launches, zoo_launches, launches_5d,
                     launches_5e, launches_5f):
     """The serving paths that reach the attention kernels, each path's
@@ -3548,8 +4093,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False    # plain versions in f32
     t0 = time.perf_counter()
     libs = _build.build_all()
-    print(f"phase 1: built {sorted(libs)} from {SOURCE} and {FA_SOURCE} "
-          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"phase 1: built {sorted(libs)} from {SOURCE}, {FA_SOURCE} and "
+          f"{FA_BWD_SOURCE} in {time.perf_counter() - t0:.2f} s", flush=True)
 
     def timed_phase(name, fn, *args):
         t = time.perf_counter()
@@ -3563,6 +4108,7 @@ def main() -> int:
     fa_time = timed_phase("phase 2b timing", time_attention, torch, fa_err)
     zoo_time, zoo_f32_time = timed_phase("phase 2b zoo timing",
                                          time_zoo_attention, torch, fa_err)
+    bwd_err, bwd_time = timed_phase("phase 2c", check_attention_bwd, torch)
     timed_phase("phase 3", check_card_vs_cpu)
     launches, profiles = timed_phase("phase 4", run_main_path, torch)
     timed_phase("phase 4b", run_streaming_and_telemetry, torch, profiles)
@@ -3577,6 +4123,7 @@ def main() -> int:
     launches_5d, _ = timed_phase("phase 5d", run_5d, torch)
     launches_5e, _ = timed_phase("phase 5e", run_5e, torch)
     launches_5f, _ = timed_phase("phase 5f", run_5f, torch)
+    launches_5g, _ = timed_phase("phase 5g", run_training, torch)
 
     rows = []
     floor = timing["launch_floor"]
@@ -3636,7 +4183,35 @@ def main() -> int:
             bound_by=t["bound_by"], library_ms=t["library_ms"],
             shape=t["shape"],
             at_model_prefill_shapes={"bfloat16": zoo_time,
-                                     "float32": zoo_f32_time}.get(tname)))
+                                     "float32": zoo_f32_time}.get(tname),
+            train_launches={a: runs[name] for a, runs in
+                            launches_5g.items()}))
+    # The attention backward: its launches on the training path (phase 5g
+    # (a), bf16; (b), float32), per step, and its times at TinyLlama's
+    # training attention shape beside SDPA's backward (phase 2c).
+    for name, tname in (("flash_attention_bwd", "bfloat16"),
+                        ("flash_attention_bwd_f32", "float32")):
+        t = bwd_time[tname]
+        by_path = {a: runs[name] for a, runs in launches_5g.items()}
+        rows.append(dict(
+            name=name, route="cuda", source=FA_BWD_SOURCE,
+            replaces=FA_BWD_REPLACES,
+            replaces_note=("no Pallas kernel: the gradient of "
+                           "flash_attention_pallas's function, which JAX "
+                           "takes by jax.value_and_grad of the jnp "
+                           "attention (src/repro/train/step.py:131)"),
+            launches=sum(by_path.values()),
+            on_main_path=tname == "bfloat16",
+            path=("bf16 training" if tname == "bfloat16"
+                  else "float32 training, card vs CPU"),
+            launches_by_path=by_path,
+            launches_per_train_step=by_path[ARCH] // TRAIN_STEPS,
+            head_dims_checked=sorted({head_dims_of(c[5])
+                                      for c in BWD_CASES.values()}),
+            max_abs_err=bwd_err.get(tname), max_abs_err_by_dtype=bwd_err,
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            shape=t["shape"]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

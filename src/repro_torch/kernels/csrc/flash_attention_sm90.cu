@@ -55,6 +55,10 @@
 //     output is acc / max(l, 1e-30), rounded once to bf16 for bf16 inputs.
 //     Causality is top-left aligned (qpos >= kpos), the window test
 //     kpos > qpos - window.
+//   * Given a float32 lse pointer (training), the store also writes each
+//     row's log-sum-exp m + log(l), in natural log as the softmax's expf,
+//     which flash_attention_bwd_sm90.cu recomputes P from; serving passes
+//     null and the kernel's work and output are the same either way.
 //
 // Design.  One CTA of 384 threads per 128-row query tile, grid
 // (ceil(Sq/128), H, B), heaviest causal tiles first.  Warps 0-7 are two
@@ -428,8 +432,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
                  std::conditional_t<F32, float, __nv_bfloat16>* __restrict__ o,
-                 int B, int Sq, int Sk, int H, int KV, float scale,
-                 int causal, int window) {
+                 float* __restrict__ lse, int B, int Sq, int Sk, int H,
+                 int KV, float scale, int causal, int window) {
   using C = Cfg<HD, HDV, F32>;
   constexpr int BK = C::BK;
   constexpr int PLANES = C::PLANES;
@@ -636,6 +640,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int row = r0 + 8 * r;
     if (row >= Sq) continue;
     const float den = fmaxf(l[r], 1e-30f);
+    // The row's log-sum-exp for the backward (natural log: p = expf(s -
+    // m)); every lane of the quad holds the row's m and l.
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[((int64_t)b * H + h) * Sq + row] = m[r] + logf(l[r]);
     auto* out = o + (((int64_t)b * Sq + row) * H + h) * HDV + 2 * (lane & 3);
 #pragma unroll
     for (int c = 0; c < HDV / 8; ++c) {
@@ -744,9 +752,9 @@ CUtensorMapSwizzle swizzle_of(int rowb) {
 }
 
 template <int HD, int HDV, bool F32>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Sk, int H, int KV, float scale, int causal, int window,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Sk, int H, int KV, float scale, int causal,
+           int window, cudaStream_t stream) {
   using C = Cfg<HD, HDV, F32>;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return ERR_NO_ENCODER;
@@ -770,8 +778,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   fa_fwd_wgmma<HD, HDV, F32><<<grid, THREADS, C::SMEM, stream>>>(
       tq, tk, tv,
-      static_cast<std::conditional_t<F32, float, __nv_bfloat16>*>(o), B, Sq,
-      Sk, H, KV, scale, causal, window);
+      static_cast<std::conditional_t<F32, float, __nv_bfloat16>*>(o), lse, B,
+      Sq, Sk, H, KV, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -788,9 +796,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 #define HEAD_DIM_PAIRS(X) X(192, 128)
 
 template <bool F32>
-int forward(const void* q, const void* k, const void* v, void* o, int B,
-            int Sq, int Sk, int H, int KV, int hd, int hd_v, float scale,
-            int causal, int window, void* stream) {
+int forward(const void* q, const void* k, const void* v, void* o, void* lse,
+            int B, int Sq, int Sk, int H, int KV, int hd, int hd_v,
+            float scale, int causal, int window, void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return 0;
   if (Sk <= 0 || KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -798,8 +806,8 @@ int forward(const void* q, const void* k, const void* v, void* o, int B,
     switch (hd) {
 #define CASE(HD)                                                         \
   case HD:                                                               \
-    return launch<HD, HD, F32>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, \
-                               window, st);
+    return launch<HD, HD, F32>(q, k, v, o, static_cast<float*>(lse), B, Sq, \
+                               Sk, H, KV, scale, causal, window, st);
       HEAD_DIMS(CASE)
 #undef CASE
       default:
@@ -808,8 +816,8 @@ int forward(const void* q, const void* k, const void* v, void* o, int B,
   }
 #define PAIR(HD, HDV)                                                  \
   if (hd == HD && hd_v == HDV)                                         \
-    return launch<HD, HDV, F32>(q, k, v, o, B, Sq, Sk, H, KV, scale,   \
-                                causal, window, st);
+    return launch<HD, HDV, F32>(q, k, v, o, static_cast<float*>(lse), B, \
+                                Sq, Sk, H, KV, scale, causal, window, st);
   HEAD_DIM_PAIRS(PAIR)
 #undef PAIR
   return (int)cudaErrorInvalidValue;
@@ -824,24 +832,27 @@ int forward(const void* q, const void* k, const void* v, void* o, int B,
 // fa_forward_bf16: bf16 q (B, Sq, H, hd), k (B, Sk, KV, hd) and v (B, Sk,
 // KV, hd_v), contiguous and 16-byte aligned; bf16 o (B, Sq, H, hd_v); hd
 // == hd_v one of HEAD_DIMS, or (hd, hd_v) one of HEAD_DIM_PAIRS (above);
-// window <= 0 means no window.
+// window <= 0 means no window.  lse: null, or float32 (B, H, Sq) that
+// receives each row's log-sum-exp m + log(l) of the scaled, masked scores
+// (for the backward, flash_attention_bwd_sm90.cu); o is the same either
+// way.
 extern "C" int fa_forward_bf16(const void* q, const void* k, const void* v,
-                               void* o, int B, int Sq, int Sk, int H, int KV,
-                               int hd, int hd_v, float scale, int causal,
-                               int window, void* stream) {
-  return forward<false>(q, k, v, o, B, Sq, Sk, H, KV, hd, hd_v, scale, causal,
-                        window, stream);
+                               void* o, void* lse, int B, int Sq, int Sk,
+                               int H, int KV, int hd, int hd_v, float scale,
+                               int causal, int window, void* stream) {
+  return forward<false>(q, k, v, o, lse, B, Sq, Sk, H, KV, hd, hd_v, scale,
+                        causal, window, stream);
 }
 
 // fa_forward_f32: the same for float32 inputs, given as split_bf16x3's
 // planes: q (3, B, Sq, H, hd), k (3, B, Sk, KV, hd), v (3, B, Sk, KV,
 // hd_v) bf16; float32 o (B, Sq, H, hd_v).
 extern "C" int fa_forward_f32(const void* q, const void* k, const void* v,
-                              void* o, int B, int Sq, int Sk, int H, int KV,
-                              int hd, int hd_v, float scale, int causal,
-                              int window, void* stream) {
-  return forward<true>(q, k, v, o, B, Sq, Sk, H, KV, hd, hd_v, scale, causal,
-                       window, stream);
+                              void* o, void* lse, int B, int Sq, int Sk,
+                              int H, int KV, int hd, int hd_v, float scale,
+                              int causal, int window, void* stream) {
+  return forward<true>(q, k, v, o, lse, B, Sq, Sk, H, KV, hd, hd_v, scale,
+                       causal, window, stream);
 }
 
 // split_bf16x3: float32 x (n elements, contiguous, 16-byte aligned) ->

@@ -18,17 +18,29 @@ CUDA tensors go to one kernel per dtype, or the wrapper raises, both in
   ``fa_fwd_wgmma<hd, hd_v, true>`` (six plane products per float32
   product, each tile's p @ v merged into the output on the CUDA cores).
 
+Under autograd (grad enabled and q, k or v requiring grad) the call goes
+through a ``torch.autograd.Function``: the forward kernel also stores each
+row's log-sum-exp, and the backward is :func:`flash_attention_bwd`, which
+launches ``csrc/flash_attention_bwd_sm90.cu`` (its two kernels, dQ then
+dK / dV, templated on the input dtype) for CUDA tensors or raises, and runs
+:func:`.ref.flash_attention_bwd_ref` for CPU tensors.  The JAX package has
+no Pallas backward: it differentiates the jnp chunked attention, the same
+function.  Under ``no_grad`` / ``inference_mode`` (serving) no statistic is
+stored and nothing else changes.
+
 ``LAUNCHES`` counts each kernel's launches under its own key
 (``"flash_attention"`` the bf16 kernel, ``"flash_attention_f32"`` the
-float32 one, ``"split_bf16x3"`` the split, three per float32 call);
-plain-version calls are not counted.
+float32 one, ``"split_bf16x3"`` the split, three per float32 call,
+``"flash_attention_bwd"`` / ``"flash_attention_bwd_f32"`` one per backward
+call, which launches the backward source's two kernels); plain-version
+calls are not counted.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 from functools import lru_cache
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -49,11 +61,18 @@ ROUTES = {
     torch.float32: ("fa_forward_f32", "flash_attention_f32"),
 }
 SPLIT = "split_bf16x3"  # its C entry point and LAUNCHES key
+BWD_SOURCE = "flash_attention_bwd_sm90"
+# dtype -> (C entry point of the backward, LAUNCHES key)
+BWD_ROUTES = {
+    torch.bfloat16: ("fa_backward_bf16", "flash_attention_bwd"),
+    torch.float32: ("fa_backward_f32", "flash_attention_bwd_f32"),
+}
 # The attention entries' own error codes (a tensor map could not be made).
 _TMA_ERRORS = {-1: "cuTensorMapEncodeTiled is not available",
                -2: "cuTensorMapEncodeTiled refused a TMA tensor map"}
 
-LAUNCHES: Dict[str, int] = {key: 0 for _, key in ROUTES.values()}
+LAUNCHES: Dict[str, int] = {
+    key: 0 for _, key in (*ROUTES.values(), *BWD_ROUTES.values())}
 LAUNCHES[SPLIT] = 0
 
 
@@ -64,13 +83,20 @@ def reset_launches() -> None:
 
 @lru_cache(maxsize=None)
 def _entry(name: str):
-    fn = getattr(load(SOURCE), name)
-    P, I = ctypes.c_void_p, ctypes.c_int
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == SPLIT:
+        fn = getattr(load(SOURCE), name)
         fn.argtypes = [P, P, ctypes.c_longlong, ctypes.c_longlong, P]
+    elif name.startswith("fa_backward"):
+        # q, k, v, o, dO, lse, D, dq, dk, dv, B, Sq, Sk, H, KV, hd, hd_v,
+        # scale, causal, window, stream
+        fn = getattr(load(BWD_SOURCE), name)
+        fn.argtypes = [P] * 10 + [I] * 7 + [F, I, I, P]
     else:
-        fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I, ctypes.c_float, I,
-                       I, P]
+        # q, k, v, o, lse, B, Sq, Sk, H, KV, hd, hd_v, scale, causal,
+        # window, stream
+        fn = getattr(load(SOURCE), name)
+        fn.argtypes = [P] * 5 + [I] * 7 + [F, I, I, P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -143,6 +169,113 @@ def check_head_dims(hd: int, hd_v: int) -> None:
                          f"instantiated for these pairs only")
 
 
+def _on_card(q: torch.Tensor, routes) -> None:
+    """Raise unless the kernels take q (and k, v of its shapes) on the
+    card."""
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.dtype not in routes:
+        raise TypeError(f"dtype {q.dtype} not in {list(routes)}")
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError(f"q on {q.device}, current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+
+
+def _forward(q, k, v, causal: bool, window: Optional[int],
+             want_lse: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(out, lse (B, H, Sq) float32 when ``want_lse`` else None): the
+    plain version for CPU tensors, else the dtype's kernel."""
+    if q.device.type == "cpu":
+        if want_lse:
+            return ref.flash_attention_ref(q, k, v, causal=causal,
+                                           window=window, return_lse=True)
+        return ref.flash_attention_ref(q, k, v, causal=causal,
+                                       window=window), None
+    _on_card(q, ROUTES)
+    B, Sq, H, hd = q.shape
+    Sk, KV, hd_v = k.shape[1], k.shape[2], v.shape[3]
+    check_head_dims(hd, hd_v)
+    out = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if want_lse else None)
+    if out.numel() == 0:
+        return out, lse
+    if Sk == 0:
+        raise ValueError("attention over zero keys")
+    if q.dtype == torch.float32:
+        q, k, v = split_bf16x3(q), split_bf16x3(k), split_bf16x3(v)
+    else:
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    name, key = ROUTES[out.dtype]
+    err = _entry(name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, Sq, Sk, H, KV, hd, hd_v,
+        1.0 / math.sqrt(hd), int(causal), window or 0,
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: {_TMA_ERRORS.get(err, 'CUDA error')} "
+                           f"({err})")
+    LAUNCHES[key] += 1
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: Optional[int] = None):
+    """(dq, dk, dv) of :func:`flash_attention` at q, k, v, from its output
+    ``o``, its saved ``lse`` (B, H, Sq) and the output's gradient ``do``,
+    in q's dtype.  CPU tensors run :func:`.ref.flash_attention_bwd_ref`;
+    CUDA tensors launch the dtype's backward (``fa_backward_bf16`` /
+    ``fa_backward_f32``: ``fa_bwd_dq`` then ``fa_bwd_dkdv``) or raise."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                           causal=causal, window=window)
+    _on_card(q, BWD_ROUTES)
+    B, Sq, H, hd = q.shape
+    Sk, KV, hd_v = k.shape[1], k.shape[2], v.shape[3]
+    check_head_dims(hd, hd_v)
+    if not (q.dtype == o.dtype == do.dtype) or lse.dtype != torch.float32:
+        raise TypeError(f"o / do must be {q.dtype} and lse float32, got "
+                        f"{o.dtype}, {do.dtype}, {lse.dtype}")
+    q, k, v, o, do, lse = (x.contiguous() for x in (q, k, v, o, do, lse))
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if dq.numel() == 0 and dk.numel() == 0:
+        return dq, dk, dv
+    D = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    name, key = BWD_ROUTES[q.dtype]
+    err = _entry(name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), D.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KV, hd, hd_v,
+        1.0 / math.sqrt(hd), int(causal), window or 0,
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error ({err})")
+    LAUNCHES[key] += 1
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """The attention with its gradient: the forward stores the row
+    log-sum-exp and saves q, k, v, o and it; the backward is
+    :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = _forward(q, k, v, causal, window, want_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
+                                         causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     positions_q0: int = 0) -> torch.Tensor:
@@ -157,43 +290,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     version (CPU tensors) runs with its default chunks, which need Sq and
     Sk at most 1024 or multiples of it.  ``positions_q0`` must be 0 on
     either device: the Pallas kernel has no such argument.
+    Differentiable: with grad enabled and q, k or v requiring grad it goes
+    through ``_Attention`` (forward kernel with the row log-sum-exp, the
+    backward kernels in the backward); otherwise the forward alone.
     """
     _check(q, k, v, window)
     if positions_q0 != 0:
         raise ValueError("the kernel counts query positions from 0 (as the "
                          "Pallas kernel); positions_q0 must be 0")
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    B, Sq, H, hd = q.shape
-    Sk, KV, hd_v = k.shape[1], k.shape[2], v.shape[3]
-    check_head_dims(hd, hd_v)
-    if q.dtype not in ROUTES:
-        raise TypeError(f"dtype {q.dtype} not in {list(ROUTES)}")
-    if q.device.index != torch.cuda.current_device():
-        raise ValueError(f"q on {q.device}, current device is "
-                         f"cuda:{torch.cuda.current_device()}")
-    out = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    if Sk == 0:
-        raise ValueError("attention over zero keys")
-    if q.dtype == torch.float32:
-        q, k, v = split_bf16x3(q), split_bf16x3(k), split_bf16x3(v)
-    else:
-        q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    name, key = ROUTES[out.dtype]
-    err = _entry(name)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
-        H, KV, hd, hd_v, 1.0 / math.sqrt(hd), int(causal), window or 0,
-        torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: {_TMA_ERRORS.get(err, 'CUDA error')} "
-                           f"({err})")
-    LAUNCHES[key] += 1
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Attention.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window, want_lse=False)[0]
 
 
-__all__ = ["flash_attention", "split_bf16x3", "LAUNCHES", "reset_launches",
-           "HEAD_DIMS", "HEAD_DIM_PAIRS", "check_head_dims", "ROUTES"]
+__all__ = ["flash_attention", "flash_attention_bwd", "split_bf16x3",
+           "LAUNCHES", "reset_launches", "HEAD_DIMS", "HEAD_DIM_PAIRS",
+           "check_head_dims", "ROUTES", "BWD_ROUTES"]

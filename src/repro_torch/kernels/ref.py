@@ -25,6 +25,10 @@ with it to float32 rounding, not bit for bit.  ``split_bf16x3`` is the
 kernels' split of a float32 value into three bf16 terms (of p in
 registers; of float32 q, k and v by the split kernel, bit for bit), which
 lets their products run on the tensor cores without rounding.
+``flash_attention_bwd_ref`` is the plain version of the backward kernels
+(``csrc/flash_attention_bwd_sm90.cu``): the gradient of
+``flash_attention_ref`` from its output and row log-sum-exp
+(``return_lse``), the same formulas in float32 over the same chunks.
 """
 from __future__ import annotations
 
@@ -168,17 +172,45 @@ def _expand_kv(k, H):
     return k.repeat_interleave(H // KV, dim=2)
 
 
+def _chunks(Sq, Sk, q_chunk, k_chunk, causal, window, positions_q0=0):
+    """(query chunk, first query position, key chunks it visits) of the
+    chunked attention: the causal bound and the window's lower bound in
+    key-chunk units, as the JAX function's static chunk skipping."""
+    assert Sq % q_chunk == 0 and Sk % k_chunk == 0, (Sq, q_chunk, Sk, k_chunk)
+    nk = Sk // k_chunk
+    for qi in range(Sq // q_chunk):
+        q_pos0 = positions_q0 + qi * q_chunk
+        hi = nk if not causal else min(
+            nk, (q_pos0 + q_chunk + k_chunk - 1) // k_chunk)
+        lo = 0
+        if window is not None:
+            lo = max(0, (q_pos0 - window) // k_chunk)
+        yield qi, q_pos0, range(lo, hi)
+
+
+def _mask(qpos, kpos, causal, window):
+    mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                      device=qpos.device)
+    if causal:
+        mask = mask & (qpos[:, None] >= kpos[None, :])
+    if window is not None:
+        mask = mask & (kpos[None, :] > qpos[:, None] - window)
+    return mask
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: Optional[int] = None,
                         q_chunk: int = 1024, k_chunk: int = 1024,
-                        positions_q0: int = 0) -> torch.Tensor:
+                        positions_q0: int = 0, return_lse: bool = False):
     """Chunked attention with online softmax (float32 statistics and
     accumulator), output in q's dtype.
 
     q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) with H % KV == 0.
     ``positions_q0``: absolute position of q[0].  Query chunk i visits only
     the key chunks inside its causal bound (and from its window's lower
-    bound).  Masked scores are -1e30, as in the JAX function.
+    bound).  Masked scores are -1e30, as in the JAX function.  With
+    ``return_lse`` returns ``(out, lse)``: lse (B, H, Sq) float32, each
+    row's m + log(l), what the kernels store for the backward.
     """
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
@@ -188,36 +220,23 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     v = _expand_kv(v, H)
     q_chunk = min(q_chunk, Sq)
     k_chunk = min(k_chunk, Sk)
-    nq = (Sq + q_chunk - 1) // q_chunk
-    nk = (Sk + k_chunk - 1) // k_chunk
-    assert Sq % q_chunk == 0 and Sk % k_chunk == 0, (Sq, q_chunk, Sk, k_chunk)
 
     dev = q.device
-    outs = []
-    for qi in range(nq):
+    outs, lses = [], []
+    for qi, q_pos0, kis in _chunks(Sq, Sk, q_chunk, k_chunk, causal, window,
+                                   positions_q0):
         q_blk = q[:, qi * q_chunk:(qi + 1) * q_chunk]
-        q_pos0 = positions_q0 + qi * q_chunk
-        hi = nk if not causal else min(
-            nk, (q_pos0 + q_chunk + k_chunk - 1) // k_chunk)
-        lo = 0
-        if window is not None:
-            lo = max(0, (q_pos0 - window) // k_chunk)
         acc = torch.zeros((B, H, q_chunk, hd_v), dtype=torch.float32,
                           device=dev)
         m = torch.full((B, H, q_chunk), -1e30, dtype=torch.float32,
                        device=dev)
         l = torch.zeros((B, H, q_chunk), dtype=torch.float32, device=dev)
         qpos = q_pos0 + torch.arange(q_chunk, device=dev)
-        for ki in range(lo, hi):
+        for ki in kis:
             k_blk = k[:, ki * k_chunk:(ki + 1) * k_chunk]
             v_blk = v[:, ki * k_chunk:(ki + 1) * k_chunk]
             kpos = ki * k_chunk + torch.arange(k_chunk, device=dev)
-            mask = torch.ones((q_chunk, k_chunk), dtype=torch.bool,
-                              device=dev)
-            if causal:
-                mask = mask & (qpos[:, None] >= kpos[None, :])
-            if window is not None:
-                mask = mask & (kpos[None, :] > qpos[:, None] - window)
+            mask = _mask(qpos, kpos, causal, window)
             o_b, m_b, l_b = _attend_block(q_blk, k_blk, v_blk,
                                           mask[None, None], scale)
             m_new = torch.maximum(m, m_b)
@@ -229,7 +248,65 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out_blk = acc / torch.clamp(l, min=1e-30)[..., None]
         # (B,H,q_chunk,hd_v) -> (B,q_chunk,H,hd_v)
         outs.append(out_blk.transpose(1, 2).to(q.dtype))
-    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0].contiguous()
+        lses.append(m + torch.log(l))
+    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0].contiguous()
+    if not return_lse:
+        return out
+    return out, torch.cat(lses, dim=2)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor, *,
+                            causal: bool = True,
+                            window: Optional[int] = None,
+                            q_chunk: int = 1024, k_chunk: int = 1024):
+    """Gradient of :func:`flash_attention_ref` -> (dq, dk, dv) in q's, k's
+    and v's dtypes: the plain version of ``flash_attention_bwd_sm90.cu``,
+    the same formulas in float32 over the same chunks as the forward.
+
+    o: the forward's output and lse (B, H, Sq) its saved log-sum-exp; do:
+    the output's gradient.  D = rowsum(do * o); per visited key chunk P =
+    exp(scale q k^T - lse) where the mask keeps the pair, else 0; dV += P^T
+    do; dS = P * (do v^T - D); dQ += scale dS K; dK += scale dS^T Q, on the
+    expanded K/V, then each KV head's group of query heads summed.
+    """
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    hd_v = v.shape[-1]
+    scale = 1.0 / math.sqrt(hd)
+    f = torch.float32
+    qf, dof = q.to(f), do.to(f)
+    kf, vf = _expand_kv(k.to(f), H), _expand_kv(v.to(f), H)
+    D = (dof * o.to(f)).sum(-1).transpose(1, 2)          # (B, H, Sq)
+    dq = torch.zeros((B, Sq, H, hd), dtype=f, device=q.device)
+    dk = torch.zeros((B, Sk, H, hd), dtype=f, device=q.device)
+    dv = torch.zeros((B, Sk, H, hd_v), dtype=f, device=q.device)
+    q_chunk = min(q_chunk, Sq)
+    k_chunk = min(k_chunk, Sk)
+    dev = q.device
+    for qi, q_pos0, kis in _chunks(Sq, Sk, q_chunk, k_chunk, causal, window):
+        qs = slice(qi * q_chunk, (qi + 1) * q_chunk)
+        q_blk, do_blk = qf[:, qs], dof[:, qs]
+        lse_blk, D_blk = lse[:, :, qs, None], D[:, :, qs, None]
+        qpos = q_pos0 + torch.arange(q_chunk, device=dev)
+        for ki in kis:
+            ks = slice(ki * k_chunk, (ki + 1) * k_chunk)
+            k_blk, v_blk = kf[:, ks], vf[:, ks]
+            kpos = ki * k_chunk + torch.arange(k_chunk, device=dev)
+            mask = _mask(qpos, kpos, causal, window)[None, None]
+            s = torch.einsum("bqhd,bshd->bhqs", q_blk, k_blk) * scale
+            p = torch.where(mask, torch.exp(torch.where(mask, s - lse_blk,
+                                                        0.0)), 0.0)
+            dv[:, ks] += torch.einsum("bhqs,bqhd->bshd", p, do_blk)
+            dp = torch.einsum("bqhd,bshd->bhqs", do_blk, v_blk)
+            ds = p * (dp - D_blk)
+            dq[:, qs] += torch.einsum("bhqs,bshd->bqhd", ds, k_blk) * scale
+            dk[:, ks] += torch.einsum("bhqs,bqhd->bshd", ds, q_blk) * scale
+    G = H // KV
+    dk = dk.reshape(B, Sk, KV, G, hd).sum(3)
+    dv = dv.reshape(B, Sk, KV, G, hd_v).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def split_bf16x3(p: torch.Tensor):
@@ -251,4 +328,4 @@ def split_bf16x3(p: torch.Tensor):
 
 __all__ = ["cc_ref", "frag_ref", "mcc_score_ref", "ecc_score_ref",
            "mcc_pick_ref", "ecc_pick_ref", "flash_attention_ref",
-           "split_bf16x3"]
+           "flash_attention_bwd_ref", "split_bf16x3"]

@@ -1,15 +1,17 @@
 # Port of repro/models/registry.py (the JAX package): serving step builders, input specs, cells and parameter counts.
 """Registry: (architecture x input shape) -> step function + input specs.
 
+  * ``train_4k``     — ``train_step`` (forward + backward + AdamW,
+    ``train.step.make_train_step``),
   * ``prefill_32k``  — ``prefill``   (full-context forward, last logits;
     encdec: ``encode`` over the frames, the last encoder state's logits),
   * ``decode_32k`` / ``long_500k`` — ``decode_step`` (one new token against
     a seq_len cache).
 
-Training (``train_4k``) is not ported yet: its step and its input specs
-raise.  ``input_specs`` returns tensors on the ``meta`` device, which
-carry shape and dtype and allocate nothing (a ``decode_32k`` cache is
-hundreds of GB), as the JAX package's ``ShapeDtypeStruct``s do.
+``input_specs`` and ``abstract_train_state`` return tensors on the
+``meta`` device, which carry shape and dtype and allocate nothing (a
+``decode_32k`` cache is hundreds of GB), as the JAX package's
+``ShapeDtypeStruct``s do.
 ``cell_supported`` encodes the applicability matrix (long_500k only for
 sub-quadratic archs).  Parameter counts and ``model_flops`` are the JAX
 package's formulas over the port's specs.
@@ -23,9 +25,11 @@ import torch
 from ..configs import ARCH_IDS, get_config, get_smoke_config
 from ..device import DeviceLike, resolve_device
 from ..serve import llm_decode as serve_engine
+from ..train.optimizer import AdamWConfig, OptState, tree_map
+from ..train.step import make_train_step
 from .config import SHAPES, ModelConfig, ShapeConfig
 from . import transformer as M
-from .params import param_count
+from .params import is_leaf, param_count
 from .transformer import check_family, stacked_model_spec
 
 META = torch.device("meta")
@@ -42,14 +46,20 @@ def cell_supported(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
 # Input specs (meta tensors: shape and dtype, no allocation)
 # ---------------------------------------------------------------------------
 
-def _train_not_ported():
-    return NotImplementedError(
-        "training (train/step.py, train/optimizer.py) is not ported yet; "
-        "see ROADMAP.md, Queue 2")
-
-
-def train_input_specs(cfg: ModelConfig, shape: ShapeConfig):
-    raise _train_not_ported()
+def train_input_specs(cfg: ModelConfig,
+                      shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    check_family(cfg)
+    B, S = shape.global_batch, shape.seq_len
+    i32 = dict(dtype=torch.int32, device=META)
+    specs = {"tokens": torch.empty((B, S), **i32),
+             "labels": torch.empty((B, S), **i32)}
+    if cfg.family == "encdec":                          # stub frontend
+        specs = {"frames": torch.empty((B, S, cfg.d_model),
+                                       dtype=torch.bfloat16, device=META),
+                 **specs}
+    if cfg.family == "vlm":                             # stub frontend
+        specs["mrope_positions"] = torch.empty((3, B, S), **i32)
+    return specs
 
 
 def prefill_input_specs(cfg: ModelConfig,
@@ -90,13 +100,14 @@ def input_specs(arch_or_cfg, shape_name: str, *, smoke: bool = False):
 # Step builders
 # ---------------------------------------------------------------------------
 
-def make_step(cfg: ModelConfig, shape: ShapeConfig, *,
+def make_step(cfg: ModelConfig, shape: ShapeConfig, *, n_micro: int = 1,
               device: DeviceLike = None) -> Callable:
-    """The step function of this cell: ``step(model, batch)``.  The model
-    must live on ``device`` (None: the CUDA device)."""
+    """The step function of this cell: ``step(model, batch)``, or for the
+    train kind ``step(model, opt_state, batch) -> (opt_state, metrics)``
+    with AdamW's defaults over ``n_micro`` micro-batches (the model
+    trainable, ``transformer.make_trainable``).  The model must live on
+    ``device`` (None: the CUDA device)."""
     check_family(cfg)
-    if shape.kind == "train":
-        raise _train_not_ported()
     device = resolve_device(device)
 
     def _on_device(model):
@@ -104,6 +115,14 @@ def make_step(cfg: ModelConfig, shape: ShapeConfig, *,
         if where.type != device.type or device.index not in (None,
                                                              where.index):
             raise ValueError(f"model on {where}, step built for {device}")
+
+    if shape.kind == "train":
+        ts = make_train_step(cfg, AdamWConfig(), n_micro=n_micro)
+
+        def train_fn(model, opt_state, batch):
+            _on_device(model)
+            return ts(model, opt_state, batch)
+        return train_fn
 
     if shape.kind == "prefill":
         def prefill_fn(model, batch):
@@ -120,6 +139,26 @@ def make_step(cfg: ModelConfig, shape: ShapeConfig, *,
         return serve_engine.decode_step(model, batch["cache"],
                                         batch["tokens"], batch["pos"], cfg)
     return decode_fn
+
+
+def abstract_params(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16):
+    """The stacked parameter tree as meta tensors (no allocation)."""
+    def leaf(spec):
+        if is_leaf(spec):
+            return torch.empty(spec.shape, dtype=dtype, device=META)
+        return {k: leaf(v) for k, v in spec.items()}
+    return leaf(stacked_model_spec(cfg))
+
+
+def abstract_train_state(cfg: ModelConfig):
+    """(params, OptState) as meta tensors: the stacked tree and float32
+    moments of its shapes, step a () int32."""
+    params = abstract_params(cfg)
+    moments = tree_map(lambda p: torch.empty(p.shape, dtype=torch.float32,
+                                             device=META), params)
+    opt = OptState(step=torch.empty((), dtype=torch.int32, device=META),
+                   m=moments, v=tree_map(torch.empty_like, moments))
+    return params, opt
 
 
 def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
@@ -165,6 +204,7 @@ def supported_cells():
 
 
 __all__ = ["input_specs", "make_step", "cell_supported", "model_flops",
+           "abstract_params", "abstract_train_state",
            "active_param_count", "total_param_count", "ALL_CELLS",
            "supported_cells", "train_input_specs", "prefill_input_specs",
            "decode_input_specs"]

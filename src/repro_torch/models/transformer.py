@@ -11,7 +11,13 @@ and ``enc_norm.scale`` in place of ``layers``; for ``rwkv6``
 and the unstacked ``shared.{ln1,attn,ln2,ffn}.*``).  The JAX package stacks
 each layer leaf with a leading layers axis and scans over it; the port
 keeps a ``ModuleList`` and loops.  ``forward``, ``encode``, ``logits_fn``
-and ``lm_forward`` take the module.  The ``vlm`` family (Qwen2-VL) is the
+and ``lm_forward`` take the module.  The stacked tree itself is kept on the
+model (:func:`stacked_params`): its layer parameters are views of its
+tensors, so the optimizer updates the tree in place and the layers see it.
+For training, :func:`make_trainable` turns every parameter trainable, and
+under grad each layer body is rematerialised through ``flags.remat_wrap``
+(``remat=True``, as in JAX); serving runs under ``inference_mode`` and
+never reaches it.  The ``vlm`` family (Qwen2-VL) is the
 dense decoder with M-RoPE over (3, B, S) positions; ``moe`` (Llama-4
 Scout) has a routed MoE as each layer's FFN and sums its aux loss over
 layers; ``mla_moe`` (DeepSeek-V2) is the moe family with Multi-head
@@ -36,6 +42,7 @@ import torch
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
+from . import flags
 from . import layers as L
 from . import ssm as S
 from .config import ModelConfig
@@ -271,7 +278,8 @@ def load_stacked(model: Transformer, tree: Dict[str, Any]) -> Transformer:
     axis, split here into the ``ModuleList``; an MoE's expert stacks are
     then (E, d, f) a layer).  Each tensor must already have the
     parameter's device and dtype; a layer's parameter is a view of the
-    stacked tensor (no copy).  Builds no reference cycle, so a model is
+    stacked tensor (no copy), and ``tree`` is kept as ``model.stacked``
+    (:func:`stacked_params`).  Builds no reference cycle, so a model is
     freed as soon as its last reference goes."""
     params = dict(model.named_parameters())
     todo = []
@@ -298,7 +306,58 @@ def load_stacked(model: Transformer, tree: Dict[str, Any]) -> Transformer:
     missing = sorted(set(params) - {name for name, _ in todo})
     if missing:
         raise KeyError(f"tree lacks parameters {missing}")
+    model.stacked = tree
     return model
+
+
+def stacked_params(model: Transformer) -> Dict[str, Any]:
+    """The model's parameters as the stacked tree ``load_stacked`` took
+    (JAX's parameter tree): the tensors its layer parameters are views of,
+    so an in-place update of a leaf updates every layer."""
+    tree = getattr(model, "stacked", None)
+    if tree is None:
+        raise ValueError("the model was not loaded through load_stacked")
+    return tree
+
+
+def make_trainable(model: Transformer) -> Transformer:
+    """Every parameter ``requires_grad_(True)`` (each layer's parameter
+    stays a view of its stacked tensor)."""
+    for p in model.parameters():
+        p.requires_grad_(True)
+    return model
+
+
+def zero_grads(model: Transformer) -> None:
+    for p in model.parameters():
+        p.grad = None
+
+
+def stacked_grads(model: Transformer) -> Dict[str, Any]:
+    """The parameters' ``.grad`` as a tree shaped like
+    :func:`stacked_params` (each stack's layer gradients stacked; a
+    parameter the loss did not reach has a zero gradient, as in JAX)."""
+    params = dict(model.named_parameters())
+
+    def grad(name):
+        p = params[name]
+        return p.grad if p.grad is not None else torch.zeros_like(p)
+
+    def walk(tree, prefix):
+        out = {}
+        for k, v in tree.items():
+            name = prefix + k
+            if isinstance(v, dict):
+                out[k] = walk(v, name + ".")
+                continue
+            stack, _, rest = name.partition(".")
+            if stack in STACKS:
+                out[k] = torch.stack([grad(f"{stack}.{i}.{rest}")
+                                      for i in range(v.shape[0])])
+            else:
+                out[k] = grad(name)
+        return out
+    return walk(stacked_params(model), "")
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -363,18 +422,23 @@ def _shared_block_fwd(cfg: ModelConfig, block: DecoderLayer, x, positions):
     return x + h
 
 
+def _remat(body, remat: bool):
+    return flags.remat_wrap(body) if remat else body
+
+
 def forward(model: Transformer, tokens_or_embeds: torch.Tensor,
             cfg: ModelConfig, *,
             mrope_positions: Optional[torch.Tensor] = None,
-            encoder_out: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            encoder_out: Optional[torch.Tensor] = None,
+            remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (hidden_states (B,S,D), aux_loss ()): the moe family's aux
     summed over layers, else 0.  ``mrope_positions`` (3, B, S): the vlm
     family's position ids (default: every axis 0..S-1).  ``encoder_out``
     (B, S_enc, D): the encdec family's encoder states (:func:`encode`),
     which its decoder needs.  A hybrid config runs its Mamba-2 layers
     alone, as JAX's ``forward`` does; :func:`hybrid_forward` is its
-    model."""
+    model.  ``remat``: under grad, each layer body goes through
+    ``flags.remat_wrap``."""
     check_family(cfg)
     if not tokens_or_embeds.is_floating_point():
         x = model.embedding[tokens_or_embeds]
@@ -384,45 +448,54 @@ def forward(model: Transformer, tokens_or_embeds: torch.Tensor,
     positions = _positions(cfg, B, Sq, mrope_positions, x.device)
     aux = torch.zeros((), dtype=f32, device=x.device)
     if cfg.family == "encdec":
-        return _encdec_forward(model, x, cfg, encoder_out, positions), aux
-    for layer in model.layers:
+        return _encdec_forward(model, x, cfg, encoder_out, positions,
+                               remat), aux
+
+    def body(layer, x, aux):
         x, a = _decoder_layer_fwd(cfg, layer, x, positions)
-        if a is not None:
-            aux = aux + a
+        return x, (aux if a is None else aux + a)
+
+    body_fn = _remat(body, remat)
+    for layer in model.layers:
+        x, aux = body_fn(layer, x, aux)
     x = L.rmsnorm(model.final_norm.scale, x)
     return x, aux
 
 
 def hybrid_forward(model: Transformer, tokens: torch.Tensor,
-                   cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+                   cfg: ModelConfig, *, remat: bool = True
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Zamba2: groups of ``shared_attn_period`` Mamba-2 layers, the shared
     block before each; the ``n_layers % period`` layers left over run
-    after the last group without it.  Returns (hidden (B,S,D), aux 0)."""
+    after the last group without it.  Returns (hidden (B,S,D), aux 0).
+    ``remat`` wraps the Mamba-2 layers (not the shared block), as JAX."""
     check_family(cfg)
     x = model.embedding[tokens]
     B, Sq = x.shape[:2]
     positions = _positions(cfg, B, Sq, None, x.device)
     period = cfg.shared_attn_period
     n_groups = cfg.n_layers // period
+    mamba = _remat(lambda layer, x: _mamba_layer_fwd(cfg, layer, x), remat)
     for gi in range(n_groups):
         x = _shared_block_fwd(cfg, model.shared, x, positions)
         for layer in model.layers[gi * period:(gi + 1) * period]:
-            x = _mamba_layer_fwd(cfg, layer, x)
+            x = mamba(layer, x)
     for layer in model.layers[n_groups * period:]:
-        x = _mamba_layer_fwd(cfg, layer, x)
+        x = mamba(layer, x)
     x = L.rmsnorm(model.final_norm.scale, x)
     return x, torch.zeros((), dtype=f32, device=x.device)
 
 
 def _encdec_forward(model: Transformer, x, cfg: ModelConfig, encoder_out,
-                    positions):
+                    positions, remat: bool = True):
     """Whisper's decoder: per layer causal self attention (RoPE), cross
     attention to ``encoder_out`` (no RoPE, no mask), SwiGLU."""
     if encoder_out is None:
         raise ValueError("encdec needs encoder_out")
     B, Sq = x.shape[:2]
     hd = cfg.resolved_head_dim
-    for layer in model.dec_layers:
+
+    def body(layer, x):
         h = L.attention_apply(layer.attn, L.rmsnorm(layer.ln1.scale, x),
                               cfg, positions)
         x = x + h
@@ -434,12 +507,16 @@ def _encdec_forward(model: Transformer, x, cfg: ModelConfig, encoder_out,
         o = L.flash_attention(q, k, v, causal=False)
         x = x + o.reshape(B, Sq, -1) @ layer.xattn.wo
         h = L.mlp_apply(layer.ffn, L.rmsnorm(layer.ln2.scale, x))
-        x = x + h
+        return x + h
+
+    body_fn = _remat(body, remat)
+    for layer in model.dec_layers:
+        x = body_fn(layer, x)
     return L.rmsnorm(model.final_norm.scale, x)
 
 
 def encode(model: Transformer, frame_embeds: torch.Tensor,
-           cfg: ModelConfig) -> torch.Tensor:
+           cfg: ModelConfig, *, remat: bool = True) -> torch.Tensor:
     """Whisper encoder over stubbed frame embeddings (B, S, D): per layer
     bidirectional self attention (RoPE on q and k, ``causal=False``) and
     SwiGLU, then ``enc_norm``."""
@@ -447,13 +524,18 @@ def encode(model: Transformer, frame_embeds: torch.Tensor,
     x = frame_embeds
     B, Sq = x.shape[:2]
     positions = _positions(cfg, B, Sq, None, x.device)
-    for layer in model.enc_layers:
+
+    def body(layer, x):
         h_in = L.rmsnorm(layer.ln1.scale, x)
         q, k, v = L.attention_qkv(layer.attn, h_in, cfg, positions)
         o = L.flash_attention(q, k, v, causal=False)
         x = x + o.reshape(B, Sq, -1) @ layer.attn.wo
         h = L.mlp_apply(layer.ffn, L.rmsnorm(layer.ln2.scale, x))
-        x = x + h
+        return x + h
+
+    body_fn = _remat(body, remat)
+    for layer in model.enc_layers:
+        x = body_fn(layer, x)
     return L.rmsnorm(model.enc_norm.scale, x)
 
 
@@ -477,5 +559,6 @@ __all__ = ["model_spec", "stacked_model_spec", "layer_spec",
            "shared_block_spec", "encoder_layer_spec",
            "decoder_xattn_layer_spec", "Transformer", "DecoderLayer",
            "DecoderXAttnLayer", "RWKVLayer", "MambaLayer", "init_params",
-           "load_stacked", "forward", "hybrid_forward", "encode",
-           "logits_fn", "lm_forward", "check_family"]
+           "load_stacked", "stacked_params", "stacked_grads",
+           "make_trainable", "zero_grads", "forward", "hybrid_forward",
+           "encode", "logits_fn", "lm_forward", "check_family"]

@@ -100,7 +100,8 @@ def test_wrapper_on_cpu_runs_the_plain_version():
                                                 window=96))
     assert L.flash_attention is K.flash_attention
     assert K.LAUNCHES == {"flash_attention": 0, "flash_attention_f32": 0,
-                          "split_bf16x3": 0}
+                          "split_bf16x3": 0, "flash_attention_bwd": 0,
+                          "flash_attention_bwd_f32": 0}
 
 
 def test_split_wrapper_on_cpu_runs_the_plain_version():
@@ -123,7 +124,9 @@ def test_each_cuda_dtype_has_one_kernel():
     """bf16 goes to fa_forward_bf16 and float32 to fa_forward_f32, both
     entries of the one tensor-core source, each counted under its own key;
     float32 reaches its kernel only through the split's bf16 planes, and
-    the CUDA-core float32 source (csrc/flash_attention.cu) is gone."""
+    the CUDA-core float32 source (csrc/flash_attention.cu) is gone.  The
+    backward is the other source's two entries, one a dtype, each counted
+    under its own key."""
     import inspect
     from repro_torch.kernels import _build
     assert K.SOURCE == "flash_attention_sm90"
@@ -131,7 +134,15 @@ def test_each_cuda_dtype_has_one_kernel():
         torch.bfloat16: ("fa_forward_bf16", "flash_attention"),
         torch.float32: ("fa_forward_f32", "flash_attention_f32")}
     assert {s.stem for s in _build.CSRC.glob("*.cu")} == {
-        "mask_scores", "flash_attention_sm90"}
+        "mask_scores", "flash_attention_sm90", "flash_attention_bwd_sm90"}
+    assert K.BWD_SOURCE == "flash_attention_bwd_sm90"
+    assert K.BWD_ROUTES == {
+        torch.bfloat16: ("fa_backward_bf16", "flash_attention_bwd"),
+        torch.float32: ("fa_backward_f32", "flash_attention_bwd_f32")}
+    bwd = (_build.CSRC / "flash_attention_bwd_sm90.cu").read_text()
+    for entry, _ in K.BWD_ROUTES.values():
+        assert f'extern "C" int {entry}(' in bwd
+    assert "backward<__nv_bfloat16>(" in bwd and "backward<float>(" in bwd
     sm90 = (_build.CSRC / "flash_attention_sm90.cu").read_text()
     for entry in ("fa_forward_bf16", "fa_forward_f32", K.SPLIT):
         assert f'extern "C" int {entry}(' in sm90
@@ -143,7 +154,7 @@ def test_each_cuda_dtype_has_one_kernel():
     assert "fa_fwd_wgmma<HD, HDV, F32><<<" in sm90
     # The wrapper splits q, k and v before the float32 entry, and nowhere
     # else.
-    body = inspect.getsource(K.flash_attention)
+    body = inspect.getsource(K._forward)
     assert ("q, k, v = split_bf16x3(q), split_bf16x3(k), split_bf16x3(v)"
             in body)
     assert body.count("split_bf16x3(") == 3

@@ -537,16 +537,20 @@ def test_chip_smoke_subquadratic_variants_are_the_cpu_tests():
 def test_chip_smoke_split_bound_and_route_launches():
     """The split's bound is its bytes (4 read, 6 written per element) at
     3.35 TB/s; a float32 wrapper call launches the float32 kernel once and
-    the split three times, a bf16 one the bf16 kernel once."""
+    the split three times, a bf16 one the bf16 kernel once, and neither
+    the backward."""
     from repro_torch.kernels import flash_attention as FA
     smoke = _chip_smoke()
     n = smoke.PREFILL_B * smoke.PREFILL_S * 32 * 64
     got, by = smoke.split_bound_ms(n)
     assert by == "bytes" and got == pytest.approx(10 * n / 3.35e9)
+    bwd = {"flash_attention_bwd": 0, "flash_attention_bwd_f32": 0}
     assert smoke.route_launches(FA, torch.float32) == {
-        "flash_attention": 0, "flash_attention_f32": 1, "split_bf16x3": 3}
+        "flash_attention": 0, "flash_attention_f32": 1, "split_bf16x3": 3,
+        **bwd}
     assert smoke.route_launches(FA, torch.bfloat16) == {
-        "flash_attention": 1, "flash_attention_f32": 0, "split_bf16x3": 0}
+        "flash_attention": 1, "flash_attention_f32": 0, "split_bf16x3": 0,
+        **bwd}
     assert smoke.F32_ATTN_CASES["long_noncausal"] == (
         1, 1024, 16384, 8, 2, 64, False, None)
 

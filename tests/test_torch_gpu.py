@@ -421,8 +421,8 @@ def _prefill_launches_once_per_layer(cfg):
     FA.reset_launches()
     logits = step(model, {"tokens": tokens})
     torch.cuda.synchronize()
-    assert FA.LAUNCHES == {"flash_attention": cfg.n_layers,
-                           "flash_attention_f32": 0, "split_bf16x3": 0}
+    assert FA.LAUNCHES == smoke.launch_counts(
+        FA, flash_attention=cfg.n_layers)
     assert logits.shape == (2, 1, cfg.vocab)
     assert torch.isfinite(logits.float()).all()
 
@@ -569,8 +569,7 @@ def test_mla_prefill_launches_the_pair_kernel_once_per_layer():
     torch.cuda.synchronize()
     assert dims == [(192, 192, 128, True)] * smoke.DSV2_LAYERS == [
         (192, 192, 128, True)] * 4
-    assert FA.LAUNCHES == {"flash_attention": 4, "flash_attention_f32": 0,
-                           "split_bf16x3": 0}
+    assert FA.LAUNCHES == smoke.launch_counts(FA, flash_attention=4)
     assert logits.shape == (2, 1, cfg.vocab)
     assert torch.isfinite(logits.float()).all()
 
@@ -762,7 +761,72 @@ def test_hybrid_prefill_launches_the_kernel_once_per_group():
         logits = step(model, {"tokens": tokens})
     torch.cuda.synchronize()
     assert calls == [(True, 256, 256, 64)] * 3
-    assert FA.LAUNCHES == {"flash_attention": 3, "flash_attention_f32": 0,
-                           "split_bf16x3": 0}
+    assert FA.LAUNCHES == smoke.launch_counts(FA, flash_attention=3)
     assert logits.shape == (2, 1, cfg.vocab)
     assert torch.isfinite(logits.float()).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("name", ["hd16_g1", "hd64_noncausal_g4",
+                                  "hd64_window96", "mla_noncausal_g4"])
+def test_attention_backward_equals_plain_version_on_card(name, dtype):
+    """chip_smoke's phase 2c on a few of its cases: the forward's lse
+    leaves its output bit for bit as serving's, the backward is
+    deterministic, within half a bf16 ulp (+ float32 atol) of the plain
+    backward, float32 within 2e-5 of float64 autograd, the lse within
+    1e-5 of float64 logsumexp (``hold_attention_bwd``)."""
+    _need_card()
+    err = {}
+    q, k, v, do, causal, window = smoke._bwd_inputs(
+        torch, smoke.BWD_CASES[name], dtype)
+    smoke.hold_attention_bwd(torch, name, q, k, v, do, causal, window, err)
+    assert err["lse"] <= smoke.LSE_TOL
+
+
+def test_attention_under_grad_launches_the_backward_on_card():
+    """flash_attention under grad on CUDA tensors: one forward launch with
+    its lse, one backward launch in backward(), gradients equal to
+    flash_attention_bwd's."""
+    _need_card()
+    q, k, v, do, causal, window = smoke._bwd_inputs(
+        torch, smoke.BWD_CASES["hd64_window96"], torch.bfloat16)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    FA.reset_launches()
+    out = FA.flash_attention(*leaves, causal=causal, window=window)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == smoke.launch_counts(
+        FA, flash_attention=1, flash_attention_bwd=1)
+    o, lse = FA._forward(q, k, v, causal, window, want_lse=True)
+    want = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                  window=window)
+    for x, w in zip(leaves, want):
+        assert torch.equal(x.grad, w)
+
+
+def test_backward_head_dim_outside_the_list_raises_on_card():
+    _need_card()
+    q = torch.zeros((1, 8, 2, 48), device="cuda", dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 8), device="cuda")
+    with pytest.raises(ValueError, match="head dim 48"):
+        FA.flash_attention_bwd(q, q, q, q, lse, q)
+
+
+def test_train_step_on_card_launches_and_equals_cpu():
+    """chip_smoke's phase 5g (b) on TinyLlama's smoke config (hd 16):
+    two float32 train steps of 2 x 64 on the card equal the CPU's (losses,
+    grad norms, the first step's gradient, moments, parameters) within
+    CARD_CPU_TOL or TRAIN_NOISE_FACTOR times what half a float32 ulp of
+    noise moves the CPU run, the whole trajectory held (the smoke config
+    is not chaotic); each step launches the
+    float32 forward twice a layer (the forward and its remat recompute)
+    and the backward once (``train_card_vs_cpu``)."""
+    _need_card()
+    from repro_torch.configs import get_smoke_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("tinyllama_1_1b")
+    launches, res = smoke.train_card_vs_cpu(torch, cfg, (2, 64), steps=2)
+    assert launches["flash_attention_bwd_f32"] == 2 * cfg.n_layers
+    assert not res["chaotic"] and set(res["bounds"]) == set(res["distances"])
+    assert all(res["distances"][k] <= b for k, b in res["bounds"].items())

@@ -148,9 +148,10 @@ def test_kernel_slot_templates(name):
 
 def test_build_flags_per_source():
     """mask_scores.cu keeps the flags (so the library name) it was built
-    with before `_build` took per-source flags; the attention source
-    builds with FMA contraction on, and none with fast math (the exact
-    splits of p and of float32 q, k, v need their roundings as written)."""
+    with before `_build` took per-source flags; the attention sources
+    (forward and backward) build with FMA contraction on, and none with
+    fast math (the exact splits of p and of float32 q, k, v need their
+    roundings as written)."""
     import hashlib
     from repro_torch.kernels import _build
     old = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -160,10 +161,12 @@ def test_build_flags_per_source():
     h = hashlib.sha256(src.read_bytes() + " ".join(old).encode())
     want = f"libmask_scores_{h.hexdigest()[:16]}.so"
     assert _build._target(src).name == want
-    sm90 = _build.nvcc_flags("flash_attention_sm90")
-    assert "-fmad=false" not in sm90
-    assert sm90 == tuple(f for f in old if f != "-fmad=false")
+    attention = ("flash_attention_sm90", "flash_attention_bwd_sm90")
+    for stem in attention:
+        flags = _build.nvcc_flags(stem)
+        assert "-fmad=false" not in flags
+        assert flags == tuple(f for f in old if f != "-fmad=false")
     assert {s.stem for s in _build.CSRC.glob("*.cu")} == {
-        "mask_scores", "flash_attention_sm90"}
-    for stem in ("mask_scores", "flash_attention_sm90"):
+        "mask_scores", *attention}
+    for stem in ("mask_scores", *attention):
         assert not any("fast_math" in f for f in _build.nvcc_flags(stem))

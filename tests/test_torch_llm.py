@@ -198,14 +198,11 @@ def _spec_shapes(tree):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_input_specs_equal_jax(arch):
-    """Meta tensors of JAX's shapes and dtypes for the serving kinds (the
-    full-size decode cache allocates nothing); the train kind raises."""
+    """Meta tensors of JAX's shapes and dtypes for every kind (the
+    full-size decode cache allocates nothing; the train kind's tokens,
+    labels and the vlm / encdec stub-frontend inputs)."""
     for smoke in (False, True):
         for name, shape in SHAPES.items():
-            if shape.kind == "train":
-                with pytest.raises(NotImplementedError, match="ROADMAP"):
-                    registry.input_specs(arch, name, smoke=smoke)
-                continue
             got = registry.input_specs(arch, name, smoke=smoke)
             want = JR.input_specs(arch, name, smoke=smoke)
             assert _spec_shapes(got) == _spec_shapes(want), (arch, name)
@@ -469,11 +466,25 @@ def test_decode_steps_equal_jax(cfg_name, dtype_name):
 
 
 def test_train_kind_and_other_families_raise():
-    """Training is not ported; a family no config has (every family of
-    the zoo is ported) raises at the model and at the cache."""
+    """The train kind's step trains (one finite step that moves the
+    parameters, on a batch of its input specs' shapes cut to the smoke
+    size); a family no config has (every family of the zoo is ported)
+    raises at the model and at the cache."""
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.train.optimizer import adamw_init
     cfg = get_smoke_config(ARCH)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.make_step(cfg, SHAPES["train_4k"], device="cpu")
+    step = registry.make_step(cfg, SHAPES["train_4k"], device="cpu")
+    model = M.make_trainable(M.init_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    wq = model.layers[0].attn.wq.detach().clone()
+    shape = ShapeConfig("t", 32, 2, "train")
+    batch = batch_for_step(cfg, shape, 0, device="cpu")
+    specs = registry.train_input_specs(cfg, shape)
+    assert {k: (v.shape, v.dtype) for k, v in batch.items()} == {
+        k: (v.shape, v.dtype) for k, v in specs.items()}
+    opt, metrics = step(model, adamw_init(M.stacked_params(model)), batch)
+    assert int(opt.step) == 1 and np.isfinite(float(metrics["loss"]))
+    assert not torch.equal(model.layers[0].attn.wq, wq)
     other = dataclasses.replace(cfg, family="made_up_family")
     assert other.family not in {get_config(a).family for a in ARCH_IDS}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
