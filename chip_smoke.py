@@ -116,9 +116,10 @@ Phases (each raises on failure; nothing is caught):
      DeepSeek-V2's (B 1, S 4096, H 128, 192 / 128): the kernel within
      2e-5 of the plain version and of the float64 function, timed beside
      both.
-  2c. The attention backward kernel (``csrc/flash_attention_bwd_sm90.cu``,
-     ``fa_bwd_dq`` then ``fa_bwd_dkdv``, float32 math on the CUDA cores,
-     templated on the input dtype) vs its plain version
+  2c. The attention backward kernels (``csrc/flash_attention_bwd_sm90.cu``:
+     bf16 ``fa_bwd_dq_wgmma`` then ``fa_bwd_dkdv_wgmma``, on the tensor
+     cores with TMA; float32 ``fa_bwd_dq`` then ``fa_bwd_dkdv``, float32
+     math on the CUDA cores) vs their plain version
      (``ref.flash_attention_bwd_ref``) at every ``BWD_CASES`` case, bf16
      and float32: every hd of ``HEAD_DIMS`` and the (192, 128) pair, GQA
      groups 1, 4, 5 and 8, causal, non-causal with Sq != Sk, windows,
@@ -131,7 +132,8 @@ Phases (each raises on failure; nothing is caught):
      attention shape (``TRAIN_ATTN_SHAPE``: B 4, S 4096, H 32, KV 4, hd
      64, causal), bf16 held the same way, and in both dtypes the kernel,
      the plain backward and SDPA's backward (timed only) timed beside
-     the bound (``attention_bwd_bound_ms``: 10 hd flops a pair).
+     the bound (``attention_bwd_bound_ms``: 10 hd flops a pair), and each
+     bf16 kernel's device ms (profiler, ``bwd_kernel_ms``).
   5. The serving path at full width: TinyLlama-1.1B (22 layers, bf16,
      random weights from a seeded generator) through
      ``registry.make_step``.  Prefill of 4 x 4096 tokens (tokens/s, the
@@ -282,7 +284,8 @@ Phases (each raises on failure; nothing is caught):
      ``train_launches``), the backward's rows (bf16 and float32: launches
      on phase 5g's paths and per train step, the head dims phase 2c
      checked, times at TinyLlama's training attention shape beside the
-     plain backward, SDPA's backward and the bound), the card line
+     plain backward, SDPA's backward and the bound, bf16's also by kernel,
+     ``ms_by_kernel``), the card line
      again, and
      as its last line ``{"ok": true, "device": {...}}``.
 
@@ -3794,17 +3797,44 @@ def time_attention_bwd(torch, dtype, err):
         bound_ms=b_ms, bound_by=b_by,
         shape=dict(B=B, S=Sq, H=H, KV=KV, hd=hd, dtype=tname,
                    causal=causal))
+    split = ""
+    if dtype == torch.bfloat16:
+        t["kernel_ms"] = bwd_kernel_ms(torch, lambda: FA.flash_attention_bwd(
+            q, k, v, o, lse, do, causal=causal, window=window))
+        split = " (" + ", ".join(f"{n} {ms:.3f}" for n, ms in
+                                 t["kernel_ms"].items()) + " ms)"
     print(f"phase 2c: attention backward at B {B} S {Sq} H {H} KV {KV} hd "
-          f"{hd} {tname} causal: kernel {t['ms']:.3f} ms, plain "
+          f"{hd} {tname} causal: kernel {t['ms']:.3f} ms{split}, plain "
           f"{t['plain_ms']:.3f} ms, SDPA backward {t['library_ms']:.3f} ms, "
           f"bound {b_ms:.4f} ms ({b_by})", flush=True)
     return t
 
 
+# The bf16 backward's two kernels, by the name the profiler gives them.
+BWD_KERNELS = ("fa_bwd_dq_wgmma", "fa_bwd_dkdv_wgmma")
+
+
+def bwd_kernel_ms(torch, call, n=5):
+    """Device ms per call of each bf16 backward kernel (``BWD_KERNELS``),
+    from the profiler over ``n`` calls; fails unless each ran once a
+    call."""
+    us, _, top = device_ops(torch, lambda: [call() for _ in range(n)])
+    counts = {name: c for name, c, _ in top}
+    out = {}
+    for kernel in BWD_KERNELS:
+        ran = sum(c for name, c in counts.items() if kernel in name)
+        if ran != n:
+            raise AssertionError(f"phase 2c: {kernel} ran {ran} times in "
+                                 f"{n} backward calls: {top}")
+        out[kernel] = us(kernel) / 1e3 / n
+    return out
+
+
 def train_profile(torch, run):
     """``device_ops`` over ``run()`` (one train step): device ms, the
     attention kernels' share (forward ``fa_fwd_wgmma``, backward
-    ``fa_bwd_``), each's ms, and the ten costliest device operations."""
+    ``fa_bwd_``) and the backward's alone, each's ms, the backward's by
+    kernel, and the ten costliest device operations."""
     us, total, top = device_ops(torch, run)
     if not total:
         raise AssertionError("the profiler saw no device time in a train "
@@ -3812,7 +3842,10 @@ def train_profile(torch, run):
     fwd, bwd = us("fa_fwd_wgmma"), us("fa_bwd_")
     return {"device_ms": total / 1e3,
             "attention_share_of_device_time": (fwd + bwd) / total,
+            "attention_bwd_share_of_device_time": bwd / total,
             "attention_fwd_ms": fwd / 1e3, "attention_bwd_ms": bwd / 1e3,
+            "attention_bwd_ms_by_kernel": {k: us(k) / 1e3
+                                           for k in BWD_KERNELS},
             "top_device_ops": top}
 
 
@@ -3884,12 +3917,16 @@ def train_full_width(torch):
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, **profile,
            "log": log}
     share = profile["attention_share_of_device_time"]
+    by_kernel = ", ".join(f"{k} {ms:.1f}" for k, ms in
+                          profile["attention_bwd_ms_by_kernel"].items())
     print(f"phase 5g: {cfg.name} at full width, {TRAIN_B} x {PREFILL_S} in "
           f"{TRAIN_MICRO} micro-batches: {res['tokens_per_s']:.0f} tokens/s "
           f"({res['step_s']:.3f} s a step), device {profile['device_ms']:.1f}"
           f" ms a step, attention {share:.3f} of it (forward "
           f"{profile['attention_fwd_ms']:.1f} ms, backward "
-          f"{profile['attention_bwd_ms']:.1f} ms), peak "
+          f"{profile['attention_bwd_ms']:.1f} ms, "
+          f"{profile['attention_bwd_share_of_device_time']:.3f} of the step:"
+          f" {by_kernel}), peak "
           f"{res['peak_gb']:.1f} GB; steps {metrics}; launches per step "
           f"{want}", flush=True)
     print("phase 5g: top device ops " + json.dumps(profile["top_device_ops"]),
@@ -4211,7 +4248,7 @@ def main() -> int:
             max_abs_err=bwd_err.get(tname), max_abs_err_by_dtype=bwd_err,
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
-            shape=t["shape"]))
+            ms_by_kernel=t.get("kernel_ms"), shape=t["shape"]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,11 @@
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` into a shared library
 with a plain C interface and loaded with ``ctypes`` (no PyTorch headers,
 so a build takes seconds).  Libraries go to ``build/repro_torch_kernels/``
-at the repository root, named by a hash of the source and the flags, so a
-changed source is rebuilt and an unchanged one is loaded as built.  All
-sources are compiled in parallel, one ``nvcc`` each, with the flags
-:func:`nvcc_flags` gives that source.
+at the repository root, named by a hash of the source, the ``csrc/*.cuh``
+headers it includes and the flags, so a changed source or header is
+rebuilt and an unchanged one is loaded as built.  All sources are
+compiled in parallel, one ``nvcc`` each, with the flags :func:`nvcc_flags`
+gives that source.
 
 Nothing is built at import time: CPU-only callers import the kernel
 modules freely, and the first kernel launch on a CUDA tensor builds.
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -54,8 +56,29 @@ def nvcc_flags(stem: str) -> Tuple[str, ...]:
     return _ARCH + SOURCE_FLAGS.get(stem, ()) + _SHARED
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.M)
+
+
+def headers(src: Path) -> Tuple[Path, ...]:
+    """The ``csrc/*.cuh`` headers that ``src`` includes, directly or
+    through another header, in the order first reached."""
+    seen, todo = [], [src]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop(0).read_bytes()):
+            h = src.parent / name.decode()
+            if h not in seen:
+                seen.append(h)
+                todo.append(h)
+    return tuple(seen)
+
+
 def _target(src: Path) -> Path:
+    """The library of ``src``: named by a hash of the source, the headers
+    it includes and its flags, so a change to any of them rebuilds it (a
+    source that includes none keeps the name it had before headers were
+    hashed)."""
     h = hashlib.sha256(src.read_bytes()
+                       + b"".join(p.read_bytes() for p in headers(src))
                        + " ".join(nvcc_flags(src.stem)).encode())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 

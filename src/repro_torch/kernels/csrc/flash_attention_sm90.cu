@@ -110,15 +110,10 @@
 // What it leaves: softmax and wgmma of one warpgroup do not overlap (the
 // other warpgroup fills the gap), no persistent scheduler, one CTA per SM.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up
-                   // through the runtime, so no -lcuda
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
 #include <algorithm>
 #include <type_traits>
+
+#include "sm90_common.cuh"  // mbarriers, TMA, wgmma, split3, tensor maps
 
 namespace {
 
@@ -148,8 +143,6 @@ __host__ __device__ constexpr int pass_b(int t) {
   return t == 0 || t == 4 ? 1 : t == 2 ? 2 : 0;
 }
 
-constexpr int SMEM_MAX = 232448;  // dynamic shared memory a CTA may take
-
 // Shared memory of one CTA: 1024 bytes of slack to align the tiles to the
 // swizzle atom, then PLANES planes of Q (q/k width hd), the ring of
 // `stages` stages of K (hd) and V (v width hdv) tiles of `bk` keys, and
@@ -159,16 +152,6 @@ constexpr int smem_bytes(int hd, int hdv, int planes, int bk, int stages) {
          8 * (1 + 2 * stages);
 }
 
-// Swizzled row in bytes for a head dim: 128 (64-column TMA boxes) where it
-// is a multiple of 64, 64 (one 32-column box) at 32, else 32 (16-column
-// boxes: hd 16 one, hd 80 five, hd 112 seven); and the descriptor's
-// layout type for it: 1 = 128B, 2 = 64B, 3 = 32B swizzle.
-constexpr int row_bytes(int hd) {
-  return hd % 64 == 0 ? 128 : hd % 32 == 0 ? 64 : 32;
-}
-constexpr int desc_layout(int rowb) {
-  return rowb == 128 ? 1 : rowb == 64 ? 2 : 3;
-}
 
 // HD: the q/k head dim (Q and K tiles, S = Q K^T); HDV: the v head dim (V
 // tiles, P V, O).  HDV == HD gives every model's layout but MLA's.
@@ -195,12 +178,10 @@ struct Cfg {
   static constexpr int CHUNK = ROWB / 2;  // bf16 columns per TMA box
   static constexpr int NCHUNK = HD / CHUNK;
   static constexpr int KPC = CHUNK / 16;  // k16 steps per chunk
-  static constexpr int LAYOUT = desc_layout(ROWB);
   // V: rows of the v width.
   static constexpr int ROWB_V = row_bytes(HDV);
   static constexpr int CHUNK_V = ROWB_V / 2;
   static constexpr int NCHUNK_V = HDV / CHUNK_V;
-  static constexpr int LAYOUT_V = desc_layout(ROWB_V);
   static constexpr int Q_BYTES = BQ * HD * 2;  // one plane of Q
   static constexpr int K_BYTES = BK * HD * 2;  // one plane of a K tile
   static constexpr int V_BYTES = BK * HDV * 2;  // one plane of a V tile
@@ -212,210 +193,6 @@ struct Cfg {
   static_assert(SMEM <= SMEM_MAX, "shared memory per CTA");
 };
 
-// ---------------------------------------------------------------------------
-// mbarrier, TMA and wgmma primitives (PTX)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Waits for the phase of the given parity to complete.  A wait that lasts
-// 2^34 clocks (seconds) traps, so a barrier fault ends the launch with an
-// error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  long long start = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0)
-      start = clock64();
-    else if (clock64() - start > (1ll << 34))
-      __trap();
-  }
-}
-
-// One box of a 4-D tensor map, coordinates innermost first.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Pin registers that an asynchronous wgmma reads or writes to this point
-// of the program (after wgmma_wait_all), so the compiler neither reads an
-// accumulator early nor reuses an A fragment's register while in flight.
-template <int N>
-__device__ __forceinline__ void pin(float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(x[i])::"memory");
-}
-
-// Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units), swizzle mode in bits 62-63.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, int layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)layout << 62);
-}
-
-// K-major operand (Q as A, K as B of S = Q K^T): rows of ROWB swizzled
-// bytes, 8-row groups 8 * ROWB apart; the leading offset is unused.
-template <typename C>
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  return smem_desc(addr, 16, 8 * C::ROWB, C::LAYOUT);
-}
-
-// MN-major operand (V as B of O = P V): hd_v runs along a swizzled row,
-// CHUNK_V-column boxes BK * ROWB_V apart (leading offset), 8-key groups
-// 8 * ROWB_V apart (stride offset).
-template <typename C>
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
-  return smem_desc(addr, C::BK * C::ROWB_V, 8 * C::ROWB_V, C::LAYOUT_V);
-}
-
-// wgmma m64nNk16, bf16 inputs, float32 accumulator, overloaded on the
-// accumulator's size (N / 2 floats a thread).  wgmma_ss: A and B from
-// shared memory, both K-major; the first of a chain overwrites D
-// (accumulate = 0).  wgmma_rs: A from registers (four b32, two bf16 each,
-// in the A-fragment layout), B MN-major (transposed), always accumulates.
-// S = Q K^T runs at N = BK (32, 64, 128), P V at N = hd_v (16 to 128).
-//
-// The operand lists are generated: ACC_n names the asm operands %0 ..
-// %(n - 1), the accumulator's registers, and OUT_n binds them to d[0 ..
-// n - 1]; the remaining operands follow at %n on.
-#define ACC_8 "%0, %1, %2, %3, %4, %5, %6, %7"
-#define ACC_16 ACC_8 ", %8, %9, %10, %11, %12, %13, %14, %15"
-#define ACC_24 ACC_16 ", %16, %17, %18, %19, %20, %21, %22, %23"
-#define ACC_32 ACC_24 ", %24, %25, %26, %27, %28, %29, %30, %31"
-#define ACC_40 ACC_32 ", %32, %33, %34, %35, %36, %37, %38, %39"
-#define ACC_48 ACC_40 ", %40, %41, %42, %43, %44, %45, %46, %47"
-#define ACC_56 ACC_48 ", %48, %49, %50, %51, %52, %53, %54, %55"
-#define ACC_64 ACC_56 ", %56, %57, %58, %59, %60, %61, %62, %63"
-#define OUT4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define OUT8(i) OUT4(i), OUT4(i + 4)
-#define OUT_8 OUT8(0)
-#define OUT_16 OUT_8, OUT8(8)
-#define OUT_24 OUT_16, OUT8(16)
-#define OUT_32 OUT_24, OUT8(24)
-#define OUT_40 OUT_32, OUT8(32)
-#define OUT_48 OUT_40, OUT8(40)
-#define OUT_56 OUT_48, OUT8(48)
-#define OUT_64 OUT_56, OUT8(56)
-#define STR_(x) #x
-#define STR(x) STR_(x)
-
-// NF floats a thread (N = 2 NF); P0 .. P5 are the operand numbers NF ..
-// NF + 5, spelled out because asm operand numbers are literal text.
-#define WGMMA_SS(NF, N, P0, P1, P2)                                        \
-  __device__ __forceinline__ void wgmma_ss(float(&d)[NF], uint64_t da,     \
-                                           uint64_t db, int accumulate) {  \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" STR(P2) ", 0;\n"     \
-                 "wgmma.mma_async.sync.aligned.m64n" STR(N)                \
-                 "k16.f32.bf16.bf16 {" ACC_##NF "}, %" STR(P0) ", %" STR(  \
-                     P1) ", p, 1, 1, 0, 0;\n}\n"                           \
-                 : OUT_##NF                                                \
-                 : "l"(da), "l"(db), "r"(accumulate));                     \
-  }
-#define WGMMA_RS(NF, N, P0, P1, P2, P3, P4, P5)                              \
-  __device__ __forceinline__ void wgmma_rs(float(&d)[NF], const uint32_t* a, \
-                                           uint64_t db) {                    \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" STR(P5) ", 0;\n"       \
-                 "wgmma.mma_async.sync.aligned.m64n" STR(N)                  \
-                 "k16.f32.bf16.bf16 {" ACC_##NF "}, {%" STR(P0) ", %" STR(   \
-                     P1) ", %" STR(P2) ", %" STR(P3) "}, %" STR(P4)          \
-                 ", p, 1, 1, 1;\n}\n"                                        \
-                 : OUT_##NF                                                  \
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
-                   "r"(1));                                                  \
-  }
-
-WGMMA_SS(16, 32, 16, 17, 18)
-WGMMA_SS(32, 64, 32, 33, 34)
-WGMMA_SS(64, 128, 64, 65, 66)
-WGMMA_RS(8, 16, 8, 9, 10, 11, 12, 13)
-WGMMA_RS(16, 32, 16, 17, 18, 19, 20, 21)
-WGMMA_RS(32, 64, 32, 33, 34, 35, 36, 37)
-WGMMA_RS(40, 80, 40, 41, 42, 43, 44, 45)
-WGMMA_RS(56, 112, 56, 57, 58, 59, 60, 61)
-WGMMA_RS(64, 128, 64, 65, 66, 67, 68, 69)
-
-// p -> (hi, mid, lo) bf16 terms with hi + mid + lo == p exactly (see the
-// note at the top), for two neighbouring columns packed as one A-fragment
-// register each (the lower column in the low half).
-__device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo_col,
-                                         __nv_bfloat16 hi_col) {
-  return (uint32_t)__bfloat16_as_ushort(lo_col) |
-         ((uint32_t)__bfloat16_as_ushort(hi_col) << 16);
-}
-
-__device__ __forceinline__ void split3(float x, float y, uint32_t& hi,
-                                       uint32_t& mid, uint32_t& lo) {
-  const __nv_bfloat16 xh = __float2bfloat16_rn(x);
-  const __nv_bfloat16 yh = __float2bfloat16_rn(y);
-  const float xr = __fsub_rn(x, __bfloat162float(xh));
-  const float yr = __fsub_rn(y, __bfloat162float(yh));
-  const __nv_bfloat16 xm = __float2bfloat16_rn(xr);
-  const __nv_bfloat16 ym = __float2bfloat16_rn(yr);
-  const __nv_bfloat16 xl =
-      __float2bfloat16_rn(__fsub_rn(xr, __bfloat162float(xm)));
-  const __nv_bfloat16 yl =
-      __float2bfloat16_rn(__fsub_rn(yr, __bfloat162float(ym)));
-  hi = pack(xh, yh);
-  mid = pack(xm, ym);
-  lo = pack(xl, yl);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 // Accumulator layout of wgmma m64nN (per thread of a warpgroup): register
 // j holds row 16 * warp + lane / 4 + 8 * ((j >> 1) & 1) and column
@@ -541,8 +318,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int j = 0; j < HD / 16; ++j) {
         const int c = j / C::KPC;
         const int off = (j % C::KPC) * 32;  // 16 bf16 along the swizzled row
-        wgmma_ss(sc, kmajor_desc<C>(qa + c * BQ * C::ROWB + off),
-                 kmajor_desc<C>(kb + c * BK * C::ROWB + off), t > 0 || j > 0);
+        wgmma_ss(sc, kmajor(qa + c * BQ * C::ROWB + off, C::ROWB),
+                 kmajor(kb + c * BK * C::ROWB + off, C::ROWB), t > 0 || j > 0);
       }
     }
     wgmma_commit();
@@ -598,7 +375,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint64_t dv = mnmajor_desc<C>(s_v + kk * 16 * C::ROWB_V);
+        const uint64_t dv = mnmajor(s_v + kk * 16 * C::ROWB_V, BK, C::ROWB_V);
         wgmma_rs(acc, p[2] + 4 * kk, dv);
         wgmma_rs(acc, p[1] + 4 * kk, dv);
         wgmma_rs(acc, p[0] + 4 * kk, dv);
@@ -619,7 +396,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
           wgmma_rs(tile, p[pass_a(t)] + 4 * kk,
-                   mnmajor_desc<C>(vb + kk * 16 * C::ROWB_V));
+                   mnmajor(vb + kk * 16 * C::ROWB_V, BK, C::ROWB_V));
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -696,60 +473,9 @@ __global__ void split_bf16x3_kernel(const float* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// Host side: tensor maps and launch
+// Host side: launch
 // ---------------------------------------------------------------------------
 
-constexpr int ERR_NO_ENCODER = -1;  // cuTensorMapEncodeTiled not found
-constexpr int ERR_TENSOR_MAP = -2;  // cuTensorMapEncodeTiled refused a map
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A bf16 tensor (B, S, heads, hd), contiguous, read in boxes of
-// (chunk columns, 1 head, rows, 1 batch), swizzled, zero past its edges.
-bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B,
-              int S, int heads, int hd, int chunk, int rows,
-              CUtensorMapSwizzle swizzle) {
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
-                              (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
-                                 (cuuint64_t)heads * hd * 2,
-                                 (cuuint64_t)S * heads * hd * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)chunk, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-CUtensorMapSwizzle swizzle_of(int rowb) {
-  return rowb == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-         : rowb == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                      : CU_TENSOR_MAP_SWIZZLE_32B;
-}
 
 template <int HD, int HDV, bool F32>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,

@@ -21,8 +21,10 @@ CUDA tensors go to one kernel per dtype, or the wrapper raises, both in
 Under autograd (grad enabled and q, k or v requiring grad) the call goes
 through a ``torch.autograd.Function``: the forward kernel also stores each
 row's log-sum-exp, and the backward is :func:`flash_attention_bwd`, which
-launches ``csrc/flash_attention_bwd_sm90.cu`` (its two kernels, dQ then
-dK / dV, templated on the input dtype) for CUDA tensors or raises, and runs
+launches ``csrc/flash_attention_bwd_sm90.cu`` for CUDA tensors or raises
+(two kernels a dtype, dQ then dK / dV: bf16 on the tensor cores,
+``fa_bwd_dq_wgmma`` / ``fa_bwd_dkdv_wgmma``; float32 on the CUDA cores,
+``fa_bwd_dq`` / ``fa_bwd_dkdv``), and runs
 :func:`.ref.flash_attention_bwd_ref` for CPU tensors.  The JAX package has
 no Pallas backward: it differentiates the jnp chunked attention, the same
 function.  Under ``no_grad`` / ``inference_mode`` (serving) no statistic is
@@ -224,8 +226,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     """(dq, dk, dv) of :func:`flash_attention` at q, k, v, from its output
     ``o``, its saved ``lse`` (B, H, Sq) and the output's gradient ``do``,
     in q's dtype.  CPU tensors run :func:`.ref.flash_attention_bwd_ref`;
-    CUDA tensors launch the dtype's backward (``fa_backward_bf16`` /
-    ``fa_backward_f32``: ``fa_bwd_dq`` then ``fa_bwd_dkdv``) or raise."""
+    CUDA tensors launch the dtype's backward or raise: bf16
+    ``fa_backward_bf16`` (``fa_bwd_dq_wgmma`` then ``fa_bwd_dkdv_wgmma``),
+    float32 ``fa_backward_f32`` (``fa_bwd_dq`` then ``fa_bwd_dkdv``)."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
@@ -237,7 +240,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     if not (q.dtype == o.dtype == do.dtype) or lse.dtype != torch.float32:
         raise TypeError(f"o / do must be {q.dtype} and lse float32, got "
                         f"{o.dtype}, {do.dtype}, {lse.dtype}")
-    q, k, v, o, do, lse = (x.contiguous() for x in (q, k, v, o, do, lse))
+    q, k, v, o, do = (_aligned(x) for x in (q, k, v, o, do))
+    lse = lse.contiguous()
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if dq.numel() == 0 and dk.numel() == 0:
         return dq, dk, dv
@@ -250,7 +254,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         1.0 / math.sqrt(hd), int(causal), window or 0,
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA error ({err})")
+        raise RuntimeError(f"{name}: {_TMA_ERRORS.get(err, 'CUDA error')} "
+                           f"({err})")
     LAUNCHES[key] += 1
     return dq, dk, dv
 

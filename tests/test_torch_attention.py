@@ -126,7 +126,9 @@ def test_each_cuda_dtype_has_one_kernel():
     float32 reaches its kernel only through the split's bf16 planes, and
     the CUDA-core float32 source (csrc/flash_attention.cu) is gone.  The
     backward is the other source's two entries, one a dtype, each counted
-    under its own key."""
+    under its own key: bf16 the two wgmma kernels, float32 the two
+    CUDA-core ones.  Both sources take their Hopper primitives from one
+    header."""
     import inspect
     from repro_torch.kernels import _build
     assert K.SOURCE == "flash_attention_sm90"
@@ -143,10 +145,21 @@ def test_each_cuda_dtype_has_one_kernel():
     for entry, _ in K.BWD_ROUTES.values():
         assert f'extern "C" int {entry}(' in bwd
     assert "backward<__nv_bfloat16>(" in bwd and "backward<float>(" in bwd
+    # bf16 launches the two wgmma kernels, float32 the two CUDA-core ones.
+    for kernel in ("fa_bwd_dq_wgmma", "fa_bwd_dkdv_wgmma", "fa_bwd_dq",
+                   "fa_bwd_dkdv"):
+        assert f"{kernel}<HD, HDV><<<" in bwd
+    assert "std::is_same_v<T, float>" in bwd
     sm90 = (_build.CSRC / "flash_attention_sm90.cu").read_text()
     for entry in ("fa_forward_bf16", "fa_forward_f32", K.SPLIT):
         assert f'extern "C" int {entry}(' in sm90
-    assert "fa_fwd_wgmma(" in sm90 and "wgmma.mma_async" in sm90
+    # The wgmma / TMA primitives live in one header both sources include.
+    common = (_build.CSRC / "sm90_common.cuh").read_text()
+    assert "wgmma.mma_async" in common and "cp.async.bulk.tensor" in common
+    assert "wgmma.mma_async" not in sm90 and "wgmma.mma_async" not in bwd
+    for text in (sm90, bwd):
+        assert '#include "sm90_common.cuh"' in text
+    assert "fa_fwd_wgmma(" in sm90
     assert "split_bf16x3_kernel(" in sm90
     assert "fa_fwd_kernel" not in sm90
     # Both entries launch the one wgmma kernel, float32 with its planes.
@@ -161,15 +174,18 @@ def test_each_cuda_dtype_has_one_kernel():
 
 
 def test_wrapper_knows_the_bf16_kernels_error_codes():
-    """The wrapper's names for fa_forward_bf16's own (negative) error codes
-    are the constants the source returns."""
+    """The wrapper's names for fa_forward_bf16's and fa_backward_bf16's
+    own (negative) error codes are the constants the shared header
+    defines and both sources return."""
     import re
     from repro_torch.kernels import _build
-    sm90 = (_build.CSRC / "flash_attention_sm90.cu").read_text()
+    common = (_build.CSRC / "sm90_common.cuh").read_text()
     codes = {int(v): name for name, v in re.findall(
-        r"constexpr int (ERR_\w+) = (-\d+);", sm90)}
+        r"constexpr int (ERR_\w+) = (-\d+);", common)}
     assert sorted(codes) == sorted(K._TMA_ERRORS) == [-2, -1]
-    assert all(f"return {name};" in sm90 for name in codes.values())
+    for stem in (K.SOURCE, K.BWD_SOURCE):
+        src = (_build.CSRC / f"{stem}.cu").read_text()
+        assert all(f"return {name};" in src for name in codes.values())
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

@@ -246,3 +246,107 @@ def test_backward_source_instantiates_the_forward_head_dims():
                 for p in re.findall(r"X\((\d+), (\d+)\)", pairs))
     assert got == FA.HEAD_DIM_PAIRS
     assert "HEAD_DIMS(SAME)" in src and "HEAD_DIM_PAIRS(CASE)" in src
+
+
+# The bf16 kernels' arithmetic plan (csrc/flash_attention_bwd_sm90.cu):
+# P and dS in float32 from the exact products of the bf16 inputs, each
+# split into three bf16 terms (ref.split_bf16x3, the kernels' split3), one
+# tensor-core product per term.  Below SPLIT_EXACT_FROM the last term may
+# be a bf16 subnormal, which the tensor core may flush.
+SPLIT_EXACT_FROM = 1e-30
+# Float64 sums of the same products in two orders.
+F64_REL = 1e-12
+BWD_F32_ATOL = 1e-5  # chip_smoke.BWD_F32_ATOL: of the gradient's max |grad|
+TRIPLES = sorted({c[:3] for c in CASES}, key=str)
+
+
+def _triple_id(t):
+    return _ids((*t, "bf16"))[:-5]
+
+
+def _plan(hd, group, mask, seed=5, q_mul=1.0):
+    """What the kernels form from bf16 inputs: q, k (expanded), v
+    (expanded), do as float32, P and dS (B, H, Sq, Sk) by
+    ``ref.flash_attention_bwd_ref``'s formulas in float32 (lse and o from
+    the plain forward, D = rowsum(do * o)), and the scale."""
+    q, k, v, do, causal, window = _inputs(hd, group, mask, seed)
+    q, k, v, do = (_t(x, torch.bfloat16) for x in (q * q_mul, k, v, do))
+    o, lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                     q_chunk=CHUNK, k_chunk=CHUNK,
+                                     return_lse=True)
+    f = torch.float32
+    Hq, Sq, Sk = q.shape[2], q.shape[1], k.shape[1]
+    qf, dof = q.to(f), do.to(f)
+    kf = k.to(f).repeat_interleave(Hq // k.shape[2], dim=2)
+    vf = v.to(f).repeat_interleave(Hq // v.shape[2], dim=2)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    D = (dof * o.to(f)).sum(-1).transpose(1, 2)[..., None]
+    keep = ref._mask(torch.arange(Sq), torch.arange(Sk), causal, window)
+    s = torch.einsum("bqhd,bshd->bhqs", qf, kf) * scale
+    p = torch.where(keep, torch.exp(torch.where(keep, s - lse[..., None],
+                                                0.0)), 0.0)
+    dp = torch.einsum("bqhd,bshd->bhqs", dof, vf)
+    return qf, kf, vf, dof, p, p * (dp - D), scale
+
+
+def _grads(terms, qf, kf, dof, scale):
+    """dV, dK and dQ per query head (float64) with P and dS given as sums
+    of terms: dV = P^T do, dK = scale dS^T q, dQ = scale dS k."""
+    d = torch.float64
+    p = [t[0].to(d) for t in terms]
+    ds = [t[1].to(d) for t in terms]
+    dv = sum(torch.einsum("bhqs,bqhd->bshd", x, dof.to(d)) for x in p)
+    dk = sum(torch.einsum("bhqs,bqhd->bshd", x, qf.to(d)) for x in ds)
+    dq = sum(torch.einsum("bhqs,bshd->bqhd", x, kf.to(d)) for x in ds)
+    return dv, dk * scale, dq * scale
+
+
+@pytest.mark.parametrize("triple", TRIPLES, ids=_triple_id)
+def test_bwd_three_term_split_of_p_and_ds_is_exact(triple):
+    """hi + mid + lo == x exactly (in float32 and in float64) for every P
+    and dS the kernels split with |x| >= 1e-30, and no term of those is a
+    bf16 subnormal the tensor core could flush; then each term's products
+    with the bf16 do, q and k, summed in float64, give dV, dK and dQ to
+    within float64 rounding of the float32 operands' products."""
+    qf, kf, _, dof, p, ds, scale = _plan(*triple)
+    tiny = torch.finfo(torch.float32).tiny  # bf16's least normal too
+    for x in (p, ds):
+        hi, mid, lo = ref.split_bf16x3(x)
+        big = x.abs() >= SPLIT_EXACT_FROM
+        assert big.any()
+        total = hi.double() + mid.double() + lo.double()
+        assert torch.equal(total[big], x.double()[big])
+        f32 = (hi.float() + mid.float()) + lo.float()
+        assert torch.equal(f32[big], x[big])
+        for t in (hi, mid, lo):
+            t = t.float()[big]
+            assert not ((t != 0) & (t.abs() < tiny)).any()
+    split = [ref.split_bf16x3(x) for x in (p, ds)]
+    got = _grads(list(zip(*split)), qf, kf, dof, scale)
+    want = _grads([(p, ds)], qf, kf, dof, scale)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= F64_REL * w.abs().max().item()
+
+
+@pytest.mark.parametrize("mask", MASKS)
+@pytest.mark.parametrize("hd", (64, (192, 128)), ids=("hd64", "hd192x128"))
+def test_bwd_flushed_tiny_terms_move_no_gradient(hd, mask):
+    """Scores thirty times the usual size put many P and dS below 1e-30.
+    Flushing every bf16 subnormal term there (what the tensor core may do)
+    and the last term of every such value moves no gradient by more than
+    BWD_F32_ATOL of its max |grad|."""
+    qf, kf, _, dof, p, ds, scale = _plan(hd, 2, mask, seed=6, q_mul=30.0)
+    tiny = torch.finfo(torch.float32).tiny
+    flushed = []
+    for x in (p, ds):
+        small = (x != 0) & (x.abs() < SPLIT_EXACT_FROM)
+        assert small.any()
+        hi, mid, lo = (t.float() for t in ref.split_bf16x3(x))
+        lo = torch.where(small, 0.0, lo)
+        flushed.append([torch.where(t.abs() < tiny, 0.0, t)
+                        for t in (hi, mid, lo)])
+    got = _grads(list(zip(*flushed)), qf, kf, dof, scale)
+    want = _grads([(p, ds)], qf, kf, dof, scale)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= (
+            BWD_F32_ATOL * w.abs().max().item())

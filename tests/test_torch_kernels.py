@@ -168,5 +168,34 @@ def test_build_flags_per_source():
         assert flags == tuple(f for f in old if f != "-fmad=false")
     assert {s.stem for s in _build.CSRC.glob("*.cu")} == {
         "mask_scores", *attention}
+    # The attention sources share one header, hashed into their names;
+    # mask_scores.cu includes none.
+    assert {h.name for h in _build.CSRC.glob("*.cuh")} == {"sm90_common.cuh"}
+    for stem in attention:
+        assert _build.headers(_build.CSRC / f"{stem}.cu") == (
+            _build.CSRC / "sm90_common.cuh",)
+    assert _build.headers(src) == ()
     for stem in ("mask_scores", *attention):
         assert not any("fast_math" in f for f in _build.nvcc_flags(stem))
+
+
+def test_build_target_hashes_the_included_headers(tmp_path):
+    """A library's name changes with every header its source includes,
+    directly or through another header, and with nothing else: a stale
+    header would otherwise load the library built before it changed."""
+    from repro_torch.kernels import _build
+    src = tmp_path / "kern.cu"
+    src.write_text('#include <cuda.h>\n#include "a.cuh"\nint f();\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  # include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("#pragma once\n")
+    (tmp_path / "unused.cuh").write_text("#pragma once\n")
+    assert _build.headers(src) == (tmp_path / "a.cuh", tmp_path / "b.cuh")
+    names = [_build._target(src).name]
+    for header, text in (("a.cuh", "#pragma once\n#include \"b.cuh\"\n"),
+                         ("b.cuh", "#pragma once\nint g();\n")):
+        (tmp_path / header).write_text(text)
+        names.append(_build._target(src).name)
+    (tmp_path / "unused.cuh").write_text("int h();\n")
+    names.append(_build._target(src).name)
+    assert len(set(names[:3])) == 3 and names[3] == names[2]
+    assert all(n.startswith("libkern_") and n.endswith(".so") for n in names)
