@@ -117,9 +117,9 @@ Phases (each raises on failure; nothing is caught):
      2e-5 of the plain version and of the float64 function, timed beside
      both.
   2c. The attention backward kernels (``csrc/flash_attention_bwd_sm90.cu``:
-     bf16 ``fa_bwd_dq_wgmma`` then ``fa_bwd_dkdv_wgmma``, on the tensor
-     cores with TMA; float32 ``fa_bwd_dq`` then ``fa_bwd_dkdv``, float32
-     math on the CUDA cores) vs their plain version
+     ``fa_bwd_dq_wgmma`` then ``fa_bwd_dkdv_wgmma``, on the tensor cores
+     with TMA; bf16 directly, float32 on the bf16 planes of q, k, v and do
+     that four ``split_bf16x3`` launches make) vs their plain version
      (``ref.flash_attention_bwd_ref``) at every ``BWD_CASES`` case, bf16
      and float32: every hd of ``HEAD_DIMS`` and the (192, 128) pair, GQA
      groups 1, 4, 5 and 8, causal, non-causal with Sq != Sk, windows,
@@ -130,10 +130,11 @@ Phases (each raises on failure; nothing is caught):
      BWD_F32_ATOL of max |grad|, float32 within BWD_F32_TOL of float64
      autograd and of the plain version.  Then at TinyLlama's training
      attention shape (``TRAIN_ATTN_SHAPE``: B 4, S 4096, H 32, KV 4, hd
-     64, causal), bf16 held the same way, and in both dtypes the kernel,
-     the plain backward and SDPA's backward (timed only) timed beside
-     the bound (``attention_bwd_bound_ms``: 10 hd flops a pair), and each
-     bf16 kernel's device ms (profiler, ``bwd_kernel_ms``).
+     64, causal), both dtypes held the same way (float32 against the
+     plain version, not float64), and in both the kernel, the plain
+     backward and SDPA's backward (timed only) timed beside the bound
+     (``attention_bwd_bound_ms``: 10 hd flops a pair), and each kernel's
+     device ms, float32's splits too (profiler, ``bwd_kernel_ms``).
   5. The serving path at full width: TinyLlama-1.1B (22 layers, bf16,
      random weights from a seeded generator) through
      ``registry.make_step``.  Prefill of 4 x 4096 tokens (tokens/s, the
@@ -250,7 +251,11 @@ Phases (each raises on failure; nothing is caught):
      weights and batches: losses, grad norms, AdamW's moments and the
      parameters within CARD_CPU_TOL (parameters within PARAM_ATOL_LR lr
      where |m| exceeds PARAM_KEEP of its max), the float32 forward, split
-     and backward launches counted.
+     and backward launches counted (10 splits a layer and step: three a
+     forward, four a backward).  (c) (a) in float32 (the weights drawn
+     in float32; the float32 GEMMs without TF32): 88 float32 forward, 440
+     split and 44 float32 backward launches a step, the splits' ms beside
+     the backward's by kernel.
   6. The placement service (``run_service``; after phase 4c).  (a) The
      full-scale trace as a request stream (8,604 requests, 8,063
      arrivals) through ``PlacementService.for_trace`` at micro-batches of
@@ -282,10 +287,10 @@ Phases (each raises on failure; nothing is caught):
      Zamba2's, in float32 StableLM-3B's and DeepSeek-V2's; the forward
      rows also their launches on phase 5g's training paths,
      ``train_launches``), the backward's rows (bf16 and float32: launches
-     on phase 5g's paths and per train step, the head dims phase 2c
-     checked, times at TinyLlama's training attention shape beside the
-     plain backward, SDPA's backward and the bound, bf16's also by kernel,
-     ``ms_by_kernel``), the card line
+     on phase 5g's paths and per full-width train step, the head dims
+     phase 2c checked, times at TinyLlama's training attention shape
+     beside the plain backward, SDPA's backward and the bound, and by
+     kernel, ``ms_by_kernel``), the card line
      again, and
      as its last line ``{"ok": true, "device": {...}}``.
 
@@ -2372,22 +2377,24 @@ def device_profile(torch, what, step, model, batch):
             "attention_share_of_device_time": share, "top_device_ops": top}
 
 
-def init_on_card(torch, cfg, what):
-    """A model at full width in bf16 for phases 5-5d: the allocator's cache
-    emptied and its peak reset, then random weights drawn on the card from
-    a generator seeded 0.  Returns (model, the generator, seconds)."""
+def init_on_card(torch, cfg, what, dtype=None):
+    """A model at full width in ``dtype`` (default bf16) for phases 5-5g:
+    the allocator's cache emptied and its peak reset, then random weights
+    drawn on the card from a generator seeded 0.  Returns (model, the
+    generator, seconds)."""
     from repro_torch.models import registry
     from repro_torch.models import transformer as M
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     rng = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
-    model = M.init_params(cfg, rng)
+    dtype = dtype or torch.bfloat16
+    model = M.init_params(cfg, rng, dtype)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     print(f"{what}: {cfg.name} ({registry.total_param_count(cfg)} "
-          f"parameters, bf16) initialized on the card in {init_s:.2f} s",
-          flush=True)
+          f"parameters, {str(dtype).split('.')[-1]}) initialized on the "
+          f"card in {init_s:.2f} s", flush=True)
     return model, rng, init_s
 
 
@@ -3675,14 +3682,26 @@ def _bwd_inputs(torch, case, dtype, seed=0):
     return q, k, v, do, causal, window
 
 
-def hold_attention_bwd(torch, name, q, k, v, do, causal, window, err):
+def bwd_launches(FA, f32, calls=1):
+    """The launches of ``calls`` backward wrapper calls, float32 if
+    ``f32`` else bf16: one backward entry each (its two kernels), float32
+    after the four splits of q, k, v and do."""
+    if f32:
+        return launch_counts(FA, flash_attention_bwd_f32=calls,
+                             split_bf16x3=4 * calls)
+    return launch_counts(FA, flash_attention_bwd=calls)
+
+
+def hold_attention_bwd(torch, name, q, k, v, do, causal, window, err,
+                       vs_f64=True):
     """One case of phase 2c: the forward with its lse (whose o must equal
     the serving forward's bit for bit), the backward twice (bitwise
-    equal), the lse against float64, the gradients against the plain
-    backward (bf16: half an ulp + BWD_F32_ATOL; float32: BWD_F32_TOL)
-    and, in float32, against float64 autograd.  Folds the largest errors
-    into ``err``: per dtype the max abs difference from the plain version,
-    bf16's in half-ulps, float32's from float64 over max |grad|, the
+    equal, ``bwd_launches``), the lse against float64, the gradients
+    against the plain backward (bf16: half an ulp + BWD_F32_ATOL; float32:
+    BWD_F32_TOL) and, in float32 with ``vs_f64``, against float64
+    autograd.  Folds the largest errors into ``err``: per dtype the max
+    abs difference from the plain version, bf16's in half-ulps, float32's
+    from float64 over max |grad| and from the plain version over it, the
     lse's."""
     from repro_torch.kernels import flash_attention as FA
     tname = str(q.dtype).split(".")[-1]
@@ -3697,7 +3716,7 @@ def hold_attention_bwd(torch, name, q, k, v, do, causal, window, err):
     again = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                    window=window)
     moved = {n: FA.LAUNCHES[n] - before[n] for n in FA.LAUNCHES}
-    want_launch = launch_counts(FA, **{FA.BWD_ROUTES[q.dtype][1]: 2})
+    want_launch = bwd_launches(FA, q.dtype == torch.float32, calls=2)
     if moved != want_launch:
         raise AssertionError(f"attention backward {name} {tname} launched "
                              f"{moved}, expected {want_launch}")
@@ -3723,12 +3742,15 @@ def hold_attention_bwd(torch, name, q, k, v, do, causal, window, err):
             err["bf16_half_ulps"] = max(err.get("bf16_half_ulps", 0.0), ulps)
             ok = ulps <= 1.0
         else:
-            ok = diff.max().item() <= BWD_F32_TOL * scale
+            rel = diff.max().item() / scale
+            err["float32_vs_plain"] = max(err.get("float32_vs_plain", 0.0),
+                                          rel)
+            ok = rel <= BWD_F32_TOL
         if not ok:
             raise AssertionError(f"attention backward {name} {tname} {part}: "
                                  f"kernel != plain version (max abs diff "
                                  f"{diff.max().item()}, scale {scale})")
-    if q.dtype == torch.float32:
+    if q.dtype == torch.float32 and vs_f64:
         leaves = [x.double().requires_grad_() for x in (q, k, v)]
         truth = torch.autograd.grad(
             attention_f64(*leaves, causal=causal, window=window), leaves,
@@ -3746,8 +3768,8 @@ def hold_attention_bwd(torch, name, q, k, v, do, causal, window, err):
 def check_attention_bwd(torch):
     """Phase 2c: the backward kernel (both dtypes) against its plain version
     at every BWD_CASES case (``hold_attention_bwd``); then at TinyLlama's
-    training attention shape, held the same way in bf16, and timed in both
-    dtypes beside the plain backward and SDPA's backward
+    training attention shape, held the same way, and timed in both dtypes
+    beside the plain backward and SDPA's backward
     (``time_attention_bwd``).  Returns (err, {dtype: timings})."""
     err = {}
     for name, case in BWD_CASES.items():
@@ -3766,21 +3788,22 @@ def check_attention_bwd(torch):
 
 
 def time_attention_bwd(torch, dtype, err):
-    """At TRAIN_ATTN_SHAPE: bf16 held against the plain version (float32
-    is held at the cases; its float64 autograd would not fit here), then
-    ms per call of the backward kernel's wrapper, of the plain backward
-    and of scaled_dot_product_attention's backward (is_causal, enable_gqa;
+    """At TRAIN_ATTN_SHAPE: the kernel held against the plain version
+    (``hold_attention_bwd``; float32 without its float64 autograd, which
+    would not fit here: it is held against float64 at the cases), then ms
+    per call of the backward kernel's wrapper, of the plain backward and
+    of scaled_dot_product_attention's backward (is_causal, enable_gqa;
     the yardstick, which the port never calls), CUDA events, beside the
-    bound."""
+    bound, and each of the call's kernels' device ms (``bwd_kernel_ms``).
+    """
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     B, Sq, Sk, H, KV, hd, causal, window = TRAIN_ATTN_SHAPE
     tname = str(dtype).split(".")[-1]
     q, k, v, do, _, _ = _bwd_inputs(torch, TRAIN_ATTN_SHAPE, dtype, seed=1)
     o, lse = FA._forward(q, k, v, causal, window, want_lse=True)
-    if dtype == torch.bfloat16:
-        hold_attention_bwd(torch, "training shape", q, k, v, do, causal,
-                           window, err)
+    hold_attention_bwd(torch, "training shape", q, k, v, do, causal, window,
+                       err, vs_f64=False)
     b_ms, b_by = attention_bwd_bound_ms(*TRAIN_ATTN_SHAPE, tname)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
@@ -3797,12 +3820,10 @@ def time_attention_bwd(torch, dtype, err):
         bound_ms=b_ms, bound_by=b_by,
         shape=dict(B=B, S=Sq, H=H, KV=KV, hd=hd, dtype=tname,
                    causal=causal))
-    split = ""
-    if dtype == torch.bfloat16:
-        t["kernel_ms"] = bwd_kernel_ms(torch, lambda: FA.flash_attention_bwd(
-            q, k, v, o, lse, do, causal=causal, window=window))
-        split = " (" + ", ".join(f"{n} {ms:.3f}" for n, ms in
-                                 t["kernel_ms"].items()) + " ms)"
+    t["kernel_ms"] = bwd_kernel_ms(torch, lambda: FA.flash_attention_bwd(
+        q, k, v, o, lse, do, causal=causal, window=window), tname)
+    split = " (" + ", ".join(f"{n} {ms:.4f}" for n, ms in
+                             t["kernel_ms"].items()) + " ms)"
     print(f"phase 2c: attention backward at B {B} S {Sq} H {H} KV {KV} hd "
           f"{hd} {tname} causal: kernel {t['ms']:.3f} ms{split}, plain "
           f"{t['plain_ms']:.3f} ms, SDPA backward {t['library_ms']:.3f} ms, "
@@ -3810,22 +3831,28 @@ def time_attention_bwd(torch, dtype, err):
     return t
 
 
-# The bf16 backward's two kernels, by the name the profiler gives them.
-BWD_KERNELS = ("fa_bwd_dq_wgmma", "fa_bwd_dkdv_wgmma")
+# The backward's kernels by the name the profiler gives them (a part of
+# it: each wgmma kernel is one template for both dtypes), with their
+# launches per wrapper call: the dQ kernel and the dK / dV one; float32
+# after the splits of q, k, v and do.
+BWD_KERNELS = {"bfloat16": {"fa_bwd_dq_wgmma": 1, "fa_bwd_dkdv_wgmma": 1},
+               "float32": {"split_bf16x3_kernel": 4, "fa_bwd_dq_wgmma": 1,
+                           "fa_bwd_dkdv_wgmma": 1}}
 
 
-def bwd_kernel_ms(torch, call, n=5):
-    """Device ms per call of each bf16 backward kernel (``BWD_KERNELS``),
-    from the profiler over ``n`` calls; fails unless each ran once a
-    call."""
-    us, _, top = device_ops(torch, lambda: [call() for _ in range(n)])
+def bwd_kernel_ms(torch, call, tname, n=5):
+    """Device ms per wrapper call of each backward kernel of dtype
+    ``tname`` (``BWD_KERNELS``: the splits' together), from the profiler
+    over ``n`` calls; fails unless each ran its launches a call."""
+    us, _, top = device_ops(torch, lambda: [call() for _ in range(n)],
+                            n_top=20)
     counts = {name: c for name, c, _ in top}
     out = {}
-    for kernel in BWD_KERNELS:
+    for kernel, per_call in BWD_KERNELS[tname].items():
         ran = sum(c for name, c in counts.items() if kernel in name)
-        if ran != n:
+        if ran != per_call * n:
             raise AssertionError(f"phase 2c: {kernel} ran {ran} times in "
-                                 f"{n} backward calls: {top}")
+                                 f"{n} {tname} backward calls: {top}")
         out[kernel] = us(kernel) / 1e3 / n
     return out
 
@@ -3834,7 +3861,8 @@ def train_profile(torch, run):
     """``device_ops`` over ``run()`` (one train step): device ms, the
     attention kernels' share (forward ``fa_fwd_wgmma``, backward
     ``fa_bwd_``) and the backward's alone, each's ms, the backward's by
-    kernel, and the ten costliest device operations."""
+    kernel, the splits' ms (float32: the forward's and the backward's
+    together), and the ten costliest device operations."""
     us, total, top = device_ops(torch, run)
     if not total:
         raise AssertionError("the profiler saw no device time in a train "
@@ -3845,17 +3873,31 @@ def train_profile(torch, run):
             "attention_bwd_share_of_device_time": bwd / total,
             "attention_fwd_ms": fwd / 1e3, "attention_bwd_ms": bwd / 1e3,
             "attention_bwd_ms_by_kernel": {k: us(k) / 1e3
-                                           for k in BWD_KERNELS},
+                                           for k in BWD_KERNELS["bfloat16"]},
+            "split_ms": us("split_bf16x3_kernel") / 1e3,
             "top_device_ops": top}
 
 
-def train_full_width(torch):
-    """Phase 5g (a): TinyLlama-1.1B at full width trained through
+def train_step_launches(FA, f32, n_attn):
+    """A train step's attention launches with ``n_attn`` attention calls
+    (layers times micro-batches): 2 forward launches a call, the forward
+    and its remat recompute, and one backward; float32 with the splits,
+    three a forward and four a backward."""
+    if f32:
+        return launch_counts(FA, flash_attention_f32=2 * n_attn,
+                             split_bf16x3=10 * n_attn,
+                             flash_attention_bwd_f32=n_attn)
+    return launch_counts(FA, flash_attention=2 * n_attn,
+                         flash_attention_bwd=n_attn)
+
+
+def train_full_width(torch, dtype=None):
+    """Phase 5g (a) in bf16 (the default) and (c) in float32:
+    TinyLlama-1.1B at full width in ``dtype`` trained through
     ``launch.train.train_loop`` with the registry's train step: seq 4096,
     TRAIN_B sequences in TRAIN_MICRO micro-batches, remat "full", dense
     CE, AdamW's defaults; one warm-up step, TRAIN_STEPS timed steps (the
-    launches counted per step: 2 forward launches a layer and micro-batch,
-    the forward and its recompute, and one backward), one profiled.
+    launches counted per step, ``train_step_launches``), one profiled.
     Returns (launches of the timed steps, result)."""
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.kernels import flash_attention as FA
@@ -3865,9 +3907,11 @@ def train_full_width(torch):
     from repro_torch.models.config import ShapeConfig
     from repro_torch.train.optimizer import adamw_init
     assert flags.REMAT_MODE == "full" and flags.CE_MODE == "dense"
+    dtype = dtype or torch.bfloat16
+    tname = str(dtype).split(".")[-1]
     cfg = _tinyllama()
     shape = ShapeConfig("train_4k cut", PREFILL_S, TRAIN_B, "train")
-    model, _, init_s = init_on_card(torch, cfg, "phase 5g")
+    model, _, init_s = init_on_card(torch, cfg, "phase 5g", dtype)
     M.make_trainable(model)
     opt = adamw_init(M.stacked_params(model))
     step_fn = registry.make_step(cfg, shape, n_micro=TRAIN_MICRO)
@@ -3894,9 +3938,8 @@ def train_full_width(torch):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {n: sum(p[n] for p in per_step) for n in FA.LAUNCHES}
-    n_attn = cfg.n_layers * TRAIN_MICRO
-    want = launch_counts(FA, flash_attention=2 * n_attn,
-                         flash_attention_bwd=n_attn)
+    want = train_step_launches(FA, dtype == torch.float32,
+                               cfg.n_layers * TRAIN_MICRO)
     if rc or rc2 or any(p != want for p in per_step):
         raise AssertionError(f"phase 5g: rc {rc} {rc2}, launches per step "
                              f"{per_step}, expected {want}")
@@ -3907,7 +3950,7 @@ def train_full_width(torch):
         cfg, shape, model, opt, step_fn, start_step=1 + TRAIN_STEPS,
         steps=2 + TRAIN_STEPS, **loop))
     tokens = TRAIN_B * PREFILL_S
-    res = {"model": cfg.name, "layers": cfg.n_layers, "dtype": "bfloat16",
+    res = {"model": cfg.name, "layers": cfg.n_layers, "dtype": tname,
            "seq": PREFILL_S, "global_batch": TRAIN_B, "n_micro": TRAIN_MICRO,
            "reduced": {"global_batch": [256, TRAIN_B]}, "remat": "full",
            "ce": "dense", "init_s": init_s, "warmup_step_s": warm_s,
@@ -3919,14 +3962,14 @@ def train_full_width(torch):
     share = profile["attention_share_of_device_time"]
     by_kernel = ", ".join(f"{k} {ms:.1f}" for k, ms in
                           profile["attention_bwd_ms_by_kernel"].items())
-    print(f"phase 5g: {cfg.name} at full width, {TRAIN_B} x {PREFILL_S} in "
-          f"{TRAIN_MICRO} micro-batches: {res['tokens_per_s']:.0f} tokens/s "
-          f"({res['step_s']:.3f} s a step), device {profile['device_ms']:.1f}"
-          f" ms a step, attention {share:.3f} of it (forward "
-          f"{profile['attention_fwd_ms']:.1f} ms, backward "
-          f"{profile['attention_bwd_ms']:.1f} ms, "
+    print(f"phase 5g: {cfg.name} at full width in {tname}, {TRAIN_B} x "
+          f"{PREFILL_S} in {TRAIN_MICRO} micro-batches: "
+          f"{res['tokens_per_s']:.0f} tokens/s ({res['step_s']:.3f} s a "
+          f"step), device {profile['device_ms']:.1f} ms a step, attention "
+          f"{share:.3f} of it (forward {profile['attention_fwd_ms']:.1f} ms, "
+          f"backward {profile['attention_bwd_ms']:.1f} ms, "
           f"{profile['attention_bwd_share_of_device_time']:.3f} of the step:"
-          f" {by_kernel}), peak "
+          f" {by_kernel}; splits {profile['split_ms']:.1f} ms), peak "
           f"{res['peak_gb']:.1f} GB; steps {metrics}; launches per step "
           f"{want}", flush=True)
     print("phase 5g: top device ops " + json.dumps(profile["top_device_ops"]),
@@ -4052,8 +4095,7 @@ def train_card_vs_cpu(torch, cfg=None, shape=TRAIN_SMALL_SHAPE,
     card = run("cuda")
     launches = dict(FA.LAUNCHES)
     n = steps * cfg.n_layers
-    want = launch_counts(FA, flash_attention_f32=2 * n,
-                         split_bf16x3=6 * n, flash_attention_bwd_f32=n)
+    want = train_step_launches(FA, True, n)
     if launches != want:
         raise AssertionError(f"{cfg.name} training launched {launches}, "
                              f"expected {want}")
@@ -4084,15 +4126,22 @@ def train_card_vs_cpu(torch, cfg=None, shape=TRAIN_SMALL_SHAPE,
 
 
 def run_training(torch):
-    """Phase 5g: (a) ``train_full_width``, (b) ``train_card_vs_cpu``.
-    Returns ({path: launches}, {path: result})."""
+    """Phase 5g: (a) ``train_full_width`` in bf16, (b)
+    ``train_card_vs_cpu``, (c) ``train_full_width`` in float32, each
+    path's launches counted from 0.  Returns ({path: launches}, {path:
+    result})."""
     launches, results = {}, {}
     t = time.perf_counter()
     launches[ARCH], results[ARCH] = train_full_width(torch)
-    print(f"phase 5g: full width took {time.perf_counter() - t:.1f} s",
+    print(f"phase 5g (a): full width took {time.perf_counter() - t:.1f} s",
           flush=True)
     key = f"{ARCH} float32 {TRAIN_SMALL_LAYERS} layers"
     launches[key], results[key] = train_card_vs_cpu(torch)
+    t = time.perf_counter()
+    key = f"{ARCH} float32"
+    launches[key], results[key] = train_full_width(torch, torch.float32)
+    print(f"phase 5g (c): float32 full width took "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
     return launches, results
 
 
@@ -4223,11 +4272,13 @@ def main() -> int:
                                      "float32": zoo_f32_time}.get(tname),
             train_launches={a: runs[name] for a, runs in
                             launches_5g.items()}))
-    # The attention backward: its launches on the training path (phase 5g
-    # (a), bf16; (b), float32), per step, and its times at TinyLlama's
-    # training attention shape beside SDPA's backward (phase 2c).
-    for name, tname in (("flash_attention_bwd", "bfloat16"),
-                        ("flash_attention_bwd_f32", "float32")):
+    # The attention backward: its launches on the training paths (phase 5g
+    # (a), bf16; (b) and (c), float32), per full-width step, and its times
+    # at TinyLlama's training attention shape beside SDPA's backward, by
+    # kernel (phase 2c).
+    for name, tname, full in (("flash_attention_bwd", "bfloat16", ARCH),
+                              ("flash_attention_bwd_f32", "float32",
+                               f"{ARCH} float32")):
         t = bwd_time[tname]
         by_path = {a: runs[name] for a, runs in launches_5g.items()}
         rows.append(dict(
@@ -4238,11 +4289,11 @@ def main() -> int:
                            "takes by jax.value_and_grad of the jnp "
                            "attention (src/repro/train/step.py:131)"),
             launches=sum(by_path.values()),
-            on_main_path=tname == "bfloat16",
+            on_main_path=by_path[full] > 0,
             path=("bf16 training" if tname == "bfloat16"
-                  else "float32 training, card vs CPU"),
+                  else "float32 training (full width; card vs CPU)"),
             launches_by_path=by_path,
-            launches_per_train_step=by_path[ARCH] // TRAIN_STEPS,
+            launches_per_train_step=by_path[full] // TRAIN_STEPS,
             head_dims_checked=sorted({head_dims_of(c[5])
                                       for c in BWD_CASES.values()}),
             max_abs_err=bwd_err.get(tname), max_abs_err_by_dtype=bwd_err,

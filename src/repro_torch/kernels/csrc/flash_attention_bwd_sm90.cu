@@ -23,81 +23,118 @@
 // are never expanded.  Two kernels and no atomics: two launches on the
 // same inputs are bitwise equal.
 //
-// bf16 (fa_backward_bf16): fa_bwd_dq_wgmma, then fa_bwd_dkdv_wgmma, on the
-// tensor cores (wgmma) fed by TMA.  The arithmetic keeps the forward's
-// rule, products exact and only sums on the tensor core:
-//   * S = q k^T and dP = dO v^T are bf16 wgmmas into float32: each product
-//     of two bf16 values is exact in float32.
+// Both dtypes run fa_bwd_dq_wgmma<hd, hd_v, F32>, then
+// fa_bwd_dkdv_wgmma<hd, hd_v, F32>, on the tensor cores (wgmma) fed by
+// TMA.  The arithmetic keeps the forward's rule, products exact or within
+// float32's own rounding and only sums on the tensor core:
+//   * bf16 (F32 = false, fa_backward_bf16): S = q k^T and dP = dO v^T are
+//     bf16 wgmmas into float32: each product of two bf16 values is exact in
+//     float32.
+//   * float32 (F32 = true, fa_backward_f32): the wrapper splits q, k, v and
+//     dO into three bf16 planes each with split_bf16x3_kernel (bit-exact,
+//     flash_attention_sm90.cu), stacked on the batch axis, (3B, S, heads,
+//     hd), as the forward takes them.  Each float32 product is the
+//     forward's six plane passes (sm90_common.cuh's PASSES, smallest first,
+//     hi * hi last), each within 2^-23 |x y| of the exact product.  S takes
+//     them in the forward's order into one accumulator, as the forward
+//     forms S, so the recomputed P matches the forward's within float32
+//     rounding; dP = dO v^T the same.  o and dO are read in float32 for D
+//     only.
 //   * P and dS are formed in float32 on the CUDA cores from the
 //     accumulator's registers (the forward's predicate and expf; masked
 //     pairs exactly 0).
 //   * dV += P^T dO, dK += dS^T q and dQ += dS k take P or dS split exactly
 //     into three bf16 terms (split3: hi + mid + lo == x for |x| >= 1e-30),
-//     one wgmma per term with A from registers, smallest term first, so
-//     every product is that of the float32 operand, exact in float32.
+//     with A from registers: bf16 one wgmma per term, smallest term first,
+//     so every product is that of the float32 operand, exact in float32;
+//     float32 the six passes of the terms against the B operand's planes.
 //   * The tensor core's sums are not IEEE round-to-nearest (they lean
 //     toward zero, flash_attention_sm90.cu's note), and dK / dV sum over G
 //     x Sq query rows (8 x 4,096 at TinyLlama's training shape): one
 //     accumulator over all of them would drift past half a bf16 ulp.  So,
-//     as the float32 forward does with p v, each tile's three-term
-//     products go into a fresh accumulator (16 to 64 rows of the sum, in
-//     column chunks of at most 64: MERGE_W), merged into the running dQ,
-//     dK or dV on the CUDA cores in IEEE float32.  No tensor-core sum is
-//     longer than one tile; dK and dQ take `scale` once at the store, and
-//     each output is rounded once to bf16.
-// float32 (fa_backward_f32): fa_bwd_dq, then fa_bwd_dkdv, float32 math on
-// the CUDA cores (64 x 64 shared-memory tiles), held to float64 within
-// 2e-5 of max |grad|; a six-plane wgmma design for it is ROADMAP Queue 1
-// item 6.
+//     as the float32 forward does with p v, each tile's products go into a
+//     fresh accumulator (16 to 64 rows of the sum, in column chunks of at
+//     most 64: MERGE_W), merged into the running dQ, dK or dV on the CUDA
+//     cores in IEEE float32.  No tensor-core sum is longer than one tile;
+//     dK and dQ take `scale` once at the store, and each output is rounded
+//     once (to bf16 for bf16 inputs).
+//   * D: bf16 sums the bf16 o * dO (exact products) over each row's quad
+//     of lanes; float32 sums o * dO in float32 FMAs, sixteen lanes a row
+//     (lane t columns t, t + 16, ...), then adds in a half-warp tree.
 //
-// Design of the bf16 kernels (shapes as fa_fwd_wgmma's: q (B, Sq, H, hd),
-// k (B, Sk, KV, hd), v (B, Sk, KV, hd_v), o and dO (B, Sq, H, hd_v)).  A CTA
-// is 384 threads: two consumer warpgroups of 64 rows each (wgmma's M) and
-// one producer warpgroup, which setmaxnreg shrinks to 40 registers a
-// thread (as the forward's).  One producer lane issues TMA loads
-// through 4-D tensor maps over (B, S, heads, hd), so query head h reads KV
-// head h / G in place, and TMA's zero fill covers ragged Sq and Sk; tiles
-// land swizzled in boxes chosen per head dim as the forward's (row_bytes).
-//   * fa_bwd_dq_wgmma, grid (ceil(Sq / 128), H, B), heaviest causal tiles
-//     first: Q and dO of its 128 rows once, then a ring of K / V tiles of BK
-//     keys.  D for its rows is summed from the bf16 o and dO first (written
-//     for the next kernel).  Per tile: S = Q K^T and dP = dO V^T (A and B
-//     from shared memory, K-major), P and dS on the S accumulator's
-//     registers, whose pairs of columns are the A fragment of the next
-//     wgmma, then dQ += dS K with K the MN-major (transposed) B operand.
-//   * fa_bwd_dkdv_wgmma, grid (ceil(Sk / 128), KV, B): K and V of its 128
-//     keys once, then a ring of Q / dO tiles of BQ queries over the G query
+// Design (shapes as fa_fwd_wgmma's: q (B, Sq, H, hd), k (B, Sk, KV, hd), v
+// (B, Sk, KV, hd_v), o and dO (B, Sq, H, hd_v)).  A CTA holds one tile of
+// `rows` rows resident (BwdCfg: 128, two consumer warpgroups of 64 rows,
+// wgmma's M, or 64, one) and one producer warpgroup; with two consumer
+// warpgroups setmaxnreg shrinks the producer to 40 registers a thread (as
+// the forward's).  One producer lane issues TMA loads through 4-D tensor
+// maps over (B, S, heads, hd) (float32: (3B, ...), plane a of batch b at
+// a * B + b), so query head h reads KV head h / G in place, and TMA's zero
+// fill covers ragged Sq and Sk; tiles land swizzled in boxes chosen per
+// head dim as the forward's (row_bytes), each plane of a tile its own set
+// of boxes.
+//   * fa_bwd_dq_wgmma, grid (ceil(Sq / rows), H, B), heaviest causal tiles
+//     first: Q and dO of its rows once, then a ring of K / V tiles of BK
+//     keys.  D for its rows is summed from o and dO first (written for the
+//     next kernel).  Per tile: S = Q K^T and dP = dO V^T (A and B from
+//     shared memory, K-major), P and dS on the S accumulator's registers,
+//     whose pairs of columns are the A fragment of the next wgmma, then dQ
+//     += dS K with K the MN-major (transposed) B operand.
+//   * fa_bwd_dkdv_wgmma, grid (ceil(Sk / rows), KV, B): K and V of its keys
+//     once, then a ring of Q / dO tiles of BQ queries over the G query
 //     heads and the query tiles that can see its keys; a second producer
-//     warp copies each tile's LSE and D into the stage.  Per tile, with
-//     the keys as M: S^T = K Q^T and dP^T = V dO^T (Q and dO the K-major B
-//     operand), P^T and dS^T on the registers, in the A-fragment layout,
-//     then dV += P^T dO and dK += dS^T Q with dO and Q the MN-major B
-//     operand.  dK and dV stay in registers; the G heads are summed there.
+//     warp copies each tile's LSE and D into the stage (TMA cannot: ragged
+//     Sq).  Per tile, with the keys as M: S^T = K Q^T and dP^T = V dO^T (Q
+//     and dO the K-major B operand), P^T and dS^T on the registers, in the
+//     A-fragment layout, then dV += P^T dO and dK += dS^T Q with dO and Q
+//     the MN-major B operand.  dK and dV stay in registers; the G heads
+//     are summed there.
 //   * A warpgroup that can see no pair of a tile (the causal diagonal, a
 //     window) skips its products.
-//   * Registers bound the tiles.  ptxas allocates a consumer thread within
-//     the 168 registers __launch_bounds__(384, 1) leaves, and a dK / dV
-//     thread holds (hd + hd_v) / 2 floats of accumulator, plus S^T and
-//     dP^T (BQ / 2 each), three bf16 terms (3 BQ / 4) and a merge chunk
-//     (<= 32): BwdCfg takes BQ 64 at hd + hd_v <= 160, 32 at hd 112 / 128,
-//     16 at MLA's (192, 128) (the last two still spill a little: right,
-//     and off the training path); dQ's BK is 64, 32 at hd 192.
+//   * Registers bound the ring tiles; a float32 thread holds what a bf16
+//     one does (the planes live in shared memory; the terms of P and dS
+//     are reused against each plane).  ptxas allocates every thread of a
+//     two-warpgroup CTA within the 168 registers of __launch_bounds__(384,
+//     1) (setmaxnreg's 232 does not raise it), 255 with one consumer
+//     warpgroup, and a dK / dV thread holds (hd + hd_v) / 2 floats of
+//     accumulator, plus S^T and dP^T (BQ / 2 each), three bf16 terms (3 BQ
+//     / 4) and a merge chunk (<= 32): BQ at most 64 at hd + hd_v <= 160, 32
+//     at hd 112 / 128, 16 at MLA's (192, 128); dQ's BK at most 64, 32 at hd
+//     192.  The dK / dV kernel still spills (right, and off the training
+//     path): bf16 at hd 112, 128 and (192, 128), float32 at hd 128 and
+//     (192, 128); float32 at hd 64 keeps one register in local memory
+//     around an edge tile's mask test (nvcc -Xptxas=-v, PERF.md).
+//   * Shared memory bounds the float32 tiles, three planes of each.  BwdCfg
+//     derives each kernel's rows, ring tile and depth from the 227 KB
+//     budget: 128 rows where they fit beside two stages of the register
+//     plan's tile, else 64; the widest tile (halved at most twice) that
+//     fits two stages; three stages where they fit.  So hd 16 / 32: 128
+//     rows, tiles of 64, three stages; hd 64 (the training shape): 128
+//     rows, 64, two stages (193 KB); hd 80: 64 rows, 64, two; hd 112: 64,
+//     32, three; hd 128: 64, 32, two; (192, 128): 64, 16, three.  bf16
+//     keeps 128 rows, the register plan's tile and three stages.
 //
-// Bound.  The gradient needs 4 products per visible pair (S recomputed,
-// dP, dV, dK) and dQ one more, 2 (3 hd + 2 hd_v) flops a pair: at the
-// training shape (B 4, S 4096, H 32, KV 4, hd 64, causal) 0.69 TFLOP,
-// 0.695 ms at the bf16 tensor-core rate (989 TFLOP/s), against ~0.2 GB of
-// bf16 inputs and outputs (0.06 ms): bound by operations.  The bf16 design
-// issues 13 units of tensor-core work a pair against those 5 (S and dP in
-// both kernels, three terms for each of dV, dK and dQ), 2.6 x the bound,
-// and pays that rather than round P and dS to bf16 (another function).
+// Bound.  The gradient needs 5 products per visible pair (S recomputed,
+// dP, dV, dK and dQ), 2 (3 hd + 2 hd_v) flops a pair: at the training
+// shape (B 4, S 4096, H 32, KV 4, hd 64, causal) 0.69 TFLOP, 0.695 ms at
+// the bf16 tensor-core rate (989 TFLOP/s), against ~0.2 GB of bf16 inputs
+// and outputs (0.06 ms): bound by operations.  The bf16 design issues 13
+// units of tensor-core work a pair against those 5 (S and dP in both
+// kernels, three terms for each of dV, dK and dQ), 2.6 x the bound, and
+// pays that rather than round P and dS to bf16 (another function).
+// float32: the function's products at six bf16 passes each, a bound of
+// 4.170 ms (989 / 6 TFLOP/s) against ~0.4 GB of float32 inputs and
+// outputs; the design issues 42 units a pair (S and dP six passes each in
+// both kernels, six each for dV, dK and dQ), 8.4 x the function's 5, 5.84
+// ms at 989 TFLOP/s, plus the four splits (~0.28 ms, bound by bytes).
 // What it leaves: a warpgroup's softmax-gradient math and its wgmmas do not
-// overlap (the other warpgroup fills the gap), each merge waits for its
-// chunk's products, no persistent scheduler, one CTA per SM.
+// overlap (the other warpgroup fills the gap, where there is one), each
+// merge waits for its chunk's products, no persistent scheduler, one CTA
+// per SM.
 
 #include <type_traits>
 
-#include "sm90_common.cuh"  // mbarriers, TMA, wgmma, split3, tensor maps
+#include "sm90_common.cuh"  // mbarriers, TMA, wgmma, split3, PASSES, maps
 
 namespace {
 
@@ -107,18 +144,10 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int Sq, int Sk,
          (window <= 0 || kpos > qpos - window);
 }
 
-// ---------------------------------------------------------------------------
-// bf16: wgmma / TMA
-// ---------------------------------------------------------------------------
-
 constexpr int WG_ROWS = 64;        // rows per consumer warpgroup (M)
-constexpr int CTA_ROWS = 128;      // rows of the CTA's own tile (two groups)
-constexpr int CONSUMER_WARPS = 8;  // two warpgroups
 constexpr int PRODUCER_WARPS = 4;  // one warpgroup, for setmaxnreg
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
-constexpr int WG_THREADS = 32 * (CONSUMER_WARPS + PRODUCER_WARPS);
-constexpr int STAGES = 3;          // ring depth of both kernels
 constexpr int MERGE_W = 64;        // widest fresh accumulator, columns
 
 // Columns of one fresh-accumulator product for an output of width n: 64
@@ -126,8 +155,44 @@ constexpr int MERGE_W = 64;        // widest fresh accumulator, columns
 // (16 / 32 / 80 / 112, one chunk).
 constexpr int merge_w(int n) { return n % MERGE_W == 0 ? MERGE_W : n; }
 
-template <int HD, int HDV>
+// Shared memory of either kernel: 1024 bytes of slack to align the tiles
+// to the swizzle atom; `planes` bf16 planes of its resident tiles (`rows`
+// rows of the q/k width plus rows of the v width: Q and dO for dQ, K and V
+// for dK / dV) and of `stages` ring stages of `tile` rows of both widths
+// (K and V; Q and dO), with `stat` bytes a ring row (dK / dV: LSE and D);
+// then 1 + 2 * stages mbarriers.  width = hd + hd_v.
+constexpr int bwd_smem(int planes, int width, int rows, int tile, int stages,
+                       int stat) {
+  return 1024 + planes * 2 * width * (rows + stages * tile) +
+         stages * stat * tile + 8 * (1 + 2 * stages);
+}
+
+// One kernel's resident rows, ring tile and ring depth (the note at the
+// top): bf16 128 rows, the register plan's tile `tile_max`, three stages;
+// float32 (three planes of every tile) from the shared-memory budget.
+struct Tiling {
+  int rows, tile, stages;
+};
+constexpr bool f32_fits(int width, int rows, int tile, int stages, int stat) {
+  return bwd_smem(3, width, rows, tile, stages, stat) <= SMEM_MAX;
+}
+constexpr Tiling f32_tiling(int width, int tile_max, int stat, int rows) {
+  const int tile = f32_fits(width, rows, tile_max, 2, stat) ? tile_max
+                   : f32_fits(width, rows, tile_max / 2, 2, stat)
+                       ? tile_max / 2
+                       : tile_max / 4;
+  return {rows, tile, f32_fits(width, rows, tile, 3, stat) ? 3 : 2};
+}
+constexpr Tiling tiling(bool f32, int width, int tile_max, int stat) {
+  return !f32 ? Tiling{128, tile_max, 3}
+              : f32_tiling(width, tile_max, stat,
+                           f32_fits(width, 128, tile_max, 2, stat) ? 128
+                                                                   : 64);
+}
+
+template <int HD, int HDV, bool F32>
 struct BwdCfg {
+  static constexpr int PLANES = F32 ? 3 : 1;  // bf16 planes per operand
   // Q and K rows: the q/k width; dO and V rows: the v width.
   static constexpr int ROWB = row_bytes(HD);
   static constexpr int CHUNK = ROWB / 2;  // bf16 columns per TMA box
@@ -137,32 +202,60 @@ struct BwdCfg {
   static constexpr int CHUNK_V = ROWB_V / 2;
   static constexpr int NCHUNK_V = HDV / CHUNK_V;
   static constexpr int KPC_V = CHUNK_V / 16;
-  // dK / dV: queries per tile (S^T's N) from the registers (the note at
-  // the top); dQ: keys per tile.
-  static constexpr int BQ = HD + HDV <= 160 ? 64 : HD + HDV <= 256 ? 32 : 16;
-  static constexpr int BK = HD <= 128 ? 64 : 32;
+  static constexpr int W = HD + HDV;
+  // The register plan (the note at the top): dK / dV's queries per tile
+  // (S^T's N) and dQ's keys per tile, at most.
+  static constexpr int BQ_MAX = W <= 160 ? 64 : W <= 256 ? 32 : 16;
+  static constexpr int BK_MAX = HD <= 128 ? 64 : 32;
+  static constexpr Tiling DQ = tiling(F32, W, BK_MAX, 0);
+  static constexpr Tiling KV = tiling(F32, W, BQ_MAX, 8);
+  static constexpr int DQ_ROWS = DQ.rows, BK = DQ.tile;
+  static constexpr int DQ_STAGES = DQ.stages;
+  static constexpr int KV_ROWS = KV.rows, BQ = KV.tile;
+  static constexpr int KV_STAGES = KV.stages;
+  // Consumer warps (16 rows each) and threads of each kernel.
+  static constexpr int DQ_WARPS = DQ_ROWS / 16, KV_WARPS = KV_ROWS / 16;
+  static constexpr int DQ_THREADS = 32 * (DQ_WARPS + PRODUCER_WARPS);
+  static constexpr int KV_THREADS = 32 * (KV_WARPS + PRODUCER_WARPS);
   static constexpr int MW = merge_w(HD), MW_V = merge_w(HDV);
-  // dQ: Q and dO of 128 rows, then the ring of K and V tiles.
-  static constexpr int DQ_Q = CTA_ROWS * HD * 2, DQ_DO = CTA_ROWS * HDV * 2;
+  // Bytes of one plane of each tile.  dQ: Q and dO of DQ_ROWS rows, then
+  // the ring of K and V tiles (stage: the K planes, then the V planes).
+  static constexpr int DQ_Q = DQ_ROWS * HD * 2, DQ_DO = DQ_ROWS * HDV * 2;
   static constexpr int DQ_K = BK * HD * 2, DQ_V = BK * HDV * 2;
-  static constexpr int DQ_STAGE = DQ_K + DQ_V;
-  static constexpr int DQ_SMEM =
-      1024 + DQ_Q + DQ_DO + STAGES * DQ_STAGE + 8 * (1 + 2 * STAGES);
-  // dK / dV: K and V of 128 keys, then the ring of Q and dO tiles, then
-  // each stage's LSE and D (2 BQ floats).
-  static constexpr int KV_K = CTA_ROWS * HD * 2, KV_V = CTA_ROWS * HDV * 2;
+  static constexpr int DQ_STAGE = PLANES * (DQ_K + DQ_V);
+  static constexpr int DQ_SMEM = bwd_smem(PLANES, W, DQ_ROWS, BK, DQ_STAGES,
+                                          0);
+  // dK / dV: K and V of KV_ROWS keys, then the ring of Q and dO tiles,
+  // then each stage's LSE and D (2 BQ floats).
+  static constexpr int KV_K = KV_ROWS * HD * 2, KV_V = KV_ROWS * HDV * 2;
   static constexpr int KV_Q = BQ * HD * 2, KV_DO = BQ * HDV * 2;
-  static constexpr int KV_STAGE = KV_Q + KV_DO;
-  static constexpr int KV_SMEM = 1024 + KV_K + KV_V +
-                                 STAGES * (KV_STAGE + 8 * BQ) +
-                                 8 * (1 + 2 * STAGES);
+  static constexpr int KV_STAGE = PLANES * (KV_Q + KV_DO);
+  static constexpr int KV_SMEM = bwd_smem(PLANES, W, KV_ROWS, BQ, KV_STAGES,
+                                          8);
   static_assert(HD % CHUNK == 0 && HDV % CHUNK_V == 0,
                 "head dims must be whole TMA boxes");
   static_assert(MW % CHUNK == 0 && MW_V % CHUNK_V == 0,
                 "merge chunks must be whole TMA boxes");
+  static_assert(BK >= 16 && BQ >= 16, "ring tiles of at least one k16 step");
   static_assert(DQ_SMEM <= SMEM_MAX && KV_SMEM <= SMEM_MAX,
                 "shared memory per CTA");
 };
+
+// The register budget of a consumer thread: with two consumer warpgroups
+// the producer hands its registers over (setmaxnreg); with one, every
+// thread may take 255 and nothing moves.
+template <int ROWS>
+__device__ __forceinline__ void producer_regs() {
+  if constexpr (ROWS == 128)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        PRODUCER_REGS));
+}
+template <int ROWS>
+__device__ __forceinline__ void consumer_regs() {
+  if constexpr (ROWS == 128)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        CONSUMER_REGS));
+}
 
 // P (or P^T) and dS (dS^T) of one 64-row accumulator tile in place: s
 // holds the scores q . k, dp the products dO . v; P = exp(scale s - lse)
@@ -205,16 +298,46 @@ __device__ __forceinline__ void split_terms(const float (&x)[NF],
     split3(x[2 * j], x[2 * j + 1], t[0][j], t[1][j], t[2][j]);
 }
 
-// acc += A B over K = 16 * KSTEPS rows of B, A the three terms of `t`
-// (smallest first) and B a tile of `rows` rows at b (MN-major, rowb
-// swizzled bytes a row), its output columns in chunks of W: each chunk's
-// products go into a fresh accumulator, then added to acc on the CUDA
-// cores.  N = the output width (acc holds N / 2 floats).
-template <int N, int W, int KSTEPS, int CHUNK_COLS, int TF>
+// acc = a K-major product of shared-memory tiles into one accumulator
+// over K = k (16 k-steps a box of kpc): A `a_rows` rows at a, B `b_rows`
+// rows at b, both `rowb` swizzled bytes a row.  bf16: one pass; float32:
+// the six plane passes, smallest first, planes a_plane / b_plane bytes
+// apart, the left operand's plane pass_a against the right's pass_b: S =
+// Q K^T as the forward forms it, and with SWAP (A the right operand) S^T
+// = K Q^T from the same products in the same order.  The first wgmma
+// overwrites acc.
+template <bool F32, bool SWAP, int K, int KPC, int NF>
+__device__ __forceinline__ void planes_ss(float (&acc)[NF], uint32_t a,
+                                          int a_rows, int a_plane,
+                                          uint32_t b, int b_rows,
+                                          int b_plane, int rowb) {
+#pragma unroll
+  for (int t = 0; t < (F32 ? PASSES : 1); ++t) {
+    const int pa = SWAP ? pass_b(t) : pass_a(t);
+    const int pb = SWAP ? pass_a(t) : pass_b(t);
+    const uint32_t at = a + (F32 ? pa : 0) * a_plane;
+    const uint32_t bt = b + (F32 ? pb : 0) * b_plane;
+#pragma unroll
+    for (int j = 0; j < K / 16; ++j) {
+      const int c = j / KPC, off = (j % KPC) * 32;
+      wgmma_ss(acc, kmajor(at + c * a_rows * rowb + off, rowb),
+               kmajor(bt + c * b_rows * rowb + off, rowb), t > 0 || j > 0);
+    }
+  }
+}
+
+// acc += A B over K = 16 * KSTEPS rows of B, A the three terms of `t` and
+// B a tile of `rows` rows at b (MN-major, rowb swizzled bytes a row; its
+// planes `plane` bytes apart), its output columns in chunks of W: each
+// chunk's products go into a fresh accumulator, then added to acc on the
+// CUDA cores.  bf16: one pass a term, smallest term first; float32: the
+// six passes, term pass_a against B plane pass_b.  N = the output width
+// (acc holds N / 2 floats).
+template <int N, int W, int KSTEPS, int CHUNK_COLS, bool F32, int TF>
 __device__ __forceinline__ void merged_product(float (&acc)[N / 2],
                                                const uint32_t (&t)[3][TF],
                                                uint32_t b, int rows,
-                                               int rowb) {
+                                               int rowb, int plane) {
 #pragma unroll
   for (int ch = 0; ch < N / W; ++ch) {
     const uint32_t bc = b + (ch * W / CHUNK_COLS) * rows * rowb;
@@ -223,11 +346,14 @@ __device__ __forceinline__ void merged_product(float (&acc)[N / 2],
     for (int j = 0; j < W / 2; ++j) tile[j] = 0.0f;
     wgmma_fence();
 #pragma unroll
-    for (int term = 2; term >= 0; --term)
+    for (int u = 0; u < (F32 ? PASSES : 3); ++u) {
+      const int term = F32 ? pass_a(u) : 2 - u;
+      const uint32_t bp = bc + (F32 ? pass_b(u) : 0) * plane;
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk)
         wgmma_rs(tile, t[term] + 4 * kk,
-                 mnmajor(bc + kk * 16 * rowb, rows, rowb));
+                 mnmajor(bp + kk * 16 * rowb, rows, rowb));
+    }
     wgmma_commit();
     wgmma_wait_all();
     pin(tile);
@@ -237,45 +363,122 @@ __device__ __forceinline__ void merged_product(float (&acc)[N / 2],
 }
 
 // Stores rows r0 and r0 + 8 (those < n) of a 64-row accumulator of width W
-// to a (., heads, W) bf16 tensor at base (row stride rs), times mul.
-template <int W>
+// to a (., heads, W) tensor of T (bf16 or float32) at base (row stride rs),
+// times mul.
+template <int W, typename T>
 __device__ __forceinline__ void store_rows(const float (&acc)[W / 2],
-                                           __nv_bfloat16* base, int64_t rs,
-                                           int r0, int n, int lane,
-                                           float mul) {
+                                           T* base, int64_t rs, int r0, int n,
+                                           int lane, float mul) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + 8 * r;
     if (row >= n) continue;
-    __nv_bfloat16* out = base + (int64_t)row * rs + 2 * (lane & 3);
+    T* out = base + (int64_t)row * rs + 2 * (lane & 3);
 #pragma unroll
-    for (int c = 0; c < W / 8; ++c)
-      *reinterpret_cast<__nv_bfloat162*>(out + 8 * c) = __floats2bfloat162_rn(
-          acc[4 * c + 2 * r] * mul, acc[4 * c + 2 * r + 1] * mul);
+    for (int c = 0; c < W / 8; ++c) {
+      const float x = acc[4 * c + 2 * r] * mul;
+      const float y = acc[4 * c + 2 * r + 1] * mul;
+      if constexpr (std::is_same_v<T, float>)
+        *reinterpret_cast<float2*>(out + 8 * c) = make_float2(x, y);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * c) =
+            __floats2bfloat162_rn(x, y);
+    }
   }
 }
 
+// (LSE, D) of this thread's rows r0 and r0 + 8, D also written to Dout
+// (B, H, Sq).  bf16: the quad's four lanes sum alternate column pairs of
+// o * dO (exact products), then add in a fixed tree.  float32: the warp's
+// 16 rows two at a time, sixteen lanes a row: lane t sums columns t, t +
+// 16, ... in float32 FMAs, then the half-warp adds in a fixed tree (xor 8,
+// 4, 2, 1); each thread takes its rows' sums by shuffle.
+template <int HDV, bool F32, typename T>
+__device__ __forceinline__ void row_stats(float2 (&ld)[2], const T* o,
+                                          const T* dO, const float* lse,
+                                          float* Dout, int b, int h, int Sq,
+                                          int H, int wrow, int lane) {
+  const int64_t stat = ((int64_t)b * H + h) * Sq;
+  const int r0 = wrow + lane / 4;
+  float d[2] = {0.0f, 0.0f};
+  if constexpr (F32) {
+    const int tx = lane % 16;
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      const int row = wrow + 2 * p + lane / 16;
+      float part = 0.0f;
+      if (row < Sq) {
+        const int64_t at = (((int64_t)b * Sq + row) * H + h) * HDV + tx;
+#pragma unroll
+        for (int c = 0; c < HDV / 16; ++c)
+          part = fmaf(dO[at + 16 * c], o[at + 16 * c], part);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, off);
+      if (row < Sq && tx == 0) Dout[stat + row] = part;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int j = lane / 4 + 8 * r;  // the row within the warp
+        const float x = __shfl_sync(0xffffffffu, part, 16 * (j & 1));
+        if (j / 2 == p) d[r] = x;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      float part = 0.0f;
+      if (row < Sq) {
+        const int64_t at = (((int64_t)b * Sq + row) * H + h) * HDV +
+                           2 * (lane & 3);
+#pragma unroll
+        for (int c = 0; c < HDV / 8; ++c) {
+          const float2 x = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(o + at + 8 * c));
+          const float2 y = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(dO + at + 8 * c));
+          part = fmaf(y.x, x.x, part);
+          part = fmaf(y.y, x.y, part);
+        }
+      }
+      d[r] = quad_sum(part);
+      if (row < Sq && (lane & 3) == 0) Dout[stat + row] = d[r];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    ld[r] = make_float2(row < Sq ? lse[stat + row] : 0.0f, d[r]);
+  }
+}
+
+template <bool F32>
+using out_t = std::conditional_t<F32, float, __nv_bfloat16>;
+
 // dQ and D.  Maps: q (B, Sq, H, hd) and dO (B, Sq, H, hd_v) in boxes of
-// 128 rows; k (B, Sk, KV, hd), v (B, Sk, KV, hd_v) in boxes of BK rows.
-// o and dO (B, Sq, H, hd_v) bf16, lse (B, H, Sq) -> D (B, H, Sq), dq.
-template <int HD, int HDV>
-__global__ void __launch_bounds__(WG_THREADS, 1)
+// DQ_ROWS rows; k (B, Sk, KV, hd), v (B, Sk, KV, hd_v) in boxes of BK rows
+// (float32: the planes, batch 3B).  o and dO (B, Sq, H, hd_v) in the
+// dtype, lse (B, H, Sq) -> D (B, H, Sq), dq.
+template <int HD, int HDV, bool F32>
+__global__ void __launch_bounds__(BwdCfg<HD, HDV, F32>::DQ_THREADS, 1)
     fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
                     const __grid_constant__ CUtensorMap tm_do,
-                    const __nv_bfloat16* __restrict__ o,
-                    const __nv_bfloat16* __restrict__ dO,
+                    const out_t<F32>* __restrict__ o,
+                    const out_t<F32>* __restrict__ dO,
                     const float* __restrict__ lse, float* __restrict__ Dout,
-                    __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int H,
+                    out_t<F32>* __restrict__ dq, int B, int Sq, int Sk, int H,
                     int KV, float scale, int causal, int window) {
-  using C = BwdCfg<HD, HDV>;
-  constexpr int BK = C::BK;
+  using C = BwdCfg<HD, HDV, F32>;
+  constexpr int BK = C::BK, ROWS = C::DQ_ROWS, STAGES = C::DQ_STAGES;
+  constexpr int P = C::PLANES, CW = C::DQ_WARPS;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
   const uint32_t s_q = (raw + 1023u) & ~1023u;  // swizzle-atom aligned
-  const uint32_t s_do = s_q + C::DQ_Q;
-  const uint32_t s_kv = s_do + C::DQ_DO;  // stage s: K, then V
+  const uint32_t s_do = s_q + P * C::DQ_Q;
+  const uint32_t s_kv = s_do + P * C::DQ_DO;  // stage s: K, then V planes
   const uint32_t q_bar = s_kv + STAGES * C::DQ_STAGE;
   const uint32_t full_bar = q_bar + 8;               // [STAGES]
   const uint32_t empty_bar = full_bar + 8 * STAGES;  // [STAGES]
@@ -283,8 +486,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const int q0 = qt * CTA_ROWS;
-  const int q_valid = min(CTA_ROWS, Sq - q0);
+  const int q0 = qt * ROWS;
+  const int q_valid = min(ROWS, Sq - q0);
   int kt_hi = (Sk + BK - 1) / BK;
   if (causal) kt_hi = min(kt_hi, (q0 + q_valid - 1) / BK + 1);
   const int kt_lo = window > 0 ? max(0, q0 - window + 1) / BK : 0;
@@ -294,75 +497,57 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     mbar_init(q_bar, 1);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full_bar + 8 * s, 1);
-      mbar_init(empty_bar + 8 * s, CONSUMER_WARPS);
+      mbar_init(empty_bar + 8 * s, CW);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp >= CONSUMER_WARPS) {  // producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
-        PRODUCER_REGS));
-    if (warp == CONSUMER_WARPS && lane == 0) {
-      mbar_expect_tx(q_bar, C::DQ_Q + C::DQ_DO);
+  if (warp >= CW) {  // producer
+    producer_regs<ROWS>();
+    if (warp == CW && lane == 0) {
+      mbar_expect_tx(q_bar, P * (C::DQ_Q + C::DQ_DO));
 #pragma unroll
-      for (int c = 0; c < C::NCHUNK; ++c)
-        tma_load(s_q + c * CTA_ROWS * C::ROWB, &tm_q, q_bar, c * C::CHUNK, h,
-                 q0, b);
+      for (int a = 0; a < P; ++a) {
 #pragma unroll
-      for (int c = 0; c < C::NCHUNK_V; ++c)
-        tma_load(s_do + c * CTA_ROWS * C::ROWB_V, &tm_do, q_bar,
-                 c * C::CHUNK_V, h, q0, b);
+        for (int c = 0; c < C::NCHUNK; ++c)
+          tma_load(s_q + a * C::DQ_Q + c * ROWS * C::ROWB, &tm_q, q_bar,
+                   c * C::CHUNK, h, q0, a * B + b);
+#pragma unroll
+        for (int c = 0; c < C::NCHUNK_V; ++c)
+          tma_load(s_do + a * C::DQ_DO + c * ROWS * C::ROWB_V, &tm_do, q_bar,
+                   c * C::CHUNK_V, h, q0, a * B + b);
+      }
       for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
         const int s = i % STAGES;
         mbar_wait(empty_bar + 8 * s, ((i / STAGES) & 1) ^ 1);
         mbar_expect_tx(full_bar + 8 * s, C::DQ_STAGE);
         const uint32_t s_k = s_kv + s * C::DQ_STAGE;
-        const uint32_t s_v = s_k + C::DQ_K;
+        const uint32_t s_v = s_k + P * C::DQ_K;
 #pragma unroll
-        for (int c = 0; c < C::NCHUNK; ++c)
-          tma_load(s_k + c * BK * C::ROWB, &tm_k, full_bar + 8 * s,
-                   c * C::CHUNK, kvh, kt * BK, b);
+        for (int a = 0; a < P; ++a) {
 #pragma unroll
-        for (int c = 0; c < C::NCHUNK_V; ++c)
-          tma_load(s_v + c * BK * C::ROWB_V, &tm_v, full_bar + 8 * s,
-                   c * C::CHUNK_V, kvh, kt * BK, b);
+          for (int c = 0; c < C::NCHUNK; ++c)
+            tma_load(s_k + a * C::DQ_K + c * BK * C::ROWB, &tm_k,
+                     full_bar + 8 * s, c * C::CHUNK, kvh, kt * BK, a * B + b);
+#pragma unroll
+          for (int c = 0; c < C::NCHUNK_V; ++c)
+            tma_load(s_v + a * C::DQ_V + c * BK * C::ROWB_V, &tm_v,
+                     full_bar + 8 * s, c * C::CHUNK_V, kvh, kt * BK,
+                     a * B + b);
+        }
       }
     }
     return;
   }
 
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
-      CONSUMER_REGS));
+  consumer_regs<ROWS>();
   const int wg = warp / 4;
   const int row_lo = q0 + WG_ROWS * wg;
   const int r0 = row_lo + 16 * (warp % 4) + lane / 4;
-  const int64_t stat = ((int64_t)b * H + h) * Sq;
-
-  // D and LSE of rows r0 and r0 + 8: the quad's four lanes sum alternate
-  // column pairs of o * dO (bf16, exact products), then add in a fixed tree.
   float2 ld[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + 8 * r;
-    float part = 0.0f;
-    if (row < Sq) {
-      const int64_t at = (((int64_t)b * Sq + row) * H + h) * HDV +
-                         2 * (lane & 3);
-#pragma unroll
-      for (int c = 0; c < HDV / 8; ++c) {
-        const float2 x = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(o + at + 8 * c));
-        const float2 y = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(dO + at + 8 * c));
-        part = fmaf(y.x, x.x, part);
-        part = fmaf(y.y, x.y, part);
-      }
-    }
-    part = quad_sum(part);
-    ld[r] = make_float2(row < Sq ? lse[stat + row] : 0.0f, part);
-    if (row < Sq && (lane & 3) == 0) Dout[stat + row] = part;
-  }
+  row_stats<HDV, F32>(ld, o, dO, lse, Dout, b, h, Sq, H, q0 + 16 * warp,
+                      lane);
 
   float acc[HD / 2];
 #pragma unroll
@@ -374,7 +559,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
     const int s = i % STAGES;
     const uint32_t s_k = s_kv + s * C::DQ_STAGE;
-    const uint32_t s_v = s_k + C::DQ_K;
+    const uint32_t s_v = s_k + P * C::DQ_K;
     const int k0 = kt * BK;
     mbar_wait(full_bar + 8 * s, (i / STAGES) & 1);
     const bool any = row_lo < Sq && (!causal || k0 <= row_lo + WG_ROWS - 1) &&
@@ -384,19 +569,10 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 #pragma unroll
       for (int j = 0; j < BK / 2; ++j) sc[j] = dp[j] = 0.0f;
       wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < HD / 16; ++j) {
-        const int c = j / C::KPC, off = (j % C::KPC) * 32;
-        wgmma_ss(sc, kmajor(s_qa + c * CTA_ROWS * C::ROWB + off, C::ROWB),
-                 kmajor(s_k + c * BK * C::ROWB + off, C::ROWB), j > 0);
-      }
-#pragma unroll
-      for (int j = 0; j < HDV / 16; ++j) {
-        const int c = j / C::KPC_V, off = (j % C::KPC_V) * 32;
-        wgmma_ss(dp,
-                 kmajor(s_doa + c * CTA_ROWS * C::ROWB_V + off, C::ROWB_V),
-                 kmajor(s_v + c * BK * C::ROWB_V + off, C::ROWB_V), j > 0);
-      }
+      planes_ss<F32, false, HD, C::KPC>(sc, s_qa, ROWS, C::DQ_Q, s_k, BK,
+                                        C::DQ_K, C::ROWB);
+      planes_ss<F32, false, HDV, C::KPC_V>(dp, s_doa, ROWS, C::DQ_DO, s_v,
+                                           BK, C::DQ_V, C::ROWB_V);
       wgmma_commit();
       wgmma_wait_all();
       pin(sc);
@@ -416,7 +592,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       uint32_t t[3][BK / 4];
       split_terms(dp, t);
       // dQ += dS K, K the MN-major B operand (BK rows).
-      merged_product<HD, C::MW, BK / 16, C::CHUNK>(acc, t, s_k, BK, C::ROWB);
+      merged_product<HD, C::MW, BK / 16, C::CHUNK, F32>(acc, t, s_k, BK,
+                                                        C::ROWB, C::DQ_K);
       pin(t[0]);
       pin(t[1]);
       pin(t[2]);
@@ -428,26 +605,28 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
                  r0, Sq, lane, scale);
 }
 
-// dK and dV.  Maps: k, v in boxes of 128 rows; q, dO in boxes of BQ rows.
-// lse and D (B, H, Sq) -> dk (B, Sk, KV, hd), dv (B, Sk, KV, hd_v).
-template <int HD, int HDV>
-__global__ void __launch_bounds__(WG_THREADS, 1)
+// dK and dV.  Maps: k, v in boxes of KV_ROWS rows; q, dO in boxes of BQ
+// rows (float32: the planes).  lse and D (B, H, Sq) -> dk (B, Sk, KV, hd),
+// dv (B, Sk, KV, hd_v).
+template <int HD, int HDV, bool F32>
+__global__ void __launch_bounds__(BwdCfg<HD, HDV, F32>::KV_THREADS, 1)
     fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
                       const __grid_constant__ CUtensorMap tm_do,
                       const float* __restrict__ lse,
                       const float* __restrict__ Din,
-                      __nv_bfloat16* __restrict__ dk,
-                      __nv_bfloat16* __restrict__ dv, int Sq, int Sk, int H,
-                      int KV, float scale, int causal, int window) {
-  using C = BwdCfg<HD, HDV>;
-  constexpr int BQ = C::BQ;
+                      out_t<F32>* __restrict__ dk,
+                      out_t<F32>* __restrict__ dv, int B, int Sq, int Sk,
+                      int H, int KV, float scale, int causal, int window) {
+  using C = BwdCfg<HD, HDV, F32>;
+  constexpr int BQ = C::BQ, ROWS = C::KV_ROWS, STAGES = C::KV_STAGES;
+  constexpr int P = C::PLANES, CW = C::KV_WARPS;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
   const uint32_t s_k = (raw + 1023u) & ~1023u;  // swizzle-atom aligned
-  const uint32_t s_v = s_k + C::KV_K;
-  const uint32_t s_ring = s_v + C::KV_V;  // stage s: Q, then dO
+  const uint32_t s_v = s_k + P * C::KV_K;
+  const uint32_t s_ring = s_v + P * C::KV_V;  // stage s: Q, then dO planes
   const uint32_t s_stat = s_ring + STAGES * C::KV_STAGE;  // [STAGES][2][BQ]
   const uint32_t kv_bar = s_stat + STAGES * 8 * BQ;
   const uint32_t full_bar = kv_bar + 8;              // [STAGES]
@@ -460,11 +639,11 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   const int kt = blockIdx.x;  // causal: key tile 0 sees the most queries
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int G = H / KV;
-  const int k0 = kt * CTA_ROWS;
+  const int k0 = kt * ROWS;
   // Query tiles holding a query that may see a key of this tile.
   const int qt_lo = causal ? k0 / BQ : 0;
   int qt_hi = (Sq + BQ - 1) / BQ;
-  if (window > 0) qt_hi = min(qt_hi, (k0 + CTA_ROWS + window - 2) / BQ + 1);
+  if (window > 0) qt_hi = min(qt_hi, (k0 + ROWS + window - 2) / BQ + 1);
   const int nqt = max(0, qt_hi - qt_lo);
   const int n_it = G * nqt;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -474,42 +653,47 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     for (int s = 0; s < STAGES; ++s) {
       // The TMA lane's arrive (with the bytes) and the stats warp's 32.
       mbar_init(full_bar + 8 * s, 33);
-      mbar_init(empty_bar + 8 * s, CONSUMER_WARPS);
+      mbar_init(empty_bar + 8 * s, CW);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp >= CONSUMER_WARPS) {  // producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
-        PRODUCER_REGS));
-    if (warp == CONSUMER_WARPS && lane == 0) {  // TMA
-      mbar_expect_tx(kv_bar, C::KV_K + C::KV_V);
+  if (warp >= CW) {  // producer
+    producer_regs<ROWS>();
+    if (warp == CW && lane == 0) {  // TMA
+      mbar_expect_tx(kv_bar, P * (C::KV_K + C::KV_V));
 #pragma unroll
-      for (int c = 0; c < C::NCHUNK; ++c)
-        tma_load(s_k + c * CTA_ROWS * C::ROWB, &tm_k, kv_bar, c * C::CHUNK,
-                 kvh, k0, b);
+      for (int a = 0; a < P; ++a) {
 #pragma unroll
-      for (int c = 0; c < C::NCHUNK_V; ++c)
-        tma_load(s_v + c * CTA_ROWS * C::ROWB_V, &tm_v, kv_bar,
-                 c * C::CHUNK_V, kvh, k0, b);
+        for (int c = 0; c < C::NCHUNK; ++c)
+          tma_load(s_k + a * C::KV_K + c * ROWS * C::ROWB, &tm_k, kv_bar,
+                   c * C::CHUNK, kvh, k0, a * B + b);
+#pragma unroll
+        for (int c = 0; c < C::NCHUNK_V; ++c)
+          tma_load(s_v + a * C::KV_V + c * ROWS * C::ROWB_V, &tm_v, kv_bar,
+                   c * C::CHUNK_V, kvh, k0, a * B + b);
+      }
       for (int i = 0; i < n_it; ++i) {
         const int s = i % STAGES;
         const int h = kvh * G + i / nqt, q0 = (qt_lo + i % nqt) * BQ;
         mbar_wait(empty_bar + 8 * s, ((i / STAGES) & 1) ^ 1);
         mbar_expect_tx(full_bar + 8 * s, C::KV_STAGE);
         const uint32_t s_q = s_ring + s * C::KV_STAGE;
-        const uint32_t s_do = s_q + C::KV_Q;
+        const uint32_t s_do = s_q + P * C::KV_Q;
 #pragma unroll
-        for (int c = 0; c < C::NCHUNK; ++c)
-          tma_load(s_q + c * BQ * C::ROWB, &tm_q, full_bar + 8 * s,
-                   c * C::CHUNK, h, q0, b);
+        for (int a = 0; a < P; ++a) {
 #pragma unroll
-        for (int c = 0; c < C::NCHUNK_V; ++c)
-          tma_load(s_do + c * BQ * C::ROWB_V, &tm_do, full_bar + 8 * s,
-                   c * C::CHUNK_V, h, q0, b);
+          for (int c = 0; c < C::NCHUNK; ++c)
+            tma_load(s_q + a * C::KV_Q + c * BQ * C::ROWB, &tm_q,
+                     full_bar + 8 * s, c * C::CHUNK, h, q0, a * B + b);
+#pragma unroll
+          for (int c = 0; c < C::NCHUNK_V; ++c)
+            tma_load(s_do + a * C::KV_DO + c * BQ * C::ROWB_V, &tm_do,
+                     full_bar + 8 * s, c * C::CHUNK_V, h, q0, a * B + b);
+        }
       }
-    } else if (warp == CONSUMER_WARPS + 1) {  // LSE and D into the stage
+    } else if (warp == CW + 1) {  // LSE and D into the stage
       for (int i = 0; i < n_it; ++i) {
         const int s = i % STAGES;
         const int h = kvh * G + i / nqt, q0 = (qt_lo + i % nqt) * BQ;
@@ -527,8 +711,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     return;
   }
 
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
-      CONSUMER_REGS));
+  consumer_regs<ROWS>();
   const int wg = warp / 4;
   const int key_lo = k0 + WG_ROWS * wg;
   const int r0 = key_lo + 16 * (warp % 4) + lane / 4;
@@ -545,30 +728,22 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     const int s = i % STAGES;
     const int q0 = (qt_lo + i % nqt) * BQ;
     const uint32_t s_q = s_ring + s * C::KV_STAGE;
-    const uint32_t s_do = s_q + C::KV_Q;
+    const uint32_t s_do = s_q + P * C::KV_Q;
     mbar_wait(full_bar + 8 * s, (i / STAGES) & 1);
     const bool any = key_lo < Sk && q0 < Sq &&
                      (!causal || q0 + BQ - 1 >= key_lo) &&
                      (window <= 0 || q0 < key_lo + WG_ROWS - 1 + window);
     if (any) {
-      // S^T = K Q^T and dP^T = V dO^T: the keys as M, queries as N.
+      // S^T = K Q^T and dP^T = V dO^T: the keys as M, queries as N (in
+      // float32 the products that form S and dP, in their order).
       float st[BQ / 2], dpt[BQ / 2];
 #pragma unroll
       for (int j = 0; j < BQ / 2; ++j) st[j] = dpt[j] = 0.0f;
       wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < HD / 16; ++j) {
-        const int c = j / C::KPC, off = (j % C::KPC) * 32;
-        wgmma_ss(st, kmajor(s_ka + c * CTA_ROWS * C::ROWB + off, C::ROWB),
-                 kmajor(s_q + c * BQ * C::ROWB + off, C::ROWB), j > 0);
-      }
-#pragma unroll
-      for (int j = 0; j < HDV / 16; ++j) {
-        const int c = j / C::KPC_V, off = (j % C::KPC_V) * 32;
-        wgmma_ss(dpt,
-                 kmajor(s_va + c * CTA_ROWS * C::ROWB_V + off, C::ROWB_V),
-                 kmajor(s_do + c * BQ * C::ROWB_V + off, C::ROWB_V), j > 0);
-      }
+      planes_ss<F32, true, HD, C::KPC>(st, s_ka, ROWS, C::KV_K, s_q, BQ,
+                                       C::KV_Q, C::ROWB);
+      planes_ss<F32, true, HDV, C::KPC_V>(dpt, s_va, ROWS, C::KV_V, s_do, BQ,
+                                          C::KV_DO, C::ROWB_V);
       wgmma_commit();
       wgmma_wait_all();
       pin(st);
@@ -593,8 +768,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         // dV += P^T dO, dO the MN-major B operand (BQ rows).
         uint32_t t[3][BQ / 4];
         split_terms(st, t);
-        merged_product<HDV, C::MW_V, BQ / 16, C::CHUNK_V>(dv_acc, t, s_do, BQ,
-                                                          C::ROWB_V);
+        merged_product<HDV, C::MW_V, BQ / 16, C::CHUNK_V, F32>(
+            dv_acc, t, s_do, BQ, C::ROWB_V, C::KV_DO);
         pin(t[0]);
         pin(t[1]);
         pin(t[2]);
@@ -603,8 +778,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         // dK += dS^T Q, Q the MN-major B operand.
         uint32_t t[3][BQ / 4];
         split_terms(dpt, t);
-        merged_product<HD, C::MW, BQ / 16, C::CHUNK>(dk_acc, t, s_q, BQ,
-                                                     C::ROWB);
+        merged_product<HD, C::MW, BQ / 16, C::CHUNK, F32>(
+            dk_acc, t, s_q, BQ, C::ROWB, C::KV_Q);
         pin(t[0]);
         pin(t[1]);
         pin(t[2]);
@@ -620,428 +795,72 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
                   vrow, r0, Sk, lane, 1.0f);
 }
 
-template <int HD, int HDV>
-int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
-                 const void* dO, const void* lse, void* D, void* dq, void* dk,
-                 void* dv, int B, int Sq, int Sk, int H, int KV, float scale,
-                 int causal, int window, cudaStream_t stream) {
-  using C = BwdCfg<HD, HDV>;
+// The two kernels of one instantiation.  q, k, v and dO_tma are what TMA
+// reads (bf16: the inputs; float32: their split_bf16x3 planes, (3, B, S,
+// heads, hd)); o and dO are the dtype's, for D.
+template <int HD, int HDV, bool F32>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dO, const void* dO_tma, const void* lse, void* D,
+           void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
+           float scale, int causal, int window, cudaStream_t stream) {
+  using C = BwdCfg<HD, HDV, F32>;
+  using T = out_t<F32>;
   if (Sq == 0) {  // no query: dK = dV = 0 exactly
-    cudaError_t e = cudaMemsetAsync(dk, 0, (size_t)B * Sk * KV * HD * 2,
-                                    stream);
+    cudaError_t e = cudaMemsetAsync(dk, 0, (size_t)B * Sk * KV * HD *
+                                               sizeof(T), stream);
     if (e == cudaSuccess)
-      e = cudaMemsetAsync(dv, 0, (size_t)B * Sk * KV * HDV * 2, stream);
+      e = cudaMemsetAsync(dv, 0, (size_t)B * Sk * KV * HDV * sizeof(T),
+                          stream);
     return (int)e;
   }
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return ERR_NO_ENCODER;
   const CUtensorMapSwizzle sw = swizzle_of(C::ROWB);
   const CUtensorMapSwizzle sw_v = swizzle_of(C::ROWB_V);
-  // dQ's maps (Q / dO in 128 rows, K / V in BK), then dK / dV's (K / V in
-  // 128 rows, Q / dO in BQ).
+  const int NB = C::PLANES * B;  // float32: the planes on the batch axis
+  // dQ's maps (Q / dO in DQ_ROWS rows, K / V in BK), then dK / dV's (K / V
+  // in KV_ROWS rows, Q / dO in BQ).
   CUtensorMap a_q, a_k, a_v, a_do, b_q, b_k, b_v, b_do;
-  if (!make_map(enc, &a_q, q, B, Sq, H, HD, C::CHUNK, CTA_ROWS, sw) ||
-      !make_map(enc, &a_k, k, B, Sk, KV, HD, C::CHUNK, C::BK, sw) ||
-      !make_map(enc, &a_v, v, B, Sk, KV, HDV, C::CHUNK_V, C::BK, sw_v) ||
-      !make_map(enc, &a_do, dO, B, Sq, H, HDV, C::CHUNK_V, CTA_ROWS, sw_v) ||
-      !make_map(enc, &b_q, q, B, Sq, H, HD, C::CHUNK, C::BQ, sw) ||
-      !make_map(enc, &b_k, k, B, Sk, KV, HD, C::CHUNK, CTA_ROWS, sw) ||
-      !make_map(enc, &b_v, v, B, Sk, KV, HDV, C::CHUNK_V, CTA_ROWS, sw_v) ||
-      !make_map(enc, &b_do, dO, B, Sq, H, HDV, C::CHUNK_V, C::BQ, sw_v))
+  if (!make_map(enc, &a_q, q, NB, Sq, H, HD, C::CHUNK, C::DQ_ROWS, sw) ||
+      !make_map(enc, &a_k, k, NB, Sk, KV, HD, C::CHUNK, C::BK, sw) ||
+      !make_map(enc, &a_v, v, NB, Sk, KV, HDV, C::CHUNK_V, C::BK, sw_v) ||
+      !make_map(enc, &a_do, dO_tma, NB, Sq, H, HDV, C::CHUNK_V, C::DQ_ROWS,
+                sw_v) ||
+      !make_map(enc, &b_q, q, NB, Sq, H, HD, C::CHUNK, C::BQ, sw) ||
+      !make_map(enc, &b_k, k, NB, Sk, KV, HD, C::CHUNK, C::KV_ROWS, sw) ||
+      !make_map(enc, &b_v, v, NB, Sk, KV, HDV, C::CHUNK_V, C::KV_ROWS,
+                sw_v) ||
+      !make_map(enc, &b_do, dO_tma, NB, Sq, H, HDV, C::CHUNK_V, C::BQ, sw_v))
     return ERR_TENSOR_MAP;
   static bool attr_set = false;  // per instantiation
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        fa_bwd_dq_wgmma<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        C::DQ_SMEM);
+        fa_bwd_dq_wgmma<HD, HDV, F32>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, C::DQ_SMEM);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(fa_bwd_dkdv_wgmma<HD, HDV>,
+      e = cudaFuncSetAttribute(fa_bwd_dkdv_wgmma<HD, HDV, F32>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                C::KV_SMEM);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  using bf16 = __nv_bfloat16;
-  fa_bwd_dq_wgmma<HD, HDV><<<dim3((Sq + CTA_ROWS - 1) / CTA_ROWS, H, B),
-                             WG_THREADS, C::DQ_SMEM, stream>>>(
-      a_q, a_k, a_v, a_do, static_cast<const bf16*>(o),
-      static_cast<const bf16*>(dO), static_cast<const float*>(lse),
-      static_cast<float*>(D), static_cast<bf16*>(dq), Sq, Sk, H, KV, scale,
-      causal, window);
+  fa_bwd_dq_wgmma<HD, HDV, F32><<<
+      dim3((Sq + C::DQ_ROWS - 1) / C::DQ_ROWS, H, B), C::DQ_THREADS,
+      C::DQ_SMEM, stream>>>(a_q, a_k, a_v, a_do, static_cast<const T*>(o),
+                            static_cast<const T*>(dO),
+                            static_cast<const float*>(lse),
+                            static_cast<float*>(D), static_cast<T*>(dq), B, Sq,
+                            Sk, H, KV, scale, causal, window);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  fa_bwd_dkdv_wgmma<HD, HDV><<<dim3((Sk + CTA_ROWS - 1) / CTA_ROWS, KV, B),
-                               WG_THREADS, C::KV_SMEM, stream>>>(
-      b_q, b_k, b_v, b_do, static_cast<const float*>(lse),
-      static_cast<const float*>(D), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), Sq, Sk, H, KV, scale, causal, window);
+  fa_bwd_dkdv_wgmma<HD, HDV, F32><<<
+      dim3((Sk + C::KV_ROWS - 1) / C::KV_ROWS, KV, B), C::KV_THREADS,
+      C::KV_SMEM, stream>>>(b_q, b_k, b_v, b_do,
+                            static_cast<const float*>(lse),
+                            static_cast<const float*>(D), static_cast<T*>(dk),
+                            static_cast<T*>(dv), B, Sq, Sk, H, KV, scale,
+                            causal, window);
   return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// float32: CUDA cores
-// ---------------------------------------------------------------------------
-// Tiles are 64 x 64; a CTA is 16 x 16 threads, thread (ty, tx) owning rows
-// ty + 16a (a < 4) and columns tx + 16c, so a warp reads at most two rows
-// of the row operand (a broadcast) and sixteen consecutive words of the
-// column operand.  Every tile is float32 in shared memory with an odd row
-// stride (width + 1), so a column read down sixteen rows also hits sixteen
-// banks.  It does 14 hd flops a pair (S and dP are recomputed in both
-// kernels), reading two shared-memory words per FMA pair in its inner
-// loops: it is bound by shared-memory bandwidth, 11x its 4.170 ms bound
-// (six bf16 plane passes at 989 / 6 TFLOP/s) at the training shape.
-
-constexpr int BR = 64;         // rows of every tile (queries or keys)
-constexpr int THREADS = 256;   // 16 x 16: ty = tid / 16, tx = tid % 16
-constexpr int TR = BR / 16;    // rows (and score columns) per thread
-
-// Rows r0 .. r0 + BR - 1 of a (rows, W) slab whose row i starts at
-// src + i * stride, into dst (row stride W + 1); rows at or past n are
-// zero.
-template <int W>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int64_t stride, int r0, int n) {
-  for (int idx = threadIdx.x; idx < BR * W; idx += THREADS) {
-    const int r = idx / W, c = idx % W;
-    dst[r * (W + 1) + c] = r0 + r < n ? src[(int64_t)(r0 + r) * stride + c]
-                                      : 0.0f;
-  }
-}
-
-// s[a][b] = Q_i . K_j and dp[a][b] = dO_i . V_j for i = ty + 16a and
-// j = tx + 16b of the 64 x 64 tile pair.
-template <int HD, int HDV>
-__device__ __forceinline__ void scores(const float* Qs, const float* Ks,
-                                       const float* dOs, const float* Vs,
-                                       int ty, int tx, float s[TR][TR],
-                                       float dp[TR][TR]) {
-#pragma unroll
-  for (int a = 0; a < TR; ++a)
-#pragma unroll
-    for (int b = 0; b < TR; ++b) s[a][b] = dp[a][b] = 0.0f;
-#pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
-    float x[TR], y[TR];
-#pragma unroll
-    for (int a = 0; a < TR; ++a) x[a] = Qs[(ty + 16 * a) * (HD + 1) + d];
-#pragma unroll
-    for (int b = 0; b < TR; ++b) y[b] = Ks[(tx + 16 * b) * (HD + 1) + d];
-#pragma unroll
-    for (int a = 0; a < TR; ++a)
-#pragma unroll
-      for (int b = 0; b < TR; ++b) s[a][b] = fmaf(x[a], y[b], s[a][b]);
-  }
-#pragma unroll 4
-  for (int e = 0; e < HDV; ++e) {
-    float x[TR], y[TR];
-#pragma unroll
-    for (int a = 0; a < TR; ++a) x[a] = dOs[(ty + 16 * a) * (HDV + 1) + e];
-#pragma unroll
-    for (int b = 0; b < TR; ++b) y[b] = Vs[(tx + 16 * b) * (HDV + 1) + e];
-#pragma unroll
-    for (int a = 0; a < TR; ++a)
-#pragma unroll
-      for (int b = 0; b < TR; ++b) dp[a][b] = fmaf(x[a], y[b], dp[a][b]);
-  }
-}
-
-// P and dS of the tile pair (query rows q0.., keys k0..) from s and dp;
-// P into Ps when it is given, dS into dSs (both row stride BR + 1, query
-// rows first).
-__device__ __forceinline__ void tile_grad(
-    const float s[TR][TR], const float dp[TR][TR], const float* Ls,
-    const float* Dsm, float* Ps, float* dSs, int ty, int tx, int q0, int k0,
-    int Sq, int Sk, float scale, int causal, int window) {
-#pragma unroll
-  for (int a = 0; a < TR; ++a) {
-    const int i = ty + 16 * a;
-#pragma unroll
-    for (int b = 0; b < TR; ++b) {
-      const int j = tx + 16 * b;
-      const float p = visible(q0 + i, k0 + j, Sq, Sk, causal, window)
-                          ? expf(s[a][b] * scale - Ls[i])
-                          : 0.0f;
-      if (Ps != nullptr) Ps[i * (BR + 1) + j] = p;
-      dSs[i * (BR + 1) + j] = p * (dp[a][b] - Dsm[i]);
-    }
-  }
-}
-
-template <int HD, int HDV>
-constexpr int dq_smem() {
-  return 4 * (BR * (HD + 1) * 2 + BR * (HDV + 1) * 2 + BR * (BR + 1) +
-              2 * BR);
-}
-template <int HD, int HDV>
-constexpr int dkdv_smem() {
-  return dq_smem<HD, HDV>() + 4 * BR * (BR + 1);
-}
-
-// q (B, Sq, H, HD), k (B, Sk, KV, HD), v (B, Sk, KV, HDV), o and dO (B, Sq,
-// H, HDV), lse (B, H, Sq) -> dq (B, Sq, H, HD) and D (B, H, Sq).
-template <int HD, int HDV>
-__global__ void __launch_bounds__(THREADS)
-    fa_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ o,
-              const float* __restrict__ dO, const float* __restrict__ lse,
-              float* __restrict__ Dout, float* __restrict__ dq, int Sq,
-              int Sk, int H, int KV, float scale, int causal, int window) {
-  extern __shared__ float sm[];
-  float* Qs = sm;
-  float* Ks = Qs + BR * (HD + 1);
-  float* dOs = Ks + BR * (HD + 1);
-  float* Vs = dOs + BR * (HDV + 1);
-  float* dSs = Vs + BR * (HDV + 1);
-  float* Ls = dSs + BR * (BR + 1);
-  float* Dsm = Ls + BR;
-
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int q0 = qt * BR;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int64_t qrow = (int64_t)H * HD, orow = (int64_t)H * HDV;
-  const float* qb = q + (int64_t)b * Sq * qrow + (int64_t)h * HD;
-  const float* ob = o + (int64_t)b * Sq * orow + (int64_t)h * HDV;
-  const float* dob = dO + (int64_t)b * Sq * orow + (int64_t)h * HDV;
-  const int64_t stat = ((int64_t)b * H + h) * Sq;
-
-  load_tile<HD>(Qs, qb, qrow, q0, Sq);
-  load_tile<HDV>(dOs, dob, orow, q0, Sq);
-  if (threadIdx.x < BR)
-    Ls[threadIdx.x] = q0 + threadIdx.x < Sq ? lse[stat + q0 + threadIdx.x]
-                                            : 0.0f;
-  __syncthreads();
-  // D = rowsum(dO * O): each thread sums its columns of its rows, then the
-  // sixteen threads of a row (one half-warp) add in a fixed tree.
-#pragma unroll
-  for (int a = 0; a < TR; ++a) {
-    const int i = ty + 16 * a;
-    float part = 0.0f;
-    if (q0 + i < Sq)
-#pragma unroll
-      for (int c = 0; c < HDV / 16; ++c)
-        part = fmaf(dOs[i * (HDV + 1) + tx + 16 * c],
-                    ob[(int64_t)(q0 + i) * orow + tx + 16 * c], part);
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      part += __shfl_xor_sync(0xffffffffu, part, off);
-    if (tx == 0) {
-      Dsm[i] = part;
-      if (q0 + i < Sq) Dout[stat + q0 + i] = part;
-    }
-  }
-
-  int kt_hi = (Sk + BR - 1) / BR;
-  if (causal) kt_hi = min(kt_hi, (min(q0 + BR, Sq) - 1) / BR + 1);
-  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / BR : 0;
-  const int64_t krow = (int64_t)KV * HD, vrow = (int64_t)KV * HDV;
-  const float* kb = k + (int64_t)b * Sk * krow + (int64_t)kvh * HD;
-  const float* vb = v + (int64_t)b * Sk * vrow + (int64_t)kvh * HDV;
-
-  float acc[TR][HD / 16];
-#pragma unroll
-  for (int a = 0; a < TR; ++a)
-#pragma unroll
-    for (int c = 0; c < HD / 16; ++c) acc[a][c] = 0.0f;
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * BR;
-    __syncthreads();  // the last tile's readers are done (and Dsm is set)
-    load_tile<HD>(Ks, kb, krow, k0, Sk);
-    load_tile<HDV>(Vs, vb, vrow, k0, Sk);
-    __syncthreads();
-    float s[TR][TR], dp[TR][TR];
-    scores<HD, HDV>(Qs, Ks, dOs, Vs, ty, tx, s, dp);
-    tile_grad(s, dp, Ls, Dsm, nullptr, dSs, ty, tx, q0, k0, Sq, Sk, scale,
-              causal, window);
-    __syncthreads();
-    // dQ += dS K
-#pragma unroll 4
-    for (int j = 0; j < BR; ++j) {
-      float x[TR];
-#pragma unroll
-      for (int a = 0; a < TR; ++a) x[a] = dSs[(ty + 16 * a) * (BR + 1) + j];
-#pragma unroll
-      for (int c = 0; c < HD / 16; ++c) {
-        const float y = Ks[j * (HD + 1) + tx + 16 * c];
-#pragma unroll
-        for (int a = 0; a < TR; ++a) acc[a][c] = fmaf(x[a], y, acc[a][c]);
-      }
-    }
-  }
-  float* dqb = dq + (int64_t)b * Sq * qrow + (int64_t)h * HD;
-#pragma unroll
-  for (int a = 0; a < TR; ++a) {
-    const int row = q0 + ty + 16 * a;
-    if (row >= Sq) continue;
-#pragma unroll
-    for (int c = 0; c < HD / 16; ++c)
-      dqb[(int64_t)row * qrow + tx + 16 * c] = acc[a][c] * scale;
-  }
-}
-
-// The same tensors, lse and D (B, H, Sq) -> dk (B, Sk, KV, HD) and dv (B,
-// Sk, KV, HDV).
-template <int HD, int HDV>
-__global__ void __launch_bounds__(THREADS)
-    fa_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ dO,
-                const float* __restrict__ lse, const float* __restrict__ Din,
-                float* __restrict__ dk, float* __restrict__ dv, int Sq,
-                int Sk, int H, int KV, float scale, int causal, int window) {
-  extern __shared__ float sm[];
-  float* Qs = sm;
-  float* Ks = Qs + BR * (HD + 1);
-  float* dOs = Ks + BR * (HD + 1);
-  float* Vs = dOs + BR * (HDV + 1);
-  float* dSs = Vs + BR * (HDV + 1);
-  float* Ls = dSs + BR * (BR + 1);
-  float* Dsm = Ls + BR;
-  float* Ps = Dsm + BR;
-
-  const int kt = blockIdx.x;  // causal: key tile 0 sees the most queries
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int G = H / KV;
-  const int k0 = kt * BR;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int64_t krow = (int64_t)KV * HD, vrow = (int64_t)KV * HDV;
-  load_tile<HD>(Ks, k + (int64_t)b * Sk * krow + (int64_t)kvh * HD, krow, k0,
-                Sk);
-  load_tile<HDV>(Vs, v + (int64_t)b * Sk * vrow + (int64_t)kvh * HDV, vrow,
-                 k0, Sk);
-
-  // Query tiles holding a query that may see a key of this tile.
-  const int qt_lo = causal ? k0 / BR : 0;
-  int qt_hi = (Sq + BR - 1) / BR;
-  if (window > 0) qt_hi = min(qt_hi, (k0 + BR + window - 2) / BR + 1);
-  const int64_t qrow = (int64_t)H * HD, orow = (int64_t)H * HDV;
-
-  float dk_acc[TR][HD / 16], dv_acc[TR][HDV / 16];
-#pragma unroll
-  for (int a = 0; a < TR; ++a) {
-#pragma unroll
-    for (int c = 0; c < HD / 16; ++c) dk_acc[a][c] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < HDV / 16; ++c) dv_acc[a][c] = 0.0f;
-  }
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    const float* qb = q + (int64_t)b * Sq * qrow + (int64_t)h * HD;
-    const float* dob = dO + (int64_t)b * Sq * orow + (int64_t)h * HDV;
-    const int64_t stat = ((int64_t)b * H + h) * Sq;
-    for (int qt = qt_lo; qt < qt_hi; ++qt) {
-      const int q0 = qt * BR;
-      __syncthreads();  // the last tile's readers are done
-      load_tile<HD>(Qs, qb, qrow, q0, Sq);
-      load_tile<HDV>(dOs, dob, orow, q0, Sq);
-      if (threadIdx.x < BR) {
-        const int row = q0 + threadIdx.x;
-        Ls[threadIdx.x] = row < Sq ? lse[stat + row] : 0.0f;
-        Dsm[threadIdx.x] = row < Sq ? Din[stat + row] : 0.0f;
-      }
-      __syncthreads();
-      float s[TR][TR], dp[TR][TR];
-      scores<HD, HDV>(Qs, Ks, dOs, Vs, ty, tx, s, dp);
-      tile_grad(s, dp, Ls, Dsm, Ps, dSs, ty, tx, q0, k0, Sq, Sk, scale,
-                causal, window);
-      __syncthreads();
-      // dV += P^T dO and dK += dS^T Q over the tile's query rows.
-#pragma unroll 4
-      for (int i = 0; i < BR; ++i) {
-        float pj[TR], sj[TR];
-#pragma unroll
-        for (int a = 0; a < TR; ++a) {
-          pj[a] = Ps[i * (BR + 1) + ty + 16 * a];
-          sj[a] = dSs[i * (BR + 1) + ty + 16 * a];
-        }
-#pragma unroll
-        for (int c = 0; c < HDV / 16; ++c) {
-          const float y = dOs[i * (HDV + 1) + tx + 16 * c];
-#pragma unroll
-          for (int a = 0; a < TR; ++a)
-            dv_acc[a][c] = fmaf(pj[a], y, dv_acc[a][c]);
-        }
-#pragma unroll
-        for (int c = 0; c < HD / 16; ++c) {
-          const float y = Qs[i * (HD + 1) + tx + 16 * c];
-#pragma unroll
-          for (int a = 0; a < TR; ++a)
-            dk_acc[a][c] = fmaf(sj[a], y, dk_acc[a][c]);
-        }
-      }
-    }
-  }
-  float* dkb = dk + (int64_t)b * Sk * krow + (int64_t)kvh * HD;
-  float* dvb = dv + (int64_t)b * Sk * vrow + (int64_t)kvh * HDV;
-#pragma unroll
-  for (int a = 0; a < TR; ++a) {
-    const int row = k0 + ty + 16 * a;
-    if (row >= Sk) continue;
-#pragma unroll
-    for (int c = 0; c < HD / 16; ++c)
-      dkb[(int64_t)row * krow + tx + 16 * c] = dk_acc[a][c] * scale;
-#pragma unroll
-    for (int c = 0; c < HDV / 16; ++c)
-      dvb[(int64_t)row * vrow + tx + 16 * c] = dv_acc[a][c];
-  }
-}
-
-template <int HD, int HDV>
-int launch_cuda_cores(const void* q, const void* k, const void* v,
-                      const void* o, const void* dO, const void* lse, void* D,
-                      void* dq, void* dk, void* dv, int B, int Sq, int Sk,
-                      int H, int KV, float scale, int causal, int window,
-                      cudaStream_t stream) {
-  constexpr int SM_DQ = dq_smem<HD, HDV>();
-  constexpr int SM_DKDV = dkdv_smem<HD, HDV>();
-  static_assert(SM_DKDV <= SMEM_MAX, "tiles exceed the shared-memory budget");
-  static bool attr_set = false;  // per instantiation
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fa_bwd_dq<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SM_DQ);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(fa_bwd_dkdv<HD, HDV>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SM_DKDV);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
-  const float* tq = static_cast<const float*>(q);
-  const float* tk = static_cast<const float*>(k);
-  const float* tv = static_cast<const float*>(v);
-  const float* tdo = static_cast<const float*>(dO);
-  const float* tl = static_cast<const float*>(lse);
-  float* tD = static_cast<float*>(D);
-  if (Sq > 0) {
-    fa_bwd_dq<HD, HDV><<<dim3((Sq + BR - 1) / BR, H, B), THREADS, SM_DQ,
-                         stream>>>(tq, tk, tv, static_cast<const float*>(o),
-                                   tdo, tl, tD, static_cast<float*>(dq), Sq,
-                                   Sk, H, KV, scale, causal, window);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  fa_bwd_dkdv<HD, HDV><<<dim3((Sk + BR - 1) / BR, KV, B), THREADS, SM_DKDV,
-                         stream>>>(tq, tk, tv, tdo, tl, tD,
-                                   static_cast<float*>(dk),
-                                   static_cast<float*>(dv), Sq, Sk, H, KV,
-                                   scale, causal, window);
-  return (int)cudaGetLastError();
-}
-
-// bf16 takes the wgmma kernels, float32 the CUDA-core ones.
-template <int HD, int HDV, typename T>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dO, const void* lse, void* D, void* dq, void* dk,
-           void* dv, int B, int Sq, int Sk, int H, int KV, float scale,
-           int causal, int window, cudaStream_t stream) {
-  if constexpr (std::is_same_v<T, float>)
-    return launch_cuda_cores<HD, HDV>(q, k, v, o, dO, lse, D, dq, dk, dv, B,
-                                      Sq, Sk, H, KV, scale, causal, window,
-                                      stream);
-  else
-    return launch_wgmma<HD, HDV>(q, k, v, o, dO, lse, D, dq, dk, dv, B, Sq,
-                                 Sk, H, KV, scale, causal, window, stream);
 }
 
 // The head dims and (q/k, v) pairs of the forward kernel
@@ -1050,18 +869,22 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 #define HEAD_DIMS(X) X(16) X(32) X(64) X(80) X(112) X(128)
 #define HEAD_DIM_PAIRS(X) X(192, 128)
 
+// T the inputs' dtype: bf16, or float (given as its planes); both take the
+// wgmma kernels, and a head dim outside the lists is refused.
 template <typename T>
 int backward(const void* q, const void* k, const void* v, const void* o,
-             const void* dO, const void* lse, void* D, void* dq, void* dk,
-             void* dv, int B, int Sq, int Sk, int H, int KV, int hd,
-             int hd_v, float scale, int causal, int window, void* stream) {
+             const void* dO, const void* dO_tma, const void* lse, void* D,
+             void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H,
+             int KV, int hd, int hd_v, float scale, int causal, int window,
+             void* stream) {
+  constexpr bool F32 = std::is_same_v<T, float>;
   if (B == 0 || Sk == 0 || KV == 0) return 0;
   if (H <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CASE(HD, HDV)                                                       \
-  if (hd == HD && hd_v == HDV)                                              \
-    return launch<HD, HDV, T>(q, k, v, o, dO, lse, D, dq, dk, dv, B, Sq, Sk, \
-                              H, KV, scale, causal, window, st);
+#define CASE(HD, HDV)                                                        \
+  if (hd == HD && hd_v == HDV)                                               \
+    return launch<HD, HDV, F32>(q, k, v, o, dO, dO_tma, lse, D, dq, dk, dv, \
+                                B, Sq, Sk, H, KV, scale, causal, window, st);
 #define SAME(HD) CASE(HD, HD)
   HEAD_DIMS(SAME)
   HEAD_DIM_PAIRS(CASE)
@@ -1075,33 +898,38 @@ int backward(const void* q, const void* k, const void* v, const void* o,
 // Plain C entry points (loaded with ctypes).  Each launches its dQ kernel,
 // then its dK / dV kernel, on the given stream, does not synchronize, and
 // returns cudaGetLastError() (the error that refused a launch), or
-// ERR_NO_ENCODER / ERR_TENSOR_MAP (negative, bf16 only).
+// ERR_NO_ENCODER / ERR_TENSOR_MAP (negative).
 //
 // fa_backward_bf16: bf16 q (B, Sq, H, hd), k (B, Sk, KV, hd), v (B, Sk, KV,
 // hd_v), o and dO (B, Sq, H, hd_v), contiguous and 16-byte aligned;
 // float32 lse (B, H, Sq) from the forward and scratch D (B, H, Sq); bf16
 // outputs dq, dk, dv of q's, k's and v's shapes.  hd == hd_v one of
 // HEAD_DIMS, or (hd, hd_v) one of HEAD_DIM_PAIRS; window <= 0 means no
-// window.  fa_bwd_dq_wgmma, then fa_bwd_dkdv_wgmma.
+// window.  fa_bwd_dq_wgmma<hd, hd_v, false>, then
+// fa_bwd_dkdv_wgmma<hd, hd_v, false>.
 extern "C" int fa_backward_bf16(const void* q, const void* k, const void* v,
                                 const void* o, const void* dO,
                                 const void* lse, void* D, void* dq, void* dk,
                                 void* dv, int B, int Sq, int Sk, int H,
                                 int KV, int hd, int hd_v, float scale,
                                 int causal, int window, void* stream) {
-  return backward<__nv_bfloat16>(q, k, v, o, dO, lse, D, dq, dk, dv, B, Sq,
-                                 Sk, H, KV, hd, hd_v, scale, causal, window,
-                                 stream);
+  return backward<__nv_bfloat16>(q, k, v, o, dO, dO, lse, D, dq, dk, dv, B,
+                                 Sq, Sk, H, KV, hd, hd_v, scale, causal,
+                                 window, stream);
 }
 
-// fa_backward_f32: the same with float32 q, k, v, o, dO and outputs:
-// fa_bwd_dq, then fa_bwd_dkdv.
+// fa_backward_f32: the same for float32 inputs, q, k and v given as
+// split_bf16x3's planes (3, B, S, heads, hd) bf16, o and dO float32 (B,
+// Sq, H, hd_v) and dO also as its planes (dO_planes); float32 outputs.
+// fa_bwd_dq_wgmma<hd, hd_v, true>, then fa_bwd_dkdv_wgmma<hd, hd_v, true>.
 extern "C" int fa_backward_f32(const void* q, const void* k, const void* v,
-                               const void* o, const void* dO, const void* lse,
+                               const void* o, const void* dO,
+                               const void* dO_planes, const void* lse,
                                void* D, void* dq, void* dk, void* dv, int B,
                                int Sq, int Sk, int H, int KV, int hd,
                                int hd_v, float scale, int causal, int window,
                                void* stream) {
-  return backward<float>(q, k, v, o, dO, lse, D, dq, dk, dv, B, Sq, Sk, H,
-                         KV, hd, hd_v, scale, causal, window, stream);
+  return backward<float>(q, k, v, o, dO, dO_planes, lse, D, dq, dk, dv, B,
+                         Sq, Sk, H, KV, hd, hd_v, scale, causal, window,
+                         stream);
 }

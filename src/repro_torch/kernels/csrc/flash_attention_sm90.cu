@@ -131,17 +131,8 @@ constexpr int CONSUMER_REGS = 232;
 constexpr int THREADS = 32 * (CONSUMER_WARPS + PRODUCER_WARPS);
 constexpr float MASKED = -1e30f;
 
-// Plane products of the float32 kernel, smallest first: pass t multiplies
-// plane pass_a(t) of the left operand by plane pass_b(t) of the right (0
-// hi, 1 mid, 2 lo): mid*mid, lo*hi, hi*lo, mid*hi, hi*mid, hi*hi.
-// mid*lo, lo*mid and lo*lo are dropped (see the note at the top).
-constexpr int PASSES = 6;
-__host__ __device__ constexpr int pass_a(int t) {
-  return t == 0 || t == 3 ? 1 : t == 1 ? 2 : 0;
-}
-__host__ __device__ constexpr int pass_b(int t) {
-  return t == 0 || t == 4 ? 1 : t == 2 ? 2 : 0;
-}
+// The float32 kernel's plane products (PASSES, pass_a, pass_b) are
+// sm90_common.cuh's, shared with the float32 backward.
 
 // Shared memory of one CTA: 1024 bytes of slack to align the tiles to the
 // swizzle atom, then PLANES planes of Q (q/k width hd), the ring of

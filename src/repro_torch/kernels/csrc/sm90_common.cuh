@@ -1,8 +1,9 @@
 // Hopper (sm_90a) primitives of the attention kernels, included by the
 // forward (flash_attention_sm90.cu) and the backward
 // (flash_attention_bwd_sm90.cu): mbarriers, TMA tensor loads and their
-// 4-D tensor maps, wgmma with its shared-memory descriptors, and the exact
-// three-term bf16 split of a float32 value.  Each source compiles it into
+// 4-D tensor maps, wgmma with its shared-memory descriptors, the exact
+// three-term bf16 split of a float32 value and the six plane products of
+// a float32 product.  Each source compiles it into
 // its own library; kernels/_build.py hashes it with every source that
 // includes it, so a change here rebuilds both.
 #pragma once
@@ -220,6 +221,21 @@ __device__ __forceinline__ void split3(float x, float y, uint32_t& hi,
   mid = as_u32(m);
   lo = as_u32(
       __floats2bfloat162_rn(__fsub_rn(xr, mf.x), __fsub_rn(yr, mf.y)));
+}
+
+// Plane products of a float32 product x y from the bf16 planes of x and
+// y (and of a split3'd float32 value), smallest first: pass t multiplies
+// plane pass_a(t) of the left operand by plane pass_b(t) of the right (0
+// hi, 1 mid, 2 lo): mid*mid, lo*hi, hi*lo, mid*hi, hi*mid, hi*hi.
+// mid*lo, lo*mid and lo*lo (each at most 2^-24 |x y|) are dropped, so each
+// product formed is within 2^-23 |x y| of the exact one
+// (flash_attention_sm90.cu's note).
+constexpr int PASSES = 6;
+__host__ __device__ constexpr int pass_a(int t) {
+  return t == 0 || t == 3 ? 1 : t == 1 ? 2 : 0;
+}
+__host__ __device__ constexpr int pass_b(int t) {
+  return t == 0 || t == 4 ? 1 : t == 2 ? 2 : 0;
 }
 
 __device__ __forceinline__ float quad_max(float x) {

@@ -22,9 +22,10 @@ Under autograd (grad enabled and q, k or v requiring grad) the call goes
 through a ``torch.autograd.Function``: the forward kernel also stores each
 row's log-sum-exp, and the backward is :func:`flash_attention_bwd`, which
 launches ``csrc/flash_attention_bwd_sm90.cu`` for CUDA tensors or raises
-(two kernels a dtype, dQ then dK / dV: bf16 on the tensor cores,
-``fa_bwd_dq_wgmma`` / ``fa_bwd_dkdv_wgmma``; float32 on the CUDA cores,
-``fa_bwd_dq`` / ``fa_bwd_dkdv``), and runs
+(dQ then dK / dV on the tensor cores, ``fa_bwd_dq_wgmma<hd, hd_v, F32>``
+/ ``fa_bwd_dkdv_wgmma<hd, hd_v, F32>``: bf16 directly; float32 after
+:func:`split_bf16x3` of q, k, v and dO, six plane products per float32
+product), and runs
 :func:`.ref.flash_attention_bwd_ref` for CPU tensors.  The JAX package has
 no Pallas backward: it differentiates the jnp chunked attention, the same
 function.  Under ``no_grad`` / ``inference_mode`` (serving) no statistic is
@@ -34,8 +35,8 @@ stored and nothing else changes.
 (``"flash_attention"`` the bf16 kernel, ``"flash_attention_f32"`` the
 float32 one, ``"split_bf16x3"`` the split, three per float32 call,
 ``"flash_attention_bwd"`` / ``"flash_attention_bwd_f32"`` one per backward
-call, which launches the backward source's two kernels); plain-version
-calls are not counted.
+call, which launches the backward source's two kernels, float32 after
+four splits); plain-version calls are not counted.
 """
 from __future__ import annotations
 
@@ -90,10 +91,11 @@ def _entry(name: str):
         fn = getattr(load(SOURCE), name)
         fn.argtypes = [P, P, ctypes.c_longlong, ctypes.c_longlong, P]
     elif name.startswith("fa_backward"):
-        # q, k, v, o, dO, lse, D, dq, dk, dv, B, Sq, Sk, H, KV, hd, hd_v,
-        # scale, causal, window, stream
+        # q, k, v, o, dO, [float32: dO's planes,] lse, D, dq, dk, dv, B,
+        # Sq, Sk, H, KV, hd, hd_v, scale, causal, window, stream
         fn = getattr(load(BWD_SOURCE), name)
-        fn.argtypes = [P] * 10 + [I] * 7 + [F, I, I, P]
+        n_ptr = 11 if name == BWD_ROUTES[torch.float32][0] else 10
+        fn.argtypes = [P] * n_ptr + [I] * 7 + [F, I, I, P]
     else:
         # q, k, v, o, lse, B, Sq, Sk, H, KV, hd, hd_v, scale, causal,
         # window, stream
@@ -227,8 +229,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     ``o``, its saved ``lse`` (B, H, Sq) and the output's gradient ``do``,
     in q's dtype.  CPU tensors run :func:`.ref.flash_attention_bwd_ref`;
     CUDA tensors launch the dtype's backward or raise: bf16
-    ``fa_backward_bf16`` (``fa_bwd_dq_wgmma`` then ``fa_bwd_dkdv_wgmma``),
-    float32 ``fa_backward_f32`` (``fa_bwd_dq`` then ``fa_bwd_dkdv``)."""
+    ``fa_backward_bf16``, float32 :func:`split_bf16x3` of q, k, v and do
+    (four launches) then ``fa_backward_f32`` on their planes (o and do
+    also in float32, for D); each ``fa_bwd_dq_wgmma`` then
+    ``fa_bwd_dkdv_wgmma`` of its dtype."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
@@ -247,10 +251,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         return dq, dk, dv
     D = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     name, key = BWD_ROUTES[q.dtype]
+    ptrs = [q, k, v, o, do]
+    if q.dtype == torch.float32:
+        planes = [split_bf16x3(x) for x in (q, k, v, do)]
+        ptrs = [*planes[:3], o, do, planes[3]]
     err = _entry(name)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), D.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KV, hd, hd_v,
+        *(x.data_ptr() for x in ptrs), lse.data_ptr(), D.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KV, hd,
+        hd_v,
         1.0 / math.sqrt(hd), int(causal), window or 0,
         torch.cuda.current_stream().cuda_stream)
     if err != 0:

@@ -126,8 +126,9 @@ def test_each_cuda_dtype_has_one_kernel():
     float32 reaches its kernel only through the split's bf16 planes, and
     the CUDA-core float32 source (csrc/flash_attention.cu) is gone.  The
     backward is the other source's two entries, one a dtype, each counted
-    under its own key: bf16 the two wgmma kernels, float32 the two
-    CUDA-core ones.  Both sources take their Hopper primitives from one
+    under its own key, both launching the two wgmma kernels of their
+    dtype (float32 on the split's planes; the CUDA-core float32 kernels
+    are gone).  Both sources take their Hopper primitives from one
     header."""
     import inspect
     from repro_torch.kernels import _build
@@ -145,10 +146,10 @@ def test_each_cuda_dtype_has_one_kernel():
     for entry, _ in K.BWD_ROUTES.values():
         assert f'extern "C" int {entry}(' in bwd
     assert "backward<__nv_bfloat16>(" in bwd and "backward<float>(" in bwd
-    # bf16 launches the two wgmma kernels, float32 the two CUDA-core ones.
-    for kernel in ("fa_bwd_dq_wgmma", "fa_bwd_dkdv_wgmma", "fa_bwd_dq",
-                   "fa_bwd_dkdv"):
-        assert f"{kernel}<HD, HDV><<<" in bwd
+    # Both dtypes launch the two wgmma kernels, float32 its instantiation.
+    for kernel in ("fa_bwd_dq_wgmma", "fa_bwd_dkdv_wgmma"):
+        assert f"{kernel}<HD, HDV, F32><<<" in bwd
+    assert "fa_bwd_dq<" not in bwd and "fa_bwd_dkdv<" not in bwd
     assert "std::is_same_v<T, float>" in bwd
     sm90 = (_build.CSRC / "flash_attention_sm90.cu").read_text()
     for entry in ("fa_forward_bf16", "fa_forward_f32", K.SPLIT):

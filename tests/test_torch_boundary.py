@@ -534,6 +534,34 @@ def test_chip_smoke_subquadratic_variants_are_the_cpu_tests():
     assert smoke.LONG_PROMPT <= 4096 and smoke.ZOO_PROMPT % 32 == 0
 
 
+def test_chip_smoke_backward_and_train_step_launches():
+    """A backward wrapper call launches its dtype's entry once, float32
+    after four splits (q, k, v, do); a full-width TinyLlama train step
+    (22 layers x 2 micro-batches) launches 88 forward, 44 backward and,
+    in float32, 440 splits (three a forward, four a backward); phase 2c
+    times the same kernels by name."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    smoke = _chip_smoke()
+    zero = {k: 0 for k in FA.LAUNCHES}
+    assert smoke.bwd_launches(FA, True, calls=2) == {
+        **zero, "flash_attention_bwd_f32": 2, "split_bf16x3": 8}
+    assert smoke.bwd_launches(FA, False) == {**zero,
+                                             "flash_attention_bwd": 1}
+    n = get_config(smoke.ARCH).n_layers * smoke.TRAIN_MICRO
+    assert n == 44
+    assert smoke.train_step_launches(FA, True, n) == {
+        **zero, "flash_attention_f32": 88, "split_bf16x3": 440,
+        "flash_attention_bwd_f32": 44}
+    assert smoke.train_step_launches(FA, False, n) == {
+        **zero, "flash_attention": 88, "flash_attention_bwd": 44}
+    assert smoke.BWD_KERNELS["float32"] == {
+        "split_bf16x3_kernel": 4, "fa_bwd_dq_wgmma": 1,
+        "fa_bwd_dkdv_wgmma": 1}
+    assert smoke.BWD_KERNELS["bfloat16"] == {"fa_bwd_dq_wgmma": 1,
+                                             "fa_bwd_dkdv_wgmma": 1}
+
+
 def test_chip_smoke_split_bound_and_route_launches():
     """The split's bound is its bytes (4 read, 6 written per element) at
     3.35 TB/s; a float32 wrapper call launches the float32 kernel once and

@@ -769,7 +769,8 @@ def test_hybrid_prefill_launches_the_kernel_once_per_group():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("name", ["hd16_g1", "hd64_noncausal_g4",
-                                  "hd64_window96", "mla_noncausal_g4"])
+                                  "hd64_window96", "hd128_g5",
+                                  "mla_noncausal_g4"])
 def test_attention_backward_equals_plain_version_on_card(name, dtype):
     """chip_smoke's phase 2c on a few of its cases: the forward's lse
     leaves its output bit for bit as serving's, the backward is
