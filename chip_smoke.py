@@ -277,7 +277,32 @@ Phases (each raises on failure; nothing is caught):
      CPU.  (e) ``sweep_heavy_capacity`` at full scale, GRMU DB, over
      ``SWEEP_FRACS``: equals the JAX sweep's ``SWEEP_ACCEPTED``; seconds
      per capacity.
-  7. Prints the kernel table as one JSON line (the picks' rows add the
+  7. The pod tools (``run_pod_tools``, after 5g).  (a) The meta roofline
+     and memory fit (``launch.dryrun.lower_cell``: flops, bytes and live
+     bytes counted on meta tensors, terms at the H100's peaks) of
+     TinyLlama's bf16 prefill (phase 5's cell: its profiled device ms;
+     the peak of one prefill after the model's init, ``prefill_peak``)
+     and of 5g (a) / (c)'s train steps (their profiled device ms and
+     peaks): terms, dominant, bound, counted flops, bound / measured
+     device ms, fit peak / measured peak.  (b) ``launch.hillclimb.
+     measure`` on 5g (a)'s cell (TinyLlama at full width, bf16, 8 x 4096)
+     under remat "full" / "dots" / "none" x n_micro 2 / 4
+     (``HILLCLIMB_REMAT``, ``HILLCLIMB_MICRO``; the flags set and
+     restored by the tool, 5g's own assert untouched): a variant whose
+     fit exceeds ``hillclimb.FIT_SHARE`` of the card is reported and not
+     run; each that runs must launch 2 / 2 / 1 forward and 1 backward
+     attention call a layer and micro-batch every timed step, peak under
+     80 GB, and give every remat mode's first loss at its n_micro bit
+     for bit; tokens/s, device ms a step (CUDA events), peak beside the
+     fit, counted flops.  (c) ``train.grad_compress``: ``compress`` /
+     ``decompress`` of a float32 tree of TinyLlama's parameter shapes on
+     the card == the CPU bit for bit, ``cross_pod_int8`` over a one-rank
+     NCCL group == the no-group path.  (d) ``launch.elastic.
+     apply_rescale`` of TinyLlama's full-width parameters onto a
+     one-device ``DeviceMesh`` on cuda:0 (``plan_rescale``'s specs):
+     every DTensor's local tensor equals the parameter bit for bit, with
+     ``sharding.placements`` of its spec; the group is then destroyed.
+  8. Prints the kernel table as one JSON line (the picks' rows add the
      service's launches, ``service_launches``; every mask kernel's row
      its launches on the sharded path, ``sharded_launches``; the
      attention rows their launches and head dim per serving path,
@@ -290,7 +315,9 @@ Phases (each raises on failure; nothing is caught):
      on phase 5g's paths and per full-width train step, the head dims
      phase 2c checked, times at TinyLlama's training attention shape
      beside the plain backward, SDPA's backward and the bound, and by
-     kernel, ``ms_by_kernel``), the card line
+     kernel, ``ms_by_kernel``; the bf16 forward's and backward's rows
+     also their launches in each phase 7 (b) variant's timed steps,
+     ``hillclimb_launches``), the card line
      again, and
      as its last line ``{"ok": true, "device": {...}}``.
 
@@ -309,6 +336,14 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+if str(ROOT / "src") not in sys.path:
+    sys.path.insert(0, str(ROOT / "src"))
+# One H100's peaks and the attention kernels' flop and byte formulas: the
+# port's roofline (launch/dryrun.py) and this script's bounds share them
+# (the tests read attention_pairs from here too).
+from repro_torch.launch.dryrun import (  # noqa: E402
+    PEAK_BYTES_PER_S, attention_bound_ms, attention_bwd_bound_ms,
+    attention_pairs, head_dims_of)
 
 # sha256 of (accepted_ids, intra, inter, hourly series reprs) of the JAX
 # reference replay (repro.core.batched.replay, CPU) on
@@ -378,19 +413,6 @@ SWEEP_ACCEPTED = [[1454, 491, 1318, 937, 491, 433],
                   [1448, 484, 1305, 925, 485, 649],
                   [1368, 465, 1223, 854, 449, 760],
                   [1270, 436, 1140, 782, 424, 868]]
-
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bandwidth (the mask
-# kernels' and the split's bound: they move bytes and do no arithmetic
-# worth a peak) and the dense bf16 tensor-core rate (attention's).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_BF16_FLOPS_PER_S = 989e12
-# Attention's bound is the bf16 tensor cores' rate over the products each
-# float32 product costs there: one for bf16 inputs; for float32 inputs the
-# six bf16 plane products (of nine, the three smallest dropped) that
-# fa_fwd_wgmma<hd, true> issues per float32 product.
-F32_PLANE_PASSES = 6
-PEAK_ATTN_FLOPS_PER_S = {"bfloat16": PEAK_BF16_FLOPS_PER_S,
-                         "float32": PEAK_BF16_FLOPS_PER_S / F32_PLANE_PASSES}
 
 N_BIG, N_MAIN = 1 << 20, 1860
 N_RAG = 1863                      # not a multiple of 4: a scalar tail
@@ -1764,12 +1786,6 @@ PAIR_ATTN_CASES = {
 }
 
 
-def head_dims_of(hd):
-    """(q/k head dim, v head dim) of a case's ``hd``: an int (both) or a
-    pair."""
-    return tuple(hd) if isinstance(hd, tuple) else (hd, hd)
-
-
 def attention_head_dims(cfg):
     """The head dim a model's prefill attention runs at: the config's, or
     MLA's (nope + rope, v) pair."""
@@ -1777,30 +1793,6 @@ def attention_head_dims(cfg):
         return cfg.resolved_head_dim
     m = cfg.mla
     return (m.nope_head_dim + m.rope_head_dim, m.v_head_dim)
-
-
-def attention_pairs(Sq, Sk, causal, window) -> int:
-    """(query, key) pairs the mask keeps: the work these inputs need."""
-    import numpy as np
-    q = np.arange(Sq)
-    hi = np.minimum(q + 1, Sk) if causal else np.full(Sq, Sk)
-    lo = np.maximum(q - window + 1, 0) if window else np.zeros(Sq, int)
-    return int(np.maximum(hi - lo, 0).sum())
-
-
-def attention_bound_ms(B, Sq, Sk, H, KV, hd, causal, window, dtype_name):
-    """max(operations at the dtype's peak, bytes at HBM's rate): 2 * B * H
-    * (hd + hd_v) flops a kept pair (S = q k^T at hd, p v at hd_v); q, k,
-    v read and o written once.  ``hd`` an int or a (q/k, v) pair."""
-    hd, hd_v = head_dims_of(hd)
-    itemsize = {"bfloat16": 2, "float32": 4}[dtype_name]
-    flops = 2.0 * B * H * (hd + hd_v) * attention_pairs(Sq, Sk, causal,
-                                                        window)
-    nbytes = itemsize * (B * Sq * H * (hd + hd_v) + B * Sk * KV * (hd + hd_v))
-    t_ops = flops / PEAK_ATTN_FLOPS_PER_S[dtype_name]
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
 
 
 def plain_chunk(n) -> int:
@@ -3628,26 +3620,6 @@ PARAM_KEEP, PARAM_ATOL_LR = 1e-2, 0.05
 TRAIN_NOISE_FACTOR = 4.0
 
 
-def attention_bwd_bound_ms(B, Sq, Sk, H, KV, hd, causal, window,
-                           dtype_name):
-    """The gradient's bound: max(operations at the dtype's peak, bytes at
-    HBM's rate).  2 * B * H * (3 hd + 2 hd_v) flops a kept pair (S = q k^T
-    recomputed, dK and dQ at hd; dP = do v^T and dV at hd_v: 10 hd at
-    equal widths); q, k, v, o, do and lse read once, dq, dk, dv written
-    once."""
-    hd, hd_v = head_dims_of(hd)
-    itemsize = {"bfloat16": 2, "float32": 4}[dtype_name]
-    flops = 2.0 * B * H * (3 * hd + 2 * hd_v) * attention_pairs(
-        Sq, Sk, causal, window)
-    nbytes = (itemsize * (B * Sq * H * (2 * hd + 2 * hd_v)
-                          + 2 * B * Sk * KV * (hd + hd_v))
-              + 4 * B * H * Sq)
-    t_ops = flops / PEAK_ATTN_FLOPS_PER_S[dtype_name]
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
 def plain_attention_bwd(q, k, v, o, lse, do, causal=True, window=None):
     """``ref.flash_attention_bwd_ref`` in float32 with ``plain_chunk``s."""
     from repro_torch.kernels import ref
@@ -3840,21 +3812,32 @@ BWD_KERNELS = {"bfloat16": {"fa_bwd_dq_wgmma": 1, "fa_bwd_dkdv_wgmma": 1},
                            "fa_bwd_dkdv_wgmma": 1}}
 
 
-def bwd_kernel_ms(torch, call, tname, n=5):
+def bwd_kernel_ms(torch, call, tname, n=5, tries=3):
     """Device ms per wrapper call of each backward kernel of dtype
     ``tname`` (``BWD_KERNELS``: the splits' together), from the profiler
-    over ``n`` calls; fails unless each ran its launches a call."""
-    us, _, top = device_ops(torch, lambda: [call() for _ in range(n)],
-                            n_top=20)
-    counts = {name: c for name, c, _ in top}
-    out = {}
-    for kernel, per_call in BWD_KERNELS[tname].items():
-        ran = sum(c for name, c in counts.items() if kernel in name)
-        if ran != per_call * n:
-            raise AssertionError(f"phase 2c: {kernel} ran {ran} times in "
-                                 f"{n} {tname} backward calls: {top}")
-        out[kernel] = us(kernel) / 1e3 / n
-    return out
+    over ``n`` calls; fails unless each ran its launches a call.
+
+    The profiler's trace can lose a kernel's record now and then (a
+    float32 trace once held 19 of the 20 splits the wrapper launched), so
+    a trace whose counts are off is taken again, up to ``tries`` traces in
+    all, and printed; a wrapper that launches the wrong kernels is off in
+    every trace and fails."""
+    for attempt in range(1, tries + 1):
+        us, _, top = device_ops(torch, lambda: [call() for _ in range(n)],
+                                n_top=20)
+        counts = {name: c for name, c, _ in top}
+        ran = {kernel: sum(c for name, c in counts.items() if kernel in name)
+               for kernel in BWD_KERNELS[tname]}
+        off = {kernel: r for kernel, r in ran.items()
+               if r != BWD_KERNELS[tname][kernel] * n}
+        if not off:
+            return {kernel: us(kernel) / 1e3 / n
+                    for kernel in BWD_KERNELS[tname]}
+        print(f"phase 2c: trace {attempt} of {n} {tname} backward calls "
+              f"counts {off} against {BWD_KERNELS[tname]} a call: {top}",
+              flush=True)
+    raise AssertionError(f"phase 2c: {tname} backward kernel counts off in "
+                         f"all {tries} traces of {n} calls: {off}")
 
 
 def train_profile(torch, run):
@@ -4145,6 +4128,250 @@ def run_training(torch):
     return launches, results
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the pod tools on the card (launch/dryrun, roofline, hillclimb,
+# train/grad_compress, launch/sharding, launch/elastic)
+# ---------------------------------------------------------------------------
+
+# Phase 7 (b): 5g (a)'s cell under every remat mode and two micro-batch
+# counts; HILLCLIMB_STEPS timed steps after a warm-up each.
+HILLCLIMB_REMAT = ("full", "dots", "none")
+HILLCLIMB_MICRO = (2, 4)
+HILLCLIMB_STEPS = 2
+
+
+def train_shape():
+    """Phase 5g (a)'s cell: ``train_4k``'s seq, global batch cut to
+    TRAIN_B."""
+    from repro_torch.models.config import ShapeConfig
+    return ShapeConfig("train_4k cut", PREFILL_S, TRAIN_B, "train")
+
+
+def roofline_vs_card(what, fit, device_ms, peak_bytes):
+    """Phase 7 (a): one cell's meta roofline (``dryrun.lower_cell``) beside
+    the device ms and peak bytes the card measured for it."""
+    bound_ms = 1e3 * max(fit["compute_s"], fit["memory_s"],
+                         fit["collective_s"])
+    fit_peak = fit["per_device_bytes"]["peak"]
+    row = {"cell": what, "compute_ms": fit["compute_s"] * 1e3,
+           "memory_ms": fit["memory_s"] * 1e3, "dominant": fit["dominant"],
+           "bound_ms": bound_ms, "counted_flops": fit["hlo_flops"],
+           "flops_by_peak": fit["flops_by_peak"],
+           "counted_bytes": fit["hlo_bytes"],
+           "attention_calls": fit["attention_calls"],
+           "measured_device_ms": device_ms,
+           "bound_over_measured": bound_ms / device_ms,
+           "fit_bytes": fit["per_device_bytes"],
+           "measured_peak_bytes": peak_bytes,
+           "fit_over_peak": fit_peak / peak_bytes}
+    print("phase 7 (a): " + json.dumps(row), flush=True)
+    return row
+
+
+def prefill_peak(torch, cfg):
+    """Peak allocated bytes of one bf16 prefill of phase 5's cell alone:
+    the model on the card, the peak reset after its init, one prefill."""
+    model, rng, _ = init_on_card(torch, cfg, "phase 7 (a)")
+    inputs, prefill = prefill_step(torch, cfg)
+    batch = inputs(rng)
+    torch.cuda.reset_peak_memory_stats()
+    prefill(model, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del model, batch
+    torch.cuda.empty_cache()
+    return peak
+
+
+def roofline_on_card(torch, served, trained):
+    """Phase 7 (a): the meta roofline and fit of TinyLlama's bf16 prefill
+    (phase 5: its profiled device ms; its peak from ``prefill_peak``) and
+    of phase 5g (a) / (c)'s train steps (bf16 / float32, 8 x 4096 in 2
+    micro-batches, remat "full": their profiled device ms and peak)."""
+    from repro_torch.launch import dryrun, hillclimb
+    from repro_torch.models.config import ShapeConfig
+    cfg = _tinyllama()
+    rows = {}
+    fit = dryrun.lower_cell(ARCH, ShapeConfig(
+        "prefill_32k cut", PREFILL_S, PREFILL_B, "prefill"))
+    rows["prefill bf16"] = roofline_vs_card(
+        f"{ARCH} prefill {PREFILL_B} x {PREFILL_S} bf16", fit,
+        served["prefill"]["device_ms"], prefill_peak(torch, cfg))
+    for key, dtype in ((ARCH, torch.bfloat16),
+                       (f"{ARCH} float32", torch.float32)):
+        res = trained[key]
+        fit = hillclimb.fit_variant(cfg, train_shape(), n_micro=TRAIN_MICRO,
+                                    dtype=dtype)
+        rows[f"train {res['dtype']}"] = roofline_vs_card(
+            f"{key} train {TRAIN_B} x {PREFILL_S} in {TRAIN_MICRO} "
+            f"micro-batches, remat full", fit, res["device_ms"],
+            res["peak_gb"] * 1e9)
+    return rows
+
+
+def hillclimb_on_card(torch):
+    """Phase 7 (b): ``hillclimb.measure`` of 5g (a)'s cell (TinyLlama at
+    full width, bf16, 8 x 4096) under remat "full" / "dots" / "none" x
+    n_micro 2 / 4: a variant the meta fit puts over the card's memory is
+    reported and not run; each that runs must launch 2 (full, dots: the
+    recompute) or 1 (none) forward and 1 backward attention call a layer
+    and micro-batch in every timed step, peak under 80 GB, and its first
+    step's loss must equal every other remat mode's at its n_micro bit for
+    bit.  Returns ({variant: its timed steps' launches}, {variant:
+    result})."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import hillclimb
+    cfg = _tinyllama()
+    launches, rows = {}, {}
+    for micro in HILLCLIMB_MICRO:
+        first = {}
+        for remat in HILLCLIMB_REMAT:
+            key = f"remat {remat}, n_micro {micro}"
+            t = time.perf_counter()
+            r = hillclimb.measure(cfg, train_shape(), remat=remat,
+                                  n_micro=micro, steps=HILLCLIMB_STEPS)
+            r["s"] = time.perf_counter() - t
+            rows[key] = r
+            fit_peak = r["fit_bytes"]["peak"]
+            if not r["fits"]:
+                print(f"phase 7 (b): {key}: does not fit (meta fit "
+                      f"{fit_peak} bytes), not run", flush=True)
+                continue
+            calls = cfg.n_layers * micro
+            want = {"flash_attention": (1 if remat == "none" else 2) * calls,
+                    "flash_attention_bwd": calls}
+            if any(p != want for p in r["launches_per_step"]):
+                raise AssertionError(f"phase 7 (b): {key}: launches per "
+                                     f"step {r['launches_per_step']}, "
+                                     f"expected {want}")
+            if not r["peak_bytes"] < 80e9 or not all(
+                    math.isfinite(x) for x in r["losses"]):
+                raise AssertionError(f"phase 7 (b): {key}: {r}")
+            launches[key] = {n: sum(p.get(n, 0) for p in
+                                    r["launches_per_step"])
+                             for n in FA.LAUNCHES}
+            first[remat] = r["losses"][0]
+            r["fit_over_peak"] = fit_peak / (r["peak_bytes"]
+                                             - r["start_bytes"])
+            print(f"phase 7 (b): {key}: {r['tokens_per_s']:.0f} tokens/s "
+                  f"({r['step_s']:.3f} s a step), device "
+                  f"{r['device_ms']:.1f} ms a step, peak {r['peak_bytes']} "
+                  f"bytes (fit {fit_peak}, {r['fit_over_peak']:.4f} of the "
+                  f"peak above the {r['start_bytes']} held before), counted "
+                  f"{r['counted_flops']:.6g} flops, compute "
+                  f"{r['compute_s'] * 1e3:.1f} / memory "
+                  f"{r['memory_s'] * 1e3:.1f} ms, attention launches a "
+                  f"step {want}, losses {r['losses']}, {r['s']:.1f} s",
+                  flush=True)
+        if len(set(first.values())) > 1:
+            raise AssertionError(f"phase 7 (b): n_micro {micro}: first "
+                                 f"losses differ across remat modes {first}")
+    return launches, rows
+
+
+def grad_compress_on_card(torch):
+    """Phase 7 (c): ``compress`` / ``decompress`` of a float32 tree of 5g's
+    gradient shapes (TinyLlama's stacked parameters; values drawn on the
+    card, seeded) equal the CPU's bit for bit, and ``cross_pod_int8`` over
+    a one-rank NCCL group equals the no-group path.  Leaves the group for
+    ``rescale_on_card``."""
+    from repro_torch.core.sharded import fleet_group
+    from repro_torch.models.registry import abstract_params
+    from repro_torch.train import grad_compress as GC
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    grads = tree_map(lambda p: torch.randn(
+        p.shape, generator=gen, device="cuda") * 1e-3,
+        abstract_params(_tinyllama(), torch.float32))
+    n = 0
+    for g in tree_leaves(grads):
+        q, s = GC.compress(g)
+        qc, sc = GC.compress(g.cpu())
+        d, dc = GC.decompress(q, s), GC.decompress(qc, sc)
+        same = (torch.equal(q.cpu(), qc), torch.equal(s.cpu(), sc),
+                torch.equal(d.cpu(), dc))
+        if not all(same):
+            raise AssertionError(f"phase 7 (c): compress on the card != CPU "
+                                 f"(values, scale, decompressed equal: "
+                                 f"{same}; scales {s.item()!r} "
+                                 f"{sc.item()!r})")
+        n += g.numel()
+    group, _ = fleet_group(1, "cuda")
+    got = GC.cross_pod_int8(grads, group)
+    want = GC.cross_pod_int8(grads)
+    if not all(torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                                 tree_leaves(want))):
+        raise AssertionError("phase 7 (c): cross_pod_int8 over one NCCL "
+                             "rank != the no-group path")
+    print(f"phase 7 (c): compress / decompress of {n} gradient elements "
+          f"(TinyLlama's shapes) on the card == CPU bit for bit; "
+          f"cross_pod_int8 over a one-rank NCCL group == no group",
+          flush=True)
+    return n
+
+
+def rescale_on_card(torch):
+    """Phase 7 (d): ``elastic.apply_rescale`` of TinyLlama's full-width
+    params (drawn on the card) onto a one-device ``DeviceMesh`` on cuda:0
+    with ``plan_rescale``'s specs: each DTensor's local tensor equals the
+    parameter bit for bit and carries the placements ``sharding``'s specs
+    give.  Destroys the process group."""
+    from repro_torch.launch import elastic
+    from repro_torch.launch import mesh as MS
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import transformer as M
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = _tinyllama()
+    model, _, _ = init_on_card(torch, cfg, "phase 7 (d)")
+    tree = M.stacked_params(model)
+    shape, specs = elastic.plan_rescale(cfg, tree, n_devices=1)
+    dm = MS.device_mesh(shape)
+    moved = elastic.apply_rescale(tree, specs, dm)
+    rows = SH.explain_sharding(M.param_axes(cfg), tree, shape)
+    spec_of = {path: spec for path, _, _, spec in rows}
+
+    def walk(a, b, prefix=""):
+        if not isinstance(a, dict):
+            yield prefix, a, b
+            return
+        for k in a:
+            yield from walk(a[k], b[k], f"{prefix}/{k}")
+
+    sharded = 0
+    for path, a, b in walk(tree, moved):
+        want = tuple(SH.placements(spec_of[path], dm.mesh_dim_names))
+        if not (torch.equal(b.to_local(), a) and b.placements == want
+                and b.device_mesh is dm):
+            raise AssertionError(f"phase 7 (d): {path}: {b.placements} "
+                                 f"!= {want} or values differ")
+        sharded += any(p.is_shard() for p in want)
+    torch.distributed.destroy_process_group()
+    n = sum(a.numel() for a in tree_leaves(tree))
+    print(f"phase 7 (d): {len(rows)} parameters ({n} elements) committed "
+          f"to a {shape.shape} DeviceMesh on cuda:0, "
+          f"{sharded} with a Shard placement: values equal bit for bit",
+          flush=True)
+    del model, tree, moved
+    torch.cuda.empty_cache()
+    return len(rows)
+
+
+def run_pod_tools(torch, served, trained):
+    """Phase 7: (a) ``roofline_on_card``, (b) ``hillclimb_on_card``, (c)
+    ``grad_compress_on_card``, (d) ``rescale_on_card``.  Returns (phase 7
+    (b)'s launches by variant, the results)."""
+    out = {}
+    for part, fn, args in (("a", roofline_on_card, (served, trained)),
+                           ("b", hillclimb_on_card, ()),
+                           ("c", grad_compress_on_card, ()),
+                           ("d", rescale_on_card, ())):
+        t = time.perf_counter()
+        out[part] = fn(torch, *args)
+        print(f"phase 7 ({part}) took {time.perf_counter() - t:.1f} s",
+              flush=True)
+    return out["b"][0], out
+
+
 def attention_paths(fa_launches, f32_launches, zoo_launches, launches_5d,
                     launches_5e, launches_5f):
     """The serving paths that reach the attention kernels, each path's
@@ -4202,14 +4429,16 @@ def main() -> int:
     sharded_launches = timed_phase("phase 4d", run_sharded, torch)
     service_launches = timed_phase("phase 6", run_service, torch)
     timed_phase("phase 5 card vs CPU", check_card_vs_cpu_prefill, torch)
-    fa_launches, _ = timed_phase("phase 5 bf16", run_serving, torch)
+    fa_launches, served = timed_phase("phase 5 bf16", run_serving, torch)
     f32_launches, _ = timed_phase("phase 5 float32", run_f32_prefill, torch)
     timed_phase("phase 5b", attention_accuracy, torch)
     zoo_launches, _ = timed_phase("phase 5c", run_zoo, torch)
     launches_5d, _ = timed_phase("phase 5d", run_5d, torch)
     launches_5e, _ = timed_phase("phase 5e", run_5e, torch)
     launches_5f, _ = timed_phase("phase 5f", run_5f, torch)
-    launches_5g, _ = timed_phase("phase 5g", run_training, torch)
+    launches_5g, trained = timed_phase("phase 5g", run_training, torch)
+    launches_7, _ = timed_phase("phase 7", run_pod_tools, torch, served,
+                                trained)
 
     rows = []
     floor = timing["launch_floor"]
@@ -4271,7 +4500,9 @@ def main() -> int:
             at_model_prefill_shapes={"bfloat16": zoo_time,
                                      "float32": zoo_f32_time}.get(tname),
             train_launches={a: runs[name] for a, runs in
-                            launches_5g.items()}))
+                            launches_5g.items()},
+            hillclimb_launches={v: runs[name] for v, runs in
+                                launches_7.items()}))
     # The attention backward: its launches on the training paths (phase 5g
     # (a), bf16; (b) and (c), float32), per full-width step, and its times
     # at TinyLlama's training attention shape beside SDPA's backward, by
@@ -4299,7 +4530,9 @@ def main() -> int:
             max_abs_err=bwd_err.get(tname), max_abs_err_by_dtype=bwd_err,
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
-            ms_by_kernel=t.get("kernel_ms"), shape=t["shape"]))
+            ms_by_kernel=t.get("kernel_ms"), shape=t["shape"],
+            hillclimb_launches={v: runs[name] for v, runs in
+                                launches_7.items()}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

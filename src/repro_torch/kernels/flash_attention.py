@@ -37,13 +37,21 @@ float32 one, ``"split_bf16x3"`` the split, three per float32 call,
 ``"flash_attention_bwd"`` / ``"flash_attention_bwd_f32"`` one per backward
 call, which launches the backward source's two kernels, float32 after
 four splits); plain-version calls are not counted.
+
+Tensors on the ``meta`` device (``launch.dryrun``'s counting pass) launch
+nothing and compute nothing: the forward and the backward take the dtypes
+and head dims the kernels take (else raise, as on the card), allocate
+their outputs (and the LSE) on ``meta`` and, while ``count_step`` has
+installed a list as ``META_CALLS``, append the call to it as a
+:class:`MetaCall`, which the roofline counts with the kernels' flop and
+byte formulas.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 from functools import lru_cache
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -82,6 +90,38 @@ LAUNCHES[SPLIT] = 0
 def reset_launches() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+
+
+class MetaCall(NamedTuple):
+    """One call on ``meta`` tensors: the work a kernel would do."""
+    B: int
+    Sq: int
+    Sk: int
+    H: int
+    KV: int
+    hd: int
+    hd_v: int
+    causal: bool
+    window: Optional[int]
+    dtype: str        # "bfloat16" | "float32"
+    kind: str         # "fwd" | "bwd"
+
+
+# The list ``launch.dryrun.count_step`` installs while it counts a step;
+# None outside it, when meta calls are checked and not recorded.
+META_CALLS: Optional[List[MetaCall]] = None
+
+
+def _record_meta(q, k, v, causal, window, kind: str, routes) -> None:
+    """Check a meta call as the card route does and record it."""
+    if q.dtype not in routes:
+        raise TypeError(f"dtype {q.dtype} not in {list(routes)}")
+    B, Sq, H, hd = q.shape
+    check_head_dims(hd, v.shape[3])
+    if META_CALLS is not None:
+        META_CALLS.append(MetaCall(B, Sq, k.shape[1], H, k.shape[2], hd,
+                                   v.shape[3], bool(causal), window,
+                                   str(q.dtype).split(".")[-1], kind))
 
 
 @lru_cache(maxsize=None)
@@ -195,6 +235,13 @@ def _forward(q, k, v, causal: bool, window: Optional[int],
                                            window=window, return_lse=True)
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        window=window), None
+    if q.device.type == "meta":
+        _record_meta(q, k, v, causal, window, "fwd", ROUTES)
+        B, Sq, H, _ = q.shape
+        out = q.new_empty((B, Sq, H, v.shape[3]))
+        lse = (q.new_empty((B, H, Sq), dtype=torch.float32) if want_lse
+               else None)
+        return out, lse
     _on_card(q, ROUTES)
     B, Sq, H, hd = q.shape
     Sk, KV, hd_v = k.shape[1], k.shape[2], v.shape[3]
@@ -237,6 +284,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
                                            causal=causal, window=window)
+    if q.device.type == "meta":
+        _record_meta(q, k, v, causal, window, "bwd", BWD_ROUTES)
+        return tuple(torch.empty_like(x) for x in (q, k, v))
     _on_card(q, BWD_ROUTES)
     B, Sq, H, hd = q.shape
     Sk, KV, hd_v = k.shape[1], k.shape[2], v.shape[3]
@@ -318,5 +368,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 __all__ = ["flash_attention", "flash_attention_bwd", "split_bf16x3",
-           "LAUNCHES", "reset_launches", "HEAD_DIMS", "HEAD_DIM_PAIRS",
-           "check_head_dims", "ROUTES", "BWD_ROUTES"]
+           "LAUNCHES", "reset_launches", "META_CALLS", "MetaCall",
+           "HEAD_DIMS", "HEAD_DIM_PAIRS", "check_head_dims", "ROUTES",
+           "BWD_ROUTES"]

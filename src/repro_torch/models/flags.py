@@ -9,14 +9,18 @@ remat: most memory, fewest FLOPs).  ``CE_MODE``: ``"dense"`` materialises
 the logits; ``"chunked"`` is the fused lm-head + online-logsumexp cross
 entropy over vocab chunks (``train.step.chunked_cross_entropy``).
 
-The JAX module's other switches are about its mesh and XLA's cost model:
-``COST_UNROLL`` / :func:`unroll` (scan unrolling for ``cost_analysis``),
-the sharding axes and :func:`constrain` (``with_sharding_constraint``),
-and ``ATTN_P_BF16`` (a bf16 p tile in the jnp attention; the port's
-attention kernel keeps p in float32, the JAX default).  Here ``unroll``
-and ``constrain`` are identities, and the axes, ``COST_UNROLL`` and
-``ATTN_P_BF16`` are not ported: they wait for ROADMAP Queue 2 item 9
-(the mesh and cost tools).
+The JAX module's activation axes (``BATCH_AXES`` / ``HEAD_AXES`` /
+``KV_HEAD_AXES`` / ``KV_SEQ_AXES``, which its ``lower_cell`` sets for
+``with_sharding_constraint``) have no counterpart: the port runs no GSPMD,
+so :func:`constrain` returns its tensor unchanged, and the axes wait for a
+mesh of more than one card (ROADMAP.md, Queue 2 item 10).  Its other
+switches are about XLA's cost model and its jnp attention:
+``COST_UNROLL`` / :func:`unroll` (scan unrolling for ``cost_analysis``;
+the port's loops are Python loops, and the meta count of
+``launch.dryrun`` sees every iteration) and ``ATTN_P_BF16`` (a bf16 p
+tile; the port's attention kernel keeps p in float32, the JAX default).
+``unroll`` is an identity, and ``COST_UNROLL`` and ``ATTN_P_BF16`` are not
+ported.
 """
 from __future__ import annotations
 
@@ -67,7 +71,8 @@ def unroll(length: int) -> int:
 
 
 def constrain(x, *dim_axes):
-    """No mesh in the port yet: ``x`` unchanged."""
+    """JAX's ``with_sharding_constraint``: the port runs no GSPMD, so
+    ``x`` unchanged."""
     return x
 
 

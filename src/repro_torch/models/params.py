@@ -3,7 +3,9 @@
 
 Every module declares its parameters as a (nested) dict of ``P`` leaves —
 shape + logical axis names + initializer.  ``init_tree`` materializes a
-spec as a same-structure dict of tensors; ``param_count`` counts it.
+spec as a same-structure dict of tensors; ``axes_tree`` gives the
+same-structure dict of logical-axis tuples (mapped to mesh axes by
+``repro_torch.launch.sharding``); ``param_count`` counts it.
 
 The init rule is the JAX package's exactly: a leaf of rank >= 2 is drawn
 with std ``scale / sqrt(shape[0])``, a vector with ``scale /
@@ -78,9 +80,16 @@ def init_tree(spec: Dict[str, Any], generator: torch.Generator,
     return out
 
 
+def axes_tree(spec: Dict[str, Any]) -> Dict[str, Any]:
+    """Each leaf's logical axes, keys in sorted order (as ``jax.tree.map``
+    rebuilds a dict)."""
+    return {k: spec[k].axes if is_leaf(spec[k]) else axes_tree(spec[k])
+            for k in sorted(spec)}
+
+
 def param_count(spec: Dict[str, Any]) -> int:
     return sum(math.prod(p.shape) for _, p in leaves(spec))
 
 
-__all__ = ["P", "init_tree", "init_tensor", "param_count", "is_leaf",
-           "leaves"]
+__all__ = ["P", "init_tree", "init_tensor", "axes_tree", "param_count",
+           "is_leaf", "leaves"]

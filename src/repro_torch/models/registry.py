@@ -150,10 +150,11 @@ def abstract_params(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16):
     return leaf(stacked_model_spec(cfg))
 
 
-def abstract_train_state(cfg: ModelConfig):
-    """(params, OptState) as meta tensors: the stacked tree and float32
-    moments of its shapes, step a () int32."""
-    params = abstract_params(cfg)
+def abstract_train_state(cfg: ModelConfig,
+                         dtype: torch.dtype = torch.bfloat16):
+    """(params, OptState) as meta tensors: the stacked tree in ``dtype``
+    and float32 moments of its shapes, step a () int32."""
+    params = abstract_params(cfg, dtype)
     moments = tree_map(lambda p: torch.empty(p.shape, dtype=torch.float32,
                                              device=META), params)
     opt = OptState(step=torch.empty((), dtype=torch.int32, device=META),

@@ -46,7 +46,7 @@ from . import flags
 from . import layers as L
 from . import ssm as S
 from .config import ModelConfig
-from .params import P, init_tree
+from .params import P, axes_tree, init_tree
 
 f32 = torch.float32
 
@@ -158,6 +158,11 @@ def stacked_model_spec(cfg: ModelConfig) -> Dict[str, Any]:
     else:
         spec["layers"] = _stack_spec(spec["layers"], cfg.n_layers)
     return spec
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The stacked tree's logical axes (``launch.sharding`` maps them)."""
+    return axes_tree(stacked_model_spec(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -555,7 +560,7 @@ def lm_forward(model: Transformer, tokens, cfg: ModelConfig, **kw):
     return logits_fn(model, hidden, cfg), aux
 
 
-__all__ = ["model_spec", "stacked_model_spec", "layer_spec",
+__all__ = ["model_spec", "stacked_model_spec", "param_axes", "layer_spec",
            "shared_block_spec", "encoder_layer_spec",
            "decoder_xattn_layer_spec", "Transformer", "DecoderLayer",
            "DecoderXAttnLayer", "RWKVLayer", "MambaLayer", "init_params",

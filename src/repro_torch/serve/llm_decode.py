@@ -24,11 +24,12 @@ as the JAX function does; a caller fills the cache with ``decode_step``
 over the prompt.  Nor does anything fill ``xk`` / ``xv`` (the JAX
 package's docstring says prefill does; its code does not): a caller
 writes each decoder layer's ``encoder_out @ xattn.wk`` / ``wv`` there.
-Everything runs under ``torch.inference_mode()``.
+Everything runs under ``torch.inference_mode()``.  ``cache_axes`` gives
+the entries' logical axes (metadata, as in JAX).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -83,6 +84,34 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     # encdec: the cross-KV, to be filled from the encoder states.
     names = ("k", "v", "xk", "xv") if cfg.family == "encdec" else ("k", "v")
     return {n: torch.zeros(shape, dtype=bf16, device=device) for n in names}
+
+
+def cache_axes(cfg: ModelConfig, model_size: int = 16
+               ) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Logical axes of :func:`init_cache`'s entries (batch on data;
+    ``launch.sharding`` maps them).  KV caches shard heads on the model
+    axis when ``model_size`` divides the KV heads; otherwise they shard the
+    SEQUENCE dim over the model axis (distributed-softmax decode)."""
+    heads_ok = cfg.n_kv_heads % model_size == 0
+    seq_ax = None if heads_ok else "seq_model"
+    head_ax = "kv_heads_cache" if heads_ok else None
+    if cfg.family == "mla_moe":
+        # MLA latent has no head dim -> always sequence-shard
+        return {"c": ("layers", "batch", "seq_model", None),
+                "kr": ("layers", "batch", "seq_model", None, None)}
+    if cfg.family == "rwkv6":
+        return {"tm_state": ("layers", "batch", "ssm_heads", None, None),
+                "tm_x": ("layers", "batch", "embed_vec"),
+                "cm_x": ("layers", "batch", "embed_vec")}
+    if cfg.family == "hybrid":
+        return {"ssm": ("layers", "batch", "ssm_heads", None, None),
+                "shared_k": ("layers", "batch", seq_ax, head_ax, None),
+                "shared_v": ("layers", "batch", seq_ax, head_ax, None)}
+    if cfg.family == "encdec":
+        return {k: ("layers", "batch", seq_ax, head_ax, None)
+                for k in ("k", "v", "xk", "xv")}
+    return {k: ("layers", "batch", seq_ax, head_ax, None)
+            for k in ("k", "v")}
 
 
 @torch.inference_mode()
@@ -193,4 +222,4 @@ def prefill(model: M.Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     return M.logits_fn(model, hidden[:, -1:], cfg)
 
 
-__all__ = ["init_cache", "decode_step", "prefill"]
+__all__ = ["init_cache", "cache_axes", "decode_step", "prefill"]

@@ -562,6 +562,42 @@ def test_chip_smoke_backward_and_train_step_launches():
                                              "fa_bwd_dkdv_wgmma": 1}
 
 
+@pytest.mark.parametrize("traces, ok", [
+    ([20], True), ([19, 20], True), ([19, 19, 20], True),
+    ([19, 19, 19], False), ([16, 16, 16], False), ([24, 24, 24], False)])
+def test_chip_smoke_bwd_kernel_ms_retakes_a_trace_that_lost_a_record(
+        monkeypatch, traces, ok):
+    """Phase 2c's per-kernel times: a profiler trace whose float32 split
+    count is off (a lost record) is taken again, up to three traces; the
+    first trace with every kernel's exact count gives the ms a call, and a
+    count that is off in all three (a wrapper launching the wrong kernels)
+    fails."""
+    smoke = _chip_smoke()
+    seen = []
+
+    def device_ops(torch_, run, n_top=10):
+        splits = traces[len(seen)]
+        seen.append(splits)
+        by_name = {"split_bf16x3_kernel": (splits, 2.0 * splits),
+                   "fa_bwd_dq_wgmma<64>": (5, 50.0),
+                   "fa_bwd_dkdv_wgmma<64>": (5, 100.0)}
+        top = [[name, c, t] for name, (c, t) in by_name.items()]
+
+        def us(part):
+            return sum(t for name, (_, t) in by_name.items() if part in name)
+        return us, sum(t for _, _, t in top), top
+    monkeypatch.setattr(smoke, "device_ops", device_ops)
+    if ok:
+        got = smoke.bwd_kernel_ms(torch, lambda: None, "float32", n=5)
+        assert got == {"split_bf16x3_kernel": 2.0 * 20 / 1e3 / 5,
+                       "fa_bwd_dq_wgmma": 50.0 / 1e3 / 5,
+                       "fa_bwd_dkdv_wgmma": 100.0 / 1e3 / 5}
+    else:
+        with pytest.raises(AssertionError, match="all 3 traces"):
+            smoke.bwd_kernel_ms(torch, lambda: None, "float32", n=5)
+    assert seen == traces
+
+
 def test_chip_smoke_split_bound_and_route_launches():
     """The split's bound is its bytes (4 read, 6 written per element) at
     3.35 TB/s; a float32 wrapper call launches the float32 kernel once and
