@@ -62,8 +62,9 @@ Phases (each raises on failure; nothing is caught):
      replay (torch's sync debug mode) at most the consolidating
      step-ends; device memory flat from one replay to the next.  Prints
      events/s through the graphs and through the eager loop
-     (``run_events``, whose outputs must equal the graphs') in this
-     process, graphs per runner and capture seconds.
+     (``run_events``, over the trace's first EAGER_PREFIX events, whose
+     outputs must equal the graphs' over them) in this process, graphs
+     per runner and capture seconds.
   4d. The sharded fleet (``run_sharded``; ``repro_torch.core.sharded``).
      (a) One rank over NCCL on the card, in this process: the full-scale
      trace padded with ``pad_events(shards=1)``, the five policies (GRMU
@@ -73,7 +74,7 @@ Phases (each raises on failure; nothing is caught):
      and device memory flat; events/s sharded and unsharded on the same
      trace in turns, graphs per runner; with telemetry ``DIGESTS`` and
      ``TELE_DIGESTS``, chunked at 1,000 events ``DIGESTS``.  The group is
-     destroyed after (a).  (b) K = 2 and K = 4 ranks over gloo on the
+     destroyed after (a).  (b) GLOO_FLEETS (K = 2) ranks over gloo on the
      CPU (``sharded.spawn_fleet``, one process per rank) on the scale-0.1
      trace padded with ``shards=K``, GRMU (defrag, consolidation) and
      MECC: each equals the card's unsharded replay of that trace.
@@ -196,18 +197,19 @@ Phases (each raises on failure; nothing is caught):
      where nothing drops (``moe_teacher_forced``; at the served capacity
      a decode step and the request prefill drop different tokens, and
      those numbers are reported).
-  5e. RWKV-6-3B and Zamba2-7B at full width (``run_5e``, after 5d), bf16,
-     random weights drawn on the card, each through ``serve_model``.
-     Zamba2 (81 Mamba-2 layers, the shared attention + SwiGLU block before
-     each of 13 groups of 6, window 4,096, MHA 32 at hd 112): prefill 2 x
-     8,192 (``prefill_shape``), exactly 13 windowed bf16 launches a call,
+  5e. RWKV-6-3B and Zamba2-7B at full width, RWKV-6's depth cut to
+     SUBQ_LAYERS (``run_5e``, after 5d), bf16, random weights drawn on the
+     card, each through ``serve_model``.  Zamba2 (81 Mamba-2 layers, the
+     shared attention + SwiGLU block before each of 13 groups of 6, window
+     4,096, MHA 32 at hd 112): prefill 2 x 8,192 (``prefill_shape``),
+     exactly 13 windowed bf16 launches a call,
      each held against the plain version on its q, k, v within 3e-2
      (``windowed_calls_vs_plain``), logits vs plain attention within
      PREFILL_TOL or the float64 gate; the requests' prefill 13 launches;
      its teacher-forced check
      (``hybrid_teacher_forced``): the bf16 figures reported, the gate the
      float32 model at full width cut to HYBRID_F32_LAYERS layers on a
-     float32 cache.  RWKV-6 (32 layers, d 2,560, H 40, hd 64; no
+     float32 cache.  RWKV-6 (8 of its 32 layers, d 2,560, H 40, hd 64; no
      attention, 0 launches on every route): one warm-up and one timed
      prefill of 4 x 4096 (a per-token loop), its device profile over
      RWKV_PROFILE.  Both: 8 requests of 32 + 8 tokens, long_500k uncut
@@ -302,6 +304,17 @@ Phases (each raises on failure; nothing is caught):
      one-device ``DeviceMesh`` on cuda:0 (``plan_rescale``'s specs):
      every DTensor's local tensor equals the parameter bit for bit, with
      ``sharding.placements`` of its spec; the group is then destroyed.
+     (e) The sharded step (``run_sharded_step``): (i) 5g (a)'s cell on a
+     1 x 1 ("data", "model") NCCL ``DeviceMesh``, every parameter and
+     moment a DTensor under ``DEFAULT_RULES`` (``registry.shard_model`` /
+     ``shard_opt_state``, ``make_step(mesh=)``), the attention kernels on
+     local shards: its first step equals the plain step bit for bit
+     (loss, gradients, parameters, moments) with 88 forward and 44
+     backward launches, then tokens/s; (ii) the production-mesh dry-run
+     of TinyLlama's train_4k, prefill_32k and decode_32k on 16x16 and
+     2x16x16 (``launch.roofline --pod / --multi-pod``, one subprocess a
+     cell, each its own fake group of 256 / 512 ranks): per-device peak,
+     flops, collective bytes by kind, dominant term.
   8. Prints the kernel table as one JSON line (the picks' rows add the
      service's launches, ``service_launches``; every mask kernel's row
      its launches on the sharded path, ``sharded_launches``; the
@@ -317,7 +330,8 @@ Phases (each raises on failure; nothing is caught):
      beside the plain backward, SDPA's backward and the bound, and by
      kernel, ``ms_by_kernel``; the bf16 forward's and backward's rows
      also their launches in each phase 7 (b) variant's timed steps,
-     ``hillclimb_launches``), the card line
+     ``hillclimb_launches``, and in phase 7 (e)'s compared sharded step,
+     ``sharded_step_launches``), the card line
      again, and
      as its last line ``{"ok": true, "device": {...}}``.
 
@@ -332,6 +346,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -391,6 +406,10 @@ SYNTH_DIGESTS = {
         "3ef85caeca1918f77a2e3552862cee74799b142375947070adb2c51b9f33c932",
 }
 
+# Phase 4c: the eager loop is held against the graphs over the trace's
+# first EAGER_PREFIX events.  Phase 4d (b): the gloo fleets' sizes.
+EAGER_PREFIX = 1000
+GLOO_FLEETS = (2,)
 # Phase 6: the placement service.  (a) the full-scale trace's request
 # stream (8,604 requests, 8,063 arrivals) at micro-batches of 64; (b) the
 # flash crowd at BENCH_serve.json's size (GRMU accepts 373 online and
@@ -473,6 +492,11 @@ SCOUT_LAYERS = 8
 # hybrid at the reference's init amplifies any rounding difference (noise
 # on its attention outputs alone moves a prefill's logits by 4e-4).
 ZAMBA2, RWKV6 = "zamba2_7b", "rwkv6_3b"
+# RWKV-6 is served at full width with its depth cut to SUBQ_LAYERS, 8 of
+# 32 (at 32 it took 76.4 s of the phase); long_500k keeps its 524,288
+# positions.  Zamba2 keeps its 81 layers: at 14 its prefill failed the
+# float64 gate (kernel 0.816, plain 0.623 from float64; PERF.md §6).
+SUBQ_LAYERS = {RWKV6: 8}
 RWKV_WARMUP, RWKV_PROFILE = (PREFILL_B, 64), (1, 256)
 LONG_PROMPT = 32
 HYBRID_F32_LAYERS = 8
@@ -1217,8 +1241,8 @@ def run_graph_path(torch):
     consolidating step-ends; device memory stays flat from one replay to
     the next.  Then each full-scale replay's events/s through the graphs
     and through the eager loop (``run_events``) in this process, which
-    must give the same outputs, with graphs per runner and capture
-    seconds."""
+    must give the same outputs over the trace's first EAGER_PREFIX events,
+    with graphs per runner and capture seconds."""
     from repro_torch.core import batched as B
     from repro_torch.core import streaming as ST
     from repro_torch.core.bucketing import pad_events
@@ -1290,16 +1314,21 @@ def run_graph_path(torch):
             # Per replay: events/s, and the share of its wall time the
             # host spent before ``run`` returned (all launches queued).
             rates, queued = [], []
-            for _ in range(3):
+            for _ in range(2):
                 t0 = time.perf_counter()
                 run(c)
                 t1 = time.perf_counter()
                 torch.cuda.synchronize()
                 rates.append(n_ev / (time.perf_counter() - t0))
                 queued.append((t1 - t0) * rates[-1] / n_ev)
-            st = B.replay_statics(events, pol, **kw)
-            trace = B.trace_from_numpy(B.trace_arrays(events), "cuda")
-            state = B.init_state(events, st, "cuda")
+            # The eager loop against the graphs on the trace's first
+            # EAGER_PREFIX events (the whole trace, eagerly, took ~50 s of
+            # the phase for five policies).
+            pre = first_events(events, EAGER_PREFIX)
+            pre_out = B.make_replay(pre, pol, device="cuda", **kw)(c)
+            st = B.replay_statics(pre, pol, **kw)
+            trace = B.trace_from_numpy(B.trace_arrays(pre), "cuda")
+            state = B.init_state(pre, st, "cuda")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             B.run_events(st, state, trace, c)
@@ -1307,11 +1336,14 @@ def run_graph_path(torch):
             eager_s = time.perf_counter() - t0
             eager = {k: v.cpu().numpy()
                      for k, v in B._finalize(st, state).items()}
-            if any(not np.array_equal(eager[k], out[k]) for k in out):
+            if any(not np.array_equal(eager[k], pre_out[k].cpu().numpy())
+                   for k in pre_out):
                 raise AssertionError(f"4c {name}: graph replay != eager "
-                                     "loop")
+                                     f"loop over the first {EAGER_PREFIX} "
+                                     "events")
             row.update(events_per_s=rates, host_share_until_queued=queued,
-                       eager_events_per_s=n_ev / eager_s,
+                       eager_events=EAGER_PREFIX,
+                       eager_events_per_s=EAGER_PREFIX / eager_s,
                        graphs_equal_eager=True)
         print(json.dumps(row), flush=True)
 
@@ -1340,9 +1372,10 @@ def run_sharded(torch):
     step-ends, device memory flat; events/s sharded and unsharded on the
     same padded trace, in turns; then with telemetry (``DIGESTS`` and
     ``TELE_DIGESTS``) and chunked at ``CHUNK_EVENTS`` (``DIGESTS``).
-    (b) K = 2 and K = 4 ranks over gloo on the CPU (``spawn_fleet``) on
-    the scale-0.1 trace padded with ``shards=K``, GRMU (defrag,
-    consolidation) and MECC: each equals the card's unsharded replay.
+    (b) GLOO_FLEETS ranks over gloo on the CPU (``spawn_fleet``) on the
+    scale-0.1 trace padded with ``shards=K``, GRMU (defrag,
+    consolidation) and MECC: each equals the card's unsharded replay
+    (K = 4 runs in tests/test_torch_sharded.py).
     Returns the mask kernels' launches over (a)'s replays."""
     import torch.distributed as dist
     from repro_torch.core import batched as B
@@ -1390,7 +1423,7 @@ def run_sharded(torch):
         unsharded = B.make_replay(events, pol, device="cuda", **ukw)
         unsharded(cap)
         rates = {"sharded": [], "unsharded": []}
-        for which in ("unsharded", "sharded", "sharded", "unsharded"):
+        for which in ("unsharded", "sharded"):
             fn = run if which == "sharded" else unsharded
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1443,13 +1476,13 @@ def run_sharded(torch):
     torch.cuda.synchronize()
     dist.destroy_process_group()
 
-    # (b) K = 2 and K = 4 ranks over gloo, against the card's unsharded
-    # replay of the same padded trace.
+    # (b) GLOO_FLEETS ranks over gloo, against the card's unsharded replay
+    # of the same padded trace.
     c01, v01 = generate(TraceConfig(scale=0.1, seed=1))
     ev01 = B.build_events(v01, c01)
     configs = [(name, pol, kw) for name, pol, kw in tables_configs(B)
                if name in ("GRMU", "MECC")]
-    for k in (2, 4):
+    for k in GLOO_FLEETS:
         pv = pad_events(ev01, shards=k)
         kcap = B.default_heavy_capacity(pv)
         want = [B.replay(pv, pol, kcap, device="cuda", **kw)
@@ -3372,9 +3405,10 @@ def windowed_calls_vs_plain(torch, cfg, model, batch):
 
 
 def run_5e(torch):
-    """Phase 5e: Zamba2-7B, then RWKV-6-3B, each at full width in bf16
-    through ``serve_model`` (Zamba2 with the float64 gate; RWKV's prefill
-    one warm-up and one timed call, profiled over RWKV_PROFILE), each with
+    """Phase 5e: Zamba2-7B, then RWKV-6-3B (depth cut to SUBQ_LAYERS), each
+    at full width in bf16 through ``serve_model`` (Zamba2 with the float64
+    gate; RWKV's prefill one warm-up and one timed call, profiled over
+    RWKV_PROFILE), each with
     long_500k uncut (``decode_long``); then ``check_subq_card_vs_cpu``.
     Returns ({model: launches}, {model: result})."""
     from repro_torch.configs import get_config
@@ -3382,6 +3416,7 @@ def run_5e(torch):
     for arch in (ZAMBA2, RWKV6):
         t = time.perf_counter()
         cfg = get_config(arch)
+        cfg = cfg.scaled(n_layers=SUBQ_LAYERS.get(arch, cfg.n_layers))
         rwkv = cfg.family == "rwkv6"
         launches[arch], results[arch] = serve_model(
             torch, cfg, n_prefill=1 if rwkv else 2, prompt=ZOO_PROMPT,
@@ -4372,6 +4407,221 @@ def run_pod_tools(torch, served, trained):
     return out["b"][0], out
 
 
+# Phase 7 (e): the sharded step.  (i) 5g (a)'s cell (TinyLlama-1.1B at
+# full width, bf16, TRAIN_B x 4096 in TRAIN_MICRO micro-batches, remat
+# "full") on a 1 x 1 ("data", "model") NCCL DeviceMesh on cuda:0, every
+# parameter and moment a DTensor under DEFAULT_RULES, held bit for bit
+# against the plain step on the first step (loss, the accumulated float32
+# gradients, the updated parameters and moments), then SHARDED_STEPS
+# timed steps.  (ii) The production-mesh dry-run of DRYRUN_SHAPES on both
+# meshes, one subprocess a cell (a fake group of 256 / 512 ranks each,
+# ``roofline``'s depth variants), all six at once after (i).
+SHARDED_STEPS = 2
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+
+
+def start_mesh_dryruns(out):
+    """Phase 7 (e) (ii): one ``repro_torch.launch.roofline`` process per
+    (shape, mesh) cell of TinyLlama, each writing its JSON into the
+    directory ``out``.  Returns [(cell, process, json path)]."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for shape in DRYRUN_SHAPES:
+        for flag in ("--pod", "--multi-pod"):
+            path = out / f"dryrun_{ARCH}_{shape}{flag.replace('-', '_')}.json"
+            cmd = [sys.executable, "-m", "repro_torch.launch.roofline",
+                   "--arch", ARCH, "--shape", shape, flag, "--json",
+                   str(path)]
+            procs.append(((shape, flag), subprocess.Popen(
+                cmd, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True), path))
+    return procs
+
+
+def finish_mesh_dryruns(procs, timeout=600):
+    """Phase 7 (e) (ii): wait for ``start_mesh_dryruns``' processes and
+    check each cell: chips 256 / 512, non-zero collective bytes under
+    JAX's kinds, finite terms.  Returns {cell: the row}."""
+    from repro_torch.launch.dryrun import COLLECTIVES
+    rows = {}
+    for (shape, flag), proc, path in procs:
+        try:
+            log, _ = proc.communicate(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if proc.returncode != 0 or not path.exists():
+            raise AssertionError(f"phase 7 (e): dry-run {shape} {flag} "
+                                 f"exited {proc.returncode}: {log[-2000:]}")
+        (r,) = json.loads(path.read_text())
+        if "error" in r:
+            raise AssertionError(f"phase 7 (e): dry-run {shape} {flag}: "
+                                 f"{r['error']}")
+        chips = 512 if flag == "--multi-pod" else 256
+        if (r["chips"] != chips or not r["collective_bytes"] > 0
+                or not set(r["collectives"]) <= set(COLLECTIVES.values())
+                or not all(math.isfinite(r[k]) for k in
+                           ("compute_s", "memory_s", "collective_s"))):
+            raise AssertionError(f"phase 7 (e): dry-run {shape} {flag}: {r}")
+        rows[f"{shape} {r['mesh']}"] = {
+            k: r[k] for k in ("mesh", "chips", "hlo_flops", "hlo_bytes",
+                              "collective_bytes", "collectives",
+                              "per_device_bytes", "compute_s", "memory_s",
+                              "collective_s", "dominant", "counted_at",
+                              "measure_s")}
+        pd = r["per_device_bytes"]
+        print(f"phase 7 (e): {ARCH} {shape} on {r['mesh']} ({chips} "
+              f"ranks, {r['counted_at']}, {r['measure_s']} s): per-device "
+              f"peak {pd['peak'] / 2**30:.2f} GiB, flops "
+              f"{r['hlo_flops']:.4g}, collective bytes "
+              f"{json.dumps(r['collectives'])}, dominant {r['dominant']} "
+              f"(compute {r['compute_s']:.4g} s, memory "
+              f"{r['memory_s']:.4g} s, collective {r['collective_s']:.4g} s)",
+              flush=True)
+    return rows
+
+
+def sharded_step_on_card(torch):
+    """Phase 7 (e) (i): the plain step, then the sharded step on a fresh
+    copy of the same weights (the same draw) over a one-rank NCCL
+    DeviceMesh, each recording the accumulated gradients it hands AdamW.
+    Loss, gradients, parameters and moments after the step must be equal
+    bit for bit; the sharded step launches the attention kernels as the
+    plain one does (``train_step_launches``: 88 forward and 44 backward).
+    Then SHARDED_STEPS timed sharded steps.  Destroys the process group.
+    Returns (launches of the compared sharded step, result)."""
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import mesh as MS
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as M
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train import step as TS
+    from repro_torch.train.optimizer import adamw_init, tree_leaves
+    cfg = _tinyllama()
+    shape = ShapeConfig("train_4k cut", PREFILL_S, TRAIN_B, "train")
+    data = DataConfig(0)
+
+    def local(t):
+        return t.to_local() if hasattr(t, "to_local") else t
+
+    def one_step(mesh):
+        model, _, _ = init_on_card(torch, cfg, "phase 7 (e)")
+        opt = adamw_init(M.stacked_params(model))
+        if mesh is not None:
+            model = registry.shard_model(model, cfg, mesh)
+            opt = registry.shard_opt_state(opt, cfg, mesh)
+        M.make_trainable(model)
+        step = registry.make_step(cfg, shape, n_micro=TRAIN_MICRO,
+                                  mesh=mesh)
+        grads = []
+        update = TS.adamw_update
+
+        def recording(opt_cfg, g, opt_state, params):
+            grads.extend(local(x).clone() for x in tree_leaves(g))
+            return update(opt_cfg, g, opt_state, params)
+        FA.reset_launches()
+        TS.adamw_update = recording
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt, metrics = step(model, opt, batch_for_step(
+                cfg, shape, 0, data, "cuda"))
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+        finally:
+            TS.adamw_update = update
+        out = {"loss": local(metrics["loss"]).clone(), "grads": grads,
+               "params": [local(p) for p in
+                          tree_leaves(M.stacked_params(model))],
+               "m": [local(x) for x in tree_leaves(opt.m)],
+               "v": [local(x) for x in tree_leaves(opt.v)],
+               "launches": dict(FA.LAUNCHES), "first_step_s": first_s}
+        return model, opt, step, out
+
+    model, opt, _, plain = one_step(None)
+    plain_first_s = plain["first_step_s"]
+    del model, opt
+    torch.cuda.empty_cache()
+    dm = MS.device_mesh(MS.MeshShape((1, 1), ("data", "model")))
+    if torch.distributed.get_backend() != "nccl":
+        raise AssertionError("phase 7 (e): the mesh's group is not NCCL")
+    model, opt, step, sharded = one_step(dm)
+    if not all(type(p).__name__ == "DTensor" for p in model.parameters()):
+        raise AssertionError("phase 7 (e): a parameter is not a DTensor")
+    want = train_step_launches(FA, False, cfg.n_layers * TRAIN_MICRO)
+    if sharded["launches"] != want or plain["launches"] != want:
+        raise AssertionError(f"phase 7 (e): launches sharded "
+                             f"{sharded['launches']}, plain "
+                             f"{plain['launches']}, expected {want}")
+    parted = {}
+    for key in ("loss", "grads", "params", "m", "v"):
+        a, b = plain[key], sharded[key]
+        pairs = zip(a, b) if isinstance(a, list) else [(a, b)]
+        bad = [i for i, (x, y) in enumerate(pairs) if not torch.equal(x, y)]
+        if bad:
+            parted[key] = bad
+    if parted:
+        raise AssertionError(f"phase 7 (e): the sharded step parts from the "
+                             f"plain one (leaf indices {parted})")
+    del plain
+    times = []
+    for i in range(SHARDED_STEPS):
+        batch = batch_for_step(cfg, shape, 1 + i, data, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt, metrics = step(model, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    tokens = TRAIN_B * PREFILL_S
+    res = {"model": cfg.name, "mesh": {"data": 1, "model": 1},
+           "backend": "nccl", "seq": PREFILL_S, "global_batch": TRAIN_B,
+           "n_micro": TRAIN_MICRO, "remat": "full",
+           "bit_for_bit": ["loss", "gradients", "parameters", "moments"],
+           "launches_per_step": sharded["launches"],
+           "first_step_s": sharded["first_step_s"],
+           "plain_first_step_s": plain_first_s,
+           "step_s": times, "tokens_per_s": SHARDED_STEPS * tokens
+           / sum(times), "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"phase 7 (e): {cfg.name} at full width in bfloat16 on a 1 x 1 "
+          f"NCCL DeviceMesh, every parameter a DTensor: the first step "
+          f"equals the plain step bit for bit (loss, gradients, parameters, "
+          f"moments); {res['tokens_per_s']:.0f} tokens/s over "
+          f"{SHARDED_STEPS} steps ({times}), launches a step "
+          f"{sharded['launches']}", flush=True)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+    return sharded["launches"], res
+
+
+def run_sharded_step(torch, trained):
+    """Phase 7 (e): ``sharded_step_on_card``, then the dry-runs (started
+    after it: their DTensor dispatch would share the host's cores with the
+    timed steps).  Returns (launches, result)."""
+    t = time.perf_counter()
+    launches, res = sharded_step_on_card(torch)
+    res["plain_tokens_per_s_5g"] = trained.get(ARCH, {}).get("tokens_per_s")
+    print(f"phase 7 (e) (i) took {time.perf_counter() - t:.1f} s; phase 5g "
+          f"(a) ran {res['plain_tokens_per_s_5g']} tokens/s", flush=True)
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mesh_dryrun_") as tmp:
+        procs = start_mesh_dryruns(Path(tmp))
+        try:
+            res["dryrun"] = finish_mesh_dryruns(procs)
+        finally:
+            for _, proc, _ in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    print(f"phase 7 (e) (ii) took {time.perf_counter() - t:.1f} s",
+          flush=True)
+    print(json.dumps({"sharded_step": res}), flush=True)
+    return launches, res
+
+
 def attention_paths(fa_launches, f32_launches, zoo_launches, launches_5d,
                     launches_5e, launches_5f):
     """The serving paths that reach the attention kernels, each path's
@@ -4439,6 +4689,8 @@ def main() -> int:
     launches_5g, trained = timed_phase("phase 5g", run_training, torch)
     launches_7, _ = timed_phase("phase 7", run_pod_tools, torch, served,
                                 trained)
+    launches_7e, _ = timed_phase("phase 7 (e)", run_sharded_step, torch,
+                                 trained)
 
     rows = []
     floor = timing["launch_floor"]
@@ -4501,6 +4753,7 @@ def main() -> int:
                                      "float32": zoo_f32_time}.get(tname),
             train_launches={a: runs[name] for a, runs in
                             launches_5g.items()},
+            sharded_step_launches=launches_7e[name],
             hillclimb_launches={v: runs[name] for v, runs in
                                 launches_7.items()}))
     # The attention backward: its launches on the training paths (phase 5g
@@ -4531,6 +4784,7 @@ def main() -> int:
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
             ms_by_kernel=t.get("kernel_ms"), shape=t["shape"],
+            sharded_step_launches=launches_7e[name],
             hillclimb_launches={v: runs[name] for v, runs in
                                 launches_7.items()}))
     print(json.dumps({"kernels": rows}), flush=True)

@@ -21,3 +21,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "port on the CPU")
     return dev
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``torch.distributed`` DTensor (a step on a
+    ``DeviceMesh``)."""
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)

@@ -45,6 +45,20 @@ their outputs (and the LSE) on ``meta`` and, while ``count_step`` has
 installed a list as ``META_CALLS``, append the call to it as a
 :class:`MetaCall`, which the roofline counts with the kernels' flop and
 byte formulas.
+
+DTensors (a step on a ``DeviceMesh``) have no sharding rule for these
+kernels, so the wrapper runs them on local shards
+(``torch.distributed.tensor.experimental.local_map``, :func:`_on_shards`):
+q pinned batch on ``models.flags.BATCH_AXES`` and heads on ``HEAD_AXES``,
+k and v on the batch axes and, where KV == H, on the head axes too (JAX's
+pins, ``layers.flash_attention``).  GQA k and v stay whole over the head
+axes and each rank takes the kv heads its q heads read (their gradient
+then Partial over those axes: each rank adds its heads' part), so every
+rank launches the kernels on its own (B/dp, S, H/tp, hd) shard.  On
+``meta`` the calls are recorded at those local shapes: the dry-run's
+flops are per device, as XLA's ``cost_analysis`` is.  A shard the kernels
+do not take (local q heads that no whole group of kv heads serves)
+raises, on the card and on ``meta`` alike.
 """
 from __future__ import annotations
 
@@ -55,6 +69,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..device import is_dtensor
 from . import ref
 from ._build import load
 
@@ -339,6 +354,51 @@ class _Attention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def _heads_rank(mesh, q_pl, k_pl) -> Tuple[int, int]:
+    """(this rank's index, count) over the mesh dims that shard q's heads
+    (dim 2) and not k's, major first; (0, 1) where there are none."""
+    idx, n = 0, 1
+    for m, (pq, pk) in enumerate(zip(q_pl, k_pl)):
+        if pq.is_shard(2) and not pk.is_shard(2):
+            size = mesh.size(m)
+            idx, n = idx * size + mesh.get_local_rank(m), n * size
+    return idx, n
+
+
+def _on_shards(q, k, v, causal: bool, window: Optional[int]):
+    """:func:`flash_attention` of DTensors q, k, v: each rank's kernels on
+    its local shards (the module docstring)."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    from ..models import flags
+    mesh = q.device_mesh
+    H, KV = q.shape[2], k.shape[2]
+    q_pl = flags.pinned_placements(q, "batch", None, "heads", None)
+    k_pl = flags.pinned_placements(k, "batch", None,
+                                   "heads" if KV == H else None, None)
+    idx, n = _heads_rank(mesh, q_pl, k_pl)
+    h_loc, G = H // n, H // KV          # the pins shard H evenly
+    lo, hi = idx * h_loc // G, ((idx + 1) * h_loc - 1) // G + 1
+    if n > 1 and not (h_loc % G == 0 or G % h_loc == 0):
+        raise ValueError(f"{H} q heads over {n} ranks ({h_loc} a rank) are "
+                         f"not served by whole groups of {KV} kv heads: the "
+                         f"kernels take H % KV == 0 on every shard")
+    # GQA k / v whole over the heads' axes: each rank's gradient holds
+    # only its heads' part.
+    k_grad = [Partial() if (pq.is_shard(2) and not pk.is_shard(2)) else pk
+              for pq, pk in zip(q_pl, k_pl)]
+
+    def local(ql, kl, vl):
+        if n > 1:
+            kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+        return flash_attention(ql, kl, vl, causal=causal, window=window)
+
+    return local_map(local, out_placements=q_pl,
+                     in_placements=(q_pl, k_pl, k_pl),
+                     in_grad_placements=(q_pl, k_grad, k_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     positions_q0: int = 0) -> torch.Tensor:
@@ -356,11 +416,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Differentiable: with grad enabled and q, k or v requiring grad it goes
     through ``_Attention`` (forward kernel with the row log-sum-exp, the
     backward kernels in the backward); otherwise the forward alone.
+    DTensors run on their local shards (:func:`_on_shards`).
     """
     _check(q, k, v, window)
     if positions_q0 != 0:
         raise ValueError("the kernel counts query positions from 0 (as the "
                          "Pallas kernel); positions_q0 must be 0")
+    if is_dtensor(q):
+        return _on_shards(q, k, v, causal, window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _Attention.apply(q, k, v, causal, window)

@@ -1,10 +1,11 @@
-# Port of repro/launch/hillclimb.py (the JAX package): the one-card variants (remat, micro-batches, chunked CE) over launch/roofline.py's meta count, and a --measure mode that runs a variant's train step on the card.
+# Port of repro/launch/hillclimb.py (the JAX package): its variants (layout, remat, micro-batches, chunked CE) over launch/roofline.py's meta count, on one card or the production meshes, and a --measure mode that runs a one-card variant's train step on the card.
 """Hillclimb: named optimization variants of one (arch x shape)
 cell and their roofline terms.
 
     PYTHONPATH=src python -m repro_torch.launch.hillclimb \\
         --arch tinyllama-1.1b --shape train_4k \\
-        [--variants baseline,remat_dots,...] [--json out.json]
+        [--variants baseline,remat_dots,...] [--pod | --multi-pod] \\
+        [--json out.json]
 
 counts each variant on ``meta`` (any machine); with ``--measure`` it also
 runs the variant's train step (``--batch`` / ``--seq`` cut the cell,
@@ -13,14 +14,19 @@ CUDA card; ``--device cpu`` to run on the CPU) and reports tokens/s,
 device ms a step (CUDA events), ``torch.cuda.max_memory_allocated()``
 beside the meta fit, and the attention kernels' launches a step.
 
-Variants compose orthogonal knobs: remat policy (full / dots-saveable /
-none), micro-batching (``n_micro`` grad-accumulation splits) and the
-chunked cross entropy.  JAX's sharding variants (``no_fsdp``,
-``pure_dp``... over ``sharding.NO_FSDP_RULES`` / ``PURE_DP_RULES``) give
-the same roofline on one card, so they are not here: they wait for a mesh
-of more than one (ROADMAP.md, Queue 2 item 10).  JAX's ``p_bf16`` variants
-(a bf16 p tile in its jnp attention) are not ported: the port's attention
-kernel keeps p in float32 (``models/flags.py``).
+Variants compose orthogonal knobs, JAX's: the sharding rules
+(``sharding.NO_FSDP_RULES`` / ``PURE_DP_RULES``, with pure DP's batch
+over every mesh axis and no heads axis), remat policy (full /
+dots-saveable / none), micro-batching (``n_micro`` grad-accumulation
+splits) and the chunked cross entropy.  A variant is counted on one card
+(``dryrun.MESH_NAME``) unless it sets a layout knob, which only a mesh
+has: it is counted on the 16 x 16 production mesh (``--multi-pod``: 2 x
+16 x 16), in this process's fake group (``mesh.fake_device_mesh``).
+``--pod`` / ``--multi-pod`` count every variant on that mesh.
+``--measure`` runs one-card variants only: one card has one layout, and
+it refuses a layout variant.  JAX's ``p_bf16`` variants (a bf16 p tile
+in its jnp attention) are not ported: the port's attention kernel keeps
+p in float32 (``models/flags.py``).
 """
 from __future__ import annotations
 
@@ -42,18 +48,32 @@ from ..models import registry as R
 from ..models import transformer as M
 from ..models.config import SHAPES, ShapeConfig
 from ..train.optimizer import adamw_init
-from .dryrun import lower_cell
+from .dryrun import add_mesh_args, lower_cell
 from .roofline import roofline_cell
+from .sharding import NO_FSDP_RULES, PURE_DP_RULES
 
-# name -> dict(remat, micro, ce)
+_PURE_DP = dict(rules=PURE_DP_RULES, batch_axes=("pod", "data", "model"),
+                head_axes=None)
+# name -> dict(rules, remat, micro, batch_axes, head_axes, ce): JAX's,
+# less its p_bf16 ones.
 VARIANTS = {
-    "baseline":   dict(),
-    "remat_dots": dict(remat="dots"),
-    "remat_none": dict(remat="none"),
-    "micro4":     dict(micro=4),
-    "micro16":    dict(micro=16),
-    "ce_chunked": dict(ce="chunked"),
+    "baseline":       dict(),
+    "no_fsdp":        dict(rules=NO_FSDP_RULES),
+    "remat_dots":     dict(remat="dots"),
+    "remat_none":     dict(remat="none"),
+    "micro4":         dict(micro=4),
+    "micro16":        dict(micro=16),
+    "no_fsdp+dots":   dict(rules=NO_FSDP_RULES, remat="dots"),
+    "no_fsdp+none":   dict(rules=NO_FSDP_RULES, remat="none"),
+    "pure_dp":        dict(_PURE_DP),
+    "pure_dp+dots":   dict(_PURE_DP, remat="dots"),
+    "pure_dp+none":   dict(_PURE_DP, remat="none"),
+    "pure_dp+none+micro4": dict(_PURE_DP, remat="none", micro=4),
+    "pure_dp+none+ce":  dict(_PURE_DP, remat="none", ce="chunked"),
+    "ce_chunked":       dict(ce="chunked"),
 }
+# The knobs only a mesh has.
+LAYOUT_KNOBS = ("rules", "batch_axes", "head_axes")
 # A variant runs on the card only where its meta fit is at most this share
 # of the card's memory (the rest: the allocator's rounding, cuBLAS's
 # workspace, what the process already holds).
@@ -77,11 +97,24 @@ def _knobs(name):
     return v.get("remat", "full"), v.get("ce", "dense"), v.get("micro", 1)
 
 
-def run_variant(arch, shape, name):
-    """The variant's roofline (``roofline.roofline_cell``)."""
+def is_layout(name) -> bool:
+    """Whether the variant sets a layout knob (counted on a mesh)."""
+    return any(k in VARIANTS[name] for k in LAYOUT_KNOBS)
+
+
+def run_variant(arch, shape, name, *, multi_pod=None):
+    """The variant's roofline (``roofline.roofline_cell``): on one card,
+    or for a layout variant (or any, with ``multi_pod`` False / True) on
+    the 16 x 16 / 2 x 16 x 16 mesh."""
+    v = VARIANTS[name]
     remat, ce, micro = _knobs(name)
+    if multi_pod is None and is_layout(name):
+        multi_pod = False
     with variant_flags(remat, ce):
-        r = roofline_cell(arch, shape, n_micro=micro)
+        r = roofline_cell(arch, shape, n_micro=micro, multi_pod=multi_pod,
+                          rules=v.get("rules"),
+                          batch_axes=v.get("batch_axes"),
+                          head_axes=v.get("head_axes", "model"))
     r["variant"] = name
     return r
 
@@ -182,7 +215,9 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--device", default=None,
                     help="--measure: torch device (default: the CUDA card)")
+    add_mesh_args(ap)
     args = ap.parse_args(argv)
+    multi_pod = (True if args.multi_pod else False if args.pod else None)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     shape = SHAPES[args.shape]
@@ -193,12 +228,16 @@ def main(argv=None):
     for name in args.variants.split(","):
         try:
             if args.measure:
+                if is_layout(name):
+                    raise ValueError(
+                        f"{name} is a layout variant: one card has one "
+                        "layout, so --measure runs one-card variants only")
                 remat, ce, micro = _knobs(name)
                 r = dict(measure(cfg, shape, remat=remat, ce=ce,
                                  n_micro=micro, steps=args.steps,
                                  device=args.device), variant=name)
             else:
-                r = run_variant(args.arch, shape, name)
+                r = run_variant(args.arch, shape, name, multi_pod=multi_pod)
         except Exception as e:  # noqa: BLE001
             r = {"variant": name, "error": f"{type(e).__name__}: {e}"}
         results.append(r)
@@ -213,7 +252,8 @@ def main(argv=None):
             print(f"[OK  ] {name:22s} flops={r['counted_flops']:.4g} "
                   f"fit={r['fit_bytes']['peak']} {ran}", flush=True)
         else:
-            print(f"[OK  ] {name:22s} dom={r['dominant']:10s} "
+            print(f"[OK  ] {name:22s} {r['mesh']:8s} "
+                  f"dom={r['dominant']:10s} "
                   f"c={r['compute_s']:.4f} m={r['memory_s']:.4f} "
                   f"x={r['collective_s']:.4f} "
                   f"bound={max(r['compute_s'], r['memory_s'], r['collective_s']):.4f} "

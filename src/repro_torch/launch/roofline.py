@@ -1,4 +1,4 @@
-# Port of repro/launch/roofline.py (the JAX package): a cell's roofline from the meta count of launch/dryrun.py at one H100's peaks, at full depth or, where that is too slow, from JAX's depth variants and combiners.
+# Port of repro/launch/roofline.py (the JAX package): a cell's roofline from the meta count of launch/dryrun.py at one H100's peaks, on one card or on the production meshes, at full depth or from JAX's depth variants and combiners.
 """Roofline per cell.
 
 XLA's cost model counts a while-loop body once, so JAX lowers unrolled
@@ -7,23 +7,31 @@ XLA's cost model counts a while-loop body once, so JAX lowers unrolled
     per_layer = f(d2) - f(d1)              (d2 - d1 layers apart)
     total     = f(d1) + (L - d1) * per_layer
 
-applied to flops and bytes independently (the collective bytes are 0 on
-one card).  Hybrid (Zamba2) decomposes into shared-block + per-mamba-layer
-costs via three depth variants; enc-dec scales both stacks together.
+applied to flops, bytes and collective bytes independently.  Hybrid
+(Zamba2) decomposes into shared-block + per-mamba-layer costs via three
+depth variants; enc-dec scales both stacks together.
 
-The port's meta count (``launch/dryrun.py``) sees every layer, so a cell
-is counted at full depth (``dryrun.lower_cell``), in seconds for every
-family but one.  RWKV-6's time mix is a per-token loop, each token's ops
-dispatched on ``meta``: its full-depth ``train_4k`` count takes about 27
-minutes on one CPU core, its two depth variants under 3 (PERF.md §6).
-Its cells (``COMBINE_FAMILIES``) are counted at JAX's depth variants and
-combined, which equals the direct count exactly
-(tests/test_torch_roofline.py; at full width, PERF.md §6).
+The port's meta count (``launch/dryrun.py``) sees every layer, so on one
+card (``multi_pod=None``) a cell is counted at full depth
+(``dryrun.lower_cell``), in seconds for every family but one.  RWKV-6's
+time mix is a per-token loop, each token's ops dispatched on ``meta``:
+its full-depth ``train_4k`` count takes about 27 minutes on one CPU
+core, its two depth variants under 3 (PERF.md §6).  Its cells
+(``COMBINE_FAMILIES``) are counted at JAX's depth variants and combined,
+which equals the direct count exactly (tests/test_torch_roofline.py; at
+full width, PERF.md §6).
+
+On a production mesh (``multi_pod`` False / True, ``--pod`` /
+``--multi-pod``) DTensor's dispatch of every op on ``meta`` is slow in
+Python, so every cell is counted at its depth variants, as JAX counts
+it; there the collectives by kind and the per-device bytes (arguments,
+temp, peak) are extrapolated the same way, each linear in the depth.
 
 Usage (any machine)::
 
     PYTHONPATH=src python -m repro_torch.launch.roofline [--arch A]
-        [--shape S] [--micro N] [--json out.json]
+        [--shape S] [--micro N] [--pod | --multi-pod | --both-meshes]
+        [--json out.json]
 """
 from __future__ import annotations
 
@@ -38,8 +46,8 @@ import numpy as np
 from ..configs import ARCH_IDS, get_config
 from ..models import registry as R
 from ..models.config import SHAPES
-from .dryrun import (MESH_NAME, PEAK_FLOPS, PEAKS, lower_cell,
-                     roofline_terms)
+from .dryrun import (COLLECTIVES, PEAK_FLOPS, PEAKS, add_mesh_args,
+                     lower_cell, mesh_name, meshes_of, roofline_terms)
 
 # Families counted at their depth variants: a full-depth meta count of
 # their cells takes tens of minutes (the docstring).
@@ -47,16 +55,21 @@ COMBINE_FAMILIES = ("rwkv6",)
 
 
 # A depth variant's cost vector: flops of each ``PEAKS`` class, bytes,
-# collective bytes.
+# collective bytes by kind, per-device bytes.
 _KEYS = sorted(PEAKS)
+_KINDS = sorted(set(COLLECTIVES.values()))
+_PER_DEVICE = ("argument", "output", "temp", "peak")
 
 
-def _measure(arch, shape, cfg, n_micro):
-    r = lower_cell(arch, shape, n_micro=n_micro, cfg_override=cfg)
+def _measure(arch, shape, cfg, n_micro, **mesh_kw):
+    r = lower_cell(arch, shape, n_micro=n_micro, cfg_override=cfg,
+                   **mesh_kw)
     if r.get("skipped"):
         return None
     return np.array([r["flops_by_peak"].get(k, 0.0) for k in _KEYS]
-                    + [r["hlo_bytes"], r["collective_bytes"]])
+                    + [r["hlo_bytes"]]
+                    + [r["collectives"].get(k, 0.0) for k in _KINDS]
+                    + [float(r["per_device_bytes"][k]) for k in _PER_DEVICE])
 
 
 def depth_variants(cfg):
@@ -93,46 +106,62 @@ def depth_variants(cfg):
     return v, combine
 
 
-def combined_costs(arch, shape, cfg, n_micro=1):
-    """(flops by ``PEAKS`` class, bytes, collective bytes) of ``cfg`` at
-    full depth from its depth variants' meta counts, or None where a
-    variant is unsupported."""
+def combined_costs(arch, shape, cfg, n_micro=1, **mesh_kw):
+    """(flops by ``PEAKS`` class, bytes, collective bytes by kind,
+    per-device bytes) of ``cfg`` at full depth from its depth variants'
+    meta counts, or None where a variant is unsupported."""
     variants, combine = depth_variants(cfg)
     costs = []
     for vcfg in variants:
-        c = _measure(arch, shape, vcfg, n_micro)
+        c = _measure(arch, shape, vcfg, n_micro, **mesh_kw)
         if c is None:
             return None
         costs.append(c)
     est = np.maximum(combine(costs), 0.0)   # clamp extrapolation noise
+    n = len(_KEYS)
     by_peak = {k: float(f) for k, f in zip(_KEYS, est) if f}
-    return by_peak, float(est[-2]), float(est[-1])
+    coll = {k: float(b) for k, b in zip(_KINDS, est[n + 1:]) if b}
+    per_device = {k: int(round(b)) for k, b in
+                  zip(_PER_DEVICE, est[n + 1 + len(_KINDS):])}
+    return by_peak, float(est[n]), coll, per_device
 
 
-def roofline_cell(arch: str, shape_name, *,
-                  n_micro: int = 1) -> Dict[str, Any]:
-    """``shape_name``: a ``SHAPES`` name or a ``ShapeConfig``."""
+def roofline_cell(arch: str, shape_name, *, multi_pod=None,
+                  n_micro: int = 1, rules=None, batch_axes=None,
+                  head_axes="model") -> Dict[str, Any]:
+    """``shape_name``: a ``SHAPES`` name or a ``ShapeConfig``.
+    ``multi_pod``: None one card, False / True the 16 x 16 / 2 x 16 x 16
+    mesh with ``rules``, ``batch_axes`` and ``head_axes`` (JAX's
+    arguments, ``dryrun.lower_cell``)."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
     shape_name = shape.name
+    name = mesh_name(multi_pod)
     ok, why = R.cell_supported(cfg, shape)
     if not ok:
-        return {"arch": arch, "shape": shape_name, "mesh": MESH_NAME,
+        return {"arch": arch, "shape": shape_name, "mesh": name,
                 "skipped": True, "reason": why}
     t0 = time.time()
-    combined = cfg.family in COMBINE_FAMILIES
+    mesh_kw = {}
+    if multi_pod is not None:
+        mesh_kw = dict(multi_pod=multi_pod, rules=rules,
+                       batch_axes_override=batch_axes,
+                       head_axes_override=head_axes)
+    combined = multi_pod is not None or cfg.family in COMBINE_FAMILIES
     if combined:
-        got = combined_costs(arch, shape, cfg, n_micro)
+        got = combined_costs(arch, shape, cfg, n_micro, **mesh_kw)
         if got is None:
-            return {"arch": arch, "shape": shape_name, "mesh": MESH_NAME,
+            return {"arch": arch, "shape": shape_name, "mesh": name,
                     "skipped": True, "reason": "variant unsupported"}
-        by_peak, hbm_bytes, coll = got
+        by_peak, hbm_bytes, colls, per_device = got
+        chips = 1 if multi_pod is None else (512 if multi_pod else 256)
     else:
         r = lower_cell(arch, shape, n_micro=n_micro)
-        by_peak, hbm_bytes, coll = (r["flops_by_peak"], r["hlo_bytes"],
-                                    r["collective_bytes"])
+        by_peak, hbm_bytes, colls, per_device, chips = (
+            r["flops_by_peak"], r["hlo_bytes"], r["collectives"],
+            r["per_device_bytes"], r["chips"])
+    coll = sum(colls.values())
     flops = sum(by_peak.values())
-    chips = 1
     terms = roofline_terms(by_peak, hbm_bytes, coll, chips)
     mf = R.model_flops(cfg, shape)
     bound_s = max(terms["compute_s"], terms["memory_s"],
@@ -142,11 +171,11 @@ def roofline_cell(arch: str, shape_name, *,
     achievable_flops_per_s = (mf / bound_s) if bound_s > 0 else 0.0
     frac = achievable_flops_per_s / (chips * PEAK_FLOPS)
     return {
-        "arch": arch, "shape": shape_name, "mesh": MESH_NAME,
+        "arch": arch, "shape": shape_name, "mesh": name,
         "chips": chips, "skipped": False,
         "hlo_flops": flops, "hlo_bytes": hbm_bytes,
-        "collective_bytes": coll,
-        "flops_by_peak": by_peak,
+        "collective_bytes": coll, "collectives": colls,
+        "flops_by_peak": by_peak, "per_device_bytes": per_device,
         "counted_at": "depth variants" if combined else "full depth",
         "model_flops": mf,
         "useful_flops_ratio": mf / flops if flops else 0.0,
@@ -162,6 +191,7 @@ def main(argv=None):
     ap.add_argument("--shape", default=None)
     ap.add_argument("--micro", type=int, default=1)
     ap.add_argument("--json", default=None)
+    add_mesh_args(ap)
     args = ap.parse_args(argv)
 
     archs = [args.arch] if args.arch else ARCH_IDS
@@ -169,24 +199,27 @@ def main(argv=None):
     results = []
     for arch in archs:
         for shape in shapes:
-            try:
-                r = roofline_cell(arch, shape, n_micro=args.micro)
-            except Exception as e:  # noqa: BLE001
-                r = {"arch": arch, "shape": shape, "error":
-                     f"{type(e).__name__}: {e}"}
-            results.append(r)
-            if r.get("skipped"):
-                print(f"[SKIP] {arch:24s} {shape:12s} {r['reason'][:60]}",
-                      flush=True)
-            elif "error" in r:
-                print(f"[ERR ] {arch:24s} {shape:12s} {r['error'][:90]}",
-                      flush=True)
-            else:
-                print(f"[OK  ] {arch:24s} {shape:12s} dom={r['dominant']:10s} "
-                      f"c={r['compute_s']:.4f} m={r['memory_s']:.4f} "
-                      f"x={r['collective_s']:.4f} "
-                      f"useful={r['useful_flops_ratio']:.2f} "
-                      f"roofline={r['roofline_fraction']:.3f}", flush=True)
+            for mp in meshes_of(args):
+                try:
+                    r = roofline_cell(arch, shape, multi_pod=mp,
+                                      n_micro=args.micro)
+                except Exception as e:  # noqa: BLE001
+                    r = {"arch": arch, "shape": shape,
+                         "mesh": mesh_name(mp),
+                         "error": f"{type(e).__name__}: {e}"}
+                results.append(r)
+                tag = f"{arch:24s} {shape:12s} {r['mesh']:8s}"
+                if r.get("skipped"):
+                    print(f"[SKIP] {tag} {r['reason'][:60]}", flush=True)
+                elif "error" in r:
+                    print(f"[ERR ] {tag} {r['error'][:90]}", flush=True)
+                else:
+                    print(f"[OK  ] {tag} dom={r['dominant']:10s} "
+                          f"c={r['compute_s']:.4f} m={r['memory_s']:.4f} "
+                          f"x={r['collective_s']:.4f} "
+                          f"useful={r['useful_flops_ratio']:.2f} "
+                          f"roofline={r['roofline_fraction']:.3f}",
+                          flush=True)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(results, f, indent=1)

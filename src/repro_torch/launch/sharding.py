@@ -15,7 +15,12 @@ once and replicates a dimension the axis size does not divide (e.g.
 whisper's vocab=51865) — recorded per parameter by ``explain_sharding``.
 The mesh is anything with ``shape`` (axis -> size) and ``axis_names``:
 ``mesh.MeshShape``, or a JAX ``Mesh``.  :func:`placements` turns a spec
-into ``torch.distributed`` DTensor placements on a live ``DeviceMesh``.
+into ``torch.distributed`` DTensor placements on a live ``DeviceMesh``;
+:func:`shard_shape` is a spec's local shard shape (JAX's
+``NamedSharding(mesh, spec).shard_shape``) and :func:`distribute` /
+:func:`distribute_tree` commit tensors to a ``DeviceMesh`` under their
+specs (a ``meta`` tensor as a DTensor over a ``meta`` local shard of that
+shape, which allocates nothing: the dry-run's production meshes).
 """
 from __future__ import annotations
 
@@ -45,8 +50,8 @@ DEFAULT_RULES: Dict[str, Any] = {
     None: None,
 }
 
-# The JAX hillclimb's layout variants, as rule tables.  On one card every
-# layout gives the same roofline; they wait for a mesh of more than one.
+# The JAX hillclimb's layout variants, as rule tables (``hillclimb``
+# counts them on the production meshes).
 NO_FSDP_RULES = dict(DEFAULT_RULES, embed=None)
 FSDP_DATA_ONLY = dict(DEFAULT_RULES, embed="data")
 # pure FSDP/DP: no tensor parallelism; params sharded over every device,
@@ -172,7 +177,62 @@ def placements(spec: Spec, axis_names: Tuple[str, ...]):
     return out
 
 
+def mesh_sizes(mesh) -> Dict[str, int]:
+    """Axis -> size of a ``MeshShape``, a JAX ``Mesh`` or a ``DeviceMesh``."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:                       # a torch DeviceMesh
+        return {a: mesh.size(i) for i, a in enumerate(names)}
+    return dict(mesh.shape)
+
+
+def _split(part) -> Tuple[str, ...]:
+    return (part,) if isinstance(part, str) else tuple(part or ())
+
+
+def shard_shape(spec: Spec, shape: Tuple[int, ...], mesh) -> Tuple[int, ...]:
+    """The local shard shape of a ``shape`` tensor under ``spec``: each
+    dim divided by the sizes of the mesh axes sharding it (which divide
+    it, as ``logical_to_pspec`` and ``batch_sharding`` make them)."""
+    sizes = mesh_sizes(mesh)
+    out = list(shape)
+    for d, part in enumerate(spec):
+        for a in _split(part):
+            if out[d] % sizes[a]:
+                raise ValueError(f"dim {d} of {tuple(shape)}: {sizes[a]} "
+                                 f"({a}) does not divide {out[d]}")
+            out[d] //= sizes[a]
+    return tuple(out)
+
+
+def distribute(t, spec: Spec, device_mesh):
+    """``t`` as a DTensor on ``device_mesh`` under ``spec``.  A ``meta``
+    tensor becomes a DTensor over a ``meta`` local shard of
+    :func:`shard_shape` (nothing is allocated, nothing communicated);
+    any other is cut locally on every rank (``src_data_rank=None``: each
+    rank holds the same ``t``), no collective; its local shard may share
+    ``t``'s storage."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    import torch
+    pl = placements(spec, device_mesh.mesh_dim_names)
+    if t.device.type == "meta":
+        local = torch.empty(shard_shape(spec, tuple(t.shape), device_mesh),
+                            dtype=t.dtype, device="meta")
+        return DTensor.from_local(local, device_mesh, pl, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+    return distribute_tensor(t, device_mesh, pl, src_data_rank=None)
+
+
+def distribute_tree(tree: Any, specs: Any, device_mesh):
+    """:func:`distribute` of every leaf of ``tree`` (nested dicts) under
+    the spec of the same path in ``specs``."""
+    if isinstance(tree, dict):
+        return {k: distribute_tree(tree[k], specs[k], device_mesh)
+                for k in tree}
+    return distribute(tree, specs, device_mesh)
+
+
 __all__ = ["DEFAULT_RULES", "NO_FSDP_RULES", "FSDP_DATA_ONLY",
            "PURE_DP_RULES", "logical_to_pspec", "tree_shardings",
            "batch_pspec", "batch_sharding", "explain_sharding",
-           "placements"]
+           "placements", "mesh_sizes", "shard_shape", "distribute",
+           "distribute_tree"]

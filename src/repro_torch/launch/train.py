@@ -12,6 +12,13 @@ it resumes from the newest valid checkpoint with an identical data stream
 ``repro_torch.launch.checkpoint``, the JAX launcher's layout, so either
 package restores the other's train state.  :func:`train_loop` is the loop
 itself, which ``chip_smoke.py`` drives on the card.
+
+``--mesh D,M`` runs the step on a (data, model) ``DeviceMesh`` of this
+process group's ranks (``mesh.device_mesh``; one process makes the
+one-rank group of a 1,1 mesh): parameters and AdamW's moments DTensors
+under ``sharding.DEFAULT_RULES``, each batch committed over ``data``,
+the attention kernels on local shards (``registry.mesh_step``).  Its
+checkpoints are not ported: ``--ckpt-dir`` refuses a mesh.
 """
 from __future__ import annotations
 
@@ -104,7 +111,11 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
+    ap.add_argument("--mesh", default=None,
+                    help="D,M: run on a (data, model) DeviceMesh")
     args = ap.parse_args(argv)
+    if args.mesh and args.ckpt_dir:
+        ap.error("--ckpt-dir does not take a --mesh run")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
@@ -122,6 +133,14 @@ def main(argv=None):
             print(f"[train] resumed from step {start_step}", flush=True)
 
     step_fn = make_train_step(cfg, opt_cfg, n_micro=args.micro)
+    if args.mesh:
+        from ..models import registry as R
+        from .mesh import MeshShape, device_mesh
+        sizes = tuple(int(n) for n in args.mesh.split(","))
+        dm = device_mesh(MeshShape(sizes, ("data", "model")), device)
+        model = M.make_trainable(R.shard_model(model, cfg, dm))
+        opt_state = R.shard_opt_state(opt_state, cfg, dm)
+        step_fn = R.mesh_step(step_fn, cfg, shape, dm)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"[train] arch={cfg.name} params={n_params/1e6:.1f}M "
           f"batch={args.batch}x{args.seq} steps={args.steps}", flush=True)

@@ -7,7 +7,10 @@ numpy arrays, which :func:`params_from_numpy` loads.  Names map one to one
 ``params["layers"]["ffn"]["w_gate"][i]``, (E, d, f), is
 ``layers.{i}.ffn.w_gate``; Whisper's ``enc_layers`` / ``dec_layers``
 likewise), the ``(d_in, d_out)`` layout is kept, and each stacked layers
-axis is split into its ``ModuleList``.
+axis is split into its ``ModuleList``.  With a ``DeviceMesh`` (``mesh=``)
+the tree is committed to it under ``rules`` as ``registry.shard_model``
+commits a model: each parameter a DTensor, as JAX's ``in_shardings`` put
+its arrays.
 """
 from __future__ import annotations
 
@@ -40,14 +43,20 @@ def _to_tensors(tree, device, dtype):
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                       device: DeviceLike = None,
-                      dtype: Optional[torch.dtype] = None) -> Transformer:
+                      dtype: Optional[torch.dtype] = None, mesh=None,
+                      rules=None) -> Transformer:
     """A ``Transformer`` holding ``tree``'s values on ``device`` (None: the
-    CUDA device), in ``dtype`` (None: the arrays' own)."""
+    CUDA device), in ``dtype`` (None: the arrays' own); on ``mesh`` (a
+    ``DeviceMesh`` of ``device``'s type) under ``rules`` where given."""
     device = resolve_device(device)
     tensors = _to_tensors(tree, device, dtype)
     model_dtype = dtype or tensors["embedding"].dtype
-    return load_stacked(Transformer(cfg, device="meta", dtype=model_dtype),
-                        tensors)
+    model = load_stacked(Transformer(cfg, device="meta", dtype=model_dtype),
+                         tensors)
+    if mesh is None:
+        return model
+    from .registry import shard_model
+    return shard_model(model, cfg, mesh, rules)
 
 
 __all__ = ["params_from_numpy", "tensor_from_numpy"]

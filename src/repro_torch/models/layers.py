@@ -15,10 +15,19 @@ attention is plain torch; MLA decodes against its latent cache, expanded
 through ``wkv_b`` at every step as in JAX.  The MoE's expert products are
 batched matmuls, as the JAX package computes them outside any Pallas
 kernel.
+
+The activation pins sit where JAX's ``flags.constrain`` calls do: q, k and
+v before attention (:func:`pin_qkv`), the decode scores, the decode
+caches, and the SwiGLU's hidden and output (Megatron column -> row).
+They act on DTensors while ``flags`` holds mesh axes, and on nothing
+else.  A DTensor cache takes each decode step's new entry through JAX's
+``where`` over the whole cache (an index write into a sequence-sharded
+cache would gather it); a plain cache is written at its slot.
 """
 from __future__ import annotations
 
 from functools import lru_cache
+from types import SimpleNamespace
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -26,7 +35,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..device import is_dtensor
 from ..kernels.flash_attention import flash_attention
+from . import flags
 from .config import MLAConfig, ModelConfig, MoEConfig
 from .params import P
 
@@ -130,13 +141,14 @@ def decode_attention(q, k, v, cache_len: Optional[torch.Tensor] = None):
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
     scale = 1.0 / np.sqrt(hd)
-    qr = q[:, 0].reshape(B, KV, G, hd)
+    qr = _divisible(q[:, 0], 1, KV).reshape(B, KV, G, hd)
     s = torch.einsum("bkgd,bskd->bkgs", qr.to(f32), k.to(f32))
     s = s * scale
     if cache_len is not None:
         valid = (torch.arange(S, device=q.device)[None, :]
                  < cache_len[:, None])
         s = torch.where(valid[:, None, None, :], s, -1e30)
+    s = flags.constrain(s, "batch", "kv_heads", None, "kv_seq")
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, v.to(f32))
     return o.reshape(B, 1, H, v.shape[-1]).to(q.dtype)
@@ -161,12 +173,82 @@ class Attention(nn.Module):
             setattr(self, name, _param(p.shape, device, dtype))
 
 
+def _divisible(x, d: int, n: int):
+    """A DTensor ``x`` whose dim ``d`` is sharded over more ranks than
+    divide ``n`` (the leading size it is about to be split into) made
+    whole over the mesh axes that do not (GSPMD reshards such a reshape
+    itself; DTensor refuses it); any other ``x`` as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    mesh = x.device_mesh
+    pl, ways = list(x.placements), 1
+    for m, p in enumerate(pl):
+        if p.is_shard(d):
+            if n % (ways * mesh.size(m)):
+                pl[m] = Replicate()
+            else:
+                ways *= mesh.size(m)
+    return x if pl == list(x.placements) else x.redistribute(mesh, pl)
+
+
+def split_heads(x, n: int, hd: int):
+    """x (..., n * hd) -> (..., n, hd) (a DTensor first through
+    :func:`_divisible`)."""
+    x = _divisible(x, x.dim() - 1, n)
+    return x.reshape(*x.shape[:-1], n, hd)
+
+
+def out_proj(o, wo):
+    """Attention's output projection ``o (B, S, H, hd_v) @ wo``, pinned
+    (batch, ...): the row-parallel product's reduction over the heads'
+    axis, made before the residual add (a pin the JAX package leaves to
+    GSPMD; without it DTensor keeps the residual a Partial sum and meets
+    the next column-parallel weight by gathering it, so every rank would
+    run the whole SwiGLU)."""
+    B, S = o.shape[:2]
+    y = o.reshape(B, S, -1) @ wo
+    return flags.constrain(y, "batch", None, None)
+
+
+def pin_qkv(q, k, v):
+    """JAX's pins on attention's inputs (its ``flash_attention``): q batch
+    and heads; k and v batch, and heads only where KV == H (a GQA k / v
+    pinned on heads would make the backward reduce the expanded
+    gradient)."""
+    q = flags.constrain(q, "batch", None, "heads", None)
+    kv_pin = "heads" if k.shape[2] == q.shape[2] else None
+    k = flags.constrain(k, "batch", None, kv_pin, None)
+    v = flags.constrain(v, "batch", None, kv_pin, None)
+    return q, k, v
+
+
+def _write_slot(cache_t, new, slot, rows, inside=None):
+    """``cache_t[rows, slot] = new`` in place (where ``inside``, (B, 1)
+    bool, else the old entry); on a DTensor cache through a ``where``
+    over the sequence dim, JAX's update."""
+    new = new.to(cache_t.dtype)
+    if is_dtensor(cache_t):
+        S = cache_t.shape[1]
+        sel = (torch.arange(S, device=slot.device)[None, :]
+               == slot[:, None])
+        if inside is not None:
+            sel = sel & inside
+        sel = sel.reshape(sel.shape + (1,) * (cache_t.dim() - 2))
+        cache_t.copy_(torch.where(sel, new[:, None], cache_t))
+        return
+    if inside is not None:
+        new = torch.where(inside.reshape(inside.shape + (1,) * (new.dim()
+                                                                - 2)),
+                          new, cache_t[rows, slot])
+    cache_t[rows, slot] = new
+
+
 def attention_qkv(attn: Attention, x, cfg: ModelConfig, positions):
-    B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ attn.wq).reshape(B, S, cfg.n_heads, hd)
-    k = (x @ attn.wk).reshape(B, S, cfg.n_kv_heads, hd)
-    v = (x @ attn.wv).reshape(B, S, cfg.n_kv_heads, hd)
+    q = split_heads(x @ attn.wq, cfg.n_heads, hd)
+    k = split_heads(x @ attn.wk, cfg.n_kv_heads, hd)
+    v = split_heads(x @ attn.wv, cfg.n_kv_heads, hd)
     sections = default_mrope_sections(hd) if cfg.mrope else None
     q = apply_rope(q, positions, cfg.rope_theta, sections)
     k = apply_rope(k, positions, cfg.rope_theta, sections)
@@ -175,11 +257,10 @@ def attention_qkv(attn: Attention, x, cfg: ModelConfig, positions):
 
 def attention_apply(attn: Attention, x, cfg: ModelConfig, positions, *,
                     window: Optional[int] = None):
-    q, k, v = attention_qkv(attn, x, cfg, positions)
+    q, k, v = pin_qkv(*attention_qkv(attn, x, cfg, positions))
     o = flash_attention(q, k, v, causal=True,
                         window=window or cfg.sliding_window)
-    B, S = x.shape[:2]
-    return o.reshape(B, S, -1) @ attn.wo
+    return out_proj(o, attn.wo)
 
 
 def attention_decode(attn: Attention, x, cfg: ModelConfig, cache, pos, *,
@@ -193,9 +274,9 @@ def attention_decode(attn: Attention, x, cfg: ModelConfig, cache, pos, *,
     what a step sees."""
     B = x.shape[0]
     hd = cfg.resolved_head_dim
-    q = (x @ attn.wq).reshape(B, 1, cfg.n_heads, hd)
-    k = (x @ attn.wk).reshape(B, 1, cfg.n_kv_heads, hd)
-    v = (x @ attn.wv).reshape(B, 1, cfg.n_kv_heads, hd)
+    q = split_heads(x @ attn.wq, cfg.n_heads, hd)
+    k = split_heads(x @ attn.wk, cfg.n_kv_heads, hd)
+    v = split_heads(x @ attn.wv, cfg.n_kv_heads, hd)
     # One text position per request: M-RoPE's three axes would coincide,
     # which is plain RoPE, so the vlm family takes this path too.
     posb = pos[:, None]
@@ -205,11 +286,13 @@ def attention_decode(attn: Attention, x, cfg: ModelConfig, cache, pos, *,
     S = k_all.shape[1]
     slot = (pos % S).long()             # ring buffer; plain append otherwise
     rows = torch.arange(B, device=x.device)
-    k_all[rows, slot] = k[:, 0].to(k_all.dtype)
-    v_all[rows, slot] = v[:, 0].to(v_all.dtype)
+    _write_slot(k_all, k[:, 0], slot, rows)
+    _write_slot(v_all, v[:, 0], slot, rows)
+    k_all = flags.constrain(k_all, "batch", "kv_seq", "kv_heads", None)
+    v_all = flags.constrain(v_all, "batch", "kv_seq", "kv_heads", None)
     o = decode_attention(q, k_all, v_all,
                          cache_len=torch.clamp(pos + 1, max=S))
-    return o.reshape(B, 1, -1) @ attn.wo, cache
+    return out_proj(o, attn.wo), cache
 
 
 # ---------------------------------------------------------------------------
@@ -254,10 +337,9 @@ def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _mla_q(mla: MLA, x, cfg: ModelConfig, positions):
     """q (B, S, H, nope + rope): the nope part and the rotated rope part."""
     m: MLAConfig = cfg.mla
-    B, S, _ = x.shape
     qk_n = m.nope_head_dim
     q_lat = rmsnorm(mla.q_norm, x @ mla.wq_a)
-    q = (q_lat @ mla.wq_b).reshape(B, S, cfg.n_heads, qk_n + m.rope_head_dim)
+    q = split_heads(q_lat @ mla.wq_b, cfg.n_heads, qk_n + m.rope_head_dim)
     q_rope = apply_rope(q[..., qk_n:], positions, cfg.rope_theta)
     return torch.cat([q[..., :qk_n], q_rope], dim=-1)
 
@@ -280,7 +362,7 @@ def _mla_kv(mla: MLA, c, k_rope, cfg: ModelConfig):
     m: MLAConfig = cfg.mla
     B, S = c.shape[:2]
     H, qk_n = cfg.n_heads, m.nope_head_dim
-    kv = _matmul(c, mla.wkv_b).reshape(B, S, H, qk_n + m.v_head_dim)
+    kv = split_heads(_matmul(c, mla.wkv_b), H, qk_n + m.v_head_dim)
     k_nope, v = kv[..., :qk_n], kv[..., qk_n:]
     k_rope = k_rope.to(k_nope.dtype).expand(B, S, H, m.rope_head_dim)
     return torch.cat([k_nope, k_rope], dim=-1), v
@@ -298,10 +380,9 @@ def _mla_qkv(mla: MLA, x, cfg: ModelConfig, positions):
 def mla_apply(mla: MLA, x, cfg: ModelConfig, positions):
     """Causal MLA over x (B, S, D): the kernel's wrapper with q/k at nope +
     rope against v at v_head_dim (scale 1 / sqrt(nope + rope))."""
-    q, k, v, _, _ = _mla_qkv(mla, x, cfg, positions)
+    q, k, v = pin_qkv(*_mla_qkv(mla, x, cfg, positions)[:3])
     o = flash_attention(q, k, v, causal=True)
-    B, S = x.shape[:2]
-    return o.reshape(B, S, -1) @ mla.wo
+    return out_proj(o, mla.wo)
 
 
 def mla_decode(mla: MLA, x, cfg: ModelConfig, cache, pos):
@@ -320,14 +401,13 @@ def mla_decode(mla: MLA, x, cfg: ModelConfig, cache, pos):
     rows = torch.arange(B, device=x.device)
     slot = torch.clamp(pos, max=S - 1).long()
     inside = (pos < S)[:, None]
-    c_all[rows, slot] = torch.where(inside, c_new[:, 0].to(c_all.dtype),
-                                    c_all[rows, slot])
-    kr_all[rows, slot] = torch.where(inside[..., None],
-                                     kr_new[:, 0].to(kr_all.dtype),
-                                     kr_all[rows, slot])
+    _write_slot(c_all, c_new[:, 0], slot, rows, inside)
+    _write_slot(kr_all, kr_new[:, 0], slot, rows, inside)
+    c_all = flags.constrain(c_all, "batch", "kv_seq", None)
+    kr_all = flags.constrain(kr_all, "batch", "kv_seq", None, None)
     k, v = _mla_kv(mla, c_all, kr_all, cfg)
     o = decode_attention(q, k, v, cache_len=torch.clamp(pos + 1, max=S))
-    return o.reshape(B, 1, -1) @ mla.wo, cache
+    return out_proj(o, mla.wo), cache
 
 
 # ---------------------------------------------------------------------------
@@ -352,11 +432,15 @@ class SwiGLU(nn.Module):
 
 
 def mlp_apply(ffn: SwiGLU, x):
-    """silu(x @ w_gate) * (x @ w_up) in float32, cast back, @ w_down."""
-    g = (x @ ffn.w_gate).to(f32)
-    u = (x @ ffn.w_up).to(f32)
+    """silu(x @ w_gate) * (x @ w_up) in float32, cast back, @ w_down.  The
+    hidden is pinned (batch, ..., mlp on the heads' axes) and the output
+    (batch, ...): Megatron's column -> row parallel product."""
+    hid = ("batch",) + (None,) * (x.dim() - 2) + ("heads",)
+    g = flags.constrain((x @ ffn.w_gate).to(f32), *hid)
+    u = flags.constrain((x @ ffn.w_up).to(f32), *hid)
     h = (F.silu(g) * u).to(x.dtype)
-    return h @ ffn.w_down
+    out = h @ ffn.w_down
+    return flags.constrain(out, "batch", *(None,) * (out.dim() - 1))
 
 
 # ---------------------------------------------------------------------------
@@ -437,6 +521,45 @@ def moe_slots(flat_e: torch.Tensor, E: int, C: int):
     return slot, keep
 
 
+def _moe_dispatch(xt, moe, cfg: ModelConfig, capacity_factor):
+    """Routing of the tokens ``xt`` (T, D) by ``moe``'s router
+    (:func:`moe_route`) and their dispatch: ``(h (E, C, D) the experts'
+    inputs, keep, slot, top_p, aux)`` (:func:`moe_apply`)."""
+    m: MoEConfig = cfg.moe
+    T, D = xt.shape
+    E, K = m.n_experts, m.top_k
+    probs, top_p, flat_e, slot, keep, C = moe_route(moe, xt, cfg,
+                                                    capacity_factor)
+    x_rep = xt.repeat_interleave(K, dim=0)                  # (T*K, D)
+    buf = torch.zeros((E * C + 1, D), dtype=xt.dtype, device=xt.device)
+    buf.index_add_(0, slot, x_rep)
+    me = probs.mean(dim=0)                                  # (E,)
+    ce = torch.zeros((E,), dtype=f32, device=xt.device).index_add_(
+        0, flat_e, torch.ones_like(flat_e, dtype=f32)) / T
+    aux = E * torch.sum(me * ce)
+    return buf[:-1].reshape(E, C, D), keep, slot, top_p, aux
+
+
+def _moe_experts(moe: MoE, h, dtype):
+    """The experts' SwiGLU over their inputs h (E, C, D) as batched
+    matmuls, SiLU * up in float32."""
+    g = F.silu(torch.bmm(h, moe.w_gate).to(f32))
+    u = torch.bmm(h, moe.w_up).to(f32)
+    return torch.bmm((g * u).to(dtype), moe.w_down)
+
+
+def _moe_combine(y, keep, slot, top_p, K: int):
+    """Each kept pair's expert output from y (E, C, D), times its weight
+    in y's dtype, summed over the K choices: (T, D)."""
+    E, C, D = y.shape
+    y_slots = y.reshape(E * C, D)
+    gathered = torch.where(keep[:, None],
+                           y_slots[torch.clamp(slot, max=E * C - 1)],
+                           torch.zeros((), dtype=y.dtype, device=y.device))
+    weighted = gathered * top_p.reshape(-1)[:, None].to(y.dtype)
+    return weighted.reshape(-1, K, D).sum(dim=1)
+
+
 def moe_apply(moe: MoE, x: torch.Tensor, cfg: ModelConfig,
               capacity_factor: Optional[float] = None):
     """x: (B, S, D) -> (out (B, S, D), aux ()).  Routing by
@@ -446,42 +569,46 @@ def moe_apply(moe: MoE, x: torch.Tensor, cfg: ModelConfig,
     float32, and each pair's output, times its renormalised weight in x's
     dtype, is summed over the K choices in x's dtype; then the shared
     expert.  ``aux = E * sum(mean probs * assignment share)``, the JAX
-    function's load-balance term."""
+    function's load-balance term.
+
+    On DTensors (a step on a mesh) the routing, dispatch and combine run
+    whole on every rank (``local_map`` over replicated operands: DTensor
+    has no rule for the routing's sort and searchsorted, and the capacity
+    is the global batch's) and the experts' products on DTensors, the
+    expert stacks sharded as their rules say."""
     m: MoEConfig = cfg.moe
     B, S, D = x.shape
-    T = B * S
-    E, K = m.n_experts, m.top_k
-    xt = x.reshape(T, D)
-    probs, top_p, flat_e, slot, keep, C = moe_route(moe, xt, cfg,
-                                                    capacity_factor)
-
-    x_rep = xt.repeat_interleave(K, dim=0)                  # (T*K, D)
-    buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
-    buf.index_add_(0, slot, x_rep)
-    h = buf[:-1].reshape(E, C, D)
-    g = F.silu(torch.bmm(h, moe.w_gate).to(f32))
-    u = torch.bmm(h, moe.w_up).to(f32)
-    y = torch.bmm((g * u).to(x.dtype), moe.w_down)
-    y_slots = y.reshape(E * C, D)
-    gathered = torch.where(keep[:, None],
-                           y_slots[torch.clamp(slot, max=E * C - 1)],
-                           torch.zeros((), dtype=x.dtype, device=x.device))
-    weighted = gathered * top_p.reshape(-1)[:, None].to(x.dtype)
-    out = weighted.reshape(T, K, D).sum(dim=1)
-
+    xt = x.reshape(B * S, D)
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+        from torch.distributed.tensor.experimental import local_map
+        mesh = x.device_mesh
+        R = [Replicate()] * mesh.ndim
+        h, keep, slot, top_p, aux = local_map(
+            lambda a, r: _moe_dispatch(a, SimpleNamespace(router=r), cfg,
+                                       capacity_factor),
+            out_placements=(R,) * 5, in_placements=(R, R),
+            device_mesh=mesh, redistribute_inputs=True)(xt, moe.router)
+        y = _moe_experts(moe, h, x.dtype)
+        out = local_map(lambda *a: _moe_combine(*a, m.top_k),
+                        out_placements=R, in_placements=(R,) * 4,
+                        device_mesh=mesh, redistribute_inputs=True)(
+            y, keep, slot, top_p)
+    else:
+        h, keep, slot, top_p, aux = _moe_dispatch(xt, moe, cfg,
+                                                  capacity_factor)
+        out = _moe_combine(_moe_experts(moe, h, x.dtype), keep, slot,
+                           top_p, m.top_k)
     if m.n_shared:
         out = out + mlp_apply(moe.shared, xt)
-    me = probs.mean(dim=0)                                  # (E,)
-    ce = torch.zeros((E,), dtype=f32, device=x.device).index_add_(
-        0, flat_e, torch.ones_like(flat_e, dtype=f32)) / T
-    aux = E * torch.sum(me * ce)
     return out.reshape(B, S, D), aux
 
 
 __all__ = [
     "rmsnorm_spec", "rmsnorm", "RMSNorm", "rope_freqs", "apply_rope",
     "default_mrope_sections", "flash_attention", "decode_attention",
-    "attention_spec", "Attention", "attention_qkv", "attention_apply",
+    "attention_spec", "Attention", "split_heads", "out_proj", "pin_qkv",
+    "attention_qkv", "attention_apply",
     "attention_decode", "mla_spec", "MLA", "mla_apply", "mla_decode",
     "mlp_spec", "SwiGLU", "mlp_apply", "moe_spec",
     "MoE", "moe_route", "moe_slots", "moe_apply",

@@ -13,21 +13,37 @@
 ``decode_32k`` cache is hundreds of GB), as the JAX package's
 ``ShapeDtypeStruct``s do.
 ``cell_supported`` encodes the applicability matrix (long_500k only for
-sub-quadratic archs).  Parameter counts and ``model_flops`` are the JAX
-package's formulas over the port's specs.
+sub-quadratic archs).
+
+On a ``DeviceMesh`` (``make_step(..., mesh=)``) the step runs on
+DTensors: :func:`shard_model` / :func:`shard_opt_state` commit the
+parameters and AdamW's moments under the rules (``launch.sharding.
+tree_shardings`` of ``param_axes``), the step commits its batch
+(:func:`shard_batch`, JAX's ``_batch_shardings``) and the decode cache
+(:func:`shard_cache`, JAX's ``_cache_shardings``), and sets the
+activation axes that JAX's ``lower_cell`` sets (:func:`cell_axes`) while
+it runs; operands that are plain tensors (positions, masks, the
+step count's scalars) are taken as replicated (``implicit_replication``).
+
+Parameter counts and ``model_flops`` are the JAX package's formulas over
+the port's specs.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Tuple
 
 import torch
 
 from ..configs import ARCH_IDS, get_config, get_smoke_config
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, is_dtensor, resolve_device
+from ..launch import sharding as SH
+from ..launch.mesh import mesh_shape_of
 from ..serve import llm_decode as serve_engine
-from ..train.optimizer import AdamWConfig, OptState, tree_map
+from ..train.optimizer import AdamWConfig, OptState, tree_leaves, tree_map
 from ..train.step import make_train_step
 from .config import SHAPES, ModelConfig, ShapeConfig
+from . import flags
 from . import transformer as M
 from .params import is_leaf, param_count
 from .transformer import check_family, stacked_model_spec
@@ -100,21 +116,162 @@ def input_specs(arch_or_cfg, shape_name: str, *, smoke: bool = False):
 # Step builders
 # ---------------------------------------------------------------------------
 
+def cell_axes(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
+              batch_axes=None, head_axes="model") -> Dict[str, object]:
+    """The activation axes JAX's ``lower_cell`` sets for this cell on
+    ``mesh`` (a ``MeshShape`` or ``DeviceMesh``), as
+    ``flags.activation_axes`` keywords: the batch on ``batch_axes``
+    (default: pod and data) where their extent divides the global batch,
+    heads on ``head_axes``, kv heads on ``model`` where the model axis
+    divides them, else (and always for MLA's latent) the decode cache's
+    sequence on ``model``."""
+    sizes = SH.mesh_sizes(mesh)
+    dp_axes = tuple(a for a in (batch_axes if batch_axes is not None
+                                else ("pod", "data")) if a in sizes)
+    dp = 1
+    for a in dp_axes:
+        dp *= sizes[a]
+    heads_ok = (head_axes is not None
+                and cfg.n_kv_heads % sizes.get("model", 1) == 0)
+    return {"batch": dp_axes if shape.global_batch % dp == 0 else None,
+            "heads": head_axes,
+            "kv_heads": "model" if heads_ok else None,
+            "kv_seq": ("model" if (cfg.family == "mla_moe" or not heads_ok)
+                       else None)}
+
+
+def shard_model(model: M.Transformer, cfg: ModelConfig, device_mesh,
+                rules=None) -> M.Transformer:
+    """A ``Transformer`` over ``model``'s stacked parameters committed to
+    ``device_mesh`` under ``rules`` (default: ``DEFAULT_RULES``), each
+    parameter a DTensor (a layer's a view of its stacked DTensor)."""
+    tree = M.stacked_params(model)
+    specs = SH.tree_shardings(M.param_axes(cfg), tree,
+                              mesh_shape_of(device_mesh), rules)
+    dtree = SH.distribute_tree(tree, specs, device_mesh)
+    dtype = next(iter(tree_leaves(tree))).dtype
+    return M.load_stacked(M.Transformer(cfg, device="meta", dtype=dtype),
+                          dtree)
+
+
+def shard_opt_state(opt: OptState, cfg: ModelConfig, device_mesh,
+                    rules=None) -> OptState:
+    """AdamW's state on ``device_mesh``: the moments under the parameters'
+    specs, the step count replicated (JAX's ``opt_shard``)."""
+    ms = mesh_shape_of(device_mesh)
+    axes = M.param_axes(cfg)
+
+    def moments(tree):
+        return SH.distribute_tree(tree, SH.tree_shardings(axes, tree, ms,
+                                                          rules),
+                                  device_mesh)
+    return OptState(step=SH.distribute(opt.step, (), device_mesh),
+                    m=moments(opt.m), v=moments(opt.v))
+
+
+def shard_batch(batch: Dict[str, torch.Tensor], device_mesh,
+                axes=None) -> Dict[str, torch.Tensor]:
+    """``batch`` on ``device_mesh``: each entry's batch dim over ``axes``
+    (default: pod and data) where their extent divides it, else
+    replicated; ``mrope_positions`` (3, B, S) on its dim 1 (JAX's
+    ``_batch_shardings``)."""
+    ms = mesh_shape_of(device_mesh)
+
+    def one(name, t):
+        if name == "mrope_positions":
+            spec = SH.batch_pspec(ms, t.dim(), 1, axes)
+        else:
+            spec = SH.batch_sharding(ms, t, axes=axes)
+        return SH.distribute(t, spec, device_mesh)
+    return {k: one(k, v) for k, v in batch.items()}
+
+
+def shard_cache(cache: Dict[str, torch.Tensor], cfg: ModelConfig,
+                device_mesh) -> Dict[str, torch.Tensor]:
+    """The decode cache on ``device_mesh`` under ``llm_decode.cache_axes``
+    and the default rules (JAX's ``_cache_shardings``): kv heads on
+    ``model`` where it divides them, else the sequence."""
+    ms = mesh_shape_of(device_mesh)
+    axes = serve_engine.cache_axes(cfg, model_size=ms.shape.get("model", 1))
+    # A copy: ``init_cache`` makes inference tensors, which a step on a
+    # mesh (under no_grad) cannot write in place.
+    return {k: SH.distribute(v if v.device.type == "meta" else v.clone(),
+                             SH.logical_to_pspec(axes[k], tuple(v.shape),
+                                                 ms), device_mesh)
+            for k, v in cache.items()}
+
+
+@contextlib.contextmanager
+def on_mesh(cfg: ModelConfig, shape: ShapeConfig, device_mesh, **axes_kw):
+    """The block runs as a step on ``device_mesh``: ``cell_axes`` set and
+    plain tensors taken as replicated."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    with flags.activation_axes(**cell_axes(cfg, shape, device_mesh,
+                                           **axes_kw)), \
+            implicit_replication():
+        yield
+
+
+def mesh_step(fn: Callable, cfg: ModelConfig, shape: ShapeConfig,
+              device_mesh, *, batch_axes=None,
+              head_axes="model") -> Callable:
+    """``fn(model, ..., batch)`` as a step on ``device_mesh``: a plain
+    batch committed with :func:`shard_batch`, a plain ``batch["cache"]``
+    with :func:`shard_cache`, then ``fn`` under :func:`on_mesh` on the
+    model read through ``transformer.unsharded``."""
+    def run(model, *args):
+        batch = args[-1]
+        if "cache" in batch and not is_dtensor(
+                next(iter(batch["cache"].values()))):
+            batch = dict(batch, cache=shard_cache(batch["cache"], cfg,
+                                                  device_mesh))
+        plain = {k: v for k, v in batch.items()
+                 if k != "cache" and not is_dtensor(v)}
+        batch = dict(batch, **shard_batch(plain, device_mesh, batch_axes))
+        with on_mesh(cfg, shape, device_mesh, batch_axes=batch_axes,
+                     head_axes=head_axes):
+            return fn(M.unsharded(model), *args[:-1], batch)
+    return run
+
+
 def make_step(cfg: ModelConfig, shape: ShapeConfig, *, n_micro: int = 1,
-              device: DeviceLike = None) -> Callable:
+              device: DeviceLike = None, mesh=None, batch_axes=None,
+              head_axes="model") -> Callable:
     """The step function of this cell: ``step(model, batch)``, or for the
     train kind ``step(model, opt_state, batch) -> (opt_state, metrics)``
     with AdamW's defaults over ``n_micro`` micro-batches (the model
     trainable, ``transformer.make_trainable``).  The model must live on
-    ``device`` (None: the CUDA device)."""
+    ``device`` (None: the CUDA device).
+
+    ``mesh``: a ``DeviceMesh`` whose devices are of ``device``'s type (a
+    ``meta`` step: any mesh, its local shards on ``meta``).
+    The model and optimizer state must then be on it
+    (:func:`shard_model`, :func:`shard_opt_state`); the step commits a
+    plain batch with :func:`shard_batch` (over ``batch_axes``) and a plain
+    decode cache with :func:`shard_cache`, and runs under
+    :func:`on_mesh` (heads on ``head_axes``), reading the parameters
+    through ``transformer.unsharded`` (FSDP's gather)."""
     check_family(cfg)
     device = resolve_device(device)
+    if mesh is not None and device.type not in ("meta", mesh.device_type):
+        raise ValueError(f"mesh on {mesh.device_type}, step built for "
+                         f"{device}")
 
     def _on_device(model):
+        model = getattr(model, "_module", model)
         where = model.embedding.device
         if where.type != device.type or device.index not in (None,
                                                              where.index):
             raise ValueError(f"model on {where}, step built for {device}")
+        if (mesh is None) == is_dtensor(model.embedding):
+            raise ValueError("a model of DTensors takes a step built on "
+                             "their mesh (make_step(mesh=)), and only it")
+
+    def sharded(fn):
+        if mesh is None:
+            return fn
+        return mesh_step(fn, cfg, shape, mesh, batch_axes=batch_axes,
+                         head_axes=head_axes)
 
     if shape.kind == "train":
         ts = make_train_step(cfg, AdamWConfig(), n_micro=n_micro)
@@ -122,7 +279,7 @@ def make_step(cfg: ModelConfig, shape: ShapeConfig, *, n_micro: int = 1,
         def train_fn(model, opt_state, batch):
             _on_device(model)
             return ts(model, opt_state, batch)
-        return train_fn
+        return sharded(train_fn)
 
     if shape.kind == "prefill":
         def prefill_fn(model, batch):
@@ -132,13 +289,13 @@ def make_step(cfg: ModelConfig, shape: ShapeConfig, *, n_micro: int = 1,
                 return M.logits_fn(model, enc[:, -1:], cfg)
             return serve_engine.prefill(model, batch["tokens"], cfg,
                                         shape.seq_len)
-        return prefill_fn
+        return sharded(prefill_fn)
 
     def decode_fn(model, batch):
         _on_device(model)
         return serve_engine.decode_step(model, batch["cache"],
                                         batch["tokens"], batch["pos"], cfg)
-    return decode_fn
+    return sharded(decode_fn)
 
 
 def abstract_params(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16):
@@ -205,6 +362,8 @@ def supported_cells():
 
 
 __all__ = ["input_specs", "make_step", "cell_supported", "model_flops",
+           "cell_axes", "shard_model", "shard_opt_state", "shard_batch",
+           "shard_cache", "on_mesh", "mesh_step",
            "abstract_params", "abstract_train_state",
            "active_param_count", "total_param_count", "ALL_CELLS",
            "supported_cells", "train_input_specs", "prefill_input_specs",

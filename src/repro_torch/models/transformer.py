@@ -41,7 +41,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, is_dtensor, resolve_device
 from . import flags
 from . import layers as L
 from . import ssm as S
@@ -325,6 +325,99 @@ def stacked_params(model: Transformer) -> Dict[str, Any]:
     return tree
 
 
+class Unsharded:
+    """A read-only view of a module of DTensor parameters for a step on a
+    mesh: each parameter read through it is first gathered over the mesh
+    axes that are not ``flags.HEAD_AXES`` (ZeRO-3 / FSDP's all-gather of
+    the data-parallel shards; its backward reduce-scatters the gradient),
+    so DTensor shards products and norms on the activations' batch, as
+    GSPMD does for JAX's FSDP layout, and never gathers the activations
+    to meet a weight's ``embed`` shard.  A read happens where the code
+    reads the weight, so a rematerialised layer gathers again in its
+    recompute.  Submodules come back as views, methods and other
+    attributes as the module's own."""
+
+    def __init__(self, module):
+        object.__setattr__(self, "_module", module)
+
+    def __getattr__(self, name):
+        v = getattr(self._module, name)
+        if isinstance(v, nn.Module):
+            return Unsharded(v)
+        if isinstance(v, nn.Parameter) and is_dtensor(v):
+            return _gather_fsdp(v)
+        return v
+
+    def __iter__(self):
+        return (Unsharded(m) for m in self._module)
+
+    def __len__(self):
+        return len(self._module)
+
+    def __getitem__(self, i):
+        return Unsharded(self._module[i])
+
+
+def _gather_fsdp(p):
+    from torch.distributed.tensor import Replicate
+    names = p.device_mesh.mesh_dim_names
+    tp = flags.HEAD_AXES
+    tp = (tp,) if isinstance(tp, str) else tuple(tp or ())
+    want = [pl if names[m] in tp else Replicate()
+            for m, pl in enumerate(p.placements)]
+    if want == list(p.placements):
+        return p
+    return p.redistribute(p.device_mesh, want)
+
+
+def unsharded(model):
+    """``model`` read through :class:`Unsharded` where its parameters are
+    DTensors; else ``model``."""
+    if isinstance(model, Unsharded) or not is_dtensor(model.embedding):
+        return model
+    return Unsharded(model)
+
+
+def embed(model, tokens: torch.Tensor) -> torch.Tensor:
+    """``model.embedding[tokens]``.  On DTensors the lookup runs on the
+    local shards (``local_map``): each rank gathers the rows of its vocab
+    shard and zeros the rest, a Partial sum over the vocab's axes (the
+    vocab-parallel embedding), its gradient Partial over the batch's axes.
+    DTensor's own rule for the index goes through ``index_put`` in the
+    backward, which some PyTorch releases cannot place."""
+    w = model.embedding
+    if not is_dtensor(w):
+        return w[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = w.device_mesh
+    tp = tokens.placements
+    w_pl = [Shard(0) if (p.is_shard(0) and not tp[m].is_shard(0))
+            else Replicate() for m, p in enumerate(w.placements)]
+    idx, n = 0, 1
+    for m, p in enumerate(w_pl):
+        if p.is_shard(0):
+            idx, n = idx * mesh.size(m) + mesh.get_local_rank(m), (
+                n * mesh.size(m))
+    rows = w.shape[0] // n
+    out_pl = [Shard(0) if t.is_shard(0) else
+              (Partial() if p.is_shard(0) else Replicate())
+              for t, p in zip(tp, w_pl)]
+    grad_pl = [Partial() if t.is_shard(0) else p for t, p in zip(tp, w_pl)]
+
+    def lookup(w_loc, tok):
+        local = tok - idx * rows
+        inside = (local >= 0) & (local < rows)
+        got = w_loc[local.clamp(0, rows - 1)]
+        return torch.where(inside[..., None], got,
+                           torch.zeros((), dtype=got.dtype,
+                                       device=got.device))
+    return local_map(lookup, out_placements=out_pl,
+                     in_placements=(w_pl, tp), in_grad_placements=(
+                         grad_pl, tp), device_mesh=mesh,
+                     redistribute_inputs=True)(w, tokens)
+
+
 def make_trainable(model: Transformer) -> Transformer:
     """Every parameter ``requires_grad_(True)`` (each layer's parameter
     stays a view of its stacked tensor)."""
@@ -392,7 +485,9 @@ def _positions(cfg: ModelConfig, batch: int, seq: int,
 def _decoder_layer_fwd(cfg: ModelConfig, layer: nn.Module, x, positions):
     """One pre-norm decoder layer; returns (x, aux): the MoE's aux loss,
     else None.  An RWKV layer starts from zero carries and state, as in
-    JAX; a hybrid config's layer is its Mamba-2 block alone."""
+    JAX; a hybrid config's layer is its Mamba-2 block alone.  The residual
+    stream is pinned on the batch axes (``flags.constrain``)."""
+    x = flags.constrain(x, "batch", None, None)
     if cfg.family == "rwkv6":
         st = S.rwkv6_init_state(cfg, x.shape[0], x.device)
         h, _, _ = S.rwkv6_time_mix_scan(
@@ -446,7 +541,7 @@ def forward(model: Transformer, tokens_or_embeds: torch.Tensor,
     ``flags.remat_wrap``."""
     check_family(cfg)
     if not tokens_or_embeds.is_floating_point():
-        x = model.embedding[tokens_or_embeds]
+        x = embed(model, tokens_or_embeds)
     else:
         x = tokens_or_embeds                    # stubbed frontend embeddings
     B, Sq = x.shape[:2]
@@ -475,7 +570,7 @@ def hybrid_forward(model: Transformer, tokens: torch.Tensor,
     after the last group without it.  Returns (hidden (B,S,D), aux 0).
     ``remat`` wraps the Mamba-2 layers (not the shared block), as JAX."""
     check_family(cfg)
-    x = model.embedding[tokens]
+    x = embed(model, tokens)
     B, Sq = x.shape[:2]
     positions = _positions(cfg, B, Sq, None, x.device)
     period = cfg.shared_attn_period
@@ -506,11 +601,12 @@ def _encdec_forward(model: Transformer, x, cfg: ModelConfig, encoder_out,
         x = x + h
         # cross attention (bidirectional over encoder states)
         xq = L.rmsnorm(layer.ln_x.scale, x)
-        q = (xq @ layer.xattn.wq).reshape(B, Sq, cfg.n_heads, hd)
-        k = (encoder_out @ layer.xattn.wk).reshape(B, -1, cfg.n_kv_heads, hd)
-        v = (encoder_out @ layer.xattn.wv).reshape(B, -1, cfg.n_kv_heads, hd)
+        q = L.split_heads(xq @ layer.xattn.wq, cfg.n_heads, hd)
+        k = L.split_heads(encoder_out @ layer.xattn.wk, cfg.n_kv_heads, hd)
+        v = L.split_heads(encoder_out @ layer.xattn.wv, cfg.n_kv_heads, hd)
+        q, k, v = L.pin_qkv(q, k, v)
         o = L.flash_attention(q, k, v, causal=False)
-        x = x + o.reshape(B, Sq, -1) @ layer.xattn.wo
+        x = x + L.out_proj(o, layer.xattn.wo)
         h = L.mlp_apply(layer.ffn, L.rmsnorm(layer.ln2.scale, x))
         return x + h
 
@@ -532,9 +628,10 @@ def encode(model: Transformer, frame_embeds: torch.Tensor,
 
     def body(layer, x):
         h_in = L.rmsnorm(layer.ln1.scale, x)
-        q, k, v = L.attention_qkv(layer.attn, h_in, cfg, positions)
+        q, k, v = L.pin_qkv(*L.attention_qkv(layer.attn, h_in, cfg,
+                                             positions))
         o = L.flash_attention(q, k, v, causal=False)
-        x = x + o.reshape(B, Sq, -1) @ layer.attn.wo
+        x = x + L.out_proj(o, layer.attn.wo)
         h = L.mlp_apply(layer.ffn, L.rmsnorm(layer.ln2.scale, x))
         return x + h
 
@@ -566,4 +663,5 @@ __all__ = ["model_spec", "stacked_model_spec", "param_axes", "layer_spec",
            "DecoderXAttnLayer", "RWKVLayer", "MambaLayer", "init_params",
            "load_stacked", "stacked_params", "stacked_grads",
            "make_trainable", "zero_grads", "forward", "hybrid_forward",
+           "Unsharded", "unsharded", "embed",
            "encode", "logits_fn", "lm_forward", "check_family"]

@@ -24,16 +24,18 @@ as the JAX function does; a caller fills the cache with ``decode_step``
 over the prompt.  Nor does anything fill ``xk`` / ``xv`` (the JAX
 package's docstring says prefill does; its code does not): a caller
 writes each decoder layer's ``encoder_out @ xattn.wk`` / ``wv`` there.
-Everything runs under ``torch.inference_mode()``.  ``cache_axes`` gives
+Everything runs under ``torch.inference_mode()`` (``no_grad`` for a
+model of DTensors).  ``cache_axes`` gives
 the entries' logical axes (metadata, as in JAX).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, is_dtensor, resolve_device
 from ..models import layers as L
 from ..models import ssm as S
 from ..models import transformer as M
@@ -114,7 +116,19 @@ def cache_axes(cfg: ModelConfig, model_size: int = 16
             for k in ("k", "v")}
 
 
-@torch.inference_mode()
+def _serving(fn):
+    """``fn(model, ...)`` under ``inference_mode``; under ``no_grad`` for a
+    model of DTensors (a step on a mesh), whose views cannot take an
+    inference tensor's version counter."""
+    @functools.wraps(fn)
+    def run(model, *args, **kwargs):
+        with (torch.no_grad() if is_dtensor(model.embedding)
+              else torch.inference_mode()):
+            return fn(model, *args, **kwargs)
+    return run
+
+
+@_serving
 def decode_step(model: M.Transformer, cache: Dict[str, torch.Tensor],
                 tokens: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig):
     """One token for every sequence.  tokens: (B,1) int; pos: (B,) int
@@ -124,7 +138,7 @@ def decode_step(model: M.Transformer, cache: Dict[str, torch.Tensor],
     step's T = B tokens; mla_moe: ``mla_decode`` against the latent cache;
     rwkv6 and hybrid: :func:`_rwkv6_step` / :func:`_hybrid_step`."""
     M.check_family(cfg)
-    x = model.embedding[tokens]                           # (B,1,D)
+    x = M.embed(model, tokens)                            # (B,1,D)
     if cfg.family == "rwkv6":
         x = _rwkv6_step(model, cache, x, cfg)
         return _logits(model, x, cfg), cache
@@ -145,9 +159,9 @@ def decode_step(model: M.Transformer, cache: Dict[str, torch.Tensor],
             # cross-attention against the precomputed encoder KV
             B, hd = x.shape[0], cfg.resolved_head_dim
             xq = L.rmsnorm(layer.ln_x.scale, x)
-            q = (xq @ layer.xattn.wq).reshape(B, 1, cfg.n_heads, hd)
+            q = L.split_heads(xq @ layer.xattn.wq, cfg.n_heads, hd)
             o = L.decode_attention(q, cache["xk"][i], cache["xv"][i])
-            x = x + o.reshape(B, 1, -1) @ layer.xattn.wo
+            x = x + L.out_proj(o, layer.xattn.wo)
         h_in = L.rmsnorm(layer.ln2.scale, x)
         if cfg.moe is not None:
             h, _ = L.moe_apply(layer.ffn, h_in, cfg)
@@ -209,7 +223,7 @@ def _hybrid_step(model: M.Transformer, cache, x, pos, cfg: ModelConfig):
     return mamba(x, n_groups * period, cfg.n_layers)
 
 
-@torch.inference_mode()
+@_serving
 def prefill(model: M.Transformer, tokens: torch.Tensor, cfg: ModelConfig,
             max_seq: int) -> torch.Tensor:
     """Run the full prompt; return the last token's logits (B,1,V).

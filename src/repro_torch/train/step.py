@@ -15,7 +15,11 @@ micro-batch, as the JAX step's ``lax.scan`` does; memory scales with
 
 The gold logit is gathered (``gather``), never through a one-hot: the JAX
 function's one-hot contraction ``x * 1 + sum(0 * others)`` is that value
-exactly.
+exactly.  On DTensors (a step on a mesh) it is that contraction, as a
+``where`` and a sum over the vocab, which DTensor shards like the logits
+(its rule for a gather over a sharded vocab is the embedding's and fails
+here).  Parameters, gradients and moments may be DTensors: each is
+accumulated and updated under its own placements.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..device import is_dtensor
 from ..models import flags
 from ..models import transformer as M
 from ..models.config import ModelConfig
@@ -33,6 +38,16 @@ from .optimizer import (AdamWConfig, OptState, adamw_update, tree_leaves,
 f32 = torch.float32
 
 AUX_WEIGHT = 0.01   # MoE load-balance loss weight
+
+
+def _gold(logits, labels):
+    """``logits[..., labels]`` (labels in range): a gather, or on a DTensor
+    the one-hot contraction (the module docstring)."""
+    if is_dtensor(logits):
+        V = logits.shape[-1]
+        hit = labels[..., None] == torch.arange(V, device=labels.device)
+        return torch.where(hit, logits, 0.0).sum(dim=-1)
+    return logits.gather(-1, labels[..., None])[..., 0]
 
 
 def _mean_nll(nll, mask):
@@ -70,7 +85,7 @@ def chunked_cross_entropy(hidden, weight, labels, *, tied: bool,
         s = s * torch.exp(m - m_new) + torch.exp(
             logits_c - m_new[..., None]).sum(dim=-1)
         local = labels - base
-        gold = logits_c.gather(-1, local.clamp(0, chunk - 1)[..., None])[..., 0]
+        gold = _gold(logits_c, local.clamp(0, chunk - 1))
         in_chunk = ((local >= 0) & (local < chunk)).to(f32)
         g = g + in_chunk * gold
         m = m_new
@@ -82,7 +97,7 @@ def cross_entropy(logits, labels, mask=None):
     """logits (B, S, V) any float dtype; labels (B, S) int. float32 math."""
     logits = logits.to(f32)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    gold = _gold(logits, labels.long())
     return _mean_nll(lse - gold, mask)
 
 
@@ -126,6 +141,14 @@ def split_micro(batch: Dict[str, torch.Tensor], n_micro: int):
     return [{k: p[i] for k, p in parts.items()} for i in range(n_micro)]
 
 
+def _placed_as(y, like):
+    """``y`` under ``like``'s placements where both are DTensors (a
+    gradient may come back Partial or otherwise laid out)."""
+    if is_dtensor(y) and tuple(y.placements) != tuple(like.placements):
+        return y.redistribute(like.device_mesh, like.placements)
+    return y
+
+
 def _backward(model, batch, cfg):
     """Gradients of ``lm_loss`` at ``batch`` -> (stacked grad tree, loss,
     aux)."""
@@ -151,10 +174,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
             for mb in split_micro(batch, n_micro):
                 g, l, a = _backward(model, mb, cfg)
                 if grads is None:
-                    grads = tree_map(lambda x: torch.zeros(
-                        x.shape, dtype=f32, device=x.device), g)
+                    grads = tree_map(lambda x: torch.zeros_like(
+                        x, dtype=f32), g)
                 for acc, y in zip(tree_leaves(grads), tree_leaves(g)):
-                    acc.copy_(acc + y.to(f32) / n_micro)
+                    acc.copy_(acc + _placed_as(y, acc).to(f32) / n_micro)
                 del g
                 loss = loss + l / n_micro
                 aux = aux + a / n_micro

@@ -1,8 +1,10 @@
 """The port's hillclimb tool (``repro_torch.launch.hillclimb``) vs the
 JAX package's, and the remat modes it compares.
 
-  * the variant table: JAX's one-card variants with the same knobs; its
-    layout and ``p_bf16`` variants are not ported and are unknown names;
+  * the variant table: JAX's variants with the same names and knobs, less
+    its ``p_bf16`` ones (not ported, unknown names); the layout variants
+    are counted on the 16 x 16 mesh's fake group (in a subprocess: one
+    process holds one default group) and ``--measure`` refuses them;
   * ``variant_flags`` / ``run_variant`` restore ``flags.REMAT_MODE`` and
     ``CE_MODE`` when the block raises;
   * on a smoke config on the CPU the three remat modes give the same loss
@@ -11,6 +13,11 @@ JAX package's, and the remat modes it compares.
   * ``measure`` runs on the card by default and raises without one; on
     the CPU (``device="cpu"``) it runs and reports its fit and steps.
 """
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -24,19 +31,18 @@ from repro_torch.models.config import ShapeConfig
 from repro_torch.train.step import lm_loss
 
 torch.set_num_threads(1)
+ROOT = Path(__file__).resolve().parents[1]
 SHAPE = ShapeConfig("train cut", 32, 2, "train")
 
 
 def test_variant_table():
-    one_card = {k: v for k, v in JHC.VARIANTS.items()
-                if "rules" not in v and not v.get("p_bf16")}
-    assert HC.VARIANTS == one_card
-    layouts = {k for k, v in JHC.VARIANTS.items()
-               if "rules" in v and not v.get("p_bf16")}
-    assert layouts and not layouts & set(HC.VARIANTS)
+    want = {k: v for k, v in JHC.VARIANTS.items() if not v.get("p_bf16")}
+    assert HC.VARIANTS == want
     assert not any("bf16" in k for k in HC.VARIANTS)
+    assert {k for k in HC.VARIANTS if HC.is_layout(k)} == {
+        k for k, v in want.items() if "rules" in v}
     with pytest.raises(KeyError):
-        HC.run_variant("tinyllama_1_1b", "train_4k", "pure_dp")
+        HC.run_variant("tinyllama_1_1b", "train_4k", "p_bf16")
 
 
 def test_flags_are_restored_when_a_variant_raises(monkeypatch):
@@ -100,14 +106,25 @@ def test_measure_on_the_cpu():
 
 
 def test_cli_counts_and_skips_layout_variants(capsys):
+    code = ("from repro_torch.launch import hillclimb as HC; "
+            "HC.main(['--arch', 'tinyllama_1_1b', '--shape', 'train_4k', "
+            "'--batch', '2', '--seq', '64', "
+            "'--variants', 'remat_none,no_fsdp,pure_dp'])")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = proc.stdout
+    assert "[OK  ] remat_none             1 " in out
+    # JAX's layout variants, counted on the 16x16 mesh's fake group.
+    assert "[OK  ] no_fsdp                16x16 " in out
+    assert "[OK  ] pure_dp                16x16 " in out
+    # --measure runs one-card variants only.
     assert HC.main(["--arch", "tinyllama_1_1b", "--shape", "train_4k",
-                    "--batch", "2", "--seq", "64",
-                    "--variants", "remat_none,no_fsdp,pure_dp"]) == 0
-    out = capsys.readouterr().out
-    assert "[OK  ] remat_none" in out
-    # JAX's layout variants are unknown names here: reported, not run.
-    assert "[ERR ] no_fsdp                KeyError" in out
-    assert "[ERR ] pure_dp                KeyError" in out
+                    "--smoke", "--measure", "--device", "cpu",
+                    "--variants", "no_fsdp"]) == 0
+    assert "[ERR ] no_fsdp                ValueError" in (
+        capsys.readouterr().out)
     assert HC.main(["--arch", "tinyllama_1_1b", "--shape", "long_500k",
                     "--variants", "baseline"]) == 0
     assert "[SKIP] baseline" in capsys.readouterr().out

@@ -19,11 +19,18 @@
   * the attention wrapper's meta route returns meta outputs, records the
     call only inside a count and launches nothing; it rejects the head
     dims and dtypes the card rejects; float32 calls count their splits'
-    bytes.
+    bytes;
+  * the dryrun and roofline CLIs, and ``roofline --multi-pod`` (the 2 x 16
+    x 16 mesh's fake group, in a subprocess).
 
 Meta tensors allocate nothing and compute nothing, so the counts here are
 the same on any machine; no device number is produced.
 """
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -41,6 +48,7 @@ from repro_torch.models import transformer as M
 from repro_torch.models.config import SHAPES, ShapeConfig
 
 META = torch.device("meta")
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def test_roofline_terms_dominance():
@@ -98,8 +106,9 @@ def test_combiner_equals_the_direct_count(arch, kind, micro):
     assert any(v.n_layers < cfg.n_layers for v in variants)
     est = combine([RL._measure(arch, shape, v, micro) for v in variants])
     want = [direct["flops_by_peak"].get(k, 0.0) for k in RL._KEYS] + [
-        direct["hlo_bytes"], direct["collective_bytes"]]
-    assert list(est) == want
+        direct["hlo_bytes"]] + [direct["collectives"].get(k, 0.0)
+                                for k in RL._KINDS]
+    assert list(est[:len(want)]) == want
     assert direct["hlo_flops"] > 0 and direct["collective_bytes"] == 0.0
 
 
@@ -308,3 +317,18 @@ def test_dryrun_and_roofline_clis(tmp_path, capsys):
     assert c["counted_at"] == "full depth"
     assert {"roofline_fraction", "useful_flops_ratio", "measure_s"} <= set(c)
     assert "[OK  ] whisper_base" in capsys.readouterr().out
+    # --multi-pod: the 2x16x16 mesh's fake group of 512 ranks, in a process
+    # of its own (one process holds one default group).
+    out = tmp_path / "m.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.roofline", "--arch",
+         "tinyllama_1_1b", "--shape", "decode_32k", "--multi-pod", "--json",
+         str(out)], env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    (m,) = json.loads(out.read_text())
+    assert m["mesh"] == "2x16x16" and m["chips"] == 512
+    assert m["counted_at"] == "depth variants"
+    assert m["collective_bytes"] > 0 and m["collective_s"] > 0
+    assert m["per_device_bytes"]["peak"] > 0
+    assert "[OK  ] tinyllama_1_1b" in proc.stdout
