@@ -315,7 +315,20 @@ Phases (each raises on failure; nothing is caught):
      2x16x16 (``launch.roofline --pod / --multi-pod``, one subprocess a
      cell, each its own fake group of 256 / 512 ranks): per-device peak,
      flops, collective bytes by kind, dominant term.
-  8. Prints the kernel table as one JSON line (the picks' rows add the
+  8. repro-lint's graph gate on the card (``run_lint_gate``,
+     ``repro_torch.lint.graph_gate`` with ``device="cuda"``): the lint
+     fixture (8 VMs, 6 mixed A30 / A100 / H100 GPUs) through every policy
+     x variant, plain, chunked in 16-event chunks and sharded (one NCCL
+     rank here; two gloo ranks run on the CPU), and MCC / MECC on the
+     fixture's single-model cut through the pick kernels; each event's
+     aten operations recorded: no float64, no host synchronisation in a
+     captured key, every event of a key and its capture the same
+     operations; each key's captured graph read through libcuda (no
+     device-to-host memcpy node) and its pick launches (exactly one
+     ``mcc_pick`` / ``ecc_pick`` per MCC / MECC arrival key, none in any
+     other key); the graphs' replay equal to the eager one.  One line
+     per key with its graph's kernel, memcpy and memset nodes.
+  9. Prints the kernel table as one JSON line (the picks' rows add the
      service's launches, ``service_launches``; every mask kernel's row
      its launches on the sharded path, ``sharded_launches``; the
      attention rows their launches and head dim per serving path,
@@ -4622,6 +4635,30 @@ def run_sharded_step(torch, trained):
     return launches, res
 
 
+def run_lint_gate(torch):
+    """Phase 8: ``graph_gate.run_gate("cuda")`` on every policy x variant
+    entry (docstring, phase 8); prints one line per captured key (kernel,
+    memcpy and memset nodes, pick launches) and a JSON summary of the
+    kernel nodes per key by entry; raises on any hard violation.  Returns
+    {entry: {key: kernel nodes}}."""
+    from repro_torch.lint import graph_gate as G
+    errors, notes, results = G.run_gate("cuda")
+    for line in G.node_lines(results):
+        print(f"phase 8: {line}", flush=True)
+    for note in notes:
+        print(f"phase 8: note: {note}", flush=True)
+    if errors:
+        raise AssertionError(f"phase 8: {len(errors)} graph-gate "
+                             "violation(s): " + "; ".join(errors[:20]))
+    kernels = {e: {k: fp["nodes"]["kernel"] for k, fp in keys.items()
+                   if "nodes" in fp} for e, keys in results.items()}
+    print(json.dumps({"lint_gate": {
+        "entries": len(results),
+        "keys": sum(len(k) for k in results.values()),
+        "kernel_nodes": kernels}}), flush=True)
+    return kernels
+
+
 def attention_paths(fa_launches, f32_launches, zoo_launches, launches_5d,
                     launches_5e, launches_5f):
     """The serving paths that reach the attention kernels, each path's
@@ -4691,6 +4728,7 @@ def main() -> int:
                                 trained)
     launches_7e, _ = timed_phase("phase 7 (e)", run_sharded_step, torch,
                                  trained)
+    timed_phase("phase 8", run_lint_gate, torch)
 
     rows = []
     floor = timing["launch_floor"]

@@ -79,8 +79,9 @@ class FleetShard:
     """One rank's part of a sharded fleet, held by the replay step: its
     process group, its index ``rank`` of ``num_shards``, its contiguous
     GPUs ``local`` (starting at ``start``) and the all-gather's buffers,
-    one ``(score, index, any)`` int64 row sent and ``(num_shards, 3)``
-    received."""
+    one ``(score, index, any)`` int32 row sent and ``(num_shards, 3)``
+    received (int32, as the JAX module gathers: scores, GPU indices and
+    flags all fit)."""
 
     def __init__(self, group, num_shards: int, num_gpus: int,
                  device: torch.device):
@@ -94,8 +95,8 @@ class FleetShard:
         size = num_gpus // num_shards
         self.start = self.rank * size
         self.local = slice(self.start, self.start + size)
-        self.send = torch.zeros(3, dtype=torch.int64, device=device)
-        self.recv = torch.zeros(3 * num_shards, dtype=torch.int64,
+        self.send = torch.zeros(3, dtype=torch.int32, device=device)
+        self.recv = torch.zeros(3 * num_shards, dtype=torch.int32,
                                 device=device)
 
     def gather(self, row: torch.Tensor) -> torch.Tensor:
@@ -127,11 +128,10 @@ def select_gpu_sharded(policy, T, mid, free, pids, host_ok, mecc_w,
     lbest = torch.argmax(lscores).reshape(1)
     lany = lfits.any().reshape(1)
     cand = shard.gather(torch.cat([
-        torch.where(lany, lscores[lbest].to(torch.int32),
-                    _INT_SENTINEL).long(),
-        shard.start + lbest, lany.long()]))
+        torch.where(lany, lscores[lbest].to(torch.int32), _INT_SENTINEL),
+        (shard.start + lbest).to(torch.int32), lany.to(torch.int32)]))
     win = torch.argmax(cand[:, 0]).reshape(1)
-    return torch.where(cand[:, 2].any(), cand[win, 1], -1)
+    return torch.where(cand[:, 2].any(), cand[win, 1], -1).long()
 
 
 def grmu_select_sharded(T, mid, free, pids, is_heavy: bool, host_ok,
@@ -154,10 +154,11 @@ def grmu_select_sharded(T, mid, free, pids, is_heavy: bool, host_ok,
     lpick = pc.first_true(lfits)
     found = lpick >= 0
     cand = shard.gather(torch.cat([
-        torch.zeros_like(lpick),
-        torch.where(found, shard.start + lpick, _BIG_IDX), found.long()]))
+        torch.zeros_like(lpick, dtype=torch.int32),
+        torch.where(found, shard.start + lpick, _BIG_IDX).to(torch.int32),
+        found.to(torch.int32)]))
     first = cand[:, 1].amin().reshape(1)
-    pick = torch.where(first < _BIG_IDX, first, -1)
+    pick = torch.where(first < _BIG_IDX, first, -1).long()
     # Replicated growth (Alg. 3's fetch-then-place, as in grmu_select).
     pool_free = basket == pc.POOL
     grew = (pick < 0) & (in_basket.sum() < cap) & pool_free.any()

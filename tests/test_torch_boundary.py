@@ -1,9 +1,10 @@
 """The port's boundary: what it imports, what it copies, where it runs.
 
   * importing ``repro_torch`` and every module of it loads neither
-    ``jax`` nor any ``repro`` module (checked in a fresh interpreter), and
-    no file of the port, ``chip_smoke.py``, ``replay_rate.py``,
-    ``attention_rate.py`` or ``mask_probe.py`` names them in an import;
+    ``jax`` nor any ``repro`` or ``tools`` module (checked in a fresh
+    interpreter), and no file of the port, ``chip_smoke.py``,
+    ``replay_rate.py``, ``attention_rate.py``, ``mask_probe.py`` or
+    ``cut_probe.py`` names them in an import;
   * the two timing tools run each checkout in a process of its own;
   * the modules copied from the JAX package behave like their originals,
     and their text is the original's apart from the lines their header
@@ -63,14 +64,15 @@ def test_import_loads_no_jax_and_no_repro():
               "repro_torch.core.ilp", "repro_torch.core.policy_core_np",
               "repro_torch.sim.engine", "repro_torch.workload.flashcrowd",
               "repro_torch.core.sharded", "repro_torch.core.adaptive",
-              "repro_torch.core.podsched", "repro_torch.core.enumerate"):
+              "repro_torch.core.podsched", "repro_torch.core.enumerate",
+              "repro_torch.lint.graph_gate", "repro_torch.lint.__main__"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {_port_modules()!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'repro', 'tools'))\n"
         "print(bad)\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -93,11 +95,13 @@ def test_no_file_imports_jax_or_repro():
     files = sorted(PORT_DIR.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                               ROOT / "replay_rate.py",
                                               ROOT / "attention_rate.py",
-                                              ROOT / "mask_probe.py"]
+                                              ROOT / "mask_probe.py",
+                                              ROOT / "cut_probe.py"]
     assert len(files) > 10
+    assert PORT_DIR / "lint" / "graph_gate.py" in files
     for path in files:
         roots = set(_imported_roots(path))
-        assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
+        assert not roots & {"jax", "jaxlib", "repro", "tools"}, (path, roots)
 
 
 def _root_script(name):
@@ -199,6 +203,24 @@ def test_copied_module_changes_only_what_its_header_names(rel):
     added = [ln for ln in difflib.ndiff(orig, port[1:])
              if ln.startswith("+ ")]
     assert len(added) == CHANGED_COPIES[rel], added
+
+
+# The JAX lint's framework-free modules the port's lint carries as
+# copies, with the number of lines that differ (the ratchet's path and
+# command, the port's).
+LINT_COPIES = {"common.py": 1, "ratchet.py": 2}
+
+
+@pytest.mark.parametrize("name", sorted(LINT_COPIES))
+def test_lint_copies_change_only_the_ratchets_path(name):
+    port = (PORT_DIR / "lint" / name).read_text().splitlines()
+    orig = (ROOT / "tools" / "lint" / name).read_text().splitlines()
+    assert port[0].startswith(f"# Port of tools/lint/{name} (the JAX "
+                              "package's repro-lint)")
+    added = [ln for ln in difflib.ndiff(orig, port[1:])
+             if ln.startswith("+ ")]
+    assert len(added) == LINT_COPIES[name], added
+    assert all("repro_torch" in ln for ln in added), added
 
 
 @pytest.mark.parametrize("fleet", [(), ("A30-24GB", "A100-40GB",
