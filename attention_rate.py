@@ -6,7 +6,10 @@ backward, to compare checkouts of the repository within one run.
 
 Each ROOT is a checkout whose ``src/`` holds ``repro_torch``.  The roots
 run one after another, each in its own process (its own kernel build), in
-the order given: list ``A B B A`` to alternate two versions.  For float32
+the order given: list ``A B B A`` to alternate two versions.  A root first
+prints the seconds its kernel build took and ``chip_smoke.
+default_route_digests``: the SHA-256 of the attention routes' results
+(flag off) at TinyLlama's prefill and training shapes.  For float32
 and bfloat16 a root prints one JSON line: the milliseconds of one
 ``flash_attention`` wrapper call at ``chip_smoke.py``'s prefill shape (B
 4, S 4096, TinyLlama's heads, causal; CUDA events over 10 calls after a
@@ -27,19 +30,24 @@ from __future__ import annotations
 import hashlib
 import json
 import sys
+import time
 from pathlib import Path
 
-from replay_rate import in_turns
+from replay_rate import in_turns, root_package
 
 
 def worker(root: Path, args) -> None:
     import torch
-    sys.path[:0] = [str(root / "src"), str(Path(__file__).resolve().parent)]
+    root_package(root)
     import chip_smoke as C
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as FA, ref
     torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
     _build.build_all()
+    print(json.dumps(dict(root=str(root), build_s=time.perf_counter() - t0,
+                          flag_off_digests=C.default_route_digests(torch))),
+          flush=True)
     cfg = C._tinyllama()
     B, S, H, KV = C.PREFILL_B, C.PREFILL_S, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
@@ -57,7 +65,8 @@ def worker(root: Path, args) -> None:
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, do, _, _ = C._bwd_inputs(torch, C.TRAIN_ATTN_SHAPE, dtype,
                                           seed=1)
-        o, lse = FA._forward(q, k, v, causal, window, want_lse=True)
+        # (out, lse), and the chunk statistics where the root has them.
+        o, lse = FA._forward(q, k, v, causal, window, want_lse=True)[:2]
 
         def call():
             return FA.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,

@@ -136,6 +136,22 @@ Phases (each raises on failure; nothing is caught):
      backward and SDPA's backward (timed only) timed beside the bound
      (``attention_bwd_bound_ms``: 10 hd flops a pair), and each kernel's
      device ms, float32's splits too (profiler, ``bwd_kernel_ms``).
+  2d. The p_bf16 routes (JAX's ``flags.ATTN_P_BF16``: each key chunk's p
+     rounded to bf16 against the chunk's row max, times bf16(v);
+     ``fa_fwd_wgmma<hd, hd_v, F32, true>``, ``fa_bwd_dq_wgmma`` /
+     ``fa_bwd_dkdv_wgmma<hd, hd_v, F32, true>``).  With the flag off, the
+     float32-p routes' results at TinyLlama's shape (phase 2b's and 2c's
+     inputs) keep the parent commit's SHA-256 (``DEFAULT_ROUTE_DIGESTS``).
+     With it on, the forward at ``PB_FWD_CASES`` (TinyLlama's prefill,
+     hd 128 / 80 and MLA's pair over two key chunks, Zamba2's window) and
+     the backward at ``PB_BWD_CASES`` (phase 2c's and the training
+     shape), both dtypes: two launches bitwise equal, and the kernel's
+     relative L2 distance from its plain version at most ``PB_SHARE`` of
+     the flag's own effect; the bf16 forward's and the plain version's
+     half-ulps from the p_bf16 function run in float64 reported.  Then
+     timed at TinyLlama's prefill and training shapes beside the
+     float32-p route, the plain version, SDPA and the bound, the backward
+     by kernel (``time_pbf16``).
   5. The serving path at full width: TinyLlama-1.1B (22 layers, bf16,
      random weights from a seeded generator) through
      ``registry.make_step``.  Prefill of 4 x 4096 tokens (tokens/s, the
@@ -315,6 +331,11 @@ Phases (each raises on failure; nothing is caught):
      2x16x16 (``launch.roofline --pod / --multi-pod``, one subprocess a
      cell, each its own fake group of 256 / 512 ranks): per-device peak,
      flops, collective bytes by kind, dominant term.
+     7 (b) also runs JAX's one-card p_bf16 variants (``p_bf16``,
+     ``ce+pbf16``) at 5g (a)'s cut (88 p_bf16 forward and 44 backward
+     launches a step, tokens/s beside the baseline row) and the float32
+     p_bf16 route's training path (TinyLlama cut to 2 layers, 2 x 4096):
+     the p_bf16 kernels' main path (``hillclimb_pbf16_on_card``).
   8. repro-lint's graph gate on the card (``run_lint_gate``,
      ``repro_torch.lint.graph_gate`` with ``device="cuda"``): the lint
      fixture (8 VMs, 6 mixed A30 / A100 / H100 GPUs) through every policy
@@ -328,7 +349,14 @@ Phases (each raises on failure; nothing is caught):
      ``mcc_pick`` / ``ecc_pick`` per MCC / MECC arrival key, none in any
      other key); the graphs' replay equal to the eager one.  One line
      per key with its graph's kernel, memcpy and memset nodes.
-  9. Prints the kernel table as one JSON line (the picks' rows add the
+  9. The ``repro_torch.examples`` scripts on the card at the JAX scripts'
+     defaults (``run_examples``): ``paper_eval`` (five policies on the
+     full-scale trace, replayed on the card) and ``quickstart`` print the
+     JAX scripts' lines exactly (``PAPER_EVAL_JAX`` / ``QUICKSTART_JAX``);
+     ``sweep_on_device``'s sweep equals its sequential cross-check;
+     ``serve_with_grmu``'s online decisions equal the offline replay's
+     where no tier switched; ``train_lm`` trains 200 steps and returns 0.
+  10. Prints the kernel table as one JSON line (the picks' rows add the
      service's launches, ``service_launches``; every mask kernel's row
      its launches on the sharded path, ``sharded_launches``; the
      attention rows their launches and head dim per serving path,
@@ -344,8 +372,9 @@ Phases (each raises on failure; nothing is caught):
      kernel, ``ms_by_kernel``; the bf16 forward's and backward's rows
      also their launches in each phase 7 (b) variant's timed steps,
      ``hillclimb_launches``, and in phase 7 (e)'s compared sharded step,
-     ``sharded_step_launches``), the card line
-     again, and
+     ``sharded_step_launches``; the p_bf16 routes' four rows their
+     launches on phase 7 (b)'s p_bf16 runs and phase 2d's times and
+     shares of the flag's effect), the card line again, and
      as its last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is present, or when
@@ -3725,7 +3754,7 @@ def hold_attention_bwd(torch, name, q, k, v, do, causal, window, err,
     lse's."""
     from repro_torch.kernels import flash_attention as FA
     tname = str(q.dtype).split(".")[-1]
-    o, lse = FA._forward(q, k, v, causal, window, want_lse=True)
+    o, lse, _ = FA._forward(q, k, v, causal, window, want_lse=True)
     if not torch.equal(o, FA.flash_attention(q, k, v, causal=causal,
                                              window=window)):
         raise AssertionError(f"attention backward {name} {tname}: the "
@@ -3821,7 +3850,7 @@ def time_attention_bwd(torch, dtype, err):
     B, Sq, Sk, H, KV, hd, causal, window = TRAIN_ATTN_SHAPE
     tname = str(dtype).split(".")[-1]
     q, k, v, do, _, _ = _bwd_inputs(torch, TRAIN_ATTN_SHAPE, dtype, seed=1)
-    o, lse = FA._forward(q, k, v, causal, window, want_lse=True)
+    o, lse, _ = FA._forward(q, k, v, causal, window, want_lse=True)
     hold_attention_bwd(torch, "training shape", q, k, v, do, causal, window,
                        err, vs_f64=False)
     b_ms, b_by = attention_bwd_bound_ms(*TRAIN_ATTN_SHAPE, tname)
@@ -3886,6 +3915,382 @@ def bwd_kernel_ms(torch, call, tname, n=5, tries=3):
               flush=True)
     raise AssertionError(f"phase 2c: {tname} backward kernel counts off in "
                          f"all {tries} traces of {n} calls: {off}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 2d: the p_bf16 attention routes (JAX's flags.ATTN_P_BF16)
+# ---------------------------------------------------------------------------
+
+# JAX's p_bf16 function has no Pallas kernel: ``layers._attend_block``
+# rounds p and v to bf16 in jnp (its backward, jax.vjp of it).
+PB_REPLACES = "src/repro/models/layers.py:109"
+# sha256 of the float32-p routes' results with the flag off, at
+# TinyLlama's shape: phase 2b's prefill inputs (``_qkv``, seed 1; the
+# forward's output and lse in bf16 and float32) and phase 2c's training
+# inputs (``_bwd_inputs``, seed 1; dq, dk, dv), from a run of the parent
+# commit (the routes before the p_bf16 ones were added) on an NVIDIA H100
+# 80GB HBM3 at 700 W, ``default_route_digests`` against that commit's
+# package: adding the p_bf16 routes must not move the default path's bits.
+DEFAULT_ROUTE_DIGESTS = {
+    "fwd bfloat16":
+        "fe5bfd2f9e27281875151509d0c4bfe8dcf98b78716753a663d86af9716be216",
+    "bwd bfloat16":
+        "85109a3ad59c83459d8494e321564e929f6de9b49edf29849c029467f764c646",
+    "fwd float32":
+        "8d908f864cdfdd449b703ed85e7a2f20333ad55c3ba91b1abef2baaeff4f5c08",
+    "bwd float32":
+        "2be1030f6ff5a18d947d52429d416cd9b7dac57ed003a4b7bc3c6a1b8fbe807c",
+}
+# (B, Sq, Sk, H, KV, hd, causal, window) of the forward gate in both
+# dtypes: TinyLlama's prefill (phase 2b's shape), the zoo's hd 128 and hd
+# 80 heads and MLA's (192, 128) pair over two key chunks, and Zamba2-7B's
+# shared attention (hd 112) over twice its 4,096-key window.
+PB_FWD_CASES = {
+    "tinyllama_prefill": (PREFILL_B, PREFILL_S, PREFILL_S, 32, 4, 64, True,
+                          None),
+    "hd128_g4": (1, 2048, 2048, 32, 8, 128, True, None),
+    "hd80": (1, 2048, 2048, 32, 32, 80, True, None),
+    "mla": (1, 2048, 2048, 16, 16, (192, 128), True, None),
+    "zamba2_window": (1, 8192, 8192, 32, 32, 112, True, 4096),
+}
+# The backward gate's shapes: phase 2c's (one key chunk each) and
+# TinyLlama's training attention (four).
+PB_BWD_CASES = dict(BWD_CASES, training=TRAIN_ATTN_SHAPE)
+# The gate, fixed before the first run on the card: the kernel's distance
+# from its plain version (relative L2 over the whole output or gradient)
+# at most PB_SHARE of the flag's own effect (the plain version with the
+# flag against without it), in both dtypes.  The bf16 forward's distance
+# from the p_bf16 function run in float64 (``attention_pbf16_f64``) is
+# reported in half-ulps beside the plain version's, and not gated: the
+# function rounds p to bf16, so any float32 evaluation rounds a few p to
+# the other side of a bf16 boundary than float64 does, and a p near 1 in
+# a short causal row moves the output by up to 2^-8 |v|.  On the H100 the
+# plain version itself sat 39 / 14 / 12 half-ulps from float64 at the
+# TinyLlama / hd 80 / MLA cases (3,061 of 33.5M elements past half an
+# ulp at TinyLlama's, the kernel 3,074; PERF.md), where phase 2b's
+# float32-p gate asks for 1.
+PB_SHARE = 0.25
+
+
+@contextlib.contextmanager
+def p_bf16_flag(on=True):
+    """``models.flags.ATTN_P_BF16`` set for the block, restored after."""
+    from repro_torch.models import flags
+    old = flags.ATTN_P_BF16
+    flags.ATTN_P_BF16 = on
+    try:
+        yield
+    finally:
+        flags.ATTN_P_BF16 = old
+
+
+def _digest(torch, *tensors) -> str:
+    """sha256 of the tensors' bytes (bf16 read as int16)."""
+    h = hashlib.sha256()
+    for t in tensors:
+        t = t.detach().contiguous()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def default_route_digests(torch):
+    """sha256 of the flag-off routes' results at TinyLlama's shape
+    (``DEFAULT_ROUTE_DIGESTS``' note): {"fwd <dtype>": out and lse, "bwd
+    <dtype>": dq, dk, dv}."""
+    from repro_torch.kernels import flash_attention as FA
+    cfg = _tinyllama()
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tname = str(dtype).split(".")[-1]
+        q, k, v = _qkv(torch, PREFILL_B, PREFILL_S, PREFILL_S, cfg.n_heads,
+                       cfg.n_kv_heads, cfg.resolved_head_dim, dtype, seed=1)
+        res = FA._forward(q, k, v, True, None, want_lse=True)
+        out[f"fwd {tname}"] = _digest(torch, res[0], res[1])
+        del q, k, v, res
+        q, k, v, do, causal, window = _bwd_inputs(torch, TRAIN_ATTN_SHAPE,
+                                                  dtype, seed=1)
+        res = FA._forward(q, k, v, causal, window, want_lse=True)
+        grads = FA.flash_attention_bwd(q, k, v, res[0], res[1], do,
+                                       causal=causal, window=window)
+        out[f"bwd {tname}"] = _digest(torch, *grads)
+        del q, k, v, do, res, grads
+    torch.cuda.synchronize()
+    return out
+
+
+def pb_plain(q, k, v, causal, window, p_bf16=True, return_lse=False):
+    """The plain version (``ref.flash_attention_ref``) with or without the
+    flag's function, over JAX's chunks (``plain_chunk``: min(1024, S))."""
+    from repro_torch.kernels import ref
+    return ref.flash_attention_ref(
+        q, k, v, causal=causal, window=window, p_bf16=p_bf16,
+        return_lse=return_lse, q_chunk=plain_chunk(q.shape[1]),
+        k_chunk=plain_chunk(k.shape[1]))
+
+
+def pb_plain_bwd(q, k, v, o, lse, do, causal, window, p_bf16=True):
+    from repro_torch.kernels import ref
+    return ref.flash_attention_bwd_ref(
+        q, k, v, o, lse, do, causal=causal, window=window, p_bf16=p_bf16,
+        q_chunk=plain_chunk(q.shape[1]), k_chunk=plain_chunk(k.shape[1]))
+
+
+def attention_pbf16_f64(q, k, v, causal=True, window=None):
+    """The p_bf16 function run in float64 on the (exactly upcast) inputs:
+    JAX's chunks, each chunk's p = exp(s - m_b) in float64 rounded to
+    bf16 against the chunk's row max, times bf16(v), the chunks merged in
+    float64 -> (B, Sq, H, hd_v) float64."""
+    import torch
+    from repro_torch.kernels import ref
+    B, Sq, H, hd = q.shape
+    Sk, G = k.shape[1], H // k.shape[2]
+    qc, kc = plain_chunk(Sq), plain_chunk(Sk)
+    kd = k.double().repeat_interleave(G, dim=2)
+    vb = v.to(torch.bfloat16).double().repeat_interleave(G, dim=2)
+    scale = 1.0 / math.sqrt(hd)
+    outs = []
+    for qi, q0, kis in ref._chunks(Sq, Sk, qc, kc, causal, window):
+        qd = q[:, qi * qc:(qi + 1) * qc].double()
+        qpos = q0 + torch.arange(qc, device=q.device)
+        acc = torch.zeros((B, H, qc, v.shape[3]), dtype=torch.float64,
+                          device=q.device)
+        m = torch.full((B, H, qc), -1e30, dtype=torch.float64,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        for ki in kis:
+            ks = slice(ki * kc, (ki + 1) * kc)
+            kpos = ki * kc + torch.arange(kc, device=q.device)
+            keep = ref._mask(qpos, kpos, causal, window)
+            s = torch.einsum("bqhd,bshd->bhqs", qd, kd[:, ks]) * scale
+            s = torch.where(keep, s, -1e30)
+            m_b = s.amax(dim=-1)
+            p = torch.exp(s - m_b[..., None])
+            o_b = torch.einsum("bhqs,bshd->bhqd",
+                               p.to(torch.bfloat16).double(), vb[:, ks])
+            m_new = torch.maximum(m, m_b)
+            alpha, beta = torch.exp(m - m_new), torch.exp(m_b - m_new)
+            acc = acc * alpha[..., None] + o_b * beta[..., None]
+            l = l * alpha + p.sum(-1) * beta
+            m = m_new
+        outs.append((acc / l.clamp(min=1e-30)[..., None]).transpose(1, 2))
+    return torch.cat(outs, dim=1)
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def pb_launches(FA, f32, calls=1, bwd=False):
+    """The launches of ``calls`` p_bf16 wrapper calls (forward, or the
+    backward alone with ``bwd``): the route's entry each, float32 after
+    three (forward) or four (backward) splits."""
+    key = ("flash_attention_bwd" if bwd else "flash_attention") + (
+        "_f32_pbf16" if f32 else "_pbf16")
+    counts = {key: calls}
+    if f32:
+        counts["split_bf16x3"] = (4 if bwd else 3) * calls
+    return launch_counts(FA, **counts)
+
+
+def hold_pbf16_fwd(torch, name, case, dtype, err):
+    """One forward gate: two wrapper calls under the flag (launches, bits
+    equal); rel-L2 from the plain p_bf16 version within PB_SHARE of the
+    flag's effect; bf16 also reports the kernel's and the plain version's
+    largest distance from the float64 run (``attention_pbf16_f64``) in
+    half a bf16 ulp plus F32_ATOL, and how many elements lie past it.
+    Folds errors into ``err``."""
+    from repro_torch.kernels import flash_attention as FA
+    B, Sq, Sk, H, KV, hd, causal, window = case
+    tname = str(dtype).split(".")[-1]
+    q, k, v = _qkv(torch, B, Sq, Sk, H, KV, hd, dtype, seed=2)
+    before = dict(FA.LAUNCHES)
+    with p_bf16_flag():
+        got = FA.flash_attention(q, k, v, causal=causal, window=window)
+        again = FA.flash_attention(q, k, v, causal=causal, window=window)
+    moved = {n: FA.LAUNCHES[n] - before[n] for n in FA.LAUNCHES}
+    want = pb_launches(FA, dtype == torch.float32, calls=2)
+    if moved != want:
+        raise AssertionError(f"phase 2d {name} {tname}: launched {moved}, "
+                             f"expected {want}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"phase 2d {name} {tname}: two launches "
+                             f"differ")
+    plain = pb_plain(q, k, v, causal, window)
+    effect = _rel_l2(plain, pb_plain(q, k, v, causal, window, False))
+    share = _rel_l2(got, plain) / effect
+    key = f"fwd {tname}"
+    err.setdefault(key, {})[name] = share
+    diff = (got.float() - plain.float()).abs().max().item()
+    err[f"max_abs {key}"] = max(err.get(f"max_abs {key}", 0.0), diff)
+    if not share <= PB_SHARE:
+        raise AssertionError(f"phase 2d {name} {tname}: kernel is "
+                             f"{share:.4f} of the flag's effect from the "
+                             f"plain version (limit {PB_SHARE})")
+    if dtype == torch.float32:
+        return
+    truth = attention_pbf16_f64(q, k, v, causal, window)
+    for who, x in (("kernel", got), ("plain", plain)):
+        ulps = ((x.double() - truth).abs()
+                / (BF16_HALF_ULP * truth.abs() + F32_ATOL))
+        err.setdefault(f"fwd bfloat16 vs float64 {who}", {})[name] = [
+            ulps.max().item(), (ulps > 1).sum().item(), ulps.numel()]
+
+
+def hold_pbf16_bwd(torch, name, case, dtype, err):
+    """One backward gate: the p_bf16 forward with its lse and chunk
+    statistics, the backward twice (launches, bits equal), each gradient's
+    rel-L2 from the plain p_bf16 backward (on the kernel's o and lse, in
+    the dtype) within PB_SHARE of the flag's effect on it (the plain
+    backward of each function from its own plain forward)."""
+    from repro_torch.kernels import flash_attention as FA
+    tname = str(dtype).split(".")[-1]
+    q, k, v, do, causal, window = _bwd_inputs(torch, case, dtype)
+    with p_bf16_flag():
+        o, lse, ms = FA._forward(q, k, v, causal, window, want_lse=True,
+                                 p_bf16=True)
+        if not torch.equal(o, FA.flash_attention(q, k, v, causal=causal,
+                                                 window=window)):
+            raise AssertionError(f"phase 2d {name} {tname}: the p_bf16 "
+                                 f"forward's output moved with its lse")
+    before = dict(FA.LAUNCHES)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                 window=window, p_bf16=True, mstat=ms)
+    again = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                   window=window, p_bf16=True, mstat=ms)
+    moved = {n: FA.LAUNCHES[n] - before[n] for n in FA.LAUNCHES}
+    want = pb_launches(FA, dtype == torch.float32, calls=2, bwd=True)
+    if moved != want:
+        raise AssertionError(f"phase 2d {name} {tname} backward: launched "
+                             f"{moved}, expected {want}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"phase 2d {name} {tname} backward: two "
+                             f"launches differ")
+    plain = pb_plain_bwd(q, k, v, o, lse, do, causal, window)
+    o0, lse0 = pb_plain(q, k, v, causal, window, False, return_lse=True)
+    off = pb_plain_bwd(q, k, v, o0, lse0, do, causal, window, False)
+    for part, g, w, w0 in zip(("dq", "dk", "dv"), got, plain, off):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"phase 2d {name} {tname} {part}: not "
+                                 f"finite")
+        share = _rel_l2(g, w) / _rel_l2(w, w0)
+        err.setdefault(f"bwd {tname}", {})[f"{name} {part}"] = share
+        diff = (g.float() - w.float()).abs().max().item()
+        err[f"max_abs bwd {tname}"] = max(
+            err.get(f"max_abs bwd {tname}", 0.0), diff)
+        if not share <= PB_SHARE:
+            raise AssertionError(f"phase 2d {name} {tname} {part}: kernel "
+                                 f"is {share:.4f} of the flag's effect from "
+                                 f"the plain version (limit {PB_SHARE})")
+
+
+def time_pbf16(torch):
+    """At TinyLlama's prefill shape (forward) and training shape
+    (backward), each dtype: the p_bf16 route beside the float32-p route,
+    the plain p_bf16 version and SDPA (forward and backward; timed only,
+    the port never calls it), CUDA events, with the bound of
+    ``launch/dryrun.py``, and each backward kernel's device ms
+    (``bwd_kernel_ms``).  Returns {"fwd <dtype>" / "bwd <dtype>":
+    timings}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    B, S, _, H, KV, hd, causal, window = PB_FWD_CASES["tinyllama_prefill"]
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tname = str(dtype).split(".")[-1]
+        q, k, v = _qkv(torch, B, S, S, H, KV, hd, dtype, seed=1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        b_ms, b_by = attention_bound_ms(B, S, S, H, KV, (hd, hd), True,
+                                        None, tname)
+        with p_bf16_flag():
+            ms = event_ms(torch, lambda: FA.flash_attention(q, k, v), 10)
+        t = out[f"fwd {tname}"] = dict(
+            ms=ms,
+            float32_p_ms=event_ms(torch, lambda: FA.flash_attention(
+                q, k, v), 10),
+            plain_ms=event_ms(torch, lambda: pb_plain(q, k, v, True, None),
+                              2),
+            library_ms=event_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 10),
+            bound_ms=b_ms, bound_by=b_by,
+            shape=dict(B=B, S=S, H=H, KV=KV, hd=hd, dtype=tname,
+                       causal=True))
+        print(f"phase 2d: p_bf16 attention at B {B} S {S} H {H} KV {KV} hd "
+              f"{hd} {tname} causal: kernel {t['ms']:.4f} ms, float32-p "
+              f"route {t['float32_p_ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+        del q, k, v, qt, kt, vt
+        Bt, Sq, Sk, Ht, KVt, hdt, causal, window = TRAIN_ATTN_SHAPE
+        q, k, v, do, _, _ = _bwd_inputs(torch, TRAIN_ATTN_SHAPE, dtype,
+                                        seed=1)
+        with p_bf16_flag():
+            o, lse, mst = FA._forward(q, k, v, causal, window,
+                                      want_lse=True, p_bf16=True)
+        o0, lse0, _ = FA._forward(q, k, v, causal, window, want_lse=True)
+        b_ms, b_by = attention_bwd_bound_ms(*TRAIN_ATTN_SHAPE, tname)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        sd = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True)
+        dot = do.transpose(1, 2)
+        call = lambda: FA.flash_attention_bwd(  # noqa: E731
+            q, k, v, o, lse, do, causal=causal, window=window, p_bf16=True,
+            mstat=mst)
+        t = out[f"bwd {tname}"] = dict(
+            ms=event_ms(torch, call, 10),
+            float32_p_ms=event_ms(torch, lambda: FA.flash_attention_bwd(
+                q, k, v, o0, lse0, do, causal=causal, window=window), 10),
+            plain_ms=event_ms(torch, lambda: pb_plain_bwd(
+                q, k, v, o, lse, do, causal, window), 1),
+            library_ms=event_ms(torch, lambda: torch.autograd.grad(
+                sd, (qt, kt, vt), dot, retain_graph=True), 10),
+            bound_ms=b_ms, bound_by=b_by,
+            kernel_ms=bwd_kernel_ms(torch, call, tname),
+            shape=dict(B=Bt, S=Sq, H=Ht, KV=KVt, hd=hdt, dtype=tname,
+                       causal=causal))
+        split = ", ".join(f"{n} {x:.4f}" for n, x in t["kernel_ms"].items())
+        print(f"phase 2d: p_bf16 attention backward at B {Bt} S {Sq} H {Ht} "
+              f"KV {KVt} hd {hdt} {tname} causal: kernel {t['ms']:.3f} ms "
+              f"({split} ms), float32-p route {t['float32_p_ms']:.3f} ms, "
+              f"plain {t['plain_ms']:.3f} ms, SDPA backward "
+              f"{t['library_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+        del q, k, v, do, o, lse, mst, o0, lse0, qt, kt, vt, sd
+    return out
+
+
+def check_attention_pbf16(torch):
+    """Phase 2d: the flag-off routes' results at TinyLlama's shape equal
+    the parent commit's (``DEFAULT_ROUTE_DIGESTS``); the p_bf16 forward at
+    every PB_FWD_CASES case and the backward at every PB_BWD_CASES case,
+    both dtypes, against their plain versions (``hold_pbf16_fwd`` /
+    ``hold_pbf16_bwd``); then ``time_pbf16``.  Returns (err, times)."""
+    digests = default_route_digests(torch)
+    if digests != DEFAULT_ROUTE_DIGESTS:
+        raise AssertionError(f"phase 2d: the float32-p routes' results at "
+                             f"TinyLlama's shape moved: {digests}, parent "
+                             f"{DEFAULT_ROUTE_DIGESTS}")
+    print(f"phase 2d: flag off, the float32-p routes' results at "
+          f"TinyLlama's shape equal the parent commit's bit for bit "
+          f"({len(digests)} sha256)", flush=True)
+    err = {}
+    for name, case in PB_FWD_CASES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            hold_pbf16_fwd(torch, name, case, dtype, err)
+            torch.cuda.empty_cache()
+    for name, case in PB_BWD_CASES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            hold_pbf16_bwd(torch, name, case, dtype, err)
+    torch.cuda.synchronize()
+    print(f"phase 2d: p_bf16 routes == plain version (share of the flag's "
+          f"effect <= {PB_SHARE}) at {len(PB_FWD_CASES)} forward and "
+          f"{len(PB_BWD_CASES)} backward shapes x 2 dtypes, deterministic; "
+          f"the bf16 forward's and the plain version's half-ulps from "
+          f"float64 reported: {json.dumps(err)}", flush=True)
+    return err, time_pbf16(torch)
 
 
 def train_profile(torch, run):
@@ -4314,7 +4719,77 @@ def hillclimb_on_card(torch):
         if len(set(first.values())) > 1:
             raise AssertionError(f"phase 7 (b): n_micro {micro}: first "
                                  f"losses differ across remat modes {first}")
+    hillclimb_pbf16_on_card(torch, launches, rows)
     return launches, rows
+
+
+# Phase 7 (b)'s p_bf16 runs: JAX's two one-card p_bf16 hillclimb variants
+# at 5g (a)'s cut (bf16, TRAIN_B x 4096 in TRAIN_MICRO micro-batches,
+# remat "full"), and the float32 p_bf16 route's training path: TinyLlama
+# cut to PB_F32_LAYERS layers, PB_F32_SHAPE (B, S), float32, p_bf16.
+PB_VARIANTS = ("p_bf16", "ce+pbf16")
+PB_F32_LAYERS, PB_F32_SHAPE = 2, (2, 4096)
+
+
+def hillclimb_pbf16_on_card(torch, launches, rows):
+    """Phase 7 (b), the p_bf16 variants (``PB_VARIANTS``) through
+    ``hillclimb.measure`` beside the baseline row (remat "full", n_micro
+    TRAIN_MICRO): each timed step must launch the p_bf16 forward twice and
+    its backward once a layer and micro-batch (88 / 44 at 22 x 2) and no
+    float32-p route, losses finite, peak under 80 GB; then the float32 run
+    (``PB_F32_LAYERS`` / ``PB_F32_SHAPE``) with the float32 p_bf16 routes
+    and their splits.  Adds each run's launches and result to
+    ``launches`` / ``rows``."""
+    import dataclasses
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import hillclimb
+    from repro_torch.models.config import ShapeConfig
+    cfg = _tinyllama()
+    base = rows.get(f"remat full, n_micro {TRAIN_MICRO}", {})
+    f32_cfg = dataclasses.replace(cfg, n_layers=PB_F32_LAYERS)
+    runs = [(v, cfg, train_shape(), TRAIN_MICRO, torch.bfloat16)
+            for v in PB_VARIANTS]
+    runs.append(("p_bf16 float32", f32_cfg, ShapeConfig(
+        "train_4k f32 cut", PB_F32_SHAPE[1], PB_F32_SHAPE[0], "train"), 1,
+        torch.float32))
+    for name, c, shape, micro, dtype in runs:
+        remat, ce, _, p_bf16 = hillclimb._knobs(name.split()[0])
+        key = f"{name}, n_micro {micro}"
+        t = time.perf_counter()
+        r = hillclimb.measure(c, shape, remat=remat, ce=ce, n_micro=micro,
+                              p_bf16=p_bf16, steps=HILLCLIMB_STEPS,
+                              dtype=dtype)
+        r["s"] = time.perf_counter() - t
+        rows[key] = r
+        if not r["fits"]:
+            raise AssertionError(f"phase 7 (b): {key} does not fit")
+        calls = c.n_layers * micro
+        f32 = dtype == torch.float32
+        want = {("flash_attention_f32_pbf16" if f32
+                 else "flash_attention_pbf16"): 2 * calls,
+                ("flash_attention_bwd_f32_pbf16" if f32
+                 else "flash_attention_bwd_pbf16"): calls}
+        if f32:
+            want["split_bf16x3"] = 10 * calls
+        if any(p != want for p in r["launches_per_step"]):
+            raise AssertionError(f"phase 7 (b): {key}: launches per step "
+                                 f"{r['launches_per_step']}, expected "
+                                 f"{want}")
+        if not r["peak_bytes"] < 80e9 or not all(
+                math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"phase 7 (b): {key}: {r}")
+        launches[key] = {n: sum(p.get(n, 0) for p in r["launches_per_step"])
+                         for n in FA.LAUNCHES}
+        beside = ("" if f32 else f" (baseline remat full, n_micro "
+                  f"{TRAIN_MICRO}: {base.get('tokens_per_s', 0):.0f} "
+                  f"tokens/s, {base.get('device_ms', 0):.1f} device ms)")
+        print(f"phase 7 (b): {key} ({'float32' if f32 else 'bf16'}, "
+              f"{c.n_layers} layers, {shape.global_batch} x "
+              f"{shape.seq_len}): {r['tokens_per_s']:.0f} tokens/s "
+              f"({r['step_s']:.3f} s a step), device {r['device_ms']:.1f} "
+              f"ms a step{beside}, peak {r['peak_bytes']} bytes, attention "
+              f"launches a step {want}, losses {r['losses']}, "
+              f"{r['s']:.1f} s", flush=True)
 
 
 def grad_compress_on_card(torch):
@@ -4659,6 +5134,101 @@ def run_lint_gate(torch):
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the examples/ scripts' ports on the card
+# ---------------------------------------------------------------------------
+
+# The JAX scripts' output at their defaults, taken on the CPU with
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python examples/paper_eval.py
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python examples/quickstart.py
+# (the sequential engine; the port's scripts replay on the card, and the
+# decisions are exact, so the lines must be equal).
+PAPER_EVAL_JAX = """\
+FF    acc=0.482 hw=0.808 auc=583 mig=0 (0.0% of accepted) | per-profile: 1g.5gb=0.59 1g.10gb=0.54 2g.10gb=0.53 3g.20gb=0.47 4g.20gb=0.46 7g.40gb=0.41
+BF    acc=0.476 hw=0.808 auc=583 mig=0 (0.0% of accepted) | per-profile: 1g.5gb=0.57 1g.10gb=0.53 2g.10gb=0.52 3g.20gb=0.46 4g.20gb=0.46 7g.40gb=0.41
+MCC   acc=0.626 hw=0.887 auc=640 mig=0 (0.0% of accepted) | per-profile: 1g.5gb=1.00 1g.10gb=1.00 2g.10gb=1.00 3g.20gb=0.67 4g.20gb=0.67 7g.40gb=0.24
+MECC  acc=0.626 hw=0.887 auc=640 mig=0 (0.0% of accepted) | per-profile: 1g.5gb=1.00 1g.10gb=1.00 2g.10gb=1.00 3g.20gb=0.67 4g.20gb=0.67 7g.40gb=0.24
+GRMU  acc=0.657 hw=0.651 auc=469 mig=39 (0.7% of accepted) | per-profile: 1g.5gb=1.00 1g.10gb=0.99 2g.10gb=0.99 3g.20gb=0.99 4g.20gb=0.99 7g.40gb=0.19
+
+--- headline vs paper ---
+GRMU/MCC acceptance: 1.05x   (paper: 1.22x)
+GRMU/FF  acceptance: 1.36x   (paper: 1.39x)
+GRMU normalized hw AUC: 0.734 (paper Table 6: 0.815)
+GRMU migration fraction: 0.74% (paper: ~1%)"""
+QUICKSTART_JAX = """\
+empty GPU CC: 18
+first 1g.5gb placed at block: 6
+second 1g.5gb placed at block: 4
+CC now: 11
+
+free blocks: [1, 3] -> 1g.10gb fits? False
+
+replaying a 5%-scale Alibaba-shaped trace...
+  FF    acceptance=0.506 active_hw=0.816 migrations=0
+  MCC   acceptance=0.643 active_hw=0.887 migrations=0
+  GRMU  acceptance=0.653 active_hw=0.651 migrations=78
+
+GRMU should accept the most while keeping the least hardware active (paper §8)."""
+
+
+def run_examples(torch):
+    """Phase 9: the five ``repro_torch.examples`` scripts on the card at
+    the JAX scripts' defaults: ``paper_eval`` (all five policies on the
+    full-scale trace) and ``quickstart`` must print the JAX scripts' lines
+    (``PAPER_EVAL_JAX`` / ``QUICKSTART_JAX``); ``sweep_on_device``'s
+    device sweep must equal its sequential-engine cross-check;
+    ``serve_with_grmu``'s online decisions must equal the offline replay's
+    where no tier switch happened; ``train_lm`` (200 steps of StableLM-3B's
+    smoke config, checkpoints under a temporary directory) must end with
+    0.  Returns {script: result}, paper_eval's headline lines included."""
+    import contextlib as cl
+    import io
+    from repro_torch.examples import (paper_eval, quickstart,
+                                      serve_with_grmu, sweep_on_device,
+                                      train_lm)
+    out = {}
+
+    def timed(name, fn, *args, **kw):
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with cl.redirect_stdout(buf):
+            res = fn(*args, **kw)
+        out[name] = {"s": time.perf_counter() - t}
+        text = buf.getvalue()
+        print(text, end="", flush=True)
+        print(f"phase 9: {name} took {out[name]['s']:.1f} s", flush=True)
+        return res, text.rstrip("\n")
+
+    lines, text = timed("paper_eval", paper_eval.run)
+    if text != PAPER_EVAL_JAX:
+        raise AssertionError(f"phase 9: paper_eval on the card printed\n"
+                             f"{text}\nthe JAX script\n{PAPER_EVAL_JAX}")
+    out["paper_eval"]["headline"] = lines[-4:]
+    _, text = timed("quickstart", quickstart.run)
+    if text != QUICKSTART_JAX:
+        raise AssertionError(f"phase 9: quickstart on the card printed\n"
+                             f"{text}\nthe JAX script\n{QUICKSTART_JAX}")
+    res, _ = timed("sweep_on_device", sweep_on_device.run)
+    if res["sequential"] != res["device"]:
+        raise AssertionError(f"phase 9: sweep_on_device: {res}")
+    out["sweep_on_device"].update(res)
+    res, _ = timed("serve_with_grmu", serve_with_grmu.run)
+    if res.get("online_equals_offline") is False:
+        raise AssertionError("phase 9: serve_with_grmu: online != offline")
+    out["serve_with_grmu"].update(
+        {k: res[k] for k in ("decisions", "accepted", "p50_ms", "p99_ms",
+                             "switches", "tier")},
+        online_equals_offline=res.get("online_equals_offline"))
+    with tempfile.TemporaryDirectory(prefix="train_lm_") as tmp:
+        rc, _ = timed("train_lm", train_lm.run, ckpt_dir=tmp)
+    if rc != 0:
+        raise AssertionError(f"phase 9: train_lm returned {rc}")
+    print(f"phase 9: paper_eval on {card_line()}: "
+          + " | ".join(out["paper_eval"]["headline"]), flush=True)
+    print(json.dumps({"examples": out}), flush=True)
+    return out
+
+
 def attention_paths(fa_launches, f32_launches, zoo_launches, launches_5d,
                     launches_5e, launches_5f):
     """The serving paths that reach the attention kernels, each path's
@@ -4709,6 +5279,7 @@ def main() -> int:
     zoo_time, zoo_f32_time = timed_phase("phase 2b zoo timing",
                                          time_zoo_attention, torch, fa_err)
     bwd_err, bwd_time = timed_phase("phase 2c", check_attention_bwd, torch)
+    pb_err, pb_time = timed_phase("phase 2d", check_attention_pbf16, torch)
     timed_phase("phase 3", check_card_vs_cpu)
     launches, profiles = timed_phase("phase 4", run_main_path, torch)
     timed_phase("phase 4b", run_streaming_and_telemetry, torch, profiles)
@@ -4729,6 +5300,7 @@ def main() -> int:
     launches_7e, _ = timed_phase("phase 7 (e)", run_sharded_step, torch,
                                  trained)
     timed_phase("phase 8", run_lint_gate, torch)
+    timed_phase("phase 9", run_examples, torch)
 
     rows = []
     floor = timing["launch_floor"]
@@ -4825,6 +5397,38 @@ def main() -> int:
             sharded_step_launches=launches_7e[name],
             hillclimb_launches={v: runs[name] for v, runs in
                                 launches_7.items()}))
+    # The p_bf16 routes (phase 2d; JAX's ATTN_P_BF16): their launches on
+    # phase 7 (b)'s p_bf16 training runs, which reset the counts before
+    # each step and read them after it; times at TinyLlama's prefill
+    # (forward) and training (backward) shapes.
+    pb_runs = {v: runs for v, runs in launches_7.items() if "bf16" in v}
+    for name, kind, tname, replaces in (
+            ("flash_attention_pbf16", "fwd", "bfloat16", PB_REPLACES),
+            ("flash_attention_f32_pbf16", "fwd", "float32", PB_REPLACES),
+            ("flash_attention_bwd_pbf16", "bwd", "bfloat16",
+             FA_BWD_REPLACES),
+            ("flash_attention_bwd_f32_pbf16", "bwd", "float32",
+             FA_BWD_REPLACES)):
+        t = pb_time[f"{kind} {tname}"]
+        by_path = {v: runs[name] for v, runs in pb_runs.items()}
+        rows.append(dict(
+            name=name, route="cuda",
+            source=FA_SOURCE if kind == "fwd" else FA_BWD_SOURCE,
+            replaces=replaces,
+            replaces_note=("no Pallas kernel: JAX's flags.ATTN_P_BF16 "
+                           "function of layers._attend_block (p and v "
+                           "rounded to bf16), and its jax.vjp"),
+            launches=sum(by_path.values()),
+            on_main_path=sum(by_path.values()) > 0,
+            path=("p_bf16 training (phase 7 (b): " + ", ".join(pb_runs)
+                  + ")"),
+            launches_by_path=by_path,
+            max_abs_err=pb_err[f"max_abs {kind} {tname}"],
+            share_of_flag_effect=pb_err[f"{kind} {tname}"],
+            ms=t["ms"], float32_p_route_ms=t["float32_p_ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            ms_by_kernel=t.get("kernel_ms"), shape=t["shape"]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,9 +30,22 @@ import time
 from pathlib import Path
 
 
+def root_package(root: Path) -> None:
+    """Put ``root/src`` and this script's directory first on the path and
+    import ``root``'s ``repro_torch`` before this checkout's
+    ``chip_smoke`` (which puts its own ``src`` first when imported and
+    would otherwise hand every root this checkout's package); raise unless
+    the package came from ``root``."""
+    sys.path[:0] = [str(root / "src"), str(Path(__file__).resolve().parent)]
+    import repro_torch
+    got = Path(repro_torch.__file__).resolve()
+    if not got.is_relative_to((root / "src").resolve()):
+        raise RuntimeError(f"repro_torch came from {got}, not {root}")
+
+
 def worker(root: Path, args) -> None:
     import torch
-    sys.path[:0] = [str(root / "src"), str(Path(__file__).resolve().parent)]
+    root_package(root)
     from chip_smoke import profile_replay, replay_configs
     from repro_torch.core import batched as B
     from repro_torch.workload.alibaba import TraceConfig, generate

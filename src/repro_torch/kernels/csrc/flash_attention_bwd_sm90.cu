@@ -131,6 +131,39 @@
 // overlap (the other warpgroup fills the gap, where there is one), each
 // merge waits for its chunk's products, no persistent scheduler, one CTA
 // per SM.
+//
+// The p_bf16 route (PB = true: fa_backward_bf16_pbf16,
+// fa_backward_f32_pbf16) is the gradient of fa_fwd_wgmma's p_bf16 route,
+// JAX's flags.ATTN_P_BF16 function, as jax.vjp of layers.flash_attention
+// forms it (its jaxpr; kernels/ref.py _p_bf16_block_grad is the plain
+// version).  Per query row and JAX key chunk (1,024 keys) it reads the
+// forward's chunk max m_b and first maximal key (mstat); c = exp(m_b -
+// LSE) is the chunk's weight in the output and p = exp(s - m_b):
+//   * dP takes JAX's bf16 rounding of p's cotangent before D is
+//     subtracted: dS = p (bf16(c dP) - c D), with dP = dO . bf16(v)
+//     (float32: dO's three planes against v's hi plane, three passes).
+//   * The chunk max's own cotangent no longer cancels (p is rounded, its
+//     derivative is not): T = c sum_j bf16(p) dP - sum_j p bf16(c dP),
+//     which reduce_max's gradient adds to dS at the row's maximal key.
+//     The dQ kernel sums T over the chunk's tiles, adds T times that key's
+//     row of k (read from device memory) to dQ and stores T (tstat); the
+//     dK / dV kernel adds it to dS^T at that key.  JAX splits T evenly
+//     over tied maxima; the kernels give it to the first (ties of float32
+//     scores on real inputs are not seen in the tests).
+//   * dS keeps the three-term split: JAX's dS is float32.
+//   * dV: JAX rounds each (query head, query chunk, key chunk)'s dV,
+//     bf16(p)^T (c dO), to bf16 before the float32 sums over query chunks
+//     and the group's heads.  The per-row c lies along the product's
+//     contraction, so the left operand bf16(p) c is not a bf16 value: bf16
+//     takes it as two bf16 terms (hi, mid; within 2^-17 of it, far below
+//     the bf16 rounding that follows), float32 the three terms against
+//     dO's planes.  dv_acc holds one (head, query chunk)'s sum; at the next
+//     one it is rounded to bf16 and added to a float32 sum per thread in
+//     shared memory.
+// Tensor-core work per visible pair in bf16: dQ kernel S, dP, dS K (3
+// terms) = 5 units as before; dK / dV kernel S^T, dP^T, dV (2), dK (3) = 7
+// against 8.  The route also reads mstat and writes T: B H Sq
+// ceil(Sk / 1024) x 12 bytes, ~12 MB at the training shape.
 
 #include <type_traits>
 
@@ -155,44 +188,58 @@ constexpr int MERGE_W = 64;        // widest fresh accumulator, columns
 // (16 / 32 / 80 / 112, one chunk).
 constexpr int merge_w(int n) { return n % MERGE_W == 0 ? MERGE_W : n; }
 
+// Keys (and queries) of one of JAX's attention chunks (layers.
+// flash_attention's k_chunk and q_chunk, min(1024, S)): the p_bf16 route
+// rounds p against each key chunk's row max and each (query chunk, key
+// chunk) pair's dV to bf16.
+constexpr int CHUNK_KEYS = 1024;
+
 // Shared memory of either kernel: 1024 bytes of slack to align the tiles
-// to the swizzle atom; `planes` bf16 planes of its resident tiles (`rows`
-// rows of the q/k width plus rows of the v width: Q and dO for dQ, K and V
-// for dK / dV) and of `stages` ring stages of `tile` rows of both widths
-// (K and V; Q and dO), with `stat` bytes a ring row (dK / dV: LSE and D);
-// then 1 + 2 * stages mbarriers.  width = hd + hd_v.
-constexpr int bwd_smem(int planes, int width, int rows, int tile, int stages,
-                       int stat) {
-  return 1024 + planes * 2 * width * (rows + stages * tile) +
-         stages * stat * tile + 8 * (1 + 2 * stages);
-}
+// to the swizzle atom; its resident tiles, `res` bytes a row over `rows`
+// rows (Q and dO for dQ, K and V for dK / dV: the bf16 planes of a row of
+// the q/k width and of the v width); `stages` ring stages of `tile` rows
+// of `ring` bytes (K and V; Q and dO) with `stat` bytes a ring row (dK /
+// dV: LSE and D, and the p_bf16 route's chunk statistics); `xrow` bytes a
+// resident row more (the p_bf16 dK / dV's dV sum); then 1 + 2 * stages
+// mbarriers.
+struct Smem {
+  int res, ring, stat, xrow;
+  constexpr int bytes(int rows, int tile, int stages) const {
+    return 1024 + (res + xrow) * rows + stages * (ring + stat) * tile +
+           8 * (1 + 2 * stages);
+  }
+  constexpr bool fits(int rows, int tile, int stages) const {
+    return bytes(rows, tile, stages) <= SMEM_MAX;
+  }
+};
 
 // One kernel's resident rows, ring tile and ring depth (the note at the
 // top): bf16 128 rows, the register plan's tile `tile_max`, three stages;
-// float32 (three planes of every tile) from the shared-memory budget.
+// float32 (three planes of most tiles) from the shared-memory budget.
 struct Tiling {
   int rows, tile, stages;
 };
-constexpr bool f32_fits(int width, int rows, int tile, int stages, int stat) {
-  return bwd_smem(3, width, rows, tile, stages, stat) <= SMEM_MAX;
+constexpr Tiling f32_tiling(Smem m, int tile_max, int rows) {
+  const int tile = m.fits(rows, tile_max, 2)       ? tile_max
+                   : m.fits(rows, tile_max / 2, 2) ? tile_max / 2
+                                                   : tile_max / 4;
+  return {rows, tile, m.fits(rows, tile, 3) ? 3 : 2};
 }
-constexpr Tiling f32_tiling(int width, int tile_max, int stat, int rows) {
-  const int tile = f32_fits(width, rows, tile_max, 2, stat) ? tile_max
-                   : f32_fits(width, rows, tile_max / 2, 2, stat)
-                       ? tile_max / 2
-                       : tile_max / 4;
-  return {rows, tile, f32_fits(width, rows, tile, 3, stat) ? 3 : 2};
-}
-constexpr Tiling tiling(bool f32, int width, int tile_max, int stat) {
+constexpr Tiling tiling(bool f32, Smem m, int tile_max) {
   return !f32 ? Tiling{128, tile_max, 3}
-              : f32_tiling(width, tile_max, stat,
-                           f32_fits(width, 128, tile_max, 2, stat) ? 128
-                                                                   : 64);
+              : f32_tiling(m, tile_max, m.fits(128, tile_max, 2) ? 128 : 64);
 }
 
-template <int HD, int HDV, bool F32>
+template <int HD, int HDV, bool F32, bool PB>
 struct BwdCfg {
   static constexpr int PLANES = F32 ? 3 : 1;  // bf16 planes per operand
+  // V's planes: the p_bf16 route multiplies by bf16(v), v's hi plane.
+  static constexpr int VPL = F32 && !PB ? 3 : 1;
+  // The dK / dV ring's floats a query row: LSE and D; p_bf16: c, D, the
+  // chunk max, its key and T (the kernels' note).
+  static constexpr int STAT = PB ? 5 : 2;
+  // p_bf16's bf16 dV: bf16(p) c split into two bf16 terms (hi, mid).
+  static constexpr int DV_TERMS = PB && !F32 ? 2 : 3;
   // Q and K rows: the q/k width; dO and V rows: the v width.
   static constexpr int ROWB = row_bytes(HD);
   static constexpr int CHUNK = ROWB / 2;  // bf16 columns per TMA box
@@ -207,8 +254,12 @@ struct BwdCfg {
   // (S^T's N) and dQ's keys per tile, at most.
   static constexpr int BQ_MAX = W <= 160 ? 64 : W <= 256 ? 32 : 16;
   static constexpr int BK_MAX = HD <= 128 ? 64 : 32;
-  static constexpr Tiling DQ = tiling(F32, W, BK_MAX, 0);
-  static constexpr Tiling KV = tiling(F32, W, BQ_MAX, 8);
+  static constexpr Smem DQ_MEM{2 * PLANES * W, 2 * (PLANES * HD + VPL * HDV),
+                               0, 0};
+  static constexpr Smem KV_MEM{2 * (PLANES * HD + VPL * HDV), 2 * PLANES * W,
+                               4 * STAT, PB ? 4 * HDV : 0};
+  static constexpr Tiling DQ = tiling(F32, DQ_MEM, BK_MAX);
+  static constexpr Tiling KV = tiling(F32, KV_MEM, BQ_MAX);
   static constexpr int DQ_ROWS = DQ.rows, BK = DQ.tile;
   static constexpr int DQ_STAGES = DQ.stages;
   static constexpr int KV_ROWS = KV.rows, BQ = KV.tile;
@@ -222,16 +273,17 @@ struct BwdCfg {
   // the ring of K and V tiles (stage: the K planes, then the V planes).
   static constexpr int DQ_Q = DQ_ROWS * HD * 2, DQ_DO = DQ_ROWS * HDV * 2;
   static constexpr int DQ_K = BK * HD * 2, DQ_V = BK * HDV * 2;
-  static constexpr int DQ_STAGE = PLANES * (DQ_K + DQ_V);
-  static constexpr int DQ_SMEM = bwd_smem(PLANES, W, DQ_ROWS, BK, DQ_STAGES,
-                                          0);
+  static constexpr int DQ_STAGE = PLANES * DQ_K + VPL * DQ_V;
+  static constexpr int DQ_SMEM = DQ_MEM.bytes(DQ_ROWS, BK, DQ_STAGES);
   // dK / dV: K and V of KV_ROWS keys, then the ring of Q and dO tiles,
-  // then each stage's LSE and D (2 BQ floats).
+  // then each stage's STAT BQ floats (LSE, D, ...), then (p_bf16) the dV
+  // sum, HDV / 2 floats a consumer thread.
   static constexpr int KV_K = KV_ROWS * HD * 2, KV_V = KV_ROWS * HDV * 2;
   static constexpr int KV_Q = BQ * HD * 2, KV_DO = BQ * HDV * 2;
   static constexpr int KV_STAGE = PLANES * (KV_Q + KV_DO);
-  static constexpr int KV_SMEM = bwd_smem(PLANES, W, KV_ROWS, BQ, KV_STAGES,
-                                          8);
+  static constexpr int KV_SMEM = KV_MEM.bytes(KV_ROWS, BQ, KV_STAGES);
+  // dQ's key tiles in a JAX key chunk.
+  static constexpr int DQ_TPC = CHUNK_KEYS / BK;
   static_assert(HD % CHUNK == 0 && HDV % CHUNK_V == 0,
                 "head dims must be whole TMA boxes");
   static_assert(MW % CHUNK == 0 && MW_V % CHUNK_V == 0,
@@ -287,6 +339,55 @@ __device__ __forceinline__ void softmax_grad(float (&s)[NF], float (&dp)[NF],
   }
 }
 
+__device__ __forceinline__ float bf16r(float x) {  // x rounded to bf16
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// A row's statistics in the p_bf16 gradient, per (query row, key chunk):
+// c = exp(m_b - LSE), the chunk's weight in the output; D; the chunk's
+// row max m_b; the index of its first maximal key; T, the row max's
+// cotangent (the dQ kernel's sum, which dK / dV reads).
+struct PbStat {
+  float c, D, mb;
+  int idx;
+  float T;
+};
+
+// The p_bf16 route's softmax_grad: with p = exp(scale s - m_b) where the
+// pair is visible, else 0, and dpr = bf16(c dP) (JAX rounds p's
+// cotangent, c dO . bf16(v), to bf16), dS = p (dpr - c D).  DQ: adds this
+// thread's part of T = sum_j (c bf16(p) dP - p dpr) to t[row]; else
+// (dK / dV) adds the row's T to dS at its maximal key and leaves bf16(p) c
+// in s, dV's left operand.  Register layout and pos / stat as
+// softmax_grad's (stat(j) a PbStat).
+template <bool DQ, int NF, typename Pos, typename Stat>
+__device__ __forceinline__ void softmax_grad_pb(
+    float (&s)[NF], float (&dp)[NF], float (&t)[2], bool edge, Pos pos,
+    Stat stat, float scale, int Sq, int Sk, int causal, int window) {
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      const int2 qk = pos(j);
+      if (!visible(qk.x, qk.y, Sq, Sk, causal, window)) s[j] = -INFINITY;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NF; ++j) {
+    const PbStat st = stat(j);
+    const float p = expf(s[j] * scale - st.mb);
+    const float pb = bf16r(p);
+    const float dpr = bf16r(st.c * dp[j]);
+    float ds = p * (dpr - st.c * st.D);
+    if constexpr (DQ) {
+      t[(j >> 1) & 1] += st.c * pb * dp[j] - p * dpr;
+    } else {
+      if (p != 0.0f && pos(j).y == st.idx) ds += st.T;
+      s[j] = pb * st.c;
+    }
+    dp[j] = ds;
+  }
+}
+
 // x's three bf16 terms in the A-fragment layout: registers 8kk .. 8kk + 7
 // of an accumulator, as four bf16 pairs, are the A fragment of its columns
 // 16kk .. 16kk + 15.
@@ -326,14 +427,38 @@ __device__ __forceinline__ void planes_ss(float (&acc)[NF], uint32_t a,
   }
 }
 
+// The float32 p_bf16 route's dP = dO bf16(v)^T (SWAP: dP^T = bf16(v)
+// dO^T): dO's three planes, smallest first, against v's hi plane, which
+// is bf16(v), into one accumulator; arguments as planes_ss's (the hi-plane
+// operand's plane stride unused).  The first wgmma overwrites acc.
+template <bool SWAP, int K, int KPC, int NF>
+__device__ __forceinline__ void planes_hi_ss(float (&acc)[NF], uint32_t a,
+                                             int a_rows, int a_plane,
+                                             uint32_t b, int b_rows,
+                                             int b_plane, int rowb) {
+#pragma unroll
+  for (int t = 0; t < 3; ++t) {
+    const uint32_t at = a + (SWAP ? 0 : 2 - t) * a_plane;
+    const uint32_t bt = b + (SWAP ? 2 - t : 0) * b_plane;
+#pragma unroll
+    for (int j = 0; j < K / 16; ++j) {
+      const int c = j / KPC, off = (j % KPC) * 32;
+      wgmma_ss(acc, kmajor(at + c * a_rows * rowb + off, rowb),
+               kmajor(bt + c * b_rows * rowb + off, rowb), t > 0 || j > 0);
+    }
+  }
+}
+
 // acc += A B over K = 16 * KSTEPS rows of B, A the three terms of `t` and
 // B a tile of `rows` rows at b (MN-major, rowb swizzled bytes a row; its
 // planes `plane` bytes apart), its output columns in chunks of W: each
 // chunk's products go into a fresh accumulator, then added to acc on the
 // CUDA cores.  bf16: one pass a term, smallest term first; float32: the
 // six passes, term pass_a against B plane pass_b.  N = the output width
-// (acc holds N / 2 floats).
-template <int N, int W, int KSTEPS, int CHUNK_COLS, bool F32, int TF>
+// (acc holds N / 2 floats).  bf16 with NT = 2 takes the terms hi and mid
+// only (the p_bf16 dV).
+template <int N, int W, int KSTEPS, int CHUNK_COLS, bool F32, int NT = 3,
+          int TF>
 __device__ __forceinline__ void merged_product(float (&acc)[N / 2],
                                                const uint32_t (&t)[3][TF],
                                                uint32_t b, int rows,
@@ -346,8 +471,8 @@ __device__ __forceinline__ void merged_product(float (&acc)[N / 2],
     for (int j = 0; j < W / 2; ++j) tile[j] = 0.0f;
     wgmma_fence();
 #pragma unroll
-    for (int u = 0; u < (F32 ? PASSES : 3); ++u) {
-      const int term = F32 ? pass_a(u) : 2 - u;
+    for (int u = 0; u < (F32 ? PASSES : NT); ++u) {
+      const int term = F32 ? pass_a(u) : NT - 1 - u;
       const uint32_t bp = bc + (F32 ? pass_b(u) : 0) * plane;
 #pragma unroll
       for (int kk = 0; kk < KSTEPS; ++kk)
@@ -459,9 +584,13 @@ using out_t = std::conditional_t<F32, float, __nv_bfloat16>;
 // dQ and D.  Maps: q (B, Sq, H, hd) and dO (B, Sq, H, hd_v) in boxes of
 // DQ_ROWS rows; k (B, Sk, KV, hd), v (B, Sk, KV, hd_v) in boxes of BK rows
 // (float32: the planes, batch 3B).  o and dO (B, Sq, H, hd_v) in the
-// dtype, lse (B, H, Sq) -> D (B, H, Sq), dq.
-template <int HD, int HDV, bool F32>
-__global__ void __launch_bounds__(BwdCfg<HD, HDV, F32>::DQ_THREADS, 1)
+// dtype, lse (B, H, Sq) -> D (B, H, Sq), dq.  PB: mstat (B, H, Sq, NC, 2)
+// from the forward -> tstat (B, H, Sq, NC), each row's T per key chunk (0
+// where its tile visits none of the chunk), for the dK / dV kernel; kg:
+// what TMA reads of k (float32: its planes, plane stride B Sk KV hd), for
+// the gather of each row's maximal key.
+template <int HD, int HDV, bool F32, bool PB>
+__global__ void __launch_bounds__(BwdCfg<HD, HDV, F32, PB>::DQ_THREADS, 1)
     fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
@@ -470,8 +599,10 @@ __global__ void __launch_bounds__(BwdCfg<HD, HDV, F32>::DQ_THREADS, 1)
                     const out_t<F32>* __restrict__ dO,
                     const float* __restrict__ lse, float* __restrict__ Dout,
                     out_t<F32>* __restrict__ dq, int B, int Sq, int Sk, int H,
-                    int KV, float scale, int causal, int window) {
-  using C = BwdCfg<HD, HDV, F32>;
+                    int KV, float scale, int causal, int window,
+                    const float* __restrict__ mstat, float* __restrict__ tstat,
+                    const __nv_bfloat16* __restrict__ kg, int NC) {
+  using C = BwdCfg<HD, HDV, F32, PB>;
   constexpr int BK = C::BK, ROWS = C::DQ_ROWS, STAGES = C::DQ_STAGES;
   constexpr int P = C::PLANES, CW = C::DQ_WARPS;
   extern __shared__ uint8_t smem_raw[];
@@ -532,9 +663,10 @@ __global__ void __launch_bounds__(BwdCfg<HD, HDV, F32>::DQ_THREADS, 1)
                      full_bar + 8 * s, c * C::CHUNK, kvh, kt * BK, a * B + b);
 #pragma unroll
           for (int c = 0; c < C::NCHUNK_V; ++c)
-            tma_load(s_v + a * C::DQ_V + c * BK * C::ROWB_V, &tm_v,
-                     full_bar + 8 * s, c * C::CHUNK_V, kvh, kt * BK,
-                     a * B + b);
+            if (a < C::VPL)
+              tma_load(s_v + a * C::DQ_V + c * BK * C::ROWB_V, &tm_v,
+                       full_bar + 8 * s, c * C::CHUNK_V, kvh, kt * BK,
+                       a * B + b);
         }
       }
     }
@@ -556,11 +688,63 @@ __global__ void __launch_bounds__(BwdCfg<HD, HDV, F32>::DQ_THREADS, 1)
   const uint32_t s_doa = s_do + wg * WG_ROWS * C::ROWB_V;
   mbar_wait(q_bar, 0);
 
+  // PB: this thread's rows' statistics for the key chunk `cur` and their
+  // running part of T.
+  float mb[2] = {0.0f, 0.0f}, cb[2] = {0.0f, 0.0f}, tacc[2] = {0.0f, 0.0f};
+  int ib[2] = {0, 0};
+  int cur = -1;
+  const int64_t row_st = ((int64_t)b * H + h) * Sq;
+  // T of chunk `cur` summed over the quad: stored, and T times the row's
+  // maximal key added to dQ (scale at the store).  Keys are gathered from
+  // k itself (float32: hi + mid + lo of its planes, exactly k).
+  auto flush = [&]() {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float T = quad_sum(tacc[r]);
+      tacc[r] = 0.0f;
+      const int row = r0 + 8 * r;
+      if (row >= Sq) continue;
+      if ((lane & 3) == 0) tstat[(row_st + row) * NC + cur] = T;
+      const __nv_bfloat16* kr =
+          kg + (((int64_t)b * Sk + ib[r]) * KV + kvh) * HD + 2 * (lane & 3);
+#pragma unroll
+      for (int c = 0; c < HD / 8; ++c) {
+        float2 kv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(kr + 8 * c));
+        if constexpr (F32) {
+          const int64_t ps = (int64_t)B * Sk * KV * HD;
+          const float2 m1 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(kr + ps + 8 * c));
+          const float2 m2 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(kr + 2 * ps + 8 * c));
+          kv = make_float2(kv.x + (m1.x + m2.x), kv.y + (m1.y + m2.y));
+        }
+        acc[4 * c + 2 * r] += T * kv.x;
+        acc[4 * c + 2 * r + 1] += T * kv.y;
+      }
+    }
+  };
+
   for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
     const int s = i % STAGES;
     const uint32_t s_k = s_kv + s * C::DQ_STAGE;
     const uint32_t s_v = s_k + P * C::DQ_K;
     const int k0 = kt * BK;
+    if constexpr (PB) {
+      if (kt / C::DQ_TPC != cur) {  // a new JAX key chunk
+        if (cur >= 0) flush();
+        cur = kt / C::DQ_TPC;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = r0 + 8 * r;
+          if (row >= Sq) continue;
+          const float* st = mstat + ((row_st + row) * NC + cur) * 2;
+          mb[r] = st[0];
+          ib[r] = (int)st[1];
+          cb[r] = expf(mb[r] - ld[r].x);
+        }
+      }
+    }
     mbar_wait(full_bar + 8 * s, (i / STAGES) & 1);
     const bool any = row_lo < Sq && (!causal || k0 <= row_lo + WG_ROWS - 1) &&
                      (window <= 0 || k0 + BK - 1 > row_lo - window);
@@ -571,8 +755,12 @@ __global__ void __launch_bounds__(BwdCfg<HD, HDV, F32>::DQ_THREADS, 1)
       wgmma_fence();
       planes_ss<F32, false, HD, C::KPC>(sc, s_qa, ROWS, C::DQ_Q, s_k, BK,
                                         C::DQ_K, C::ROWB);
-      planes_ss<F32, false, HDV, C::KPC_V>(dp, s_doa, ROWS, C::DQ_DO, s_v,
+      if constexpr (F32 && PB)
+        planes_hi_ss<false, HDV, C::KPC_V>(dp, s_doa, ROWS, C::DQ_DO, s_v,
                                            BK, C::DQ_V, C::ROWB_V);
+      else
+        planes_ss<F32, false, HDV, C::KPC_V>(dp, s_doa, ROWS, C::DQ_DO, s_v,
+                                             BK, C::DQ_V, C::ROWB_V);
       wgmma_commit();
       wgmma_wait_all();
       pin(sc);
@@ -581,14 +769,22 @@ __global__ void __launch_bounds__(BwdCfg<HD, HDV, F32>::DQ_THREADS, 1)
       const bool edge = k0 + BK > Sk || row_lo + WG_ROWS > Sq ||
                         (causal && k0 + BK - 1 > row_lo) ||
                         (window > 0 && k0 <= row_lo + WG_ROWS - 1 - window);
-      softmax_grad(
-          sc, dp, edge,
-          [&](int j) {
-            return make_int2(r0 + 8 * ((j >> 1) & 1),
-                             k0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1));
-          },
-          [&](int j) { return ld[(j >> 1) & 1]; }, scale, Sq, Sk, causal,
-          window);
+      auto pos = [&](int j) {
+        return make_int2(r0 + 8 * ((j >> 1) & 1),
+                         k0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1));
+      };
+      if constexpr (PB)
+        softmax_grad_pb<true>(
+            sc, dp, tacc, edge, pos,
+            [&](int j) {
+              const int r = (j >> 1) & 1;
+              return PbStat{cb[r], ld[r].y, mb[r], ib[r], 0.0f};
+            },
+            scale, Sq, Sk, causal, window);
+      else
+        softmax_grad(
+            sc, dp, edge, pos, [&](int j) { return ld[(j >> 1) & 1]; },
+            scale, Sq, Sk, causal, window);
       uint32_t t[3][BK / 4];
       split_terms(dp, t);
       // dQ += dS K, K the MN-major B operand (BK rows).
@@ -601,15 +797,28 @@ __global__ void __launch_bounds__(BwdCfg<HD, HDV, F32>::DQ_THREADS, 1)
     __syncwarp();
     if (lane == 0) mbar_arrive(empty_bar + 8 * s);  // this warp is done
   }
+  if constexpr (PB) {
+    if (cur >= 0) flush();
+    // T = 0 for the chunks this tile visits none of.
+    if ((lane & 3) == 0)
+      for (int c = 0; c < NC; ++c) {
+        if (kt_lo < kt_hi && c >= kt_lo / C::DQ_TPC &&
+            c <= (kt_hi - 1) / C::DQ_TPC)
+          continue;
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (r0 + 8 * r < Sq) tstat[(row_st + r0 + 8 * r) * NC + c] = 0.0f;
+      }
+  }
   store_rows<HD>(acc, dq + ((int64_t)b * Sq * H + h) * HD, (int64_t)H * HD,
                  r0, Sq, lane, scale);
 }
 
 // dK and dV.  Maps: k, v in boxes of KV_ROWS rows; q, dO in boxes of BQ
 // rows (float32: the planes).  lse and D (B, H, Sq) -> dk (B, Sk, KV, hd),
-// dv (B, Sk, KV, hd_v).
-template <int HD, int HDV, bool F32>
-__global__ void __launch_bounds__(BwdCfg<HD, HDV, F32>::KV_THREADS, 1)
+// dv (B, Sk, KV, hd_v).  PB: mstat and tstat (the dQ kernel's), NC chunks.
+template <int HD, int HDV, bool F32, bool PB>
+__global__ void __launch_bounds__(BwdCfg<HD, HDV, F32, PB>::KV_THREADS, 1)
     fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
@@ -618,23 +827,28 @@ __global__ void __launch_bounds__(BwdCfg<HD, HDV, F32>::KV_THREADS, 1)
                       const float* __restrict__ Din,
                       out_t<F32>* __restrict__ dk,
                       out_t<F32>* __restrict__ dv, int B, int Sq, int Sk,
-                      int H, int KV, float scale, int causal, int window) {
-  using C = BwdCfg<HD, HDV, F32>;
+                      int H, int KV, float scale, int causal, int window,
+                      const float* __restrict__ mstat,
+                      const float* __restrict__ tstat, int NC) {
+  using C = BwdCfg<HD, HDV, F32, PB>;
   constexpr int BQ = C::BQ, ROWS = C::KV_ROWS, STAGES = C::KV_STAGES;
   constexpr int P = C::PLANES, CW = C::KV_WARPS;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
   const uint32_t s_k = (raw + 1023u) & ~1023u;  // swizzle-atom aligned
   const uint32_t s_v = s_k + P * C::KV_K;
-  const uint32_t s_ring = s_v + P * C::KV_V;  // stage s: Q, then dO planes
-  const uint32_t s_stat = s_ring + STAGES * C::KV_STAGE;  // [STAGES][2][BQ]
-  const uint32_t kv_bar = s_stat + STAGES * 8 * BQ;
+  const uint32_t s_ring = s_v + C::VPL * C::KV_V;  // stage s: Q, dO planes
+  // [STAGES][STAT][BQ]: LSE, D (PB: c, D, m_b, its key, T).
+  const uint32_t s_stat = s_ring + STAGES * C::KV_STAGE;
+  const uint32_t s_tot = s_stat + STAGES * 4 * C::STAT * BQ;  // PB: dV sum
+  const uint32_t kv_bar = s_tot + (PB ? ROWS * HDV * 4 : 0);
   const uint32_t full_bar = kv_bar + 8;              // [STAGES]
   const uint32_t empty_bar = full_bar + 8 * STAGES;  // [STAGES]
   // The generic address of the stats (the producer's stores, the
   // consumers' loads).
   float* const stat_ptr =
       reinterpret_cast<float*>(smem_raw + (s_stat - raw));
+  float* const tot_ptr = reinterpret_cast<float*>(smem_raw + (s_tot - raw));
 
   const int kt = blockIdx.x;  // causal: key tile 0 sees the most queries
   const int kvh = blockIdx.y, b = blockIdx.z;
@@ -662,7 +876,7 @@ __global__ void __launch_bounds__(BwdCfg<HD, HDV, F32>::KV_THREADS, 1)
   if (warp >= CW) {  // producer
     producer_regs<ROWS>();
     if (warp == CW && lane == 0) {  // TMA
-      mbar_expect_tx(kv_bar, P * (C::KV_K + C::KV_V));
+      mbar_expect_tx(kv_bar, P * C::KV_K + C::VPL * C::KV_V);
 #pragma unroll
       for (int a = 0; a < P; ++a) {
 #pragma unroll
@@ -671,8 +885,9 @@ __global__ void __launch_bounds__(BwdCfg<HD, HDV, F32>::KV_THREADS, 1)
                    c * C::CHUNK, kvh, k0, a * B + b);
 #pragma unroll
         for (int c = 0; c < C::NCHUNK_V; ++c)
-          tma_load(s_v + a * C::KV_V + c * ROWS * C::ROWB_V, &tm_v, kv_bar,
-                   c * C::CHUNK_V, kvh, k0, a * B + b);
+          if (a < C::VPL)
+            tma_load(s_v + a * C::KV_V + c * ROWS * C::ROWB_V, &tm_v, kv_bar,
+                     c * C::CHUNK_V, kvh, k0, a * B + b);
       }
       for (int i = 0; i < n_it; ++i) {
         const int s = i % STAGES;
@@ -699,11 +914,22 @@ __global__ void __launch_bounds__(BwdCfg<HD, HDV, F32>::KV_THREADS, 1)
         const int h = kvh * G + i / nqt, q0 = (qt_lo + i % nqt) * BQ;
         const int64_t stat = ((int64_t)b * H + h) * Sq;
         mbar_wait(empty_bar + 8 * s, ((i / STAGES) & 1) ^ 1);
-        float* st = stat_ptr + s * 2 * BQ;
+        float* st = stat_ptr + s * C::STAT * BQ;
         for (int r = lane; r < BQ; r += 32) {
           const bool in = q0 + r < Sq;
-          st[r] = in ? lse[stat + q0 + r] : 0.0f;
+          const float l = in ? lse[stat + q0 + r] : 0.0f;
           st[BQ + r] = in ? Din[stat + q0 + r] : 0.0f;
+          if constexpr (PB) {
+            // This key tile's JAX chunk: c, m_b, its key, T.
+            const int64_t at = (stat + q0 + r) * NC + k0 / CHUNK_KEYS;
+            const float mb = in ? mstat[2 * at] : 0.0f;
+            st[r] = in ? expf(mb - l) : 0.0f;
+            st[2 * BQ + r] = mb;
+            st[3 * BQ + r] = in ? mstat[2 * at + 1] : -1.0f;
+            st[4 * BQ + r] = in ? tstat[at] : 0.0f;
+          } else {
+            st[r] = l;
+          }
         }
         mbar_arrive(full_bar + 8 * s);
       }
@@ -722,6 +948,22 @@ __global__ void __launch_bounds__(BwdCfg<HD, HDV, F32>::KV_THREADS, 1)
   for (int j = 0; j < HD / 2; ++j) dk_acc[j] = 0.0f;
 #pragma unroll
   for (int j = 0; j < HDV / 2; ++j) dv_acc[j] = 0.0f;
+  // PB: dv_acc holds one (query head, JAX query chunk)'s dV; at the next
+  // pair it is rounded to bf16 and added to this thread's float32 sum in
+  // shared memory (tot_ptr[j * threads + thread]).
+  constexpr int NTHR = 32 * CW;
+  int part = -1;
+  auto flush_dv = [&]() {
+#pragma unroll
+    for (int j = 0; j < HDV / 2; ++j) {
+      tot_ptr[j * NTHR + threadIdx.x] += bf16r(dv_acc[j]);
+      dv_acc[j] = 0.0f;
+    }
+  };
+  if constexpr (PB) {
+#pragma unroll
+    for (int j = 0; j < HDV / 2; ++j) tot_ptr[j * NTHR + threadIdx.x] = 0.0f;
+  }
   mbar_wait(kv_bar, 0);
 
   for (int i = 0; i < n_it; ++i) {
@@ -729,6 +971,13 @@ __global__ void __launch_bounds__(BwdCfg<HD, HDV, F32>::KV_THREADS, 1)
     const int q0 = (qt_lo + i % nqt) * BQ;
     const uint32_t s_q = s_ring + s * C::KV_STAGE;
     const uint32_t s_do = s_q + P * C::KV_Q;
+    if constexpr (PB) {
+      const int pk = (i / nqt) * (Sq / CHUNK_KEYS + 1) + q0 / CHUNK_KEYS;
+      if (pk != part) {
+        if (part >= 0) flush_dv();
+        part = pk;
+      }
+    }
     mbar_wait(full_bar + 8 * s, (i / STAGES) & 1);
     const bool any = key_lo < Sk && q0 < Sq &&
                      (!causal || q0 + BQ - 1 >= key_lo) &&
@@ -742,8 +991,12 @@ __global__ void __launch_bounds__(BwdCfg<HD, HDV, F32>::KV_THREADS, 1)
       wgmma_fence();
       planes_ss<F32, true, HD, C::KPC>(st, s_ka, ROWS, C::KV_K, s_q, BQ,
                                        C::KV_Q, C::ROWB);
-      planes_ss<F32, true, HDV, C::KPC_V>(dpt, s_va, ROWS, C::KV_V, s_do, BQ,
+      if constexpr (F32 && PB)
+        planes_hi_ss<true, HDV, C::KPC_V>(dpt, s_va, ROWS, C::KV_V, s_do, BQ,
                                           C::KV_DO, C::ROWB_V);
+      else
+        planes_ss<F32, true, HDV, C::KPC_V>(dpt, s_va, ROWS, C::KV_V, s_do,
+                                            BQ, C::KV_DO, C::ROWB_V);
       wgmma_commit();
       wgmma_wait_all();
       pin(st);
@@ -752,23 +1005,36 @@ __global__ void __launch_bounds__(BwdCfg<HD, HDV, F32>::KV_THREADS, 1)
       const bool edge = q0 + BQ > Sq || key_lo + WG_ROWS > Sk ||
                         (causal && q0 < key_lo + WG_ROWS - 1) ||
                         (window > 0 && q0 + BQ - 1 >= key_lo + window);
-      const float* stq = stat_ptr + s * 2 * BQ;  // LSE, then D
-      softmax_grad(
-          st, dpt, edge,
-          [&](int j) {
-            return make_int2(q0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1),
-                             r0 + 8 * ((j >> 1) & 1));
-          },
-          [&](int j) {
-            const int c = 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
-            return make_float2(stq[c], stq[BQ + c]);
-          },
-          scale, Sq, Sk, causal, window);
+      const float* stq = stat_ptr + s * C::STAT * BQ;  // LSE, then D
+      auto pos = [&](int j) {
+        return make_int2(q0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1),
+                         r0 + 8 * ((j >> 1) & 1));
+      };
+      if constexpr (PB) {
+        float unused[2];
+        softmax_grad_pb<false>(
+            st, dpt, unused, edge, pos,
+            [&](int j) {
+              const int c = 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+              return PbStat{stq[c], stq[BQ + c], stq[2 * BQ + c],
+                            (int)stq[3 * BQ + c], stq[4 * BQ + c]};
+            },
+            scale, Sq, Sk, causal, window);
+      } else {
+        softmax_grad(
+            st, dpt, edge, pos,
+            [&](int j) {
+              const int c = 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+              return make_float2(stq[c], stq[BQ + c]);
+            },
+            scale, Sq, Sk, causal, window);
+      }
       {
-        // dV += P^T dO, dO the MN-major B operand (BQ rows).
+        // dV += P^T dO, dO the MN-major B operand (BQ rows); PB: P^T is
+        // bf16(p) c, in C::DV_TERMS terms.
         uint32_t t[3][BQ / 4];
         split_terms(st, t);
-        merged_product<HDV, C::MW_V, BQ / 16, C::CHUNK_V, F32>(
+        merged_product<HDV, C::MW_V, BQ / 16, C::CHUNK_V, F32, C::DV_TERMS>(
             dv_acc, t, s_do, BQ, C::ROWB_V, C::KV_DO);
         pin(t[0]);
         pin(t[1]);
@@ -788,6 +1054,12 @@ __global__ void __launch_bounds__(BwdCfg<HD, HDV, F32>::KV_THREADS, 1)
     __syncwarp();
     if (lane == 0) mbar_arrive(empty_bar + 8 * s);  // this warp is done
   }
+  if constexpr (PB) {
+    flush_dv();
+#pragma unroll
+    for (int j = 0; j < HDV / 2; ++j)
+      dv_acc[j] = tot_ptr[j * NTHR + threadIdx.x];
+  }
   const int64_t krow = (int64_t)KV * HD, vrow = (int64_t)KV * HDV;
   store_rows<HD>(dk_acc, dk + (int64_t)b * Sk * krow + (int64_t)kvh * HD,
                  krow, r0, Sk, lane, scale);
@@ -798,12 +1070,13 @@ __global__ void __launch_bounds__(BwdCfg<HD, HDV, F32>::KV_THREADS, 1)
 // The two kernels of one instantiation.  q, k, v and dO_tma are what TMA
 // reads (bf16: the inputs; float32: their split_bf16x3 planes, (3, B, S,
 // heads, hd)); o and dO are the dtype's, for D.
-template <int HD, int HDV, bool F32>
+template <int HD, int HDV, bool F32, bool PB>
 int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dO, const void* dO_tma, const void* lse, void* D,
-           void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
-           float scale, int causal, int window, cudaStream_t stream) {
-  using C = BwdCfg<HD, HDV, F32>;
+           const void* dO, const void* dO_tma, const void* lse,
+           const void* mstat, void* D, void* tstat, void* dq, void* dk,
+           void* dv, int B, int Sq, int Sk, int H, int KV, float scale,
+           int causal, int window, cudaStream_t stream) {
+  using C = BwdCfg<HD, HDV, F32, PB>;
   using T = out_t<F32>;
   if (Sq == 0) {  // no query: dK = dV = 0 exactly
     cudaError_t e = cudaMemsetAsync(dk, 0, (size_t)B * Sk * KV * HD *
@@ -818,48 +1091,54 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const CUtensorMapSwizzle sw = swizzle_of(C::ROWB);
   const CUtensorMapSwizzle sw_v = swizzle_of(C::ROWB_V);
   const int NB = C::PLANES * B;  // float32: the planes on the batch axis
+  const int NBV = C::VPL * B;
+  const int NC = (Sk + CHUNK_KEYS - 1) / CHUNK_KEYS;
   // dQ's maps (Q / dO in DQ_ROWS rows, K / V in BK), then dK / dV's (K / V
   // in KV_ROWS rows, Q / dO in BQ).
   CUtensorMap a_q, a_k, a_v, a_do, b_q, b_k, b_v, b_do;
   if (!make_map(enc, &a_q, q, NB, Sq, H, HD, C::CHUNK, C::DQ_ROWS, sw) ||
       !make_map(enc, &a_k, k, NB, Sk, KV, HD, C::CHUNK, C::BK, sw) ||
-      !make_map(enc, &a_v, v, NB, Sk, KV, HDV, C::CHUNK_V, C::BK, sw_v) ||
+      !make_map(enc, &a_v, v, NBV, Sk, KV, HDV, C::CHUNK_V, C::BK, sw_v) ||
       !make_map(enc, &a_do, dO_tma, NB, Sq, H, HDV, C::CHUNK_V, C::DQ_ROWS,
                 sw_v) ||
       !make_map(enc, &b_q, q, NB, Sq, H, HD, C::CHUNK, C::BQ, sw) ||
       !make_map(enc, &b_k, k, NB, Sk, KV, HD, C::CHUNK, C::KV_ROWS, sw) ||
-      !make_map(enc, &b_v, v, NB, Sk, KV, HDV, C::CHUNK_V, C::KV_ROWS,
+      !make_map(enc, &b_v, v, NBV, Sk, KV, HDV, C::CHUNK_V, C::KV_ROWS,
                 sw_v) ||
       !make_map(enc, &b_do, dO_tma, NB, Sq, H, HDV, C::CHUNK_V, C::BQ, sw_v))
     return ERR_TENSOR_MAP;
   static bool attr_set = false;  // per instantiation
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        fa_bwd_dq_wgmma<HD, HDV, F32>,
+        fa_bwd_dq_wgmma<HD, HDV, F32, PB>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, C::DQ_SMEM);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(fa_bwd_dkdv_wgmma<HD, HDV, F32>,
+      e = cudaFuncSetAttribute(fa_bwd_dkdv_wgmma<HD, HDV, F32, PB>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                C::KV_SMEM);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  fa_bwd_dq_wgmma<HD, HDV, F32><<<
+  fa_bwd_dq_wgmma<HD, HDV, F32, PB><<<
       dim3((Sq + C::DQ_ROWS - 1) / C::DQ_ROWS, H, B), C::DQ_THREADS,
       C::DQ_SMEM, stream>>>(a_q, a_k, a_v, a_do, static_cast<const T*>(o),
                             static_cast<const T*>(dO),
                             static_cast<const float*>(lse),
                             static_cast<float*>(D), static_cast<T*>(dq), B, Sq,
-                            Sk, H, KV, scale, causal, window);
+                            Sk, H, KV, scale, causal, window,
+                            static_cast<const float*>(mstat),
+                            static_cast<float*>(tstat),
+                            static_cast<const __nv_bfloat16*>(k), NC);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  fa_bwd_dkdv_wgmma<HD, HDV, F32><<<
+  fa_bwd_dkdv_wgmma<HD, HDV, F32, PB><<<
       dim3((Sk + C::KV_ROWS - 1) / C::KV_ROWS, KV, B), C::KV_THREADS,
       C::KV_SMEM, stream>>>(b_q, b_k, b_v, b_do,
                             static_cast<const float*>(lse),
                             static_cast<const float*>(D), static_cast<T*>(dk),
                             static_cast<T*>(dv), B, Sq, Sk, H, KV, scale,
-                            causal, window);
+                            causal, window, static_cast<const float*>(mstat),
+                            static_cast<const float*>(tstat), NC);
   return (int)cudaGetLastError();
 }
 
@@ -871,20 +1150,21 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 // T the inputs' dtype: bf16, or float (given as its planes); both take the
 // wgmma kernels, and a head dim outside the lists is refused.
-template <typename T>
+template <typename T, bool PB>
 int backward(const void* q, const void* k, const void* v, const void* o,
-             const void* dO, const void* dO_tma, const void* lse, void* D,
-             void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H,
-             int KV, int hd, int hd_v, float scale, int causal, int window,
-             void* stream) {
+             const void* dO, const void* dO_tma, const void* lse,
+             const void* mstat, void* D, void* tstat, void* dq, void* dk,
+             void* dv, int B, int Sq, int Sk, int H, int KV, int hd,
+             int hd_v, float scale, int causal, int window, void* stream) {
   constexpr bool F32 = std::is_same_v<T, float>;
   if (B == 0 || Sk == 0 || KV == 0) return 0;
   if (H <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CASE(HD, HDV)                                                        \
-  if (hd == HD && hd_v == HDV)                                               \
-    return launch<HD, HDV, F32>(q, k, v, o, dO, dO_tma, lse, D, dq, dk, dv, \
-                                B, Sq, Sk, H, KV, scale, causal, window, st);
+#define CASE(HD, HDV)                                                   \
+  if (hd == HD && hd_v == HDV)                                          \
+    return launch<HD, HDV, F32, PB>(q, k, v, o, dO, dO_tma, lse, mstat, D, \
+                                    tstat, dq, dk, dv, B, Sq, Sk, H, KV,   \
+                                    scale, causal, window, st);
 #define SAME(HD) CASE(HD, HD)
   HEAD_DIMS(SAME)
   HEAD_DIM_PAIRS(CASE)
@@ -913,9 +1193,10 @@ extern "C" int fa_backward_bf16(const void* q, const void* k, const void* v,
                                 void* dv, int B, int Sq, int Sk, int H,
                                 int KV, int hd, int hd_v, float scale,
                                 int causal, int window, void* stream) {
-  return backward<__nv_bfloat16>(q, k, v, o, dO, dO, lse, D, dq, dk, dv, B,
-                                 Sq, Sk, H, KV, hd, hd_v, scale, causal,
-                                 window, stream);
+  return backward<__nv_bfloat16, false>(q, k, v, o, dO, dO, lse, nullptr, D,
+                                        nullptr, dq, dk, dv, B, Sq, Sk, H, KV,
+                                        hd, hd_v, scale, causal, window,
+                                        stream);
 }
 
 // fa_backward_f32: the same for float32 inputs, q, k and v given as
@@ -929,7 +1210,35 @@ extern "C" int fa_backward_f32(const void* q, const void* k, const void* v,
                                int Sq, int Sk, int H, int KV, int hd,
                                int hd_v, float scale, int causal, int window,
                                void* stream) {
-  return backward<float>(q, k, v, o, dO, dO_planes, lse, D, dq, dk, dv, B,
-                         Sq, Sk, H, KV, hd, hd_v, scale, causal, window,
-                         stream);
+  return backward<float, false>(q, k, v, o, dO, dO_planes, lse, nullptr, D,
+                                nullptr, dq, dk, dv, B, Sq, Sk, H, KV, hd,
+                                hd_v, scale, causal, window, stream);
+}
+
+// fa_backward_bf16_pbf16 / fa_backward_f32_pbf16: the gradient of the
+// p_bf16 forward (fa_forward_*_pbf16), inputs as fa_backward_bf16 /
+// fa_backward_f32's plus mstat (B, H, Sq, ceil(Sk / 1024), 2), the
+// forward's chunk statistics, and scratch tstat (B, H, Sq, ceil(Sk /
+// 1024)) float32.  fa_bwd_dq_wgmma<hd, hd_v, F32, true>, then
+// fa_bwd_dkdv_wgmma<hd, hd_v, F32, true>.
+extern "C" int fa_backward_bf16_pbf16(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dO, const void* lse, const void* mstat, void* D, void* tstat,
+    void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H, int KV,
+    int hd, int hd_v, float scale, int causal, int window, void* stream) {
+  return backward<__nv_bfloat16, true>(q, k, v, o, dO, dO, lse, mstat, D,
+                                       tstat, dq, dk, dv, B, Sq, Sk, H, KV,
+                                       hd, hd_v, scale, causal, window,
+                                       stream);
+}
+
+extern "C" int fa_backward_f32_pbf16(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dO, const void* dO_planes, const void* lse, const void* mstat,
+    void* D, void* tstat, void* dq, void* dk, void* dv, int B, int Sq,
+    int Sk, int H, int KV, int hd, int hd_v, float scale, int causal,
+    int window, void* stream) {
+  return backward<float, true>(q, k, v, o, dO, dO_planes, lse, mstat, D,
+                               tstat, dq, dk, dv, B, Sq, Sk, H, KV, hd, hd_v,
+                               scale, causal, window, stream);
 }

@@ -102,13 +102,35 @@
 // 192 / 128) 2.75 TFLOP, 2.780 ms, against ~2.7 GB (0.8 ms).  bf16: the
 // split triples p @ v, so the kernel issues (hd + 3 hd_v) / (hd + hd_v)
 // times the function's tensor-core work (2x at equal widths, 1.8x at
-// MLA's); the design pays that rather than round p (which is the other
-// function, ATTN_P_BF16 = True).  float32:
+// MLA's); rounding p is the p_bf16 route's function (below), not this
+// one's.  float32:
 // six passes on both products, 6x the function's work, a floor of 1.668
 // ms at 989 / 6 TFLOP/s against ~0.30 GB of float32 q/k/v/o (0.09 ms);
 // the split pass moves 10 bytes per element (0.1 ms for q at that shape).
 // What it leaves: softmax and wgmma of one warpgroup do not overlap (the
 // other warpgroup fills the gap), no persistent scheduler, one CTA per SM.
+//
+// The p_bf16 route (fa_fwd_wgmma<HD, HDV, F32, true>: fa_forward_bf16_pbf16,
+// fa_forward_f32_pbf16) computes JAX's other function, flags.ATTN_P_BF16 =
+// True (src/repro/models/layers.py:109): per key chunk of its
+// layers.flash_attention (1,024 keys, min(1024, Sk)), p = exp(s - m_b)
+// against the chunk's own row max m_b, rounded to bf16, times bf16(v),
+// summed in float32; l_b the float32 sum of the unrounded p; the chunks
+// merged as JAX merges them (m = max(m, m_b), acc * alpha + o_b * beta,
+// l * alpha + l_b * beta).  The rounding is against the chunk's max, not a
+// running max over the kernel's tiles, or the kernel would round other p
+// than JAX's.  So each chunk takes two passes over its tiles: S alone for
+// m_b (and the index of the first maximal key, which the backward needs),
+// then S again, p, and P V as ONE bf16 term of p in a fresh accumulator
+// for the chunk (p is bf16 already; float32 inputs: against v's hi plane,
+// which is exactly bf16(v), and only that plane is loaded).  Tensor-core
+// work per visible pair: bf16 2 hd + hd_v against the float32-p route's
+// hd + 3 hd_v (1.5x the function's work at equal widths against 2x);
+// float32 12 hd + hd_v against 6 hd + 6 hd_v.  The chunk's sum of p v
+// runs up to 1,024 keys in one tensor-core accumulator: its drift is far
+// below the bf16 rounding of p that sets the route's distance from the
+// float32-p function.  Given mstat (training) the kernel also stores each
+// row's (m_b, first maximal key) per chunk.
 
 #include <algorithm>
 #include <type_traits>
@@ -134,22 +156,30 @@ constexpr float MASKED = -1e30f;
 // The float32 kernel's plane products (PASSES, pass_a, pass_b) are
 // sm90_common.cuh's, shared with the float32 backward.
 
+// Keys of one of JAX's key chunks (layers.flash_attention's k_chunk,
+// min(1024, Sk)): the p_bf16 route rounds p against each chunk's row max.
+constexpr int CHUNK_KEYS = 1024;
+
 // Shared memory of one CTA: 1024 bytes of slack to align the tiles to the
-// swizzle atom, then PLANES planes of Q (q/k width hd), the ring of
-// `stages` stages of K (hd) and V (v width hdv) tiles of `bk` keys, and
-// 1 + 2 * stages mbarriers.
-constexpr int smem_bytes(int hd, int hdv, int planes, int bk, int stages) {
-  return 1024 + planes * BQ * hd * 2 + stages * planes * bk * (hd + hdv) * 2 +
+// swizzle atom, then `planes` planes of Q (q/k width hd), the ring of
+// `stages` stages of K (hd, `planes` planes) and V (v width hdv, `vplanes`
+// planes) tiles of `bk` keys, and 1 + 2 * stages mbarriers.
+constexpr int smem_bytes(int hd, int hdv, int planes, int vplanes, int bk,
+                         int stages) {
+  return 1024 + planes * BQ * hd * 2 +
+         stages * bk * (planes * hd + vplanes * hdv) * 2 +
          8 * (1 + 2 * stages);
 }
 
 
 // HD: the q/k head dim (Q and K tiles, S = Q K^T); HDV: the v head dim (V
 // tiles, P V, O).  HDV == HD gives every model's layout but MLA's.
-template <int HD, int HDV, bool F32>
+template <int HD, int HDV, bool F32, bool PB>
 struct Cfg {
-  // bf16 planes per operand: float32 q, k and v come as three.
+  // bf16 planes per operand: float32 q, k and v come as three; the p_bf16
+  // route reads only v's hi plane, bf16(v).
   static constexpr int PLANES = F32 ? 3 : 1;
+  static constexpr int V_PLANES = F32 && !PB ? 3 : 1;
   // Keys per tile and the K/V ring depth, from the shared-memory budget:
   // the widest tile the registers allow (S holds BK / 2 floats a thread
   // beside the HDV / 2 of O, and float32's HDV / 2 of one tile's P V),
@@ -157,11 +187,11 @@ struct Cfg {
   // half the tile with two, else with one.
   static constexpr int BK_MAX = F32 ? 64 : (HD <= 64 && HDV <= 64 ? 128 : 64);
   static constexpr bool FULL3 =
-      smem_bytes(HD, HDV, PLANES, BK_MAX, 3) <= SMEM_MAX;
+      smem_bytes(HD, HDV, PLANES, V_PLANES, BK_MAX, 3) <= SMEM_MAX;
   static constexpr bool HALF3 =
-      smem_bytes(HD, HDV, PLANES, BK_MAX / 2, 3) <= SMEM_MAX;
+      smem_bytes(HD, HDV, PLANES, V_PLANES, BK_MAX / 2, 3) <= SMEM_MAX;
   static constexpr bool HALF2 =
-      smem_bytes(HD, HDV, PLANES, BK_MAX / 2, 2) <= SMEM_MAX;
+      smem_bytes(HD, HDV, PLANES, V_PLANES, BK_MAX / 2, 2) <= SMEM_MAX;
   static constexpr int BK = FULL3 ? BK_MAX : BK_MAX / 2;
   static constexpr int STAGES = FULL3 || HALF3 ? 3 : HALF2 ? 2 : 1;
   // Q and K: rows of the q/k width.
@@ -176,8 +206,11 @@ struct Cfg {
   static constexpr int Q_BYTES = BQ * HD * 2;  // one plane of Q
   static constexpr int K_BYTES = BK * HD * 2;  // one plane of a K tile
   static constexpr int V_BYTES = BK * HDV * 2;  // one plane of a V tile
-  static constexpr int STAGE_BYTES = PLANES * (K_BYTES + V_BYTES);  // K, V
-  static constexpr int SMEM = smem_bytes(HD, HDV, PLANES, BK, STAGES);
+  static constexpr int K_STAGE_BYTES = PLANES * K_BYTES;  // a K-only step
+  static constexpr int STAGE_BYTES = K_STAGE_BYTES + V_PLANES * V_BYTES;
+  static constexpr int SMEM = smem_bytes(HD, HDV, PLANES, V_PLANES, BK,
+                                         STAGES);
+  static constexpr int TPC = CHUNK_KEYS / BK;  // key tiles per JAX chunk
   static_assert(HD % CHUNK == 0 && HDV % CHUNK_V == 0,
                 "head dims must be whole TMA boxes");
   static_assert(BK == 32 || BK == 64 || BK == 128, "S = Q K^T is n32/64/128");
@@ -193,19 +226,25 @@ struct Cfg {
 // F32 = false: bf16 q, k (B, S, heads, HD), v (B, S, heads, HDV) and
 // bf16 o (B, Sq, H, HDV).  F32 = true: q, k, v as bf16 planes (3B, S,
 // heads, HD or HDV), plane a of batch b at batch index a * B + b, and
-// float32 o.
-template <int HD, int HDV, bool F32>
+// float32 o.  PB (the p_bf16 route): p rounded to bf16 against each JAX
+// key chunk's row max, one bf16 term of p times bf16(v); given a non-null
+// mstat (B, H, Sq, NC, 2) float32, each row's (chunk max, index of its
+// first maximal key) per chunk, (-1e30, 0) for chunks the row's tile does
+// not visit, for the backward.
+template <int HD, int HDV, bool F32, bool PB>
 __global__ void __launch_bounds__(THREADS, 1)
     fa_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
                  std::conditional_t<F32, float, __nv_bfloat16>* __restrict__ o,
-                 float* __restrict__ lse, int B, int Sq, int Sk, int H,
-                 int KV, float scale, int causal, int window) {
-  using C = Cfg<HD, HDV, F32>;
+                 float* __restrict__ lse, float* __restrict__ mstat, int B,
+                 int Sq, int Sk, int H, int KV, float scale, int causal,
+                 int window, int NC) {
+  using C = Cfg<HD, HDV, F32, PB>;
   constexpr int BK = C::BK;
   constexpr int PLANES = C::PLANES;
   constexpr int STAGES = C::STAGES;
+  constexpr int TPC = C::TPC;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
   const uint32_t s_q = (raw + 1023u) & ~1023u;  // swizzle-atom aligned
@@ -224,6 +263,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   int kt_hi = (Sk + BK - 1) / BK;
   if (causal) kt_hi = min(kt_hi, (q0 + q_valid - 1) / BK + 1);
   const int kt_lo = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  // PB: the JAX key chunks those tiles fall in; chunk c's tiles are
+  // [max(kt_lo, c TPC), min(kt_hi, (c + 1) TPC)).
+  const int c_lo = kt_lo / TPC, c_hi = (kt_hi - 1) / TPC;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
@@ -248,27 +290,39 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int c = 0; c < C::NCHUNK; ++c)
           tma_load(s_q + a * C::Q_BYTES + c * BQ * C::ROWB, &tm_q, q_bar,
                    c * C::CHUNK, h, q0, a * B + b);
-      for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
+      // Ring step i: tile kt's K planes and, unless `k_only`, its V planes.
+      auto load = [&](int i, int kt, bool k_only) {
         const int s = i % STAGES;
         mbar_wait(empty_bar + 8 * s, ((i / STAGES) & 1) ^ 1);
-        mbar_expect_tx(full_bar + 8 * s, C::STAGE_BYTES);
+        mbar_expect_tx(full_bar + 8 * s,
+                       k_only ? C::K_STAGE_BYTES : C::STAGE_BYTES);
         const uint32_t s_k = s_kv + s * C::STAGE_BYTES;
-        const uint32_t s_v = s_k + PLANES * C::K_BYTES;
-        constexpr int NC =
-            C::NCHUNK > C::NCHUNK_V ? C::NCHUNK : C::NCHUNK_V;
+        const uint32_t s_v = s_k + C::K_STAGE_BYTES;
 #pragma unroll
         for (int a = 0; a < PLANES; ++a)
 #pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            if (c < C::NCHUNK)
-              tma_load(s_k + a * C::K_BYTES + c * BK * C::ROWB, &tm_k,
-                       full_bar + 8 * s, c * C::CHUNK, kvh, kt * BK,
-                       a * B + b);
-            if (c < C::NCHUNK_V)
-              tma_load(s_v + a * C::V_BYTES + c * BK * C::ROWB_V, &tm_v,
-                       full_bar + 8 * s, c * C::CHUNK_V, kvh, kt * BK,
-                       a * B + b);
-          }
+          for (int c = 0; c < C::NCHUNK; ++c)
+            tma_load(s_k + a * C::K_BYTES + c * BK * C::ROWB, &tm_k,
+                     full_bar + 8 * s, c * C::CHUNK, kvh, kt * BK, a * B + b);
+        if (k_only) return;
+#pragma unroll
+        for (int a = 0; a < C::V_PLANES; ++a)
+#pragma unroll
+          for (int c = 0; c < C::NCHUNK_V; ++c)
+            tma_load(s_v + a * C::V_BYTES + c * BK * C::ROWB_V, &tm_v,
+                     full_bar + 8 * s, c * C::CHUNK_V, kvh, kt * BK,
+                     a * B + b);
+      };
+      if constexpr (PB) {
+        // Per chunk: its tiles' K alone (the max pass), then K and V.
+        for (int c = c_lo, i = 0; c <= c_hi; ++c) {
+          const int t0 = max(kt_lo, c * TPC), t1 = min(kt_hi, (c + 1) * TPC);
+          for (int kt = t0; kt < t1; ++kt) load(i++, kt, true);
+          for (int kt = t0; kt < t1; ++kt) load(i++, kt, false);
+        }
+      } else {
+        for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i)
+          load(i, kt, false);
       }
     }
     return;
@@ -289,15 +343,14 @@ __global__ void __launch_bounds__(THREADS, 1)
   float l[2] = {0.0f, 0.0f};
   mbar_wait(q_bar, 0);
 
-  for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
-    const int s = i % STAGES;
-    const uint32_t s_k = s_kv + s * C::STAGE_BYTES;
-    const uint32_t s_v = s_k + PLANES * C::K_BYTES;
-    mbar_wait(full_bar + 8 * s, (i / STAGES) & 1);
-
-    // S = Q K^T over hd in k16 steps (float32: per plane pass, smallest
-    // first, all into one accumulator).
-    float sc[BK / 2];
+  // The key of register j of a tile at k0.
+  auto kpos_of = [&](int k0, int j) {
+    return k0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+  };
+  // Scaled, masked scores of the tile at k0 (stage at s_k): S = Q K^T over
+  // hd in k16 steps (float32: per plane pass, smallest first, all into one
+  // accumulator), times scale; keys past Sk -inf, masked pairs -1e30.
+  auto scores = [&](float (&sc)[BK / 2], uint32_t s_k, int k0) {
 #pragma unroll
     for (int j = 0; j < BK / 2; ++j) sc[j] = 0.0f;
     wgmma_fence();
@@ -316,9 +369,6 @@ __global__ void __launch_bounds__(THREADS, 1)
     wgmma_commit();
     wgmma_wait_all();
     pin(sc);
-
-    // Online softmax on the accumulator's registers.
-    const int k0 = kt * BK;
 #pragma unroll
     for (int j = 0; j < BK / 2; ++j) sc[j] *= scale;
     const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > row_lo) ||
@@ -327,80 +377,200 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int j = 0; j < BK / 2; ++j) {
         const int r = r0 + 8 * ((j >> 1) & 1);
-        const int kpos = k0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+        const int kpos = kpos_of(k0, j);
         if (kpos >= Sk)
           sc[j] = -INFINITY;
         else if ((causal && r < kpos) || (window > 0 && kpos <= r - window))
           sc[j] = MASKED;
       }
     }
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < BK / 2; ++j)
-      mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-    }
-    float sum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int j = 0; j < BK / 2; ++j) {
-      sc[j] = expf(sc[j] - m[(j >> 1) & 1]);
-      sum[(j >> 1) & 1] += sc[j];
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
+  };
 
-    // p's three bf16 terms (hi, mid, lo), each in the A-fragment layout.
-    uint32_t p[3][BK / 4];
+  if constexpr (PB) {
+    // JAX's _attend_block per key chunk: a pass over the chunk's tiles for
+    // each row's chunk max m_b (and its first maximal key), then p =
+    // exp(s - m_b) in float32, l_b its float32 sum, and the chunk's p v as
+    // one bf16 term of p times bf16(v) (float32: v's hi plane, exactly
+    // bf16(v)) into a fresh accumulator, merged as JAX merges chunks:
+    // acc * alpha + o_b * beta on the CUDA cores.
+    int i = 0;
+    for (int c = c_lo; c <= c_hi; ++c) {
+      const int t0 = max(kt_lo, c * TPC), t1 = min(kt_hi, (c + 1) * TPC);
+      if (t0 >= t1) continue;
+      float mb[2] = {-INFINITY, -INFINITY};
+      int ib[2] = {0, 0};
+      for (int kt = t0; kt < t1; ++kt, ++i) {
+        const int s = i % STAGES;
+        mbar_wait(full_bar + 8 * s, (i / STAGES) & 1);
+        float sc[BK / 2];
+        scores(sc, s_kv + s * C::STAGE_BYTES, kt * BK);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty_bar + 8 * s);
 #pragma unroll
-    for (int j = 0; j < BK / 4; ++j)
-      split3(sc[2 * j], sc[2 * j + 1], p[0][j], p[1][j], p[2][j]);
-    if constexpr (!F32) {
-      // O = O * alpha + P V, the three terms into the one accumulator.
-#pragma unroll
-      for (int j = 0; j < HDV / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint64_t dv = mnmajor(s_v + kk * 16 * C::ROWB_V, BK, C::ROWB_V);
-        wgmma_rs(acc, p[2] + 4 * kk, dv);
-        wgmma_rs(acc, p[1] + 4 * kk, dv);
-        wgmma_rs(acc, p[0] + 4 * kk, dv);
+        for (int j = 0; j < BK / 2; ++j) {  // keys in increasing order
+          const int r = (j >> 1) & 1;
+          if (sc[j] > mb[r]) {
+            mb[r] = sc[j];
+            ib[r] = kpos_of(kt * BK, j);
+          }
+        }
       }
-      wgmma_commit();
-      wgmma_wait_all();
-      pin(acc);
-    } else {
-      // This tile's P V, plane passes smallest first, into a fresh
-      // accumulator; then O = O * alpha + tile on the CUDA cores.
-      float tile[HDV / 2];
 #pragma unroll
-      for (int j = 0; j < HDV / 2; ++j) tile[j] = 0.0f;
-      wgmma_fence();
+      for (int r = 0; r < 2; ++r)
 #pragma unroll
-      for (int t = 0; t < PASSES; ++t) {
-        const uint32_t vb = s_v + pass_b(t) * C::V_BYTES;
+        for (int off = 1; off <= 2; off <<= 1) {
+          const float om = __shfl_xor_sync(0xffffffffu, mb[r], off);
+          const int oi = __shfl_xor_sync(0xffffffffu, ib[r], off);
+          if (om > mb[r] || (om == mb[r] && oi < ib[r])) {
+            mb[r] = om;
+            ib[r] = oi;
+          }
+        }
+      float lb[2] = {0.0f, 0.0f};
+      float cacc[HDV / 2];
+#pragma unroll
+      for (int j = 0; j < HDV / 2; ++j) cacc[j] = 0.0f;
+      for (int kt = t0; kt < t1; ++kt, ++i) {
+        const int s = i % STAGES;
+        const uint32_t s_k = s_kv + s * C::STAGE_BYTES;
+        const uint32_t s_v = s_k + C::K_STAGE_BYTES;
+        mbar_wait(full_bar + 8 * s, (i / STAGES) & 1);
+        float sc[BK / 2];
+        scores(sc, s_k, kt * BK);
+        uint32_t pb[BK / 4];  // bf16(p), in the A-fragment layout
+#pragma unroll
+        for (int j = 0; j < BK / 4; ++j) {
+          const int r = j & 1;  // registers 2j, 2j + 1: row (2j >> 1) & 1
+          const float p0 = expf(sc[2 * j] - mb[r]);
+          const float p1 = expf(sc[2 * j + 1] - mb[r]);
+          lb[r] += p0;
+          lb[r] += p1;
+          pb[j] = as_u32(__floats2bfloat162_rn(p0, p1));
+        }
+        wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
-          wgmma_rs(tile, p[pass_a(t)] + 4 * kk,
-                   mnmajor(vb + kk * 16 * C::ROWB_V, BK, C::ROWB_V));
+          wgmma_rs(cacc, pb + 4 * kk,
+                   mnmajor(s_v + kk * 16 * C::ROWB_V, BK, C::ROWB_V));
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(cacc);
+        pin(pb);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty_bar + 8 * s);
       }
-      wgmma_commit();
-      wgmma_wait_all();
-      pin(tile);
+      float alpha[2], beta[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], mb[r]);
+        alpha[r] = expf(m[r] - m_new);
+        beta[r] = expf(mb[r] - m_new);
+        l[r] = l[r] * alpha[r] + quad_sum(lb[r]) * beta[r];
+        m[r] = m_new;
+        const int row = r0 + 8 * r;
+        if (mstat != nullptr && (lane & 3) == 0 && row < Sq) {
+          float* st = mstat + ((((int64_t)b * H + h) * Sq + row) * NC + c) * 2;
+          st[0] = mb[r];
+          st[1] = (float)ib[r];
+        }
+      }
 #pragma unroll
       for (int j = 0; j < HDV / 2; ++j)
-        acc[j] = acc[j] * alpha[(j >> 1) & 1] + tile[j];
+        acc[j] = acc[j] * alpha[(j >> 1) & 1] + cacc[j] * beta[(j >> 1) & 1];
     }
-    pin(p[0]);
-    pin(p[1]);
-    pin(p[2]);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty_bar + 8 * s);  // this warp is done
+    if (mstat != nullptr && (lane & 3) == 0) {
+      for (int c = 0; c < NC; ++c) {
+        if (max(kt_lo, c * TPC) < min(kt_hi, (c + 1) * TPC)) continue;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = r0 + 8 * r;
+          if (row >= Sq) continue;
+          float* st = mstat + ((((int64_t)b * H + h) * Sq + row) * NC + c) * 2;
+          st[0] = MASKED;
+          st[1] = 0.0f;
+        }
+      }
+    }
+  } else {
+    for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
+      const int s = i % STAGES;
+      const uint32_t s_k = s_kv + s * C::STAGE_BYTES;
+      const uint32_t s_v = s_k + PLANES * C::K_BYTES;
+      mbar_wait(full_bar + 8 * s, (i / STAGES) & 1);
+
+      float sc[BK / 2];
+      scores(sc, s_k, kt * BK);
+
+      // Online softmax on the accumulator's registers.
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j)
+        mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sc[j]);
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        alpha[r] = expf(m[r] - m_new);
+        m[r] = m_new;
+      }
+      float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) {
+        sc[j] = expf(sc[j] - m[(j >> 1) & 1]);
+        sum[(j >> 1) & 1] += sc[j];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
+
+      // p's three bf16 terms (hi, mid, lo), each in the A-fragment layout.
+      uint32_t p[3][BK / 4];
+#pragma unroll
+      for (int j = 0; j < BK / 4; ++j)
+        split3(sc[2 * j], sc[2 * j + 1], p[0][j], p[1][j], p[2][j]);
+      if constexpr (!F32) {
+        // O = O * alpha + P V, the three terms into the one accumulator.
+#pragma unroll
+        for (int j = 0; j < HDV / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const uint64_t dv =
+              mnmajor(s_v + kk * 16 * C::ROWB_V, BK, C::ROWB_V);
+          wgmma_rs(acc, p[2] + 4 * kk, dv);
+          wgmma_rs(acc, p[1] + 4 * kk, dv);
+          wgmma_rs(acc, p[0] + 4 * kk, dv);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(acc);
+      } else {
+        // This tile's P V, plane passes smallest first, into a fresh
+        // accumulator; then O = O * alpha + tile on the CUDA cores.
+        float tile[HDV / 2];
+#pragma unroll
+        for (int j = 0; j < HDV / 2; ++j) tile[j] = 0.0f;
+        wgmma_fence();
+#pragma unroll
+        for (int t = 0; t < PASSES; ++t) {
+          const uint32_t vb = s_v + pass_b(t) * C::V_BYTES;
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            wgmma_rs(tile, p[pass_a(t)] + 4 * kk,
+                     mnmajor(vb + kk * 16 * C::ROWB_V, BK, C::ROWB_V));
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(tile);
+#pragma unroll
+        for (int j = 0; j < HDV / 2; ++j)
+          acc[j] = acc[j] * alpha[(j >> 1) & 1] + tile[j];
+      }
+      pin(p[0]);
+      pin(p[1]);
+      pin(p[2]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_bar + 8 * s);  // this warp is done
+    }
   }
 
 #pragma unroll
@@ -468,11 +638,11 @@ __global__ void split_bf16x3_kernel(const float* __restrict__ x,
 // ---------------------------------------------------------------------------
 
 
-template <int HD, int HDV, bool F32>
+template <int HD, int HDV, bool F32, bool PB>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int Sq, int Sk, int H, int KV, float scale, int causal,
-           int window, cudaStream_t stream) {
-  using C = Cfg<HD, HDV, F32>;
+           float* mstat, int B, int Sq, int Sk, int H, int KV, float scale,
+           int causal, int window, cudaStream_t stream) {
+  using C = Cfg<HD, HDV, F32, PB>;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return ERR_NO_ENCODER;
   const CUtensorMapSwizzle sw = swizzle_of(C::ROWB);
@@ -481,22 +651,23 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   CUtensorMap tq, tk, tv;
   if (!make_map(enc, &tq, q, NB, Sq, H, HD, C::CHUNK, BQ, sw) ||
       !make_map(enc, &tk, k, NB, Sk, KV, HD, C::CHUNK, C::BK, sw) ||
-      !make_map(enc, &tv, v, NB, Sk, KV, HDV, C::CHUNK_V, C::BK,
+      !make_map(enc, &tv, v, C::V_PLANES * B, Sk, KV, HDV, C::CHUNK_V, C::BK,
                 swizzle_of(C::ROWB_V)))
     return ERR_TENSOR_MAP;
   static bool attr_set = false;  // per instantiation
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fa_fwd_wgmma<HD, HDV, F32>,
+        fa_fwd_wgmma<HD, HDV, F32, PB>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  fa_fwd_wgmma<HD, HDV, F32><<<grid, THREADS, C::SMEM, stream>>>(
+  fa_fwd_wgmma<HD, HDV, F32, PB><<<grid, THREADS, C::SMEM, stream>>>(
       tq, tk, tv,
-      static_cast<std::conditional_t<F32, float, __nv_bfloat16>*>(o), lse, B,
-      Sq, Sk, H, KV, scale, causal, window);
+      static_cast<std::conditional_t<F32, float, __nv_bfloat16>*>(o), lse,
+      mstat, B, Sq, Sk, H, KV, scale, causal, window,
+      (Sk + CHUNK_KEYS - 1) / CHUNK_KEYS);
   return (int)cudaGetLastError();
 }
 
@@ -512,29 +683,31 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 // HEAD_DIM_PAIRS is this list (held equal by the same test).
 #define HEAD_DIM_PAIRS(X) X(192, 128)
 
-template <bool F32>
+template <bool F32, bool PB>
 int forward(const void* q, const void* k, const void* v, void* o, void* lse,
-            int B, int Sq, int Sk, int H, int KV, int hd, int hd_v,
-            float scale, int causal, int window, void* stream) {
+            void* mstat, int B, int Sq, int Sk, int H, int KV, int hd,
+            int hd_v, float scale, int causal, int window, void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return 0;
   if (Sk <= 0 || KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == hd_v) {
     switch (hd) {
-#define CASE(HD)                                                         \
-  case HD:                                                               \
-    return launch<HD, HD, F32>(q, k, v, o, static_cast<float*>(lse), B, Sq, \
-                               Sk, H, KV, scale, causal, window, st);
+#define CASE(HD)                                                           \
+  case HD:                                                                 \
+    return launch<HD, HD, F32, PB>(q, k, v, o, static_cast<float*>(lse),   \
+                                   static_cast<float*>(mstat), B, Sq, Sk, H, \
+                                   KV, scale, causal, window, st);
       HEAD_DIMS(CASE)
 #undef CASE
       default:
         return (int)cudaErrorInvalidValue;
     }
   }
-#define PAIR(HD, HDV)                                                  \
-  if (hd == HD && hd_v == HDV)                                         \
-    return launch<HD, HDV, F32>(q, k, v, o, static_cast<float*>(lse), B, \
-                                Sq, Sk, H, KV, scale, causal, window, st);
+#define PAIR(HD, HDV)                                                      \
+  if (hd == HD && hd_v == HDV)                                             \
+    return launch<HD, HDV, F32, PB>(q, k, v, o, static_cast<float*>(lse),  \
+                                    static_cast<float*>(mstat), B, Sq, Sk, H, \
+                                    KV, scale, causal, window, st);
   HEAD_DIM_PAIRS(PAIR)
 #undef PAIR
   return (int)cudaErrorInvalidValue;
@@ -557,8 +730,8 @@ extern "C" int fa_forward_bf16(const void* q, const void* k, const void* v,
                                void* o, void* lse, int B, int Sq, int Sk,
                                int H, int KV, int hd, int hd_v, float scale,
                                int causal, int window, void* stream) {
-  return forward<false>(q, k, v, o, lse, B, Sq, Sk, H, KV, hd, hd_v, scale,
-                        causal, window, stream);
+  return forward<false, false>(q, k, v, o, lse, nullptr, B, Sq, Sk, H, KV,
+                               hd, hd_v, scale, causal, window, stream);
 }
 
 // fa_forward_f32: the same for float32 inputs, given as split_bf16x3's
@@ -568,8 +741,33 @@ extern "C" int fa_forward_f32(const void* q, const void* k, const void* v,
                               void* o, void* lse, int B, int Sq, int Sk,
                               int H, int KV, int hd, int hd_v, float scale,
                               int causal, int window, void* stream) {
-  return forward<true>(q, k, v, o, lse, B, Sq, Sk, H, KV, hd, hd_v, scale,
-                       causal, window, stream);
+  return forward<true, false>(q, k, v, o, lse, nullptr, B, Sq, Sk, H, KV,
+                              hd, hd_v, scale, causal, window, stream);
+}
+
+// fa_forward_bf16_pbf16 / fa_forward_f32_pbf16: the p_bf16 route
+// (fa_fwd_wgmma<hd, hd_v, F32, true>), JAX's ATTN_P_BF16 function, with
+// the inputs of fa_forward_bf16 / fa_forward_f32.  mstat: null, or (given
+// lse) float32 (B, H, Sq, ceil(Sk / 1024), 2) that receives each row's
+// (chunk max, index of its first maximal key) per JAX key chunk, which
+// fa_backward_*_pbf16 (flash_attention_bwd_sm90.cu) reads.
+extern "C" int fa_forward_bf16_pbf16(const void* q, const void* k,
+                                     const void* v, void* o, void* lse,
+                                     void* mstat, int B, int Sq, int Sk,
+                                     int H, int KV, int hd, int hd_v,
+                                     float scale, int causal, int window,
+                                     void* stream) {
+  return forward<false, true>(q, k, v, o, lse, mstat, B, Sq, Sk, H, KV, hd,
+                              hd_v, scale, causal, window, stream);
+}
+
+extern "C" int fa_forward_f32_pbf16(const void* q, const void* k,
+                                    const void* v, void* o, void* lse,
+                                    void* mstat, int B, int Sq, int Sk, int H,
+                                    int KV, int hd, int hd_v, float scale,
+                                    int causal, int window, void* stream) {
+  return forward<true, true>(q, k, v, o, lse, mstat, B, Sq, Sk, H, KV, hd,
+                             hd_v, scale, causal, window, stream);
 }
 
 // split_bf16x3: float32 x (n elements, contiguous, 16-byte aligned) ->

@@ -262,7 +262,15 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
+// The driver's tensor-map encoder, with the device's context bound to the
+// calling thread: a thread whose first CUDA work this is (PyTorch's autograd
+// worker running an attention backward first) has no current context yet,
+// and cuTensorMapEncodeTiled then refuses the map; cudaSetDevice binds the
+// device's primary context.  Null if either fails.
 EncodeTiled encoder() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
+    return nullptr;
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;

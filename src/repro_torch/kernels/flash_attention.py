@@ -38,6 +38,22 @@ float32 one, ``"split_bf16x3"`` the split, three per float32 call,
 call, which launches the backward source's two kernels, float32 after
 four splits); plain-version calls are not counted.
 
+JAX's ``flags.ATTN_P_BF16`` (``models.flags.ATTN_P_BF16``, read at each
+call; off by default) selects the p_bf16 function: each JAX key chunk's p
+rounded to bf16 against the chunk's row max, times bf16(v), summed in
+float32 (``ref.flash_attention_ref(p_bf16=True)``).  CUDA tensors then go
+to the source's p_bf16 routes, again one per dtype or raise:
+``fa_fwd_wgmma<hd, hd_v, F32, true>`` (``PB_ROUTES``: one bf16 term of p;
+float32 after :func:`split_bf16x3` of q, k and v, of whose v only the hi
+plane is read), and under autograd ``fa_bwd_dq_wgmma`` /
+``fa_bwd_dkdv_wgmma<hd, hd_v, F32, true>`` (``PB_BWD_ROUTES``), the
+gradient ``jax.vjp`` forms, which also reads each row's chunk maxima that
+the forward stores (``mstat``, B H Sq ceil(Sk / 1024) x 2 float32).  The
+meta route records a p_bf16 call as it records the other: the function's
+flops are the same, and p never leaves the registers on this card, so
+the roofline has no p bytes to halve (JAX's XLA count halves its score
+tile's bytes under the flag).
+
 Tensors on the ``meta`` device (``launch.dryrun``'s counting pass) launch
 nothing and compute nothing: the forward and the backward take the dtypes
 and head dims the kernels take (else raise, as on the card), allocate
@@ -93,12 +109,25 @@ BWD_ROUTES = {
     torch.bfloat16: ("fa_backward_bf16", "flash_attention_bwd"),
     torch.float32: ("fa_backward_f32", "flash_attention_bwd_f32"),
 }
+# The p_bf16 routes (JAX's ATTN_P_BF16), forward and backward, by dtype.
+PB_ROUTES = {
+    torch.bfloat16: ("fa_forward_bf16_pbf16", "flash_attention_pbf16"),
+    torch.float32: ("fa_forward_f32_pbf16", "flash_attention_f32_pbf16"),
+}
+PB_BWD_ROUTES = {
+    torch.bfloat16: ("fa_backward_bf16_pbf16", "flash_attention_bwd_pbf16"),
+    torch.float32: ("fa_backward_f32_pbf16",
+                    "flash_attention_bwd_f32_pbf16"),
+}
+# Keys of one of JAX's key chunks, against whose row max p_bf16 rounds.
+CHUNK_KEYS = 1024
 # The attention entries' own error codes (a tensor map could not be made).
 _TMA_ERRORS = {-1: "cuTensorMapEncodeTiled is not available",
                -2: "cuTensorMapEncodeTiled refused a TMA tensor map"}
 
 LAUNCHES: Dict[str, int] = {
-    key: 0 for _, key in (*ROUTES.values(), *BWD_ROUTES.values())}
+    key: 0 for _, key in (*ROUTES.values(), *BWD_ROUTES.values(),
+                          *PB_ROUTES.values(), *PB_BWD_ROUTES.values())}
 LAUNCHES[SPLIT] = 0
 
 
@@ -146,16 +175,18 @@ def _entry(name: str):
         fn = getattr(load(SOURCE), name)
         fn.argtypes = [P, P, ctypes.c_longlong, ctypes.c_longlong, P]
     elif name.startswith("fa_backward"):
-        # q, k, v, o, dO, [float32: dO's planes,] lse, D, dq, dk, dv, B,
-        # Sq, Sk, H, KV, hd, hd_v, scale, causal, window, stream
+        # q, k, v, o, dO, [float32: dO's planes,] lse, [p_bf16: mstat,] D,
+        # [p_bf16: tstat,] dq, dk, dv, B, Sq, Sk, H, KV, hd, hd_v, scale,
+        # causal, window, stream
         fn = getattr(load(BWD_SOURCE), name)
-        n_ptr = 11 if name == BWD_ROUTES[torch.float32][0] else 10
+        n_ptr = (10 + ("_f32" in name) + 2 * name.endswith("_pbf16"))
         fn.argtypes = [P] * n_ptr + [I] * 7 + [F, I, I, P]
     else:
-        # q, k, v, o, lse, B, Sq, Sk, H, KV, hd, hd_v, scale, causal,
-        # window, stream
+        # q, k, v, o, lse, [p_bf16: mstat,] B, Sq, Sk, H, KV, hd, hd_v,
+        # scale, causal, window, stream
         fn = getattr(load(SOURCE), name)
-        fn.argtypes = [P] * 5 + [I] * 7 + [F, I, I, P]
+        n_ptr = 5 + name.endswith("_pbf16")
+        fn.argtypes = [P] * n_ptr + [I] * 7 + [F, I, I, P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -240,53 +271,62 @@ def _on_card(q: torch.Tensor, routes) -> None:
                          f"cuda:{torch.cuda.current_device()}")
 
 
-def _forward(q, k, v, causal: bool, window: Optional[int],
-             want_lse: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(out, lse (B, H, Sq) float32 when ``want_lse`` else None): the
-    plain version for CPU tensors, else the dtype's kernel."""
+def _forward(q, k, v, causal: bool, window: Optional[int], want_lse: bool,
+             p_bf16: bool = False):
+    """(out, lse, mstat): lse (B, H, Sq) float32 when ``want_lse`` else
+    None; mstat, the p_bf16 route's chunk statistics for its backward, (B,
+    H, Sq, ceil(Sk / 1024), 2) float32 on the card when ``want_lse`` and
+    ``p_bf16``, else None.  The plain version for CPU tensors, else the
+    dtype's kernel (``p_bf16``: its p_bf16 route)."""
     if q.device.type == "cpu":
-        if want_lse:
-            return ref.flash_attention_ref(q, k, v, causal=causal,
-                                           window=window, return_lse=True)
-        return ref.flash_attention_ref(q, k, v, causal=causal,
-                                       window=window), None
+        out, lse = ref.flash_attention_ref(q, k, v, causal=causal,
+                                           window=window, return_lse=True,
+                                           p_bf16=p_bf16)
+        return out, (lse if want_lse else None), None
+    routes = PB_ROUTES if p_bf16 else ROUTES
     if q.device.type == "meta":
-        _record_meta(q, k, v, causal, window, "fwd", ROUTES)
+        _record_meta(q, k, v, causal, window, "fwd", routes)
         B, Sq, H, _ = q.shape
         out = q.new_empty((B, Sq, H, v.shape[3]))
         lse = (q.new_empty((B, H, Sq), dtype=torch.float32) if want_lse
                else None)
-        return out, lse
-    _on_card(q, ROUTES)
+        return out, lse, None
+    _on_card(q, routes)
     B, Sq, H, hd = q.shape
     Sk, KV, hd_v = k.shape[1], k.shape[2], v.shape[3]
     check_head_dims(hd, hd_v)
     out = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if want_lse else None)
+    mstat = (torch.empty((B, H, Sq, -(-Sk // CHUNK_KEYS), 2),
+                         dtype=torch.float32, device=q.device)
+             if want_lse and p_bf16 else None)
     if out.numel() == 0:
-        return out, lse
+        return out, lse, mstat
     if Sk == 0:
         raise ValueError("attention over zero keys")
     if q.dtype == torch.float32:
         q, k, v = split_bf16x3(q), split_bf16x3(k), split_bf16x3(v)
     else:
         q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    name, key = ROUTES[out.dtype]
+    name, key = routes[out.dtype]
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr()]
+    if p_bf16:
+        ptrs.append(None if mstat is None else mstat.data_ptr())
     err = _entry(name)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), B, Sq, Sk, H, KV, hd, hd_v,
-        1.0 / math.sqrt(hd), int(causal), window or 0,
-        torch.cuda.current_stream().cuda_stream)
+        *ptrs, B, Sq, Sk, H, KV, hd, hd_v, 1.0 / math.sqrt(hd), int(causal),
+        window or 0, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: {_TMA_ERRORS.get(err, 'CUDA error')} "
                            f"({err})")
     LAUNCHES[key] += 1
-    return out, lse
+    return out, lse, mstat
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
-                        window: Optional[int] = None):
+                        window: Optional[int] = None, p_bf16: bool = False,
+                        mstat: Optional[torch.Tensor] = None):
     """(dq, dk, dv) of :func:`flash_attention` at q, k, v, from its output
     ``o``, its saved ``lse`` (B, H, Sq) and the output's gradient ``do``,
     in q's dtype.  CPU tensors run :func:`.ref.flash_attention_bwd_ref`;
@@ -294,34 +334,52 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     ``fa_backward_bf16``, float32 :func:`split_bf16x3` of q, k, v and do
     (four launches) then ``fa_backward_f32`` on their planes (o and do
     also in float32, for D); each ``fa_bwd_dq_wgmma`` then
-    ``fa_bwd_dkdv_wgmma`` of its dtype."""
+    ``fa_bwd_dkdv_wgmma`` of its dtype.  ``p_bf16``: the gradient of the
+    p_bf16 function, on the card its routes (``fa_backward_*_pbf16``),
+    which take the forward's ``mstat`` (:func:`_forward`)."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
-                                           causal=causal, window=window)
+                                           causal=causal, window=window,
+                                           p_bf16=p_bf16)
+    routes = PB_BWD_ROUTES if p_bf16 else BWD_ROUTES
     if q.device.type == "meta":
-        _record_meta(q, k, v, causal, window, "bwd", BWD_ROUTES)
+        _record_meta(q, k, v, causal, window, "bwd", routes)
         return tuple(torch.empty_like(x) for x in (q, k, v))
-    _on_card(q, BWD_ROUTES)
+    _on_card(q, routes)
     B, Sq, H, hd = q.shape
     Sk, KV, hd_v = k.shape[1], k.shape[2], v.shape[3]
     check_head_dims(hd, hd_v)
     if not (q.dtype == o.dtype == do.dtype) or lse.dtype != torch.float32:
         raise TypeError(f"o / do must be {q.dtype} and lse float32, got "
                         f"{o.dtype}, {do.dtype}, {lse.dtype}")
+    n_chunks = -(-Sk // CHUNK_KEYS)
+    if p_bf16 and (mstat is None or mstat.dtype != torch.float32
+                   or tuple(mstat.shape) != (B, H, Sq, n_chunks, 2)):
+        raise ValueError(f"the p_bf16 backward takes the forward's mstat "
+                         f"(B, H, Sq, {n_chunks}, 2) float32, got "
+                         f"{None if mstat is None else tuple(mstat.shape)}")
     q, k, v, o, do = (_aligned(x) for x in (q, k, v, o, do))
     lse = lse.contiguous()
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if dq.numel() == 0 and dk.numel() == 0:
         return dq, dk, dv
     D = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    name, key = BWD_ROUTES[q.dtype]
+    name, key = routes[q.dtype]
     ptrs = [q, k, v, o, do]
     if q.dtype == torch.float32:
         planes = [split_bf16x3(x) for x in (q, k, v, do)]
         ptrs = [*planes[:3], o, do, planes[3]]
+    ptrs.append(lse)
+    if p_bf16:
+        # mstat, then D, then the dQ kernel's T per row and chunk.
+        tstat = torch.empty((B, H, Sq, n_chunks), dtype=torch.float32,
+                            device=q.device)
+        ptrs += [mstat.contiguous(), D, tstat]
+    else:
+        ptrs.append(D)
     err = _entry(name)(
-        *(x.data_ptr() for x in ptrs), lse.data_ptr(), D.data_ptr(),
+        *(x.data_ptr() for x in ptrs),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, KV, hd,
         hd_v,
         1.0 / math.sqrt(hd), int(causal), window or 0,
@@ -339,19 +397,21 @@ class _Attention(torch.autograd.Function):
     :func:`flash_attention_bwd`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        out, lse = _forward(q, k, v, causal, window, want_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+    def forward(ctx, q, k, v, causal, window, p_bf16):
+        out, lse, mstat = _forward(q, k, v, causal, window, want_lse=True,
+                                   p_bf16=p_bf16)
+        ctx.save_for_backward(q, k, v, out, lse, mstat)
+        ctx.causal, ctx.window, ctx.p_bf16 = causal, window, p_bf16
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, mstat = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
                                          causal=ctx.causal,
-                                         window=ctx.window)
-        return dq, dk, dv, None, None
+                                         window=ctx.window,
+                                         p_bf16=ctx.p_bf16, mstat=mstat)
+        return dq, dk, dv, None, None, None
 
 
 def _heads_rank(mesh, q_pl, k_pl) -> Tuple[int, int]:
@@ -367,7 +427,8 @@ def _heads_rank(mesh, q_pl, k_pl) -> Tuple[int, int]:
 
 def _on_shards(q, k, v, causal: bool, window: Optional[int]):
     """:func:`flash_attention` of DTensors q, k, v: each rank's kernels on
-    its local shards (the module docstring)."""
+    its local shards (the module docstring), each local call reading
+    ``flags.ATTN_P_BF16`` itself."""
     from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
     from ..models import flags
@@ -416,7 +477,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Differentiable: with grad enabled and q, k or v requiring grad it goes
     through ``_Attention`` (forward kernel with the row log-sum-exp, the
     backward kernels in the backward); otherwise the forward alone.
-    DTensors run on their local shards (:func:`_on_shards`).
+    DTensors run on their local shards (:func:`_on_shards`).  With
+    ``models.flags.ATTN_P_BF16`` set (read here, at each call) it computes
+    the p_bf16 function through its own routes.
     """
     _check(q, k, v, window)
     if positions_q0 != 0:
@@ -424,13 +487,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "Pallas kernel); positions_q0 must be 0")
     if is_dtensor(q):
         return _on_shards(q, k, v, causal, window)
+    from ..models import flags
+    p_bf16 = bool(flags.ATTN_P_BF16)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _Attention.apply(q, k, v, causal, window)
-    return _forward(q, k, v, causal, window, want_lse=False)[0]
+        return _Attention.apply(q, k, v, causal, window, p_bf16)
+    return _forward(q, k, v, causal, window, want_lse=False,
+                    p_bf16=p_bf16)[0]
 
 
 __all__ = ["flash_attention", "flash_attention_bwd", "split_bf16x3",
            "LAUNCHES", "reset_launches", "META_CALLS", "MetaCall",
            "HEAD_DIMS", "HEAD_DIM_PAIRS", "check_head_dims", "ROUTES",
-           "BWD_ROUTES"]
+           "BWD_ROUTES", "PB_ROUTES", "PB_BWD_ROUTES"]

@@ -151,16 +151,26 @@ def ecc_pick_ref(free, gpu_host, host_used, cap_g, need, profile_idx: int,
 # Attention
 # ---------------------------------------------------------------------------
 
-def _attend_block(q, k, v, mask, scale):
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest) and back to float32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _attend_block(q, k, v, mask, scale, p_bf16: bool = False):
     """q: (B,Sq,H,hd), k/v: (B,Sk,H,hd) (kv pre-expanded to H heads).
-    Returns (out (B,H,Sq,hd_v), m, l), all float32."""
+    Returns (out (B,H,Sq,hd_v), m, l), all float32.  ``p_bf16`` (JAX's
+    ``flags.ATTN_P_BF16``): p and v rounded to bf16 for p @ v, the product
+    accumulated in float32 (the statistics stay float32)."""
     s = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float())
     s = s * scale
     s = torch.where(mask, s, -1e30)
     m = s.amax(dim=-1)                               # (B,H,Sq)
     p = torch.exp(s - m[..., None])
     l = p.sum(dim=-1)
-    out = torch.einsum("bhqs,bshd->bhqd", p, v.float())
+    if p_bf16:
+        out = torch.einsum("bhqs,bshd->bhqd", _bf16(p), _bf16(v.float()))
+    else:
+        out = torch.einsum("bhqs,bshd->bhqd", p, v.float())
     return out, m, l
 
 
@@ -201,7 +211,8 @@ def _mask(qpos, kpos, causal, window):
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: Optional[int] = None,
                         q_chunk: int = 1024, k_chunk: int = 1024,
-                        positions_q0: int = 0, return_lse: bool = False):
+                        positions_q0: int = 0, return_lse: bool = False,
+                        p_bf16: bool = False):
     """Chunked attention with online softmax (float32 statistics and
     accumulator), output in q's dtype.
 
@@ -211,6 +222,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bound).  Masked scores are -1e30, as in the JAX function.  With
     ``return_lse`` returns ``(out, lse)``: lse (B, H, Sq) float32, each
     row's m + log(l), what the kernels store for the backward.
+    ``p_bf16``: JAX's ``ATTN_P_BF16`` function, each chunk's p rounded to
+    bf16 against that chunk's own row max (:func:`_attend_block`).
     """
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
@@ -238,7 +251,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             kpos = ki * k_chunk + torch.arange(k_chunk, device=dev)
             mask = _mask(qpos, kpos, causal, window)
             o_b, m_b, l_b = _attend_block(q_blk, k_blk, v_blk,
-                                          mask[None, None], scale)
+                                          mask[None, None], scale, p_bf16)
             m_new = torch.maximum(m, m_b)
             alpha = torch.exp(m - m_new)
             beta = torch.exp(m_b - m_new)
@@ -260,7 +273,8 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             lse: torch.Tensor, do: torch.Tensor, *,
                             causal: bool = True,
                             window: Optional[int] = None,
-                            q_chunk: int = 1024, k_chunk: int = 1024):
+                            q_chunk: int = 1024, k_chunk: int = 1024,
+                            p_bf16: bool = False):
     """Gradient of :func:`flash_attention_ref` -> (dq, dk, dv) in q's, k's
     and v's dtypes: the plain version of ``flash_attention_bwd_sm90.cu``,
     the same formulas in float32 over the same chunks as the forward.
@@ -270,6 +284,18 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     exp(scale q k^T - lse) where the mask keeps the pair, else 0; dV += P^T
     do; dS = P * (do v^T - D); dQ += scale dS K; dK += scale dS^T Q, on the
     expanded K/V, then each KV head's group of query heads summed.
+
+    ``p_bf16``: the gradient of the ``p_bf16`` forward as ``jax.vjp`` of
+    JAX's chunked attention forms it with ``ATTN_P_BF16`` (read off its
+    jaxpr).  Per chunk pair, with m_b the chunk's row max of the masked
+    scores, p = exp(s - m_b) and c = exp(m_b - lse) (the chunk's weight in
+    the output, so P = c p): the cotangent of the bf16 p is c (do . bf16(v))
+    rounded to bf16 (``dpr``), dS = p (dpr - c D); the chunk's row max
+    takes T = c sum bf16(p) dP - sum p dpr (its cotangent through the merge
+    weight and through p, which no longer cancel), added to dS at the
+    row's maximal scores, split evenly over ties (``reduce_max``'s
+    gradient); and each chunk pair's dV, bf16(p)^T (c do), is rounded to
+    bf16 before it is summed over query chunks and the group's heads.
     """
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -278,6 +304,8 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     f = torch.float32
     qf, dof = q.to(f), do.to(f)
     kf, vf = _expand_kv(k.to(f), H), _expand_kv(v.to(f), H)
+    if p_bf16:
+        vf = _bf16(vf)
     D = (dof * o.to(f)).sum(-1).transpose(1, 2)          # (B, H, Sq)
     dq = torch.zeros((B, Sq, H, hd), dtype=f, device=q.device)
     dk = torch.zeros((B, Sk, H, hd), dtype=f, device=q.device)
@@ -296,17 +324,43 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
             kpos = ki * k_chunk + torch.arange(k_chunk, device=dev)
             mask = _mask(qpos, kpos, causal, window)[None, None]
             s = torch.einsum("bqhd,bshd->bhqs", q_blk, k_blk) * scale
-            p = torch.where(mask, torch.exp(torch.where(mask, s - lse_blk,
-                                                        0.0)), 0.0)
-            dv[:, ks] += torch.einsum("bhqs,bqhd->bshd", p, do_blk)
-            dp = torch.einsum("bqhd,bshd->bhqs", do_blk, v_blk)
-            ds = p * (dp - D_blk)
+            if p_bf16:
+                ds = _p_bf16_block_grad(s, mask, lse_blk, D_blk, do_blk,
+                                        v_blk, dv[:, ks])
+            else:
+                p = torch.where(mask, torch.exp(torch.where(
+                    mask, s - lse_blk, 0.0)), 0.0)
+                dv[:, ks] += torch.einsum("bhqs,bqhd->bshd", p, do_blk)
+                dp = torch.einsum("bqhd,bshd->bhqs", do_blk, v_blk)
+                ds = p * (dp - D_blk)
             dq[:, qs] += torch.einsum("bhqs,bshd->bqhd", ds, k_blk) * scale
             dk[:, ks] += torch.einsum("bhqs,bqhd->bshd", ds, q_blk) * scale
     G = H // KV
     dk = dk.reshape(B, Sk, KV, G, hd).sum(3)
     dv = dv.reshape(B, Sk, KV, G, hd_v).sum(3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _p_bf16_block_grad(s, mask, lse, D, do, vb, dv_out):
+    """dS of one chunk pair of the ``p_bf16`` gradient
+    (:func:`flash_attention_bwd_ref`), its dV added into ``dv_out`` (B,
+    k_chunk, H, hd_v) in place.  s: the scaled scores (B, H, q, k); lse, D:
+    (B, H, q, 1); do: (B, q, H, hd_v); vb: bf16(v) upcast (B, k, H,
+    hd_v)."""
+    sm = torch.where(mask, s, -1e30)
+    m_b = sm.amax(dim=-1, keepdim=True)
+    p = torch.exp(sm - m_b)
+    c = torch.exp(m_b - lse)
+    pb = _bf16(p)
+    dp = torch.einsum("bqhd,bshd->bhqs", do, vb)
+    dpr = _bf16(c * dp)
+    ds = p * (dpr - c * D)
+    t = (c * pb * dp - p * dpr).sum(-1, keepdim=True)
+    ties = (sm == m_b).float()
+    ds = torch.where(mask, ds + ties * (t / ties.sum(-1, keepdim=True)), 0.0)
+    c_do = c.squeeze(-1).transpose(1, 2)[..., None] * do
+    dv_out += _bf16(torch.einsum("bhqs,bqhd->bshd", pb, c_do))
+    return ds
 
 
 def split_bf16x3(p: torch.Tensor):

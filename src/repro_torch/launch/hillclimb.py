@@ -1,4 +1,4 @@
-# Port of repro/launch/hillclimb.py (the JAX package): its variants (layout, remat, micro-batches, chunked CE) over launch/roofline.py's meta count, on one card or the production meshes, and a --measure mode that runs a one-card variant's train step on the card.
+# Port of repro/launch/hillclimb.py (the JAX package): its variants (layout, remat, micro-batches, chunked CE, bf16 p) over launch/roofline.py's meta count, on one card or the production meshes, and a --measure mode that runs a one-card variant's train step on the card.
 """Hillclimb: named optimization variants of one (arch x shape)
 cell and their roofline terms.
 
@@ -18,15 +18,16 @@ Variants compose orthogonal knobs, JAX's: the sharding rules
 (``sharding.NO_FSDP_RULES`` / ``PURE_DP_RULES``, with pure DP's batch
 over every mesh axis and no heads axis), remat policy (full /
 dots-saveable / none), micro-batching (``n_micro`` grad-accumulation
-splits) and the chunked cross entropy.  A variant is counted on one card
+splits), the chunked cross entropy and the bf16-p attention
+(``flags.ATTN_P_BF16``: on the card the attention kernels' p_bf16 routes;
+its meta count is the baseline's, since p never leaves the kernels'
+registers and so has no bytes to halve).  A variant is counted on one card
 (``dryrun.MESH_NAME``) unless it sets a layout knob, which only a mesh
 has: it is counted on the 16 x 16 production mesh (``--multi-pod``: 2 x
 16 x 16), in this process's fake group (``mesh.fake_device_mesh``).
 ``--pod`` / ``--multi-pod`` count every variant on that mesh.
 ``--measure`` runs one-card variants only: one card has one layout, and
-it refuses a layout variant.  JAX's ``p_bf16`` variants (a bf16 p tile
-in its jnp attention) are not ported: the port's attention kernel keeps
-p in float32 (``models/flags.py``).
+it refuses a layout variant.
 """
 from __future__ import annotations
 
@@ -54,8 +55,8 @@ from .sharding import NO_FSDP_RULES, PURE_DP_RULES
 
 _PURE_DP = dict(rules=PURE_DP_RULES, batch_axes=("pod", "data", "model"),
                 head_axes=None)
-# name -> dict(rules, remat, micro, batch_axes, head_axes, ce): JAX's,
-# less its p_bf16 ones.
+# name -> dict(rules, remat, micro, batch_axes, head_axes, ce, p_bf16):
+# JAX's.
 VARIANTS = {
     "baseline":       dict(),
     "no_fsdp":        dict(rules=NO_FSDP_RULES),
@@ -70,7 +71,11 @@ VARIANTS = {
     "pure_dp+none":   dict(_PURE_DP, remat="none"),
     "pure_dp+none+micro4": dict(_PURE_DP, remat="none", micro=4),
     "pure_dp+none+ce":  dict(_PURE_DP, remat="none", ce="chunked"),
+    "pure_dp+none+ce+pbf16": dict(_PURE_DP, remat="none", ce="chunked",
+                                  p_bf16=True),
     "ce_chunked":       dict(ce="chunked"),
+    "p_bf16":           dict(p_bf16=True),
+    "ce+pbf16":         dict(ce="chunked", p_bf16=True),
 }
 # The knobs only a mesh has.
 LAYOUT_KNOBS = ("rules", "batch_axes", "head_axes")
@@ -81,20 +86,23 @@ FIT_SHARE = 0.9
 
 
 @contextlib.contextmanager
-def variant_flags(remat: str = "full", ce: str = "dense"):
-    """``flags.REMAT_MODE`` / ``CE_MODE`` set for the block and restored
-    after it, also when it raises."""
-    old = flags.REMAT_MODE, flags.CE_MODE
-    flags.REMAT_MODE, flags.CE_MODE = remat, ce
+def variant_flags(remat: str = "full", ce: str = "dense",
+                  p_bf16: bool = False):
+    """``flags.REMAT_MODE`` / ``CE_MODE`` / ``ATTN_P_BF16`` set for the
+    block and restored after it, also when it raises."""
+    old = flags.REMAT_MODE, flags.CE_MODE, flags.ATTN_P_BF16
+    flags.REMAT_MODE, flags.CE_MODE, flags.ATTN_P_BF16 = remat, ce, p_bf16
     try:
         yield
     finally:
-        flags.REMAT_MODE, flags.CE_MODE = old
+        flags.REMAT_MODE, flags.CE_MODE, flags.ATTN_P_BF16 = old
 
 
 def _knobs(name):
+    """(remat, ce, micro, p_bf16) of the variant."""
     v = VARIANTS[name]
-    return v.get("remat", "full"), v.get("ce", "dense"), v.get("micro", 1)
+    return (v.get("remat", "full"), v.get("ce", "dense"), v.get("micro", 1),
+            v.get("p_bf16", False))
 
 
 def is_layout(name) -> bool:
@@ -107,10 +115,10 @@ def run_variant(arch, shape, name, *, multi_pod=None):
     or for a layout variant (or any, with ``multi_pod`` False / True) on
     the 16 x 16 / 2 x 16 x 16 mesh."""
     v = VARIANTS[name]
-    remat, ce, micro = _knobs(name)
+    remat, ce, micro, p_bf16 = _knobs(name)
     if multi_pod is None and is_layout(name):
         multi_pod = False
-    with variant_flags(remat, ce):
+    with variant_flags(remat, ce, p_bf16):
         r = roofline_cell(arch, shape, n_micro=micro, multi_pod=multi_pod,
                           rules=v.get("rules"),
                           batch_axes=v.get("batch_axes"),
@@ -120,16 +128,17 @@ def run_variant(arch, shape, name, *, multi_pod=None):
 
 
 def fit_variant(cfg, shape, *, remat="full", ce="dense", n_micro=1,
-                dtype=torch.bfloat16) -> Dict[str, Any]:
+                p_bf16=False, dtype=torch.bfloat16) -> Dict[str, Any]:
     """``dryrun.lower_cell`` of the train step at full depth under these
     knobs: its counted flops, terms and memory fit."""
-    with variant_flags(remat, ce):
+    with variant_flags(remat, ce, p_bf16):
         return lower_cell(cfg.name, shape, n_micro=n_micro,
                           cfg_override=cfg, dtype=dtype)
 
 
 def measure(cfg, shape, *, remat="full", ce="dense", n_micro=1,
-            steps: int = 2, seed: int = 0, device: DeviceLike = None,
+            p_bf16=False, steps: int = 2, seed: int = 0,
+            device: DeviceLike = None,
             dtype=torch.bfloat16) -> Dict[str, Any]:
     """Run the train step of ``cfg`` at ``shape`` under these knobs on
     ``device`` (None: the CUDA card; raises without one): a model drawn
@@ -144,8 +153,8 @@ def measure(cfg, shape, *, remat="full", ce="dense", n_micro=1,
     each timed step and every step's loss (the warm-up's first)."""
     device = resolve_device(device)
     fit = fit_variant(cfg, shape, remat=remat, ce=ce, n_micro=n_micro,
-                      dtype=dtype)
-    out = {"remat": remat, "ce": ce, "n_micro": n_micro,
+                      p_bf16=p_bf16, dtype=dtype)
+    out = {"remat": remat, "ce": ce, "n_micro": n_micro, "p_bf16": p_bf16,
            "global_batch": shape.global_batch, "seq": shape.seq_len,
            "counted_flops": fit["hlo_flops"],
            "fit_bytes": fit["per_device_bytes"],
@@ -166,7 +175,7 @@ def measure(cfg, shape, *, remat="full", ce="dense", n_micro=1,
     step_fn = R.make_step(cfg, shape, n_micro=n_micro, device=device)
     data = DataConfig(seed)
     losses, launches, host_s, dev_ms = [], [], [], []
-    with variant_flags(remat, ce):
+    with variant_flags(remat, ce, p_bf16):
         for step in range(1 + steps):
             batch = batch_for_step(cfg, shape, step, data, device)
             FA.reset_launches()
@@ -232,10 +241,11 @@ def main(argv=None):
                     raise ValueError(
                         f"{name} is a layout variant: one card has one "
                         "layout, so --measure runs one-card variants only")
-                remat, ce, micro = _knobs(name)
+                remat, ce, micro, p_bf16 = _knobs(name)
                 r = dict(measure(cfg, shape, remat=remat, ce=ce,
-                                 n_micro=micro, steps=args.steps,
-                                 device=args.device), variant=name)
+                                 n_micro=micro, p_bf16=p_bf16,
+                                 steps=args.steps, device=args.device),
+                         variant=name)
             else:
                 r = run_variant(args.arch, shape, name, multi_pod=multi_pod)
         except Exception as e:  # noqa: BLE001

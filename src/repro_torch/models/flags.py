@@ -1,4 +1,4 @@
-# Port of repro/models/flags.py (the JAX package): the remat and cross-entropy switches, and the activation axes, which pin DTensor activations on a mesh; the XLA-cost switches are identities.
+# Port of repro/models/flags.py (the JAX package): the remat, cross-entropy and bf16-p attention switches, and the activation axes, which pin DTensor activations on a mesh; the XLA-cost switches are identities.
 """Lowering-mode flags of the training path.
 
 ``REMAT_MODE``: how each layer body is rematerialised under grad by
@@ -25,12 +25,17 @@ from GSPMD: a mesh axis that does not divide the dimension is dropped
 parameters; GSPMD would pad), and a mesh axis already used by an earlier
 dimension is dropped.
 
-Its other switches are about XLA's cost model and its jnp attention:
-``COST_UNROLL`` / :func:`unroll` (scan unrolling for ``cost_analysis``;
-the port's loops are Python loops, and the meta count of
-``launch.dryrun`` sees every iteration) and ``ATTN_P_BF16`` (a bf16 p
-tile; the port's attention kernel keeps p in float32, the JAX default).
-``unroll`` is an identity, and ``COST_UNROLL`` and ``ATTN_P_BF16`` are not
+``ATTN_P_BF16`` (JAX's default off): the attention's p @ v takes p and v
+rounded to bf16, each key chunk's p against that chunk's row max, summed
+in float32 (the statistics stay float32).  ``kernels.flash_attention``
+reads it at each call and routes to its p_bf16 kernels (forward and
+backward) on the card, to ``ref.flash_attention_ref(p_bf16=True)`` on the
+CPU.
+
+Its other switch is about XLA's cost model: ``COST_UNROLL`` /
+:func:`unroll` (scan unrolling for ``cost_analysis``; the port's loops
+are Python loops, and the meta count of ``launch.dryrun`` sees every
+iteration).  ``unroll`` is an identity, and ``COST_UNROLL`` is not
 ported.
 """
 from __future__ import annotations
@@ -47,6 +52,7 @@ from ..launch.sharding import placements
 
 REMAT_MODE = "full"
 CE_MODE = "dense"
+ATTN_P_BF16 = False
 
 # Mesh axes of the activation pins (JAX's names and meanings): the batch
 # dim's, the heads', the kv heads' (set only where the kv heads divide the
@@ -165,7 +171,8 @@ def constrain(x, *dim_axes):
                               shape=x.shape, stride=x.stride())
 
 
-__all__ = ["REMAT_MODE", "CE_MODE", "BATCH_AXES", "HEAD_AXES",
-           "KV_HEAD_AXES", "KV_SEQ_AXES", "activation_axes", "pinned_spec",
+__all__ = ["REMAT_MODE", "CE_MODE", "ATTN_P_BF16", "BATCH_AXES",
+           "HEAD_AXES", "KV_HEAD_AXES", "KV_SEQ_AXES", "activation_axes",
+           "pinned_spec",
            "pinned_placements", "pins_on", "remat_wrap", "unroll",
            "constrain"]

@@ -101,7 +101,11 @@ def test_wrapper_on_cpu_runs_the_plain_version():
     assert L.flash_attention is K.flash_attention
     assert K.LAUNCHES == {"flash_attention": 0, "flash_attention_f32": 0,
                           "split_bf16x3": 0, "flash_attention_bwd": 0,
-                          "flash_attention_bwd_f32": 0}
+                          "flash_attention_bwd_f32": 0,
+                          "flash_attention_pbf16": 0,
+                          "flash_attention_f32_pbf16": 0,
+                          "flash_attention_bwd_pbf16": 0,
+                          "flash_attention_bwd_f32_pbf16": 0}
 
 
 def test_split_wrapper_on_cpu_runs_the_plain_version():
@@ -145,10 +149,12 @@ def test_each_cuda_dtype_has_one_kernel():
     bwd = (_build.CSRC / "flash_attention_bwd_sm90.cu").read_text()
     for entry, _ in K.BWD_ROUTES.values():
         assert f'extern "C" int {entry}(' in bwd
-    assert "backward<__nv_bfloat16>(" in bwd and "backward<float>(" in bwd
-    # Both dtypes launch the two wgmma kernels, float32 its instantiation.
+    assert ("backward<__nv_bfloat16, false>(" in bwd
+            and "backward<float, false>(" in bwd)
+    # Both dtypes launch the two wgmma kernels, float32 its instantiation
+    # (and the p_bf16 route its own, PB).
     for kernel in ("fa_bwd_dq_wgmma", "fa_bwd_dkdv_wgmma"):
-        assert f"{kernel}<HD, HDV, F32><<<" in bwd
+        assert f"{kernel}<HD, HDV, F32, PB><<<" in bwd
     assert "fa_bwd_dq<" not in bwd and "fa_bwd_dkdv<" not in bwd
     assert "std::is_same_v<T, float>" in bwd
     sm90 = (_build.CSRC / "flash_attention_sm90.cu").read_text()
@@ -164,8 +170,9 @@ def test_each_cuda_dtype_has_one_kernel():
     assert "split_bf16x3_kernel(" in sm90
     assert "fa_fwd_kernel" not in sm90
     # Both entries launch the one wgmma kernel, float32 with its planes.
-    assert "forward<false>(" in sm90 and "forward<true>(" in sm90
-    assert "fa_fwd_wgmma<HD, HDV, F32><<<" in sm90
+    assert ("forward<false, false>(" in sm90
+            and "forward<true, false>(" in sm90)
+    assert "fa_fwd_wgmma<HD, HDV, F32, PB><<<" in sm90
     # The wrapper splits q, k and v before the float32 entry, and nowhere
     # else.
     body = inspect.getsource(K._forward)

@@ -266,11 +266,11 @@ def test_f32_backward_routes_every_head_dim_to_the_wgmma_kernels():
     assert tuple(int(d) for d in re.findall(r"\d+", dims)) == FA.HEAD_DIMS
     assert "HEAD_DIMS(SAME)" in src and "HEAD_DIM_PAIRS(CASE)" in src
     assert "constexpr bool F32 = std::is_same_v<T, float>;" in src
-    assert "return launch<HD, HDV, F32>(" in src
-    assert "return backward<float>(" in src
-    assert "return backward<__nv_bfloat16>(" in src
+    assert "return launch<HD, HDV, F32, PB>(" in src
+    assert "return backward<float, false>(" in src
+    assert "return backward<__nv_bfloat16, false>(" in src
     for kernel in ("fa_bwd_dq_wgmma", "fa_bwd_dkdv_wgmma"):
-        assert f"{kernel}<HD, HDV, F32><<<" in src
+        assert f"{kernel}<HD, HDV, F32, PB><<<" in src
     assert len(re.findall(r"<<<", src)) == 2
     for gone in ("fa_bwd_dq<", "fa_bwd_dkdv<", "fa_bwd_dq(", "fa_bwd_dkdv(",
                  "launch_cuda_cores", "tile_grad", "load_tile", "dq_smem",

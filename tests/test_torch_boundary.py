@@ -630,7 +630,10 @@ def test_chip_smoke_split_bound_and_route_launches():
     n = smoke.PREFILL_B * smoke.PREFILL_S * 32 * 64
     got, by = smoke.split_bound_ms(n)
     assert by == "bytes" and got == pytest.approx(10 * n / 3.35e9)
-    bwd = {"flash_attention_bwd": 0, "flash_attention_bwd_f32": 0}
+    bwd = {"flash_attention_bwd": 0, "flash_attention_bwd_f32": 0,
+           "flash_attention_pbf16": 0, "flash_attention_f32_pbf16": 0,
+           "flash_attention_bwd_pbf16": 0,
+           "flash_attention_bwd_f32_pbf16": 0}
     assert smoke.route_launches(FA, torch.float32) == {
         "flash_attention": 0, "flash_attention_f32": 1, "split_bf16x3": 3,
         **bwd}

@@ -38,7 +38,14 @@ count one pick per arrival and replay.  The placement service must decide
 on the card as on the CPU (GRMU, MECC), capture its graphs again after
 the compile cache evicted its runner, and read back at most once per
 micro-batch (plus GRMU's consolidations).  One rank of a sharded fleet
-over NCCL must decide through its captured graphs as the CPU.
+over NCCL must decide through its captured graphs as the CPU.  The
+p_bf16 attention routes (JAX's ATTN_P_BF16) must hold chip_smoke.py phase
+2d's gate (within PB_SHARE of the flag's effect from the plain version,
+two launches bitwise equal) over one and two key chunks in both dtypes,
+launch their own kernels under grad (also when the backward is the
+autograd thread's first CUDA work), refuse a backward without the
+forward's chunk statistics, and leave the float32-p routes' results at
+TinyLlama's shape on the parent commit's bits.
 """
 import importlib.util
 import re
@@ -799,7 +806,7 @@ def test_attention_under_grad_launches_the_backward_on_card():
     torch.cuda.synchronize()
     assert FA.LAUNCHES == smoke.launch_counts(
         FA, flash_attention=1, flash_attention_bwd=1)
-    o, lse = FA._forward(q, k, v, causal, window, want_lse=True)
+    o, lse, _ = FA._forward(q, k, v, causal, window, want_lse=True)
     want = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                   window=window)
     for x, w in zip(leaves, want):
@@ -831,3 +838,80 @@ def test_train_step_on_card_launches_and_equals_cpu():
     assert launches["flash_attention_bwd_f32"] == 2 * cfg.n_layers
     assert not res["chaotic"] and set(res["bounds"]) == set(res["distances"])
     assert all(res["distances"][k] <= b for k, b in res["bounds"].items())
+
+
+# The p_bf16 routes (JAX's ATTN_P_BF16; chip_smoke.py phase 2d's gates at
+# smaller shapes): one case over one key chunk and one over two, a window
+# crossing the chunk boundary.
+PB_GPU_CASES = {
+    "g8_one_chunk": (2, 512, 512, 32, 4, 64, True, None),
+    "window_two_chunks": (1, 2048, 2048, 8, 2, 64, True, 700),
+    "mla_two_chunks": (1, 2048, 2048, 4, 4, (192, 128), True, None),
+}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("name", sorted(PB_GPU_CASES))
+def test_pbf16_forward_equals_plain_on_card(name, dtype):
+    """Two launches of the p_bf16 forward under the flag are bitwise equal
+    and lie within PB_SHARE of the flag's effect from the plain p_bf16
+    version (``hold_pbf16_fwd``)."""
+    _need_card()
+    err = {}
+    smoke.hold_pbf16_fwd(torch, name, PB_GPU_CASES[name],
+                         getattr(torch, dtype), err)
+    assert err[f"fwd {dtype}"][name] <= smoke.PB_SHARE
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("name", sorted(PB_GPU_CASES))
+def test_pbf16_backward_equals_plain_on_card(name, dtype):
+    """The p_bf16 backward (``hold_pbf16_bwd``): launches, two launches
+    bitwise equal, each gradient within PB_SHARE of the flag's effect."""
+    _need_card()
+    err = {}
+    smoke.hold_pbf16_bwd(torch, name, PB_GPU_CASES[name],
+                         getattr(torch, dtype), err)
+    assert len(err[f"bwd {dtype}"]) == 3
+
+
+def test_pbf16_under_grad_launches_its_routes_on_card():
+    """Under the flag and grad: one p_bf16 forward (with its lse and chunk
+    statistics) and one p_bf16 backward launch, no float32-p route, and
+    the gradients those of flash_attention_bwd on the same statistics; the
+    flag restored after the block."""
+    _need_card()
+    from repro_torch.models import flags
+    q, k, v, do, causal, window = smoke._bwd_inputs(
+        torch, PB_GPU_CASES["window_two_chunks"], torch.bfloat16)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    FA.reset_launches()
+    with smoke.p_bf16_flag():
+        out = FA.flash_attention(*leaves, causal=causal, window=window)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert flags.ATTN_P_BF16 is False
+    assert FA.LAUNCHES == smoke.launch_counts(
+        FA, flash_attention_pbf16=1, flash_attention_bwd_pbf16=1)
+    o, lse, ms = FA._forward(q, k, v, causal, window, want_lse=True,
+                             p_bf16=True)
+    assert ms.shape == (1, 8, 2048, 2, 2)
+    want = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                  window=window, p_bf16=True, mstat=ms)
+    for x, w in zip(leaves, want):
+        assert torch.equal(x.grad, w)
+
+
+def test_pbf16_backward_without_its_statistics_raises_on_card():
+    _need_card()
+    q = torch.zeros((1, 8, 2, 64), device="cuda", dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 8), device="cuda")
+    with pytest.raises(ValueError, match="mstat"):
+        FA.flash_attention_bwd(q, q, q, q, lse, q, p_bf16=True)
+
+
+def test_default_routes_keep_the_parent_commits_bits_on_card():
+    """Flag off, the float32-p routes' results at TinyLlama's shape equal
+    the parent commit's (chip_smoke.DEFAULT_ROUTE_DIGESTS)."""
+    _need_card()
+    assert smoke.default_route_digests(torch) == smoke.DEFAULT_ROUTE_DIGESTS

@@ -1,12 +1,14 @@
 """The port's hillclimb tool (``repro_torch.launch.hillclimb``) vs the
 JAX package's, and the remat modes it compares.
 
-  * the variant table: JAX's variants with the same names and knobs, less
-    its ``p_bf16`` ones (not ported, unknown names); the layout variants
-    are counted on the 16 x 16 mesh's fake group (in a subprocess: one
-    process holds one default group) and ``--measure`` refuses them;
-  * ``variant_flags`` / ``run_variant`` restore ``flags.REMAT_MODE`` and
-    ``CE_MODE`` when the block raises;
+  * the variant table: JAX's variants with the same names and knobs, its
+    ``p_bf16`` ones included (the meta count of ``p_bf16`` is the
+    baseline's: p never leaves the kernels' registers); the layout
+    variants are counted on the 16 x 16 mesh's fake group (in a
+    subprocess: one process holds one default group) and ``--measure``
+    refuses them;
+  * ``variant_flags`` / ``run_variant`` restore ``flags.REMAT_MODE``,
+    ``CE_MODE`` and ``ATTN_P_BF16`` when the block raises;
   * on a smoke config on the CPU the three remat modes give the same loss
     and gradients bit for bit (remat changes what is stored, not the
     arithmetic);
@@ -36,13 +38,21 @@ SHAPE = ShapeConfig("train cut", 32, 2, "train")
 
 
 def test_variant_table():
-    want = {k: v for k, v in JHC.VARIANTS.items() if not v.get("p_bf16")}
-    assert HC.VARIANTS == want
-    assert not any("bf16" in k for k in HC.VARIANTS)
+    assert HC.VARIANTS == JHC.VARIANTS
+    assert {k for k, v in HC.VARIANTS.items() if v.get("p_bf16")} == {
+        "p_bf16", "ce+pbf16", "pure_dp+none+ce+pbf16"}
     assert {k for k in HC.VARIANTS if HC.is_layout(k)} == {
-        k for k, v in want.items() if "rules" in v}
-    with pytest.raises(KeyError):
-        HC.run_variant("tinyllama_1_1b", "train_4k", "p_bf16")
+        k for k, v in JHC.VARIANTS.items() if "rules" in v}
+    seen = []
+
+    def count(*a, **kw):
+        seen.append(flags.ATTN_P_BF16)
+        return {"hlo_flops": 1.0}
+    import unittest.mock
+    with unittest.mock.patch.object(HC, "roofline_cell", count):
+        r = HC.run_variant("tinyllama_1_1b", "train_4k", "p_bf16")
+    assert r["variant"] == "p_bf16" and seen == [True]
+    assert flags.ATTN_P_BF16 is False
 
 
 def test_flags_are_restored_when_a_variant_raises(monkeypatch):
@@ -53,6 +63,14 @@ def test_flags_are_restored_when_a_variant_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="boom"):
         HC.run_variant("tinyllama_1_1b", "train_4k", "remat_dots")
     assert (flags.REMAT_MODE, flags.CE_MODE) == ("full", "dense")
+
+    def boom_p(*a, **kw):
+        assert (flags.CE_MODE, flags.ATTN_P_BF16) == ("chunked", True)
+        raise RuntimeError("boom")
+    monkeypatch.setattr(HC, "roofline_cell", boom_p)
+    with pytest.raises(RuntimeError, match="boom"):
+        HC.run_variant("tinyllama_1_1b", "train_4k", "ce+pbf16")
+    assert (flags.CE_MODE, flags.ATTN_P_BF16) == ("dense", False)
     with pytest.raises(ValueError):
         with HC.variant_flags("none", "chunked"):
             assert (flags.REMAT_MODE, flags.CE_MODE) == ("none", "chunked")
