@@ -143,12 +143,18 @@ Phases (each raises on failure; nothing is caught):
      float32-p routes' results at TinyLlama's shape (phase 2b's and 2c's
      inputs) keep the parent commit's SHA-256 (``DEFAULT_ROUTE_DIGESTS``).
      With it on, the forward at ``PB_FWD_CASES`` (TinyLlama's prefill,
-     hd 128 / 80 and MLA's pair over two key chunks, Zamba2's window) and
-     the backward at ``PB_BWD_CASES`` (phase 2c's and the training
-     shape), both dtypes: two launches bitwise equal, and the kernel's
-     relative L2 distance from its plain version at most ``PB_SHARE`` of
-     the flag's own effect; the bf16 forward's and the plain version's
-     half-ulps from the p_bf16 function run in float64 reported.  Then
+     hd 128 / 80 and MLA's pair over two key chunks, Zamba2's window, the
+     tie cases) and the backward at ``PB_BWD_CASES`` (phase 2c's, the tie
+     cases and the training shape), both dtypes: two launches bitwise
+     equal, and the kernel's relative L2 distance from its plain version
+     at most ``PB_SHARE`` of the flag's own effect; the bf16 forward's and
+     the plain version's half-ulps from the p_bf16 function run in
+     float64 reported.  The tie cases (``PB_TIE_CASES``: q and k from {-1,
+     0, 1}, exactly tied chunk maxima in many rows) also hold dQ and dK on
+     the tied rows alone within ``PB_SHARE`` and nearer to the plain
+     version than the rule that gives the max's cotangent whole to the
+     first maximal key (``hold_pbf16_ties``), and the forward's chunk
+     statistics equal ``ref.chunk_max_stats`` (``hold_pbf16_mstat``).  Then
      timed at TinyLlama's prefill and training shapes beside the
      float32-p route, the plain version, SDPA and the bound, the backward
      by kernel (``time_pbf16``).
@@ -3953,9 +3959,18 @@ PB_FWD_CASES = {
     "mla": (1, 2048, 2048, 16, 16, (192, 128), True, None),
     "zamba2_window": (1, 8192, 8192, 32, 32, 112, True, 4096),
 }
-# The backward gate's shapes: phase 2c's (one key chunk each) and
-# TinyLlama's training attention (four).
-PB_BWD_CASES = dict(BWD_CASES, training=TRAIN_ATTN_SHAPE)
+# The tie cases (a name starting "ties", ``_pb_inputs``): q and k drawn
+# from {-1, 0, 1}, so that every score is exact on the tensor cores and in
+# the plain version alike and many rows' chunk maxima are tied between
+# keys whose rows differ, over two key chunks; at TinyLlama's head dim and
+# at MLA's (192, 128) pair, whose dQ tiles are narrower (bf16 32 keys,
+# float32 16).
+PB_TIE_CASES = {"ties_two_chunks": (2, 2048, 2048, 16, 4, 64, True, None),
+                "ties_mla": (1, 2048, 2048, 4, 4, (192, 128), True, None)}
+PB_FWD_CASES.update(PB_TIE_CASES)
+# The backward gate's shapes: phase 2c's (one key chunk each), the tie
+# cases and TinyLlama's training attention (four).
+PB_BWD_CASES = dict(BWD_CASES, **PB_TIE_CASES, training=TRAIN_ATTN_SHAPE)
 # The gate, fixed before the first run on the card: the kernel's distance
 # from its plain version (relative L2 over the whole output or gradient)
 # at most PB_SHARE of the flag's own effect (the plain version with the
@@ -4095,6 +4110,97 @@ def pb_launches(FA, f32, calls=1, bwd=False):
     return launch_counts(FA, **counts)
 
 
+def _tie_qk(torch, q, k, seed):
+    """q and k of the same shapes and dtype drawn from {-1, 0, 1}."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 11)
+    return [torch.randint(-1, 2, x.shape, generator=g, device="cuda").to(
+        x.dtype) for x in (q, k)]
+
+
+def _pb_inputs(torch, name, case, dtype, seed=0):
+    """(q, k, v, do, causal, window) of a phase 2d case: ``_bwd_inputs``'s,
+    with q and k from ``_tie_qk`` for a tie case (a name starting
+    "ties")."""
+    q, k, v, do, causal, window = _bwd_inputs(torch, case, dtype, seed)
+    if name.startswith("ties"):
+        q, k = _tie_qk(torch, q, k, seed)
+    return q, k, v, do, causal, window
+
+
+def tied_rows(torch, q, k, causal, window):
+    """(rows, keys) a tie touches: boolean (B, Sq, H) of the query rows
+    with a tied maximal score in some key chunk and (B, Sk, KV) of the
+    keys holding such a tie (``ref.chunk_max_stats`` over JAX's chunks,
+    whose scores these are)."""
+    from repro_torch.kernels import ref
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    kc = plain_chunk(Sk)
+    st = ref.chunk_max_stats(q, k, causal=causal, window=window, k_chunk=kc)
+    tied = st[..., 3] > 1                                 # (B, H, Sq, NC)
+    s = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()
+                     .repeat_interleave(H // KV, 2)) * (1.0 / math.sqrt(hd))
+    keep = ref._mask(torch.arange(Sq, device=q.device),
+                     torch.arange(Sk, device=q.device), causal, window)
+    keys = torch.zeros((B, H, Sk), dtype=torch.bool, device=q.device)
+    for c in range(st.shape[3]):
+        ks = slice(c * kc, (c + 1) * kc)
+        hit = (s[..., ks] == st[..., c, :1]) & tied[..., c:c + 1] & keep[:, ks]
+        keys[..., ks] |= hit.any(2)
+    del s
+    keys = keys.transpose(1, 2).reshape(B, Sk, KV, H // KV).any(-1)
+    return tied.any(-1).transpose(1, 2), keys
+
+
+def hold_pbf16_ties(torch, name, q, k, v, o, lse, do, got, plain, off,
+                    causal, window, err):
+    """The tie case's own gate, on the rows a tie touches (``tied_rows``):
+    dQ's and dK's rel-L2 from the plain p_bf16 backward there within
+    PB_SHARE of the flag's effect there, and nearer to it than the plain
+    backward that gives T whole to the first maximal key (``split_ties=
+    False``, not JAX's rule).  dV does not depend on T.  Folds (kernel,
+    first-key rule) shares into ``err``."""
+    from repro_torch.kernels import ref
+    tname = str(q.dtype).split(".")[-1]
+    rows, keys = tied_rows(torch, q, k, causal, window)
+    if not (rows.any() and keys.any()):
+        raise AssertionError(f"phase 2d {name}: the tie case has no tie")
+    first = ref.flash_attention_bwd_ref(
+        q, k, v, o, lse, do, causal=causal, window=window, p_bf16=True,
+        split_ties=False, q_chunk=plain_chunk(q.shape[1]),
+        k_chunk=plain_chunk(k.shape[1]))
+    out = {"tied dq rows": int(rows.sum()), "tied dk rows": int(keys.sum())}
+    for part, r, g, w, w0, f in (("dq", rows, got[0], plain[0], off[0],
+                                  first[0]),
+                                 ("dk", keys, got[1], plain[1], off[1],
+                                  first[1])):
+        effect = _rel_l2(w[r], w0[r])
+        share, share_first = _rel_l2(g[r], w[r]) / effect, _rel_l2(
+            f[r], w[r]) / effect
+        out[part] = [share, share_first]
+        if not (share <= PB_SHARE and share < share_first):
+            err.setdefault(f"ties {tname}", {})[name] = out
+            raise AssertionError(
+                f"phase 2d {name} {tname} {part} on its {int(r.sum())} tied "
+                f"rows: kernel {share:.4f} of the flag's effect from the "
+                f"plain version, the first-key rule {share_first:.4f} "
+                f"(limit {PB_SHARE}, and below the first-key rule)")
+    err.setdefault(f"ties {tname}", {})[name] = out
+
+
+def hold_pbf16_mstat(torch, name, q, k, ms, causal, window):
+    """The tie case's chunk statistics: on its exact scores the forward's
+    mstat equals ``ref.chunk_max_stats`` (chunk max, first and last
+    maximal key, their count) bit for bit."""
+    from repro_torch.kernels import ref
+    want = ref.chunk_max_stats(q, k, causal=causal, window=window)
+    if not torch.equal(ms, want):
+        bad = (ms != want).any(-1)
+        raise AssertionError(f"phase 2d {name}: mstat differs from "
+                             f"ref.chunk_max_stats at {int(bad.sum())} "
+                             f"(row, chunk)s")
+
+
 def hold_pbf16_fwd(torch, name, case, dtype, err):
     """One forward gate: two wrapper calls under the flag (launches, bits
     equal); rel-L2 from the plain p_bf16 version within PB_SHARE of the
@@ -4106,6 +4212,8 @@ def hold_pbf16_fwd(torch, name, case, dtype, err):
     B, Sq, Sk, H, KV, hd, causal, window = case
     tname = str(dtype).split(".")[-1]
     q, k, v = _qkv(torch, B, Sq, Sk, H, KV, hd, dtype, seed=2)
+    if name.startswith("ties"):
+        q, k = _tie_qk(torch, q, k, 2)
     before = dict(FA.LAUNCHES)
     with p_bf16_flag():
         got = FA.flash_attention(q, k, v, causal=causal, window=window)
@@ -4144,10 +4252,11 @@ def hold_pbf16_bwd(torch, name, case, dtype, err):
     statistics, the backward twice (launches, bits equal), each gradient's
     rel-L2 from the plain p_bf16 backward (on the kernel's o and lse, in
     the dtype) within PB_SHARE of the flag's effect on it (the plain
-    backward of each function from its own plain forward)."""
+    backward of each function from its own plain forward); a tie case
+    also ``hold_pbf16_ties`` and ``hold_pbf16_mstat``."""
     from repro_torch.kernels import flash_attention as FA
     tname = str(dtype).split(".")[-1]
-    q, k, v, do, causal, window = _bwd_inputs(torch, case, dtype)
+    q, k, v, do, causal, window = _pb_inputs(torch, name, case, dtype)
     with p_bf16_flag():
         o, lse, ms = FA._forward(q, k, v, causal, window, want_lse=True,
                                  p_bf16=True)
@@ -4184,6 +4293,10 @@ def hold_pbf16_bwd(torch, name, case, dtype, err):
             raise AssertionError(f"phase 2d {name} {tname} {part}: kernel "
                                  f"is {share:.4f} of the flag's effect from "
                                  f"the plain version (limit {PB_SHARE})")
+    if name.startswith("ties"):
+        hold_pbf16_ties(torch, name, q, k, v, o, lse, do, got, plain, off,
+                        causal, window, err)
+        hold_pbf16_mstat(torch, name, q, k, ms, causal, window)
 
 
 def time_pbf16(torch):

@@ -137,33 +137,60 @@
 // JAX's flags.ATTN_P_BF16 function, as jax.vjp of layers.flash_attention
 // forms it (its jaxpr; kernels/ref.py _p_bf16_block_grad is the plain
 // version).  Per query row and JAX key chunk (1,024 keys) it reads the
-// forward's chunk max m_b and first maximal key (mstat); c = exp(m_b -
-// LSE) is the chunk's weight in the output and p = exp(s - m_b):
+// forward's mstat: the chunk max m_b, its first and last maximal key and
+// their count n (ref.chunk_max_stats); c = exp(m_b - LSE) is the chunk's
+// weight in the output and p = exp(s - m_b):
 //   * dP takes JAX's bf16 rounding of p's cotangent before D is
 //     subtracted: dS = p (bf16(c dP) - c D), with dP = dO . bf16(v)
 //     (float32: dO's three planes against v's hi plane, three passes).
 //   * The chunk max's own cotangent no longer cancels (p is rounded, its
-//     derivative is not): T = c sum_j bf16(p) dP - sum_j p bf16(c dP),
-//     which reduce_max's gradient adds to dS at the row's maximal key.
-//     The dQ kernel sums T over the chunk's tiles, adds T times that key's
-//     row of k (read from device memory) to dQ and stores T (tstat); the
-//     dK / dV kernel adds it to dS^T at that key.  JAX splits T evenly
-//     over tied maxima; the kernels give it to the first (ties of float32
-//     scores on real inputs are not seen in the tests).
+//     derivative is not): T = c sum_j bf16(p) dP - sum_j p bf16(c dP).
+//     reduce_max's gradient splits it evenly over the row's maximal keys:
+//     T / n to dS at each.  The dQ kernel sums T over the chunk's tiles,
+//     adds T / n times each maximal key's row of k (gathered from device
+//     memory) to dQ and stores T / n (tstat).  n = 1: the key is the
+//     forward's first maximal key, as before the ties were split.  n > 1
+//     (rare): on the tiles that hold the row's first to last maximal key,
+//     each key whose recomputed score equals m_b sets a bit in shared
+//     memory (256 bits a row and quad lane per chunk); the flush walks
+//     them.  The dK / dV kernel adds T / n to dS^T at the same keys: the
+//     row's lone maximal key (n = 1, one compare an element), or, on a stage
+//     the stats warp flags (n > 1 among the tile's keys), each key of the
+//     row's [first, last] range whose score equals m_b, found on the raw
+//     scores before the main loop.  A recomputed score equals the
+//     forward's bit for bit: the same products in the same k16 order on
+//     the tensor cores (the sum does not depend on which operand is A, nor
+//     on N), then one multiply by scale, here without contraction
+//     (__fmul_rn).
 //   * dS keeps the three-term split: JAX's dS is float32.
 //   * dV: JAX rounds each (query head, query chunk, key chunk)'s dV,
 //     bf16(p)^T (c dO), to bf16 before the float32 sums over query chunks
 //     and the group's heads.  The per-row c lies along the product's
 //     contraction, so the left operand bf16(p) c is not a bf16 value: bf16
 //     takes it as two bf16 terms (hi, mid; within 2^-17 of it, far below
-//     the bf16 rounding that follows), float32 the three terms against
-//     dO's planes.  dv_acc holds one (head, query chunk)'s sum; at the next
-//     one it is rounded to bf16 and added to a float32 sum per thread in
-//     shared memory.
+//     the bf16 rounding that follows; the third is not formed), float32
+//     the three terms against dO's planes.  Folding c into dO instead
+//     (bf16(p) one exact term against two bf16 planes of c dO, made per
+//     ring stage by the producer's spare warps) was built and measured
+//     slower on the card: the planes cost the instructions the split
+//     saved, plus a barrier a stage.  dv_acc holds one (head, query
+//     chunk)'s sum; at the next one it is rounded to bf16 and added to a
+//     float32 sum per thread in shared memory.
+//   * dQ: S and dP are two commit groups, and p (with bf16(p) packed in
+//     pairs) is formed while dP's wgmmas run; c dP is rounded two at a
+//     time (one cvt.rn.bf16x2); c, c D and m_b are registers per row and
+//     chunk.  dK / dV keeps one commit group (split, it measured slower)
+//     and reads each query column's c, c D, m_b, its lone maximal key and
+//     T / n from the stage, which the stats warp fills once per tile.
 // Tensor-core work per visible pair in bf16: dQ kernel S, dP, dS K (3
 // terms) = 5 units as before; dK / dV kernel S^T, dP^T, dV (2), dK (3) = 7
-// against 8.  The route also reads mstat and writes T: B H Sq
-// ceil(Sk / 1024) x 12 bytes, ~12 MB at the training shape.
+// against 8.  The route also reads mstat and writes T / n: B H Sq
+// ceil(Sk / 1024) x 20 bytes, ~20 MB at the training shape.  What it
+// leaves: no cross-tile pipelining (the next tile's S and dP are not in
+// flight during this tile's products: two more accumulators do not fit in
+// 168 registers beside dQ or dK and dV and the terms); each merged product
+// waits for its wgmmas.  Registers and spills: attention_rate.py --ptxas
+// (PERF.md); none at hd 64 in either dtype.
 
 #include <type_traits>
 
@@ -193,6 +220,9 @@ constexpr int merge_w(int n) { return n % MERGE_W == 0 ? MERGE_W : n; }
 // rounds p against each key chunk's row max and each (query chunk, key
 // chunk) pair's dV to bf16.
 constexpr int CHUNK_KEYS = 1024;
+// The p_bf16 dQ kernel's tie bits: a row's four quad lanes own 256 bits
+// each per key chunk (``TIE_WORDS``), 128 bytes a row.
+constexpr int TIE_ROW_BYTES = 4 * (CHUNK_KEYS / 4 / 32) * 4;
 
 // Shared memory of either kernel: 1024 bytes of slack to align the tiles
 // to the swizzle atom; its resident tiles, `res` bytes a row over `rows`
@@ -200,8 +230,8 @@ constexpr int CHUNK_KEYS = 1024;
 // the q/k width and of the v width); `stages` ring stages of `tile` rows
 // of `ring` bytes (K and V; Q and dO) with `stat` bytes a ring row (dK /
 // dV: LSE and D, and the p_bf16 route's chunk statistics); `xrow` bytes a
-// resident row more (the p_bf16 dK / dV's dV sum); then 1 + 2 * stages
-// mbarriers.
+// resident row more (the p_bf16 dQ's tie bits, dK / dV's dV sum); then 1 +
+// 2 * stages mbarriers.
 struct Smem {
   int res, ring, stat, xrow;
   constexpr int bytes(int rows, int tile, int stages) const {
@@ -235,9 +265,10 @@ struct BwdCfg {
   static constexpr int PLANES = F32 ? 3 : 1;  // bf16 planes per operand
   // V's planes: the p_bf16 route multiplies by bf16(v), v's hi plane.
   static constexpr int VPL = F32 && !PB ? 3 : 1;
-  // The dK / dV ring's floats a query row: LSE and D; p_bf16: c, D, the
-  // chunk max, its key and T (the kernels' note).
-  static constexpr int STAT = PB ? 5 : 2;
+  // The dK / dV ring's floats a query row: LSE and D; p_bf16: c, c D, the
+  // chunk max, its lone maximal key, T / n, the tied keys' range and the
+  // stage's tie flag (the kernels' note).
+  static constexpr int STAT = PB ? 8 : 2;
   // p_bf16's bf16 dV: bf16(p) c split into two bf16 terms (hi, mid).
   static constexpr int DV_TERMS = PB && !F32 ? 2 : 3;
   // Q and K rows: the q/k width; dO and V rows: the v width.
@@ -254,8 +285,10 @@ struct BwdCfg {
   // (S^T's N) and dQ's keys per tile, at most.
   static constexpr int BQ_MAX = W <= 160 ? 64 : W <= 256 ? 32 : 16;
   static constexpr int BK_MAX = HD <= 128 ? 64 : 32;
+  // p_bf16: dQ's tie bits, 128 bytes a row; dK / dV's dV sum, 4 HDV
+  // bytes a key.
   static constexpr Smem DQ_MEM{2 * PLANES * W, 2 * (PLANES * HD + VPL * HDV),
-                               0, 0};
+                               0, PB ? TIE_ROW_BYTES : 0};
   static constexpr Smem KV_MEM{2 * (PLANES * HD + VPL * HDV), 2 * PLANES * W,
                                4 * STAT, PB ? 4 * HDV : 0};
   static constexpr Tiling DQ = tiling(F32, DQ_MEM, BK_MAX);
@@ -275,9 +308,13 @@ struct BwdCfg {
   static constexpr int DQ_K = BK * HD * 2, DQ_V = BK * HDV * 2;
   static constexpr int DQ_STAGE = PLANES * DQ_K + VPL * DQ_V;
   static constexpr int DQ_SMEM = DQ_MEM.bytes(DQ_ROWS, BK, DQ_STAGES);
+  // dQ's bits a row and quad lane per key chunk: its BK / 4 keys of each
+  // of the chunk's tiles (256 bits, 8 words).
+  static constexpr int TIE_WORDS = CHUNK_KEYS / 4 / 32;
   // dK / dV: K and V of KV_ROWS keys, then the ring of Q and dO tiles,
-  // then each stage's STAT BQ floats (LSE, D, ...), then (p_bf16) the dV
-  // sum, HDV / 2 floats a consumer thread.
+  // then (bf16 p_bf16) each stage's two planes of c dO, then each stage's
+  // STAT BQ floats (LSE, D, ...), then (p_bf16) the dV sum, HDV / 2
+  // floats a consumer thread.
   static constexpr int KV_K = KV_ROWS * HD * 2, KV_V = KV_ROWS * HDV * 2;
   static constexpr int KV_Q = BQ * HD * 2, KV_DO = BQ * HDV * 2;
   static constexpr int KV_STAGE = PLANES * (KV_Q + KV_DO);
@@ -343,60 +380,35 @@ __device__ __forceinline__ float bf16r(float x) {  // x rounded to bf16
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// A row's statistics in the p_bf16 gradient, per (query row, key chunk):
-// c = exp(m_b - LSE), the chunk's weight in the output; D; the chunk's
-// row max m_b; the index of its first maximal key; T, the row max's
-// cotangent (the dQ kernel's sum, which dK / dV reads).
-struct PbStat {
-  float c, D, mb;
-  int idx;
-  float T;
-};
+// x and y rounded to bf16 with one cvt.rn.bf16x2.f32, back in float32.
+__device__ __forceinline__ float2 bf16r2(float x, float y) {
+  return __bfloat1622float2(__floats2bfloat162_rn(x, y));
+}
 
-// The p_bf16 route's softmax_grad: with p = exp(scale s - m_b) where the
-// pair is visible, else 0, and dpr = bf16(c dP) (JAX rounds p's
-// cotangent, c dO . bf16(v), to bf16), dS = p (dpr - c D).  DQ: adds this
-// thread's part of T = sum_j (c bf16(p) dP - p dpr) to t[row]; else
-// (dK / dV) adds the row's T to dS at its maximal key and leaves bf16(p) c
-// in s, dV's left operand.  Register layout and pos / stat as
-// softmax_grad's (stat(j) a PbStat).
-template <bool DQ, int NF, typename Pos, typename Stat>
-__device__ __forceinline__ void softmax_grad_pb(
-    float (&s)[NF], float (&dp)[NF], float (&t)[2], bool edge, Pos pos,
-    Stat stat, float scale, int Sq, int Sk, int causal, int window) {
-  if (edge) {
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      const int2 qk = pos(j);
-      if (!visible(qk.x, qk.y, Sq, Sk, causal, window)) s[j] = -INFINITY;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NF; ++j) {
-    const PbStat st = stat(j);
-    const float p = expf(s[j] * scale - st.mb);
-    const float pb = bf16r(p);
-    const float dpr = bf16r(st.c * dp[j]);
-    float ds = p * (dpr - st.c * st.D);
-    if constexpr (DQ) {
-      t[(j >> 1) & 1] += st.c * pb * dp[j] - p * dpr;
-    } else {
-      if (p != 0.0f && pos(j).y == st.idx) ds += st.T;
-      s[j] = pb * st.c;
-    }
-    dp[j] = ds;
-  }
+// A packed pair of bf16 values (the lower in the low half) as floats.
+__device__ __forceinline__ float2 unpack2(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
 }
 
 // x's three bf16 terms in the A-fragment layout: registers 8kk .. 8kk + 7
 // of an accumulator, as four bf16 pairs, are the A fragment of its columns
 // 16kk .. 16kk + 15.
-template <int NF>
+// NT = 2: hi and mid only (t[2] is left unset).
+template <int NT = 3, int NF>
 __device__ __forceinline__ void split_terms(const float (&x)[NF],
                                             uint32_t (&t)[3][NF / 2]) {
 #pragma unroll
-  for (int j = 0; j < NF / 2; ++j)
-    split3(x[2 * j], x[2 * j + 1], t[0][j], t[1][j], t[2][j]);
+  for (int j = 0; j < NF / 2; ++j) {
+    if constexpr (NT == 3) {
+      split3(x[2 * j], x[2 * j + 1], t[0][j], t[1][j], t[2][j]);
+    } else {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * j], x[2 * j + 1]);
+      const float2 hf = __bfloat1622float2(h);
+      t[0][j] = as_u32(h);
+      t[1][j] = as_u32(__floats2bfloat162_rn(__fsub_rn(x[2 * j], hf.x),
+                                             __fsub_rn(x[2 * j + 1], hf.y)));
+    }
+  }
 }
 
 // acc = a K-major product of shared-memory tiles into one accumulator
@@ -584,11 +596,11 @@ using out_t = std::conditional_t<F32, float, __nv_bfloat16>;
 // dQ and D.  Maps: q (B, Sq, H, hd) and dO (B, Sq, H, hd_v) in boxes of
 // DQ_ROWS rows; k (B, Sk, KV, hd), v (B, Sk, KV, hd_v) in boxes of BK rows
 // (float32: the planes, batch 3B).  o and dO (B, Sq, H, hd_v) in the
-// dtype, lse (B, H, Sq) -> D (B, H, Sq), dq.  PB: mstat (B, H, Sq, NC, 2)
-// from the forward -> tstat (B, H, Sq, NC), each row's T per key chunk (0
-// where its tile visits none of the chunk), for the dK / dV kernel; kg:
+// dtype, lse (B, H, Sq) -> D (B, H, Sq), dq.  PB: mstat (B, H, Sq, NC, 4)
+// from the forward -> tstat (B, H, Sq, NC), each row's T / n per key chunk
+// (0 where its tile visits none of the chunk), for the dK / dV kernel; kg:
 // what TMA reads of k (float32: its planes, plane stride B Sk KV hd), for
-// the gather of each row's maximal key.
+// the gather of each row's maximal keys.
 template <int HD, int HDV, bool F32, bool PB>
 __global__ void __launch_bounds__(BwdCfg<HD, HDV, F32, PB>::DQ_THREADS, 1)
     fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
@@ -610,7 +622,8 @@ __global__ void __launch_bounds__(BwdCfg<HD, HDV, F32, PB>::DQ_THREADS, 1)
   const uint32_t s_q = (raw + 1023u) & ~1023u;  // swizzle-atom aligned
   const uint32_t s_do = s_q + P * C::DQ_Q;
   const uint32_t s_kv = s_do + P * C::DQ_DO;  // stage s: K, then V planes
-  const uint32_t q_bar = s_kv + STAGES * C::DQ_STAGE;
+  const uint32_t s_tie = s_kv + STAGES * C::DQ_STAGE;  // PB: tie bits
+  const uint32_t q_bar = s_tie + (PB ? ROWS * TIE_ROW_BYTES : 0);
   const uint32_t full_bar = q_bar + 8;               // [STAGES]
   const uint32_t empty_bar = full_bar + 8 * STAGES;  // [STAGES]
 
@@ -688,41 +701,82 @@ __global__ void __launch_bounds__(BwdCfg<HD, HDV, F32, PB>::DQ_THREADS, 1)
   const uint32_t s_doa = s_do + wg * WG_ROWS * C::ROWB_V;
   mbar_wait(q_bar, 0);
 
-  // PB: this thread's rows' statistics for the key chunk `cur` and their
-  // running part of T.
-  float mb[2] = {0.0f, 0.0f}, cb[2] = {0.0f, 0.0f}, tacc[2] = {0.0f, 0.0f};
-  int ib[2] = {0, 0};
+  // PB: this thread's rows' statistics for the key chunk `cur` (m_b, c =
+  // exp(m_b - LSE), c D, the first and last maximal key and their count)
+  // and their running part of T.
+  float mb[2] = {0.0f, 0.0f}, cb[2] = {0.0f, 0.0f}, cd[2] = {0.0f, 0.0f};
+  float tacc[2] = {0.0f, 0.0f};
+  int tlo[2] = {0, 0}, thi[2] = {0, 0}, tn[2] = {0, 0};
   int cur = -1;
   const int64_t row_st = ((int64_t)b * H + h) * Sq;
-  // T of chunk `cur` summed over the quad: stored, and T times the row's
-  // maximal key added to dQ (scale at the store).  Keys are gathered from
-  // k itself (float32: hi + mid + lo of its planes, exactly k).
+  // Rows with tied maxima (n > 1): each quad lane sets a bit for each of
+  // its keys that ties, tb[((row - q0) * 4 + lane % 4) * TIE_WORDS + w].
+  uint32_t* const tb =
+      reinterpret_cast<uint32_t*>(smem_raw + (s_tie - raw));
+  constexpr int TW = C::TIE_WORDS;
+  // Two bf16 of key `key`'s row of k at columns 8 c + 2 (lane & 3) (+1),
+  // from k itself (float32: hi + mid + lo of its planes, exactly k).
+  auto kpair = [&](int key, int c) {
+    const __nv_bfloat16* kr =
+        kg + (((int64_t)b * Sk + key) * KV + kvh) * HD + 2 * (lane & 3);
+    float2 kv = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(kr + 8 * c));
+    if constexpr (F32) {
+      const int64_t ps = (int64_t)B * Sk * KV * HD;
+      const float2 m1 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(kr + ps + 8 * c));
+      const float2 m2 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(kr + 2 * ps + 8 * c));
+      kv = make_float2(kv.x + (m1.x + m2.x), kv.y + (m1.y + m2.y));
+    }
+    return kv;
+  };
+  // T of chunk `cur` summed over the quad, split evenly over the row's n
+  // maximal keys (reduce_max's gradient): T / n stored (tstat, for dK /
+  // dV) and T / n times each such key's row of k added to dQ (scale at
+  // the store).  n = 1: that key is the forward's first maximal key; n >
+  // 1: the keys whose bits the tiles set.
   auto flush = [&]() {
+    float T[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float T = quad_sum(tacc[r]);
+      T[r] = quad_sum(tacc[r]);
       tacc[r] = 0.0f;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
       const int row = r0 + 8 * r;
       if (row >= Sq) continue;
-      if ((lane & 3) == 0) tstat[(row_st + row) * NC + cur] = T;
-      const __nv_bfloat16* kr =
-          kg + (((int64_t)b * Sk + ib[r]) * KV + kvh) * HD + 2 * (lane & 3);
+      const float Tn = tn[r] > 1 ? T[r] / (float)tn[r] : T[r];
+      if ((lane & 3) == 0) tstat[(row_st + row) * NC + cur] = Tn;
+      if (tn[r] == 1) {
 #pragma unroll
-      for (int c = 0; c < HD / 8; ++c) {
-        float2 kv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(kr + 8 * c));
-        if constexpr (F32) {
-          const int64_t ps = (int64_t)B * Sk * KV * HD;
-          const float2 m1 = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(kr + ps + 8 * c));
-          const float2 m2 = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(kr + 2 * ps + 8 * c));
-          kv = make_float2(kv.x + (m1.x + m2.x), kv.y + (m1.y + m2.y));
+        for (int c = 0; c < HD / 8; ++c) {
+          const float2 kv = kpair(tlo[r], c);
+          acc[4 * c + 2 * r] += T[r] * kv.x;
+          acc[4 * c + 2 * r + 1] += T[r] * kv.y;
         }
-        acc[4 * c + 2 * r] += T * kv.x;
-        acc[4 * c + 2 * r + 1] += T * kv.y;
+      } else if (tn[r] > 1) {
+        const uint32_t* rb = tb + (row - q0) * 4 * TW;
+        for (int o = 0; o < 4; ++o)
+          for (int w = 0; w < TW; ++w)
+            for (uint32_t bits = rb[o * TW + w]; bits != 0u;
+                 bits &= bits - 1u) {
+              const int bit = 32 * w + __ffs(bits) - 1;
+              const int sl = bit % (BK / 4);
+              const int key = cur * CHUNK_KEYS + (bit / (BK / 4)) * BK +
+                              8 * (sl >> 1) + 2 * o + (sl & 1);
+#pragma unroll
+              for (int c = 0; c < HD / 8; ++c) {
+                const float2 kv = kpair(key, c);
+                acc[4 * c + 2 * r] += Tn * kv.x;
+                acc[4 * c + 2 * r + 1] += Tn * kv.y;
+              }
+            }
       }
     }
+    __syncwarp();
   };
 
   for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
@@ -737,11 +791,21 @@ __global__ void __launch_bounds__(BwdCfg<HD, HDV, F32, PB>::DQ_THREADS, 1)
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int row = r0 + 8 * r;
+          tn[r] = 0;
           if (row >= Sq) continue;
-          const float* st = mstat + ((row_st + row) * NC + cur) * 2;
-          mb[r] = st[0];
-          ib[r] = (int)st[1];
+          const float4 st = *reinterpret_cast<const float4*>(
+              mstat + ((row_st + row) * NC + cur) * 4);
+          mb[r] = st.x;
+          tlo[r] = (int)st.y;
+          thi[r] = (int)st.z;
+          tn[r] = (int)st.w;
           cb[r] = expf(mb[r] - ld[r].x);
+          cd[r] = cb[r] * ld[r].y;
+          if (tn[r] > 1) {
+            uint32_t* own = tb + ((row - q0) * 4 + (lane & 3)) * TW;
+#pragma unroll
+            for (int w = 0; w < TW; ++w) own[w] = 0u;
+          }
         }
       }
     }
@@ -755,16 +819,26 @@ __global__ void __launch_bounds__(BwdCfg<HD, HDV, F32, PB>::DQ_THREADS, 1)
       wgmma_fence();
       planes_ss<F32, false, HD, C::KPC>(sc, s_qa, ROWS, C::DQ_Q, s_k, BK,
                                         C::DQ_K, C::ROWB);
-      if constexpr (F32 && PB)
-        planes_hi_ss<false, HDV, C::KPC_V>(dp, s_doa, ROWS, C::DQ_DO, s_v,
-                                           BK, C::DQ_V, C::ROWB_V);
-      else
+      if constexpr (PB) {
+        // S and dP as two commit groups: p is formed while dP runs.
+        wgmma_commit();
+        if constexpr (F32)
+          planes_hi_ss<false, HDV, C::KPC_V>(dp, s_doa, ROWS, C::DQ_DO, s_v,
+                                             BK, C::DQ_V, C::ROWB_V);
+        else
+          planes_ss<F32, false, HDV, C::KPC_V>(dp, s_doa, ROWS, C::DQ_DO,
+                                               s_v, BK, C::DQ_V, C::ROWB_V);
+        wgmma_commit();
+        wgmma_wait<1>();
+        pin(sc);
+      } else {
         planes_ss<F32, false, HDV, C::KPC_V>(dp, s_doa, ROWS, C::DQ_DO, s_v,
                                              BK, C::DQ_V, C::ROWB_V);
-      wgmma_commit();
-      wgmma_wait_all();
-      pin(sc);
-      pin(dp);
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(sc);
+        pin(dp);
+      }
 
       const bool edge = k0 + BK > Sk || row_lo + WG_ROWS > Sq ||
                         (causal && k0 + BK - 1 > row_lo) ||
@@ -773,18 +847,68 @@ __global__ void __launch_bounds__(BwdCfg<HD, HDV, F32, PB>::DQ_THREADS, 1)
         return make_int2(r0 + 8 * ((j >> 1) & 1),
                          k0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1));
       };
-      if constexpr (PB)
-        softmax_grad_pb<true>(
-            sc, dp, tacc, edge, pos,
-            [&](int j) {
-              const int r = (j >> 1) & 1;
-              return PbStat{cb[r], ld[r].y, mb[r], ib[r], 0.0f};
-            },
-            scale, Sq, Sk, causal, window);
-      else
+      if constexpr (PB) {
+        // The p_bf16 gradient (the note at the top): p = exp(scale s -
+        // m_b) where visible, else 0; dpr = bf16(c dP); dS = p (dpr - c D);
+        // this thread's part of T = sum_j (bf16(p) c dP - p dpr).  The
+        // per-row constants are the chunk's; p and c dP are rounded two
+        // at a time.
+        if (edge) {
+#pragma unroll
+          for (int j = 0; j < BK / 2; ++j) {
+            const int2 qk = pos(j);
+            if (!visible(qk.x, qk.y, Sq, Sk, causal, window))
+              sc[j] = -INFINITY;
+          }
+        }
+        // Tied rows: the keys whose score is the chunk max.  The forward
+        // found m_b as fmaxf over the same scores, bit for bit: both sum
+        // the same products in the same k16 order on the tensor cores
+        // (whatever the chain's N) and then multiply by scale, here
+        // without contraction.
+        const bool tie_tile =
+            (tn[0] > 1 && tlo[0] < k0 + BK && thi[0] >= k0) ||
+            (tn[1] > 1 && tlo[1] < k0 + BK && thi[1] >= k0);
+        if (__any_sync(0xffffffffu, tie_tile)) {
+#pragma unroll
+          for (int j = 0; j < BK / 2; ++j) {
+            const int r = (j >> 1) & 1;
+            if (tn[r] > 1 && __fmul_rn(sc[j], scale) == mb[r]) {
+              const int bit = (kt % C::DQ_TPC) * (BK / 4) + 2 * (j >> 2) +
+                              (j & 1);
+              tb[((r0 + 8 * r - q0) * 4 + (lane & 3)) * TW + bit / 32] |=
+                  1u << (bit % 32);
+            }
+          }
+        }
+        uint32_t pk[BK / 4];  // bf16(p), packed pairs
+#pragma unroll
+        for (int j = 0; j < BK / 4; ++j) {
+          const int r = j & 1;  // registers 2j, 2j + 1: row (2j >> 1) & 1
+          const float p0 = expf(sc[2 * j] * scale - mb[r]);
+          const float p1 = expf(sc[2 * j + 1] * scale - mb[r]);
+          sc[2 * j] = p0;
+          sc[2 * j + 1] = p1;
+          pk[j] = as_u32(__floats2bfloat162_rn(p0, p1));
+        }
+        wgmma_wait<0>();
+        pin(dp);
+#pragma unroll
+        for (int j = 0; j < BK / 4; ++j) {
+          const int r = j & 1;
+          const float c0 = cb[r] * dp[2 * j], c1 = cb[r] * dp[2 * j + 1];
+          const float2 dpr = bf16r2(c0, c1);
+          const float2 pbf = unpack2(pk[j]);
+          tacc[r] += pbf.x * c0 - sc[2 * j] * dpr.x;
+          tacc[r] += pbf.y * c1 - sc[2 * j + 1] * dpr.y;
+          dp[2 * j] = sc[2 * j] * (dpr.x - cd[r]);
+          dp[2 * j + 1] = sc[2 * j + 1] * (dpr.y - cd[r]);
+        }
+      } else {
         softmax_grad(
             sc, dp, edge, pos, [&](int j) { return ld[(j >> 1) & 1]; },
             scale, Sq, Sk, causal, window);
+      }
       uint32_t t[3][BK / 4];
       split_terms(dp, t);
       // dQ += dS K, K the MN-major B operand (BK rows).
@@ -838,7 +962,9 @@ __global__ void __launch_bounds__(BwdCfg<HD, HDV, F32, PB>::KV_THREADS, 1)
   const uint32_t s_k = (raw + 1023u) & ~1023u;  // swizzle-atom aligned
   const uint32_t s_v = s_k + P * C::KV_K;
   const uint32_t s_ring = s_v + C::VPL * C::KV_V;  // stage s: Q, dO planes
-  // [STAGES][STAT][BQ]: LSE, D (PB: c, D, m_b, its key, T).
+  // [STAGES][STAT][BQ]: LSE, D; PB: c, c D, m_b, the lone maximal key
+  // (int), T / n, the first and last tied key (int), and at [7][0] whether
+  // any row of the stage has tied maxima among this tile's keys.
   const uint32_t s_stat = s_ring + STAGES * C::KV_STAGE;
   const uint32_t s_tot = s_stat + STAGES * 4 * C::STAT * BQ;  // PB: dV sum
   const uint32_t kv_bar = s_tot + (PB ? ROWS * HDV * 4 : 0);
@@ -915,21 +1041,40 @@ __global__ void __launch_bounds__(BwdCfg<HD, HDV, F32, PB>::KV_THREADS, 1)
         const int64_t stat = ((int64_t)b * H + h) * Sq;
         mbar_wait(empty_bar + 8 * s, ((i / STAGES) & 1) ^ 1);
         float* st = stat_ptr + s * C::STAT * BQ;
+        bool any_multi = false;
         for (int r = lane; r < BQ; r += 32) {
           const bool in = q0 + r < Sq;
           const float l = in ? lse[stat + q0 + r] : 0.0f;
-          st[BQ + r] = in ? Din[stat + q0 + r] : 0.0f;
+          const float D = in ? Din[stat + q0 + r] : 0.0f;
           if constexpr (PB) {
-            // This key tile's JAX chunk: c, m_b, its key, T.
+            // This key tile's JAX chunk: c, c D, m_b, T / n; the row's one
+            // maximal key where it is alone and among this tile's keys,
+            // else -1; its tied keys' range where they are several and
+            // meet this tile's keys, else empty.
             const int64_t at = (stat + q0 + r) * NC + k0 / CHUNK_KEYS;
-            const float mb = in ? mstat[2 * at] : 0.0f;
-            st[r] = in ? expf(mb - l) : 0.0f;
-            st[2 * BQ + r] = mb;
-            st[3 * BQ + r] = in ? mstat[2 * at + 1] : -1.0f;
+            const float4 ms =
+                in ? *reinterpret_cast<const float4*>(mstat + 4 * at)
+                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            const float c = in ? expf(ms.x - l) : 0.0f;
+            const bool meets = ms.z >= (float)k0 && ms.y < (float)(k0 + ROWS);
+            const bool multi = meets && ms.w > 1.0f;
+            int* sti = reinterpret_cast<int*>(st);
+            st[r] = c;
+            st[BQ + r] = c * D;
+            st[2 * BQ + r] = ms.x;
+            sti[3 * BQ + r] = meets && ms.w == 1.0f ? (int)ms.y : -1;
             st[4 * BQ + r] = in ? tstat[at] : 0.0f;
+            sti[5 * BQ + r] = multi ? (int)ms.y : Sk;
+            sti[6 * BQ + r] = multi ? (int)ms.z : -1;
+            any_multi |= multi;
           } else {
             st[r] = l;
+            st[BQ + r] = D;
           }
+        }
+        if constexpr (PB) {
+          const int flag = __any_sync(0xffffffffu, any_multi);
+          if (lane == 0) reinterpret_cast<int*>(st)[7 * BQ] = flag;
         }
         mbar_arrive(full_bar + 8 * s);
       }
@@ -1011,15 +1156,52 @@ __global__ void __launch_bounds__(BwdCfg<HD, HDV, F32, PB>::KV_THREADS, 1)
                          r0 + 8 * ((j >> 1) & 1));
       };
       if constexpr (PB) {
-        float unused[2];
-        softmax_grad_pb<false>(
-            st, dpt, unused, edge, pos,
-            [&](int j) {
-              const int c = 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
-              return PbStat{stq[c], stq[BQ + c], stq[2 * BQ + c],
-                            (int)stq[3 * BQ + c], stq[4 * BQ + c]};
-            },
-            scale, Sq, Sk, causal, window);
+        // The p_bf16 gradient on S^T (the note at the top), per element
+        // with its query column's c, c D, m_b and T / n from the stage;
+        // T / n added to dS^T at each maximal key: the row's lone one (n =
+        // 1), or (rare: the stage's flag) each key of the row's tied range
+        // whose score is m_b, found on the raw scores first (equal to the
+        // forward's bit for bit: the same products and k16 order on the
+        // tensor cores, then one multiply by scale).  s becomes dV's left
+        // operand bf16(p) c.
+        const int* sti = reinterpret_cast<const int*>(stq);
+        if (edge) {
+#pragma unroll
+          for (int j = 0; j < BQ / 2; ++j) {
+            const int2 qk = pos(j);
+            if (!visible(qk.x, qk.y, Sq, Sk, causal, window))
+              st[j] = -INFINITY;
+          }
+        }
+        uint32_t hits = 0u;
+        if (sti[7 * BQ]) {
+#pragma unroll
+          for (int j = 0; j < BQ / 2; ++j) {
+            const int c = 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+            const int key = r0 + 8 * ((j >> 1) & 1);
+            if (key >= sti[5 * BQ + c] && key <= sti[6 * BQ + c] &&
+                __fmul_rn(st[j], scale) == stq[2 * BQ + c])
+              hits |= 1u << j;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < BQ / 2; ++j) {
+          const int c = 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+          const int key = r0 + 8 * ((j >> 1) & 1);
+          const float cj = stq[c];
+          const float p = expf(st[j] * scale - stq[2 * BQ + c]);
+          const float dpr = bf16r(cj * dpt[j]);
+          float ds = p * (dpr - stq[BQ + c]);
+          if (key == sti[3 * BQ + c]) ds += stq[4 * BQ + c];
+          st[j] = bf16r(p) * cj;
+          dpt[j] = ds;
+        }
+        if (hits != 0u) {
+#pragma unroll
+          for (int j = 0; j < BQ / 2; ++j)
+            if ((hits >> j) & 1u)
+              dpt[j] += stq[4 * BQ + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1)];
+        }
       } else {
         softmax_grad(
             st, dpt, edge, pos,
@@ -1033,12 +1215,12 @@ __global__ void __launch_bounds__(BwdCfg<HD, HDV, F32, PB>::KV_THREADS, 1)
         // dV += P^T dO, dO the MN-major B operand (BQ rows); PB: P^T is
         // bf16(p) c, in C::DV_TERMS terms.
         uint32_t t[3][BQ / 4];
-        split_terms(st, t);
+        split_terms<C::DV_TERMS>(st, t);
         merged_product<HDV, C::MW_V, BQ / 16, C::CHUNK_V, F32, C::DV_TERMS>(
             dv_acc, t, s_do, BQ, C::ROWB_V, C::KV_DO);
         pin(t[0]);
         pin(t[1]);
-        pin(t[2]);
+        if constexpr (C::DV_TERMS == 3) pin(t[2]);
       }
       {
         // dK += dS^T Q, Q the MN-major B operand.
@@ -1217,7 +1399,7 @@ extern "C" int fa_backward_f32(const void* q, const void* k, const void* v,
 
 // fa_backward_bf16_pbf16 / fa_backward_f32_pbf16: the gradient of the
 // p_bf16 forward (fa_forward_*_pbf16), inputs as fa_backward_bf16 /
-// fa_backward_f32's plus mstat (B, H, Sq, ceil(Sk / 1024), 2), the
+// fa_backward_f32's plus mstat (B, H, Sq, ceil(Sk / 1024), 4), the
 // forward's chunk statistics, and scratch tstat (B, H, Sq, ceil(Sk /
 // 1024)) float32.  fa_bwd_dq_wgmma<hd, hd_v, F32, true>, then
 // fa_bwd_dkdv_wgmma<hd, hd_v, F32, true>.

@@ -120,17 +120,31 @@
 // l * alpha + l_b * beta).  The rounding is against the chunk's max, not a
 // running max over the kernel's tiles, or the kernel would round other p
 // than JAX's.  So each chunk takes two passes over its tiles: S alone for
-// m_b (and the index of the first maximal key, which the backward needs),
-// then S again, p, and P V as ONE bf16 term of p in a fresh accumulator
-// for the chunk (p is bf16 already; float32 inputs: against v's hi plane,
-// which is exactly bf16(v), and only that plane is loaded).  Tensor-core
-// work per visible pair: bf16 2 hd + hd_v against the float32-p route's
-// hd + 3 hd_v (1.5x the function's work at equal widths against 2x);
-// float32 12 hd + hd_v against 6 hd + 6 hd_v.  The chunk's sum of p v
-// runs up to 1,024 keys in one tensor-core accumulator: its drift is far
-// below the bf16 rounding of p that sets the route's distance from the
-// float32-p function.  Given mstat (training) the kernel also stores each
-// row's (m_b, first maximal key) per chunk.
+// m_b, reduced with fmaxf and nothing else, then S again, p, and P V as
+// ONE bf16 term of p in a fresh accumulator for the chunk (p is bf16
+// already; float32 inputs: against v's hi plane, exactly bf16(v), the
+// only V plane loaded).  Tensor-core work per visible pair: bf16 2 hd +
+// hd_v against the float32-p route's hd + 3 hd_v (1.5x the function's
+// work at equal widths against 2x); float32 12 hd + hd_v against 6 hd + 6
+// hd_v.  The chunk's sum of p v runs up to 1,024 keys in one tensor-core
+// accumulator: its drift is far below the bf16 rounding of p that sets the
+// route's distance from the float32-p function.  Given mstat (training)
+// the second pass also compares each score with m_b (its S is the first
+// pass's bit for bit) and stores each row's (m_b, first and last maximal
+// key, their count) per chunk, (-1e30, 0, 0, 0) where the row sees no key,
+// for the backward's split of the max's cotangent over tied keys; serving
+// skips that test.
+// Measured on the card (attention_rate.py, PERF.md) against designs that
+// overlap more: S in 64-key halves with the next half's S in flight while
+// one is reduced (two S buffers, wgmma_wait<1>) and P V beside the next
+// S, with the statistics a second compiled copy of the chunk loop, ran no
+// faster in bf16 and a third slower in float32 (its 24-wgmma S issued
+// ahead and the doubled code); a ring of up to six stages ran no faster.
+// What was slow was the first pass's per-element search for the first
+// maximal key (a compare and branch on every score).  The producer still
+// loads each K tile twice, once a pass: keeping a chunk's K resident for
+// the second pass is not built.  Spills (nvcc -Xptxas=-v through
+// attention_rate.py --ptxas; PERF.md): none but float32's at (192, 128).
 
 #include <algorithm>
 #include <type_traits>
@@ -228,9 +242,9 @@ struct Cfg {
 // heads, HD or HDV), plane a of batch b at batch index a * B + b, and
 // float32 o.  PB (the p_bf16 route): p rounded to bf16 against each JAX
 // key chunk's row max, one bf16 term of p times bf16(v); given a non-null
-// mstat (B, H, Sq, NC, 2) float32, each row's (chunk max, index of its
-// first maximal key) per chunk, (-1e30, 0) for chunks the row's tile does
-// not visit, for the backward.
+// mstat (B, H, Sq, NC, 4) float32, each row's (chunk max, first and last
+// key at it, their count) per chunk, (-1e30, 0, 0, 0) where the row sees no
+// key of the chunk, for the backward.
 template <int HD, int HDV, bool F32, bool PB>
 __global__ void __launch_bounds__(THREADS, 1)
     fa_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
@@ -387,18 +401,19 @@ __global__ void __launch_bounds__(THREADS, 1)
   };
 
   if constexpr (PB) {
-    // JAX's _attend_block per key chunk: a pass over the chunk's tiles for
-    // each row's chunk max m_b (and its first maximal key), then p =
-    // exp(s - m_b) in float32, l_b its float32 sum, and the chunk's p v as
-    // one bf16 term of p times bf16(v) (float32: v's hi plane, exactly
-    // bf16(v)) into a fresh accumulator, merged as JAX merges chunks:
-    // acc * alpha + o_b * beta on the CUDA cores.
-    int i = 0;
-    for (int c = c_lo; c <= c_hi; ++c) {
+    // JAX's _attend_block per key chunk: a max pass for each row's chunk
+    // max m_b (fmaxf only), then p = exp(s - m_b) in float32, l_b its
+    // float32 sum, and the chunk's p v as one bf16 term of p times bf16(v)
+    // (float32: v's hi plane, exactly bf16(v)) into a fresh accumulator,
+    // merged as JAX merges chunks: acc * alpha + o_b * beta on the CUDA
+    // cores.  Given mstat the second pass also counts each row's keys at
+    // m_b: its S is the first pass's bit for bit (the same wgmmas, then
+    // the same multiply by scale).
+    const bool stat = mstat != nullptr;
+    for (int c = c_lo, i = 0; c <= c_hi; ++c) {
       const int t0 = max(kt_lo, c * TPC), t1 = min(kt_hi, (c + 1) * TPC);
       if (t0 >= t1) continue;
       float mb[2] = {-INFINITY, -INFINITY};
-      int ib[2] = {0, 0};
       for (int kt = t0; kt < t1; ++kt, ++i) {
         const int s = i % STAGES;
         mbar_wait(full_bar + 8 * s, (i / STAGES) & 1);
@@ -407,29 +422,18 @@ __global__ void __launch_bounds__(THREADS, 1)
         __syncwarp();
         if (lane == 0) mbar_arrive(empty_bar + 8 * s);
 #pragma unroll
-        for (int j = 0; j < BK / 2; ++j) {  // keys in increasing order
-          const int r = (j >> 1) & 1;
-          if (sc[j] > mb[r]) {
-            mb[r] = sc[j];
-            ib[r] = kpos_of(kt * BK, j);
-          }
-        }
+        for (int j = 0; j < BK / 2; ++j)
+          mb[(j >> 1) & 1] = fmaxf(mb[(j >> 1) & 1], sc[j]);
       }
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int off = 1; off <= 2; off <<= 1) {
-          const float om = __shfl_xor_sync(0xffffffffu, mb[r], off);
-          const int oi = __shfl_xor_sync(0xffffffffu, ib[r], off);
-          if (om > mb[r] || (om == mb[r] && oi < ib[r])) {
-            mb[r] = om;
-            ib[r] = oi;
-          }
-        }
+      for (int r = 0; r < 2; ++r) mb[r] = quad_max(mb[r]);
       float lb[2] = {0.0f, 0.0f};
       float cacc[HDV / 2];
 #pragma unroll
       for (int j = 0; j < HDV / 2; ++j) cacc[j] = 0.0f;
+      // stat: per row (count << 20) | (first << 10) | last of the keys at
+      // m_b, chunk-relative (a chunk's 1,024 keys in 10 bits each).
+      uint32_t tie[2] = {0u, 0u};
       for (int kt = t0; kt < t1; ++kt, ++i) {
         const int s = i % STAGES;
         const uint32_t s_k = s_kv + s * C::STAGE_BYTES;
@@ -437,6 +441,28 @@ __global__ void __launch_bounds__(THREADS, 1)
         mbar_wait(full_bar + 8 * s, (i / STAGES) & 1);
         float sc[BK / 2];
         scores(sc, s_k, kt * BK);
+        if (stat) {
+          // Each row's keys at m_b in this tile as a bit mask (bit 2 g + e:
+          // register 4 g + 2 r + e), no branch an element; then the
+          // tile's count, first and last key into tie[r].
+          uint32_t hit[2] = {0u, 0u};
+#pragma unroll
+          for (int j = 0; j < BK / 2; ++j)
+            if (sc[j] == mb[(j >> 1) & 1])
+              hit[(j >> 1) & 1] |= 1u << (2 * (j >> 2) + (j & 1));
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            if (hit[r] == 0u || mb[r] <= MASKED) continue;
+            const int lo = __ffs(hit[r]) - 1, hi = 31 - __clz(hit[r]);
+            const uint32_t base = kt * BK - c * CHUNK_KEYS + 2 * (lane & 3);
+            const uint32_t kf = base + 8 * (lo >> 1) + (lo & 1);
+            const uint32_t kl = base + 8 * (hi >> 1) + (hi & 1);
+            const uint32_t n = (tie[r] >> 20) + __popc(hit[r]);
+            const uint32_t first = (tie[r] >> 20) ? (tie[r] >> 10) & 0x3FFu
+                                                  : kf;
+            tie[r] = (n << 20) | (first << 10) | kl;
+          }
+        }
         uint32_t pb[BK / 4];  // bf16(p), in the A-fragment layout
 #pragma unroll
         for (int j = 0; j < BK / 4; ++j) {
@@ -467,30 +493,49 @@ __global__ void __launch_bounds__(THREADS, 1)
         beta[r] = expf(mb[r] - m_new);
         l[r] = l[r] * alpha[r] + quad_sum(lb[r]) * beta[r];
         m[r] = m_new;
-        const int row = r0 + 8 * r;
-        if (mstat != nullptr && (lane & 3) == 0 && row < Sq) {
-          float* st = mstat + ((((int64_t)b * H + h) * Sq + row) * NC + c) * 2;
-          st[0] = mb[r];
-          st[1] = (float)ib[r];
+        if (stat) {
+          // The quad's counts added, its first and last keys kept.
+#pragma unroll
+          for (int off = 1; off <= 2; off <<= 1) {
+            const uint32_t o = __shfl_xor_sync(0xffffffffu, tie[r], off);
+            const uint32_t na = tie[r] >> 20, nb = o >> 20;
+            if (na == 0)
+              tie[r] = o;
+            else if (nb != 0)
+              tie[r] = ((na + nb) << 20) |
+                       (min((tie[r] >> 10) & 0x3FFu, (o >> 10) & 0x3FFu)
+                        << 10) |
+                       max(tie[r] & 0x3FFu, o & 0x3FFu);
+          }
+          const int row = r0 + 8 * r;
+          if ((lane & 3) == 0 && row < Sq) {
+            const uint32_t n = tie[r] >> 20;
+            const float base = (float)(c * CHUNK_KEYS);
+            *reinterpret_cast<float4*>(
+                mstat + ((((int64_t)b * H + h) * Sq + row) * NC + c) * 4) =
+                n ? make_float4(mb[r], base + ((tie[r] >> 10) & 0x3FFu),
+                                base + (tie[r] & 0x3FFu), (float)n)
+                  : make_float4(MASKED, 0.0f, 0.0f, 0.0f);
+          }
         }
       }
 #pragma unroll
       for (int j = 0; j < HDV / 2; ++j)
         acc[j] = acc[j] * alpha[(j >> 1) & 1] + cacc[j] * beta[(j >> 1) & 1];
     }
-    if (mstat != nullptr && (lane & 3) == 0) {
+    // Chunks this tile visits none of: (-1e30, 0, 0, 0).
+    if (stat && (lane & 3) == 0)
       for (int c = 0; c < NC; ++c) {
         if (max(kt_lo, c * TPC) < min(kt_hi, (c + 1) * TPC)) continue;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int row = r0 + 8 * r;
           if (row >= Sq) continue;
-          float* st = mstat + ((((int64_t)b * H + h) * Sq + row) * NC + c) * 2;
-          st[0] = MASKED;
-          st[1] = 0.0f;
+          *reinterpret_cast<float4*>(
+              mstat + ((((int64_t)b * H + h) * Sq + row) * NC + c) * 4) =
+              make_float4(MASKED, 0.0f, 0.0f, 0.0f);
         }
       }
-    }
   } else {
     for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
       const int s = i % STAGES;
@@ -748,9 +793,10 @@ extern "C" int fa_forward_f32(const void* q, const void* k, const void* v,
 // fa_forward_bf16_pbf16 / fa_forward_f32_pbf16: the p_bf16 route
 // (fa_fwd_wgmma<hd, hd_v, F32, true>), JAX's ATTN_P_BF16 function, with
 // the inputs of fa_forward_bf16 / fa_forward_f32.  mstat: null, or (given
-// lse) float32 (B, H, Sq, ceil(Sk / 1024), 2) that receives each row's
-// (chunk max, index of its first maximal key) per JAX key chunk, which
-// fa_backward_*_pbf16 (flash_attention_bwd_sm90.cu) reads.
+// lse) float32 (B, H, Sq, ceil(Sk / 1024), 4) that receives each row's
+// (chunk max, first and last maximal key, their count) per JAX key chunk
+// (ref.chunk_max_stats), which fa_backward_*_pbf16
+// (flash_attention_bwd_sm90.cu) reads.
 extern "C" int fa_forward_bf16_pbf16(const void* q, const void* k,
                                      const void* v, void* o, void* lse,
                                      void* mstat, int B, int Sq, int Sk,

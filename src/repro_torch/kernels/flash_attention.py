@@ -48,7 +48,9 @@ float32 after :func:`split_bf16x3` of q, k and v, of whose v only the hi
 plane is read), and under autograd ``fa_bwd_dq_wgmma`` /
 ``fa_bwd_dkdv_wgmma<hd, hd_v, F32, true>`` (``PB_BWD_ROUTES``), the
 gradient ``jax.vjp`` forms, which also reads each row's chunk maxima that
-the forward stores (``mstat``, B H Sq ceil(Sk / 1024) x 2 float32).  The
+the forward stores (``mstat``, B H Sq ceil(Sk / 1024) x 4 float32: the
+maximum, its first and last key and how many keys hold it, as
+:func:`.ref.chunk_max_stats`; :func:`check_mstat`).  The
 meta route records a p_bf16 call as it records the other: the function's
 flops are the same, and p never leaves the registers on this card, so
 the roofline has no p bytes to halve (JAX's XLA count halves its score
@@ -121,6 +123,9 @@ PB_BWD_ROUTES = {
 }
 # Keys of one of JAX's key chunks, against whose row max p_bf16 rounds.
 CHUNK_KEYS = 1024
+# Floats per (row, key chunk) of the p_bf16 forward's mstat: the chunk's
+# row max, its first and last maximal key, and their count.
+MSTAT_FIELDS = 4
 # The attention entries' own error codes (a tensor map could not be made).
 _TMA_ERRORS = {-1: "cuTensorMapEncodeTiled is not available",
                -2: "cuTensorMapEncodeTiled refused a TMA tensor map"}
@@ -275,9 +280,10 @@ def _forward(q, k, v, causal: bool, window: Optional[int], want_lse: bool,
              p_bf16: bool = False):
     """(out, lse, mstat): lse (B, H, Sq) float32 when ``want_lse`` else
     None; mstat, the p_bf16 route's chunk statistics for its backward, (B,
-    H, Sq, ceil(Sk / 1024), 2) float32 on the card when ``want_lse`` and
-    ``p_bf16``, else None.  The plain version for CPU tensors, else the
-    dtype's kernel (``p_bf16``: its p_bf16 route)."""
+    H, Sq, ceil(Sk / 1024), MSTAT_FIELDS) float32 on the card when
+    ``want_lse`` and ``p_bf16`` (:func:`check_mstat`), else None.  The
+    plain version for CPU tensors, else the dtype's kernel (``p_bf16``:
+    its p_bf16 route)."""
     if q.device.type == "cpu":
         out, lse = ref.flash_attention_ref(q, k, v, causal=causal,
                                            window=window, return_lse=True,
@@ -298,7 +304,7 @@ def _forward(q, k, v, causal: bool, window: Optional[int], want_lse: bool,
     out = torch.empty((B, Sq, H, hd_v), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if want_lse else None)
-    mstat = (torch.empty((B, H, Sq, -(-Sk // CHUNK_KEYS), 2),
+    mstat = (torch.empty((B, H, Sq, -(-Sk // CHUNK_KEYS), MSTAT_FIELDS),
                          dtype=torch.float32, device=q.device)
              if want_lse and p_bf16 else None)
     if out.numel() == 0:
@@ -322,6 +328,20 @@ def _forward(q, k, v, causal: bool, window: Optional[int], want_lse: bool,
                            f"({err})")
     LAUNCHES[key] += 1
     return out, lse, mstat
+
+
+def check_mstat(mstat: Optional[torch.Tensor], B: int, H: int, Sq: int,
+                Sk: int) -> None:
+    """Raise unless ``mstat`` is what the p_bf16 forward stores for q (B,
+    Sq, H, .) against Sk keys: float32 (B, H, Sq, ceil(Sk / 1024),
+    MSTAT_FIELDS), each row's (chunk max, first and last maximal key,
+    their count) per JAX key chunk (:func:`.ref.chunk_max_stats`)."""
+    want = (B, H, Sq, -(-Sk // CHUNK_KEYS), MSTAT_FIELDS)
+    if (mstat is None or mstat.dtype != torch.float32
+            or tuple(mstat.shape) != want):
+        got = None if mstat is None else (tuple(mstat.shape), mstat.dtype)
+        raise ValueError(f"the p_bf16 backward takes the forward's mstat "
+                         f"{want} float32, got {got}")
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
@@ -354,11 +374,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         raise TypeError(f"o / do must be {q.dtype} and lse float32, got "
                         f"{o.dtype}, {do.dtype}, {lse.dtype}")
     n_chunks = -(-Sk // CHUNK_KEYS)
-    if p_bf16 and (mstat is None or mstat.dtype != torch.float32
-                   or tuple(mstat.shape) != (B, H, Sq, n_chunks, 2)):
-        raise ValueError(f"the p_bf16 backward takes the forward's mstat "
-                         f"(B, H, Sq, {n_chunks}, 2) float32, got "
-                         f"{None if mstat is None else tuple(mstat.shape)}")
+    if p_bf16:
+        check_mstat(mstat, B, H, Sq, Sk)
     q, k, v, o, do = (_aligned(x) for x in (q, k, v, o, do))
     lse = lse.contiguous()
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
@@ -498,5 +515,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 __all__ = ["flash_attention", "flash_attention_bwd", "split_bf16x3",
            "LAUNCHES", "reset_launches", "META_CALLS", "MetaCall",
-           "HEAD_DIMS", "HEAD_DIM_PAIRS", "check_head_dims", "ROUTES",
+           "HEAD_DIMS", "HEAD_DIM_PAIRS", "check_head_dims", "check_mstat",
+           "MSTAT_FIELDS", "ROUTES",
            "BWD_ROUTES", "PB_ROUTES", "PB_BWD_ROUTES"]

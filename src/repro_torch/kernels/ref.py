@@ -274,7 +274,7 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             causal: bool = True,
                             window: Optional[int] = None,
                             q_chunk: int = 1024, k_chunk: int = 1024,
-                            p_bf16: bool = False):
+                            p_bf16: bool = False, split_ties: bool = True):
     """Gradient of :func:`flash_attention_ref` -> (dq, dk, dv) in q's, k's
     and v's dtypes: the plain version of ``flash_attention_bwd_sm90.cu``,
     the same formulas in float32 over the same chunks as the forward.
@@ -296,6 +296,9 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     row's maximal scores, split evenly over ties (``reduce_max``'s
     gradient); and each chunk pair's dV, bf16(p)^T (c do), is rounded to
     bf16 before it is summed over query chunks and the group's heads.
+    ``split_ties=False`` gives T whole to the first maximal key instead, a
+    rule that is not JAX's: ``chip_smoke.py`` phase 2d measures a kernel's
+    gradient on tied rows against both rules.
     """
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -326,7 +329,7 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
             s = torch.einsum("bqhd,bshd->bhqs", q_blk, k_blk) * scale
             if p_bf16:
                 ds = _p_bf16_block_grad(s, mask, lse_blk, D_blk, do_blk,
-                                        v_blk, dv[:, ks])
+                                        v_blk, dv[:, ks], split_ties)
             else:
                 p = torch.where(mask, torch.exp(torch.where(
                     mask, s - lse_blk, 0.0)), 0.0)
@@ -341,12 +344,13 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _p_bf16_block_grad(s, mask, lse, D, do, vb, dv_out):
+def _p_bf16_block_grad(s, mask, lse, D, do, vb, dv_out, split_ties=True):
     """dS of one chunk pair of the ``p_bf16`` gradient
     (:func:`flash_attention_bwd_ref`), its dV added into ``dv_out`` (B,
     k_chunk, H, hd_v) in place.  s: the scaled scores (B, H, q, k); lse, D:
     (B, H, q, 1); do: (B, q, H, hd_v); vb: bf16(v) upcast (B, k, H,
-    hd_v)."""
+    hd_v).  T goes to the row's maximal scores, split evenly over ties
+    (``split_ties``) or whole to the first of them."""
     sm = torch.where(mask, s, -1e30)
     m_b = sm.amax(dim=-1, keepdim=True)
     p = torch.exp(sm - m_b)
@@ -357,10 +361,46 @@ def _p_bf16_block_grad(s, mask, lse, D, do, vb, dv_out):
     ds = p * (dpr - c * D)
     t = (c * pb * dp - p * dpr).sum(-1, keepdim=True)
     ties = (sm == m_b).float()
+    if not split_ties:
+        ties = ties * (ties.cumsum(-1) == 1)
     ds = torch.where(mask, ds + ties * (t / ties.sum(-1, keepdim=True)), 0.0)
     c_do = c.squeeze(-1).transpose(1, 2)[..., None] * do
     dv_out += _bf16(torch.einsum("bhqs,bqhd->bshd", pb, c_do))
     return ds
+
+
+def chunk_max_stats(q: torch.Tensor, k: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    k_chunk: int = 1024) -> torch.Tensor:
+    """Each row's maximal score per key chunk, as the p_bf16 forward
+    kernel stores it for its backward (``mstat``): (B, H, Sq, ceil(Sk /
+    k_chunk), 4) float32 of (m_b, the first and the last key holding it,
+    how many keys hold it), the scores scaled and masked as in
+    :func:`_attend_block`.  A chunk where the row sees no key gives
+    (-1e30, 0, 0, 0).  The backward gives T / count to every key of the
+    row whose score equals m_b (``reduce_max``'s gradient)."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    kf = _expand_kv(k.float(), H)
+    s = torch.einsum("bqhd,bshd->bhqs", q.float(), kf) * scale
+    qpos = torch.arange(Sq, device=q.device)
+    kpos = torch.arange(Sk, device=q.device)
+    s = torch.where(_mask(qpos, kpos, causal, window), s, -1e30)
+    out = []
+    for c0 in range(0, Sk, k_chunk):
+        sc = s[..., c0:c0 + k_chunk]
+        m_b = sc.amax(-1)
+        hit = (sc == m_b[..., None]) & (m_b[..., None] > -1e30)
+        idx = torch.arange(sc.shape[-1], device=q.device, dtype=torch.float32)
+        n = hit.sum(-1).float()
+        first = torch.where(hit, idx, float(Sk)).amin(-1) + c0
+        last = torch.where(hit, idx, -1.0).amax(-1) + c0
+        seen = n > 0
+        out.append(torch.stack([
+            torch.where(seen, m_b, -1e30), torch.where(seen, first, 0.0),
+            torch.where(seen, last, 0.0), n], -1))
+    return torch.stack(out, 3)
 
 
 def split_bf16x3(p: torch.Tensor):
@@ -382,4 +422,4 @@ def split_bf16x3(p: torch.Tensor):
 
 __all__ = ["cc_ref", "frag_ref", "mcc_score_ref", "ecc_score_ref",
            "mcc_pick_ref", "ecc_pick_ref", "flash_attention_ref",
-           "flash_attention_bwd_ref", "split_bf16x3"]
+           "flash_attention_bwd_ref", "chunk_max_stats", "split_bf16x3"]

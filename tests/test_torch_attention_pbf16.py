@@ -305,3 +305,186 @@ def test_tinyllama_smoke_loss_and_grads_with_the_flag_equal_jax():
         assert _rel(g, w) <= F32_BWD_SHARE * effect, (name, _rel(g, w),
                                                       effect)
     assert moved >= 4     # the attention's weights and what feeds them
+
+
+# Inputs with exactly tied maximal scores.  Per KV head a key row is scaled
+# up (so that it is the chunk's maximum for about half the queries) and
+# copied over others of the same chunk: keys 5 / 40 / 41 lie in one of the
+# kernels' 64-key tiles (a three-way tie), 100 / 130 across their 64- and
+# 128-key tiles, and 1030 / 1500 in the second of JAX's 1,024-key chunks;
+# the causal case ties 5 / 40 and 60 / 70 (across a 64-key tile) in its
+# first 128-key chunk and 150 / 200 in its second.  "ints" instead draws
+# q and k from {-1, 0, 1}: every score is exact, and many rows tie between
+# keys whose rows differ, so dQ's share of T tells the rules apart too.
+# (Sq, Sk, causal, chunk, groups of tied keys.)
+TIE_CASES = {
+    "long": (128, 2048, False, 1024, ((5, 40, 41), (100, 130), (1030, 1500))),
+    "causal": (256, 256, True, 128, ((5, 40), (60, 70), (150, 200))),
+    "ints": (128, 1024, True, 1024, ()),
+}
+
+
+def _tie_inputs(mask, hd, dt, seed=1):
+    Sq, Sk, causal, chunk, groups = TIE_CASES[mask]
+    rng = np.random.default_rng(seed)
+    arrs = [rng.normal(size=s).astype(np.float32) for s in (
+        (1, Sq, H, hd), (1, Sk, H // 2, hd), (1, Sk, H // 2, hd),
+        (1, Sq, H, hd))]
+    arrs[0] *= 1.5
+    if not groups:
+        arrs[0], arrs[1] = (rng.integers(-1, 2, size=a.shape).astype(
+            np.float32) for a in arrs[:2])
+    for keys in groups:
+        # Rounded to the dtype first, so that the copies are equal in it.
+        src = arrs[1][:, keys[0]] * 3.0
+        if dt == "bf16":
+            src = torch.tensor(src).to(torch.bfloat16).float().numpy()
+        for j in keys:
+            arrs[1][:, j] = src
+    tdt, jdt = DTYPES[dt]
+    torch_in = [torch.tensor(a).to(tdt) for a in arrs]
+    jax_in = [jnp.asarray(a, jdt) for a in arrs]
+    return torch_in, jax_in, dict(causal=causal, window=None), chunk
+
+
+def _tied_rows(tq, tk, kw, chunk):
+    """(dq rows, dk rows): boolean (B, Sq, H) of the query rows with a tied
+    maximal score in some chunk, and (B, Sk, KV) of the keys that hold
+    such a tie (``ref.chunk_max_stats``, whose scores are these)."""
+    st = ref.chunk_max_stats(tq, tk, k_chunk=chunk, **kw)
+    tied = st[..., 3] > 1                               # (B, H, Sq, NC)
+    B, Sk, KV, hd = tk.shape
+    Hh, Sq = tq.shape[2], tq.shape[1]
+    s = torch.einsum("bqhd,bshd->bhqs", tq.float(),
+                     tk.float().repeat_interleave(Hh // KV, 2))
+    s = s * (1.0 / math.sqrt(hd))
+    keys = torch.zeros((B, Hh, Sk), dtype=torch.bool)
+    for c in range(st.shape[3]):
+        ks = slice(c * chunk, (c + 1) * chunk)
+        hit = (s[..., ks] == st[..., c, :1]) & tied[..., c:c + 1]
+        if kw["causal"]:
+            hit &= (torch.arange(Sq)[:, None]
+                    >= torch.arange(Sk)[None, ks])
+        keys[..., ks] |= hit.any(2)
+    keys = keys.transpose(1, 2).reshape(B, Sk, KV, Hh // KV).any(-1)
+    return tied.any(-1).transpose(1, 2), keys
+
+
+def _share_on(got, want, off, rows):
+    return _rel(got[rows], want[rows]) / _rel(want[rows], off[rows])
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("hd", (16, 64))
+@pytest.mark.parametrize("mask", sorted(TIE_CASES))
+def test_plain_version_splits_tied_maxima_as_jax(mask, hd, dt):
+    """On inputs whose rows have exactly tied chunk maxima (two and three
+    keys, in one tile and across tiles and chunks), the plain p_bf16
+    forward and gradient equal JAX's with the file's tolerances, over the
+    whole tensors and (float32) on the tied rows alone: dQ's rows with a
+    tie and dK's tied keys within F32_BWD_SHARE of the flag's effect on
+    those rows."""
+    (tq, tk, tv, tdo), (jq, jk, jv, jdo), kw, chunk = _tie_inputs(mask, hd,
+                                                                  dt)
+    rows, keys = _tied_rows(tq, tk, kw, chunk)
+    assert rows.sum() >= 64 and keys.sum() >= 4, (rows.sum(), keys.sum())
+    want = _jax(jq, jk, jv, jdo, kw, chunk, True)
+    got = _port(tq, tk, tv, tdo, kw, chunk)
+    if dt == "f32":
+        off = _jax(jq, jk, jv, jdo, kw, chunk, False)
+        for i, name in enumerate(("o", "dq", "dk", "dv")):
+            effect = _rel(want[i], off[i])
+            share = F32_FWD_SHARE if name == "o" else F32_BWD_SHARE
+            assert _rel(got[i], want[i]) <= share * effect, name
+        for i, r in ((1, rows.numpy()), (2, keys.numpy())):
+            assert _share_on(got[i], want[i], off[i], r) <= F32_BWD_SHARE
+    else:
+        for i, name in enumerate(("o", "dq", "dk", "dv")):
+            tol = BF16_FWD_TOL if name == "o" else BF16_TOL
+            scale = max(1.0, float(np.abs(want[i]).max()))
+            np.testing.assert_allclose(got[i], want[i], rtol=0,
+                                       atol=tol * scale, err_msg=name)
+
+
+@pytest.mark.parametrize("hd", (16, 64))
+@pytest.mark.parametrize("mask", sorted(TIE_CASES))
+def test_first_key_rule_misses_jax_on_tied_rows(mask, hd):
+    """Giving T whole to the first maximal key (``split_ties=False``, the
+    rule JAX does not follow) lands beyond F32_BWD_SHARE of the flag's
+    effect on the tied rows of dQ or dK (measured 0.48-0.68), so the tie
+    test above tells the two rules apart."""
+    (tq, tk, tv, tdo), (jq, jk, jv, jdo), kw, chunk = _tie_inputs(mask, hd,
+                                                                  "f32")
+    rows, keys = _tied_rows(tq, tk, kw, chunk)
+    want = _jax(jq, jk, jv, jdo, kw, chunk, True)
+    off = _jax(jq, jk, jv, jdo, kw, chunk, False)
+    o, lse = ref.flash_attention_ref(tq, tk, tv, q_chunk=chunk,
+                                     k_chunk=chunk, return_lse=True,
+                                     p_bf16=True, **kw)
+    first = ref.flash_attention_bwd_ref(tq, tk, tv, o, lse, tdo,
+                                        q_chunk=chunk, k_chunk=chunk,
+                                        p_bf16=True, split_ties=False, **kw)
+    shares = [_share_on(first[i - 1].numpy(), want[i], off[i], r.numpy())
+              for i, r in ((1, rows), (2, keys))]
+    assert max(shares) > F32_BWD_SHARE, shares
+
+
+def _stats_direct(q, k, causal, window, chunk):
+    """ref.chunk_max_stats by loops over rows and chunks in float64 of the
+    same float32 scores."""
+    B, Sq, H, hd = q.shape
+    Sk, G = k.shape[1], H // k.shape[2]
+    s = torch.einsum("bqhd,bshd->bhqs", q.float(),
+                     k.float().repeat_interleave(G, 2)) * (1 / math.sqrt(hd))
+    s = s.double().numpy()
+    nc = -(-Sk // chunk)
+    out = np.zeros((B, H, Sq, nc, 4))
+    for b, h, i in np.ndindex(B, H, Sq):
+        for c in range(nc):
+            ks = [j for j in range(c * chunk, min(Sk, (c + 1) * chunk))
+                  if (not causal or j <= i)
+                  and (window is None or j > i - window)]
+            if not ks:
+                out[b, h, i, c] = (np.float32(-1e30), 0, 0, 0)
+                continue
+            m = max(s[b, h, i, j] for j in ks)
+            hit = [j for j in ks if s[b, h, i, j] == m]
+            out[b, h, i, c] = (m, hit[0], hit[-1], len(hit))
+    return out
+
+
+@pytest.mark.parametrize("mask", ("causal", "noncausal", "window", "ints"))
+def test_chunk_max_stats_counts_every_tied_key(mask):
+    """ref.chunk_max_stats, the plain version of the forward's mstat: each
+    row's chunk max, first and last maximal key and their count, equal to
+    a direct loop over rows and chunks; rows that see no key of a chunk
+    (-1e30, 0, 0, 0); the "ints" inputs have counts above 2."""
+    if mask == "ints":
+        (tq, tk, _, _), _, kw, chunk = _tie_inputs(mask, 16, "f32")
+        tq, tk, chunk = tq[:, :64], tk[:, :256], 64
+    else:
+        (tq, tk, _, _), _, kw, chunk = _inputs(16, 2, mask, "f32")
+    got = ref.chunk_max_stats(tq, tk, k_chunk=chunk, **kw)
+    want = _stats_direct(tq, tk, kw["causal"], kw["window"], chunk)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.double().numpy(), want)
+    if mask == "ints":
+        assert (want[..., 3] > 2).sum() >= 10
+    if mask == "window":
+        assert (want[..., 3] == 0).any()
+
+
+def test_check_mstat_takes_the_forwards_layout_and_raises_else():
+    """The wrapper's mstat contract, checked on the CPU: float32 (B, H,
+    Sq, ceil(Sk / 1024), MSTAT_FIELDS = 4), what ref.chunk_max_stats
+    gives; a missing tensor, the pre-tie layout with two fields, a wrong
+    chunk count or float64 raise."""
+    B, H, Sq, Sk = 2, 4, 8, 1500
+    q = torch.zeros((B, Sq, H, 16))
+    k = torch.zeros((B, Sk, 2, 16))
+    good = ref.chunk_max_stats(q, k)
+    assert K.MSTAT_FIELDS == 4 and good.shape == (B, H, Sq, 2, 4)
+    K.check_mstat(good, B, H, Sq, Sk)
+    for bad in (None, good[..., :2], good[..., :1, :], good.double()):
+        with pytest.raises(ValueError, match="mstat"):
+            K.check_mstat(bad, B, H, Sq, Sk)

@@ -842,11 +842,16 @@ def test_train_step_on_card_launches_and_equals_cpu():
 
 # The p_bf16 routes (JAX's ATTN_P_BF16; chip_smoke.py phase 2d's gates at
 # smaller shapes): one case over one key chunk and one over two, a window
-# crossing the chunk boundary.
+# crossing the chunk boundary, and a tie case (q and k from {-1, 0, 1}:
+# exactly tied chunk maxima in many rows, held also on those rows alone
+# and the forward's chunk statistics to ref.chunk_max_stats,
+# ``hold_pbf16_ties`` / ``hold_pbf16_mstat``).
 PB_GPU_CASES = {
     "g8_one_chunk": (2, 512, 512, 32, 4, 64, True, None),
     "window_two_chunks": (1, 2048, 2048, 8, 2, 64, True, 700),
     "mla_two_chunks": (1, 2048, 2048, 4, 4, (192, 128), True, None),
+    "ties_window": (1, 2048, 2048, 8, 2, 64, True, 700),
+    "ties_mla": (1, 2048, 2048, 4, 4, (192, 128), True, None),
 }
 
 
@@ -895,7 +900,7 @@ def test_pbf16_under_grad_launches_its_routes_on_card():
         FA, flash_attention_pbf16=1, flash_attention_bwd_pbf16=1)
     o, lse, ms = FA._forward(q, k, v, causal, window, want_lse=True,
                              p_bf16=True)
-    assert ms.shape == (1, 8, 2048, 2, 2)
+    assert ms.shape == (1, 8, 2048, 2, FA.MSTAT_FIELDS)
     want = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                   window=window, p_bf16=True, mstat=ms)
     for x, w in zip(leaves, want):
